@@ -1,0 +1,228 @@
+"""Per-player cost aggregation and quadraticization (counterpart of
+ilqgames_tpu/costs/player_cost.py).
+
+Every function evaluates all lanes and knots at once: stage inputs carry
+any leading batch axes, and the per-(index) values of the sparse pairs
+are tensors of that batch shape. Pairs accumulate in the JAX package's
+order (state costs, then constraints, then the extremal gate, then the
+regularization; player_cost.py:278-386), which sets which sums match.
+
+Only the SUM structure is ported; MAX and MIN raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from ilqgames_tpu_torch.costs.base import Constraint, Cost
+from ilqgames_tpu_torch.types import (DEFAULT_MU, GameSpec, OperatingPoint,
+                                      QuadraticCosts, _Replace, const_tensor)
+
+STRUCTURE_SUM = "sum"
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PlayerCost:
+    """Static description of one player's cost: atoms + constraints."""
+
+    state_costs: Tuple[Cost, ...] = ()
+    # (which player's control, cost).
+    control_costs: Tuple[Tuple[int, Cost], ...] = ()
+    state_constraints: Tuple[Constraint, ...] = ()
+    control_constraints: Tuple[Tuple[int, Constraint], ...] = ()
+    structure: str = STRUCTURE_SUM
+    state_regularization: float = 0.0
+    control_regularization: float = 0.0
+
+    @property
+    def is_constrained(self) -> bool:
+        return bool(self.state_constraints) or bool(self.control_constraints)
+
+    def control_players(self) -> Tuple[int, ...]:
+        js = {j for j, _ in self.control_costs}
+        js |= {j for j, _ in self.control_constraints}
+        return tuple(sorted(js))
+
+    def evaluate_stage(self, t, x, us):
+        """Instantaneous cost (constraints excluded)."""
+        total = torch.zeros_like(x[..., 0])
+        for c in self.state_costs:
+            total = total + c.evaluate(t, x)
+        for j, c in self.control_costs:
+            total = total + c.evaluate(t, us[..., j, :])
+        return total
+
+
+@dataclasses.dataclass(frozen=True)
+class ALState(_Replace):
+    """Batched augmented-Lagrangian multipliers: per player, one lambda
+    per constraint per knot ([B, n_i, N]), and mu [B]."""
+
+    state_lambdas: Tuple[torch.Tensor, ...]
+    control_lambdas: Tuple[torch.Tensor, ...]
+    mu: torch.Tensor
+
+    @classmethod
+    def init(cls, player_costs, spec: GameSpec, batch: int, lam0: float = 0.0,
+             mu0: float = DEFAULT_MU, device=None) -> "ALState":
+        N = spec.num_time_steps
+
+        def full(n):
+            return torch.full((batch, n, N), lam0, dtype=torch.float32,
+                              device=device)
+
+        return cls(
+            state_lambdas=tuple(full(len(pc.state_constraints))
+                                for pc in player_costs),
+            control_lambdas=tuple(full(len(pc.control_constraints))
+                                  for pc in player_costs),
+            mu=torch.full((batch,), mu0, dtype=torch.float32, device=device),
+        )
+
+
+def is_constrained(player_costs) -> bool:
+    return any(pc.is_constrained for pc in player_costs)
+
+
+def check_structures(player_costs) -> None:
+    for i, pc in enumerate(player_costs):
+        if pc.structure != STRUCTURE_SUM:
+            raise NotImplementedError(
+                f"player {i}: cost structure {pc.structure!r} is not ported "
+                "yet (only 'sum')")
+
+
+def total_costs(player_costs, spec: GameSpec, op: OperatingPoint):
+    """Per-player total costs of a batched operating point: (totals [B, P],
+    extreme_ks [B, P] int32, all zero under the SUM structure)."""
+    check_structures(player_costs)
+    ts = spec.horizon_times(op.xs.device)
+    totals = torch.stack([pc.evaluate_stage(ts, op.xs, op.us).sum(-1)
+                          for pc in player_costs], dim=-1)
+    return totals, torch.zeros(totals.shape, dtype=torch.int32,
+                               device=totals.device)
+
+
+def _lam(lams, ci):
+    return lams[..., ci]
+
+
+def stage_gradient_sq_tuple(player_costs, spec: GameSpec, lam_state,
+                            lam_ctrl, mu, t, x, us):
+    """Per-player squared stage-gradient sums (state_sqs, ctrl_sqs), tuples
+    of P tensors: the merit increments, computed from sparse pairs. Per-dim
+    accumulation follows pair order; dims are squared and summed in
+    ascending order.
+
+    lam_state / lam_ctrl: per-player multipliers with the constraint index
+    on the last axis; x [..., xd], us [..., P, um]."""
+    def sq_of(pairs, like):
+        acc = {}
+        for i_, v in pairs:
+            acc[i_] = acc[i_] + v if i_ in acc else v
+        s = torch.zeros_like(like)
+        for i_ in sorted(acc):
+            s = s + acc[i_] * acc[i_]
+        return s
+
+    state_sqs = []
+    ctrl_sqs = []
+    for i, pc in enumerate(player_costs):
+        pairs = []
+        for c in pc.state_costs:
+            pairs.extend(c.gradient_pairs(t, x))
+        for ci, con in enumerate(pc.state_constraints):
+            pairs.extend(con.gradient_al_pairs(
+                t, x, _lam(lam_state[i], ci), mu))
+        state_sqs.append(sq_of(pairs, x[..., 0]))
+
+        ui = us[..., i, :]
+        upairs = []
+        for jj, c in pc.control_costs:
+            if jj == i:
+                upairs.extend(c.gradient_pairs(t, ui))
+        for ci, (jj, con) in enumerate(pc.control_constraints):
+            if jj == i:
+                upairs.extend(con.gradient_al_pairs(
+                    t, ui, _lam(lam_ctrl[i], ci), mu))
+        ctrl_sqs.append(sq_of(upairs, ui[..., 0]))
+    return tuple(state_sqs), tuple(ctrl_sqs)
+
+
+def _assemble(out, idx, entries, like):
+    """Write accumulated sparse entries {key: value} into `out[..., idx,
+    *key]` with one indexed store; missing cells stay zero."""
+    if not entries:
+        return
+    keys = list(entries)
+    vals = torch.stack([torch.broadcast_to(entries[k], like.shape)
+                        for k in keys], dim=-1)
+    cols = [const_tensor(tuple(k[d] for k in keys), out.device)
+            for d in range(len(keys[0]))]
+    out[(Ellipsis,) + idx + tuple(cols)] = vals
+
+
+def quadraticize(player_costs, spec: GameSpec, op: OperatingPoint,
+                 al: ALState) -> QuadraticCosts:
+    """Full-horizon quadratic approximation of every player's cost at a
+    batched operating point (xs [B, N, x], us [B, N, P, u]): Q [B,N,P,x,x],
+    l [B,N,P,x], R [B,N,P,P,u,u], r [B,N,P,P,u]."""
+    check_structures(player_costs)
+    Bt, N, xd = op.xs.shape
+    P, um = spec.num_players, spec.umax
+    dev = op.xs.device
+    t = spec.horizon_times(dev)
+    x, us = op.xs, op.us
+    like = x[..., 0]
+    mu = al.mu[:, None]
+    u_mask = spec.u_mask("cpu").tolist()
+
+    def acc_into(dacc, pairs):
+        for key, v in pairs:
+            dacc[key] = dacc[key] + v if key in dacc else v
+
+    Q = x.new_zeros((Bt, N, P, xd, xd))
+    l = x.new_zeros((Bt, N, P, xd))
+    R = x.new_zeros((Bt, N, P, P, um, um))
+    r = x.new_zeros((Bt, N, P, P, um))
+    for i, pc in enumerate(player_costs):
+        hacc, gacc = {}, {}
+        for c in pc.state_costs:
+            hp, gp = c.quad_pairs(t, x)
+            acc_into(hacc, hp)
+            acc_into(gacc, gp)
+        for ci, con in enumerate(pc.state_constraints):
+            hp, gp = con.quad_al_pairs(t, x, al.state_lambdas[i][:, ci], mu)
+            acc_into(hacc, hp)
+            acc_into(gacc, gp)
+        if pc.state_regularization != 0.0:
+            reg = torch.full_like(like, pc.state_regularization)
+            acc_into(hacc, (((d, d), reg) for d in range(xd)))
+        _assemble(Q, (i,), hacc, like)
+        _assemble(l, (i,), {(k,): v for k, v in gacc.items()}, like)
+
+        for j in pc.control_players():
+            uj = us[..., j, :]
+            hacc, gacc = {}, {}
+            for jj, c in pc.control_costs:
+                if jj == j:
+                    hp, gp = c.quad_pairs(t, uj)
+                    acc_into(hacc, hp)
+                    acc_into(gacc, gp)
+            for ci, (jj, con) in enumerate(pc.control_constraints):
+                if jj == j:
+                    hp, gp = con.quad_al_pairs(
+                        t, uj, al.control_lambdas[i][:, ci], mu)
+                    acc_into(hacc, hp)
+                    acc_into(gacc, gp)
+            if pc.control_regularization != 0.0:
+                acc_into(hacc, (
+                    ((a, a), torch.full_like(
+                        like, pc.control_regularization * u_mask[j][a]))
+                    for a in range(um)))
+            _assemble(R, (i, j), hacc, like)
+            _assemble(r, (i, j), {(k,): v for k, v in gacc.items()}, like)
+    return QuadraticCosts(Q=Q, l=l, R=R, r=r)

@@ -1,0 +1,180 @@
+"""Dynamics substrate (counterpart of ilqgames_tpu/dynamics/base.py:106-327).
+
+A multi-player system is a frozen dataclass holding a continuous vector
+field `ode(t, x, us)` over tensors with any leading batch axes (`x` is
+[..., xdim], `us` the padded [..., P, umax] control stack). The discrete
+linearization keeps the reference's forward-Euler convention
+A = I + dt * Jx, B_i = dt * Ju_i, from the models' analytic Jacobians;
+rollouts integrate with RK4 over 2 substeps.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+
+from ilqgames_tpu_torch.types import (GameSpec, LinearDynamics,
+                                      OperatingPoint, Strategy)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class SinglePlayerModel:
+    """A single player's dynamics: xdot = ode(t, x_sub, u), with analytic
+    sparse Jacobian entries `jac(t, x_sub, u) -> (jx, ju)`. `kind` and
+    `length` select the model's device ODE in the rollout kernel
+    (None: the model has none)."""
+
+    name: str
+    xdim: int
+    udim: int
+    ode: Callable
+    position_dims: Tuple[int, ...] = ()
+    jac: Optional[Callable] = None
+    kind: Optional[int] = None
+    length: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class MultiPlayerDynamics:
+    """Joint dynamics: ode(t, x [..., xdim], us [..., P, umax])."""
+
+    name: str
+    xdims: Tuple[int, ...]
+    udims: Tuple[int, ...]
+    ode: Callable
+    position_dims: Tuple[Tuple[int, ...], ...] = ()
+    # (t, x, us) -> (jx entries ((row, col), v), ju entries
+    # ((row, player, ucol), v)) in joint coordinates.
+    ode_jac: Optional[Callable] = None
+    # The concatenated subsystems, for the rollout kernel's device table.
+    models: Tuple[SinglePlayerModel, ...] = ()
+
+    @property
+    def num_players(self) -> int:
+        return len(self.udims)
+
+    @property
+    def xdim(self) -> int:
+        return sum(self.xdims)
+
+    def spec(self, dt=None, num_time_steps=None) -> GameSpec:
+        kwargs = {}
+        if dt is not None:
+            kwargs["dt"] = dt
+        if num_time_steps is not None:
+            kwargs["num_time_steps"] = num_time_steps
+        return GameSpec(xdims=self.xdims, udims=self.udims, **kwargs)
+
+
+def concatenate(name: str,
+                models: Sequence[SinglePlayerModel]) -> MultiPlayerDynamics:
+    """Joint system from per-player subsystems: block-diagonal field."""
+    xdims = tuple(m.xdim for m in models)
+    udims = tuple(m.udim for m in models)
+    offsets = []
+    acc = 0
+    for d in xdims:
+        offsets.append(acc)
+        acc += d
+
+    def ode(t, x, us):
+        return torch.cat([
+            m.ode(t, x[..., offsets[i]:offsets[i] + m.xdim],
+                  us[..., i, :m.udim])
+            for i, m in enumerate(models)], dim=-1)
+
+    position_dims = tuple(tuple(offsets[i] + d for d in m.position_dims)
+                          for i, m in enumerate(models))
+
+    ode_jac = None
+    if all(m.jac is not None for m in models):
+        def ode_jac(t, x, us):
+            jx_entries = []
+            ju_entries = []
+            for i, m in enumerate(models):
+                o = offsets[i]
+                jxe, jue = m.jac(t, x[..., o:o + m.xdim], us[..., i, :m.udim])
+                jx_entries.extend(((o + r, o + c), v) for (r, c), v in jxe)
+                ju_entries.extend(((o + r, i, c), v) for (r, c), v in jue)
+            return jx_entries, ju_entries
+
+    return MultiPlayerDynamics(name=name, xdims=xdims, udims=udims, ode=ode,
+                               position_dims=position_dims, ode_jac=ode_jac,
+                               models=tuple(models))
+
+
+def integrate(dyn: MultiPlayerDynamics, t, dt: float, x: torch.Tensor,
+              us: torch.Tensor, num_substeps: int = 2) -> torch.Tensor:
+    """One zero-order-hold control step: RK4 with `num_substeps`."""
+    h = dt / num_substeps
+    for i in range(num_substeps):
+        ts = t + i * h
+        k1 = h * dyn.ode(ts, x, us)
+        k2 = h * dyn.ode(ts + 0.5 * h, x + 0.5 * k1, us)
+        k3 = h * dyn.ode(ts + 0.5 * h, x + 0.5 * k2, us)
+        k4 = h * dyn.ode(ts + h, x + k3, us)
+        x = x + true_div(k1 + 2.0 * (k2 + k3) + k4, 6.0)
+    return x
+
+
+def true_div(a: torch.Tensor, c: float) -> torch.Tensor:
+    """a / c rounded as IEEE division on every device (PyTorch's CUDA
+    kernels multiply by the reciprocal of a host scalar divisor, which
+    the CPU and the hand-written kernels do not). The divisor is made on
+    the device by a fill, with no host-to-device copy."""
+    return a / torch.full((), c, dtype=a.dtype, device=a.device)
+
+
+def rollout(dyn: MultiPlayerDynamics, spec: GameSpec, x0: torch.Tensor,
+            last_op: OperatingPoint, strategy: Strategy) -> OperatingPoint:
+    """Batched forward integration under
+    u_i(k) = u_ref_i(k) - P_i[k] (x - x_ref[k]) - alpha_i[k]:
+    x0 [B, x], last_op and strategy batched. The plain counterpart of
+    dynamics/base.rollout; the solver rolls out through the K4 kernel
+    (ops/cuda/sweep.py)."""
+    u_mask = spec.u_mask(x0.device)
+    x = x0
+    xs, us = [], []
+    for k in range(spec.num_time_steps):
+        delta = x - last_op.xs[:, k]
+        u = (last_op.us[:, k]
+             - torch.einsum("bpux,bx->bpu", strategy.Ps[:, k], delta)
+             - strategy.alphas[:, k]) * u_mask
+        t = last_op.t0 + k * spec.dt
+        xs.append(x)
+        us.append(u)
+        x = integrate(dyn, t, spec.dt, x, u)
+    return OperatingPoint(xs=torch.stack(xs, 1), us=torch.stack(us, 1),
+                          t0=last_op.t0)
+
+
+def linearize(dyn: MultiPlayerDynamics, spec: GameSpec,
+              op: OperatingPoint) -> LinearDynamics:
+    """A[b, k] = I + dt * df/dx, Bs[b, k, i] = dt * df/du_i at every knot
+    of a batched operating point (xs [B, N, x], us [B, N, P, u], t0 [B]),
+    from the models' analytic Jacobians."""
+    if dyn.ode_jac is None:
+        raise NotImplementedError(
+            f"linearize: dynamics {dyn.name!r} have no analytic Jacobian; "
+            "autodiff linearization is not ported yet")
+    Bt, N, xd = op.xs.shape
+    P, um, dt = spec.num_players, spec.umax, spec.dt
+    t = op.t0[:, None] + torch.arange(N, dtype=torch.float32,
+                                      device=op.xs.device) * dt
+    jx, ju = dyn.ode_jac(t, op.xs, op.us)
+    a_acc = {(d, d): 1.0 for d in range(xd)}
+    for ij, v in jx:
+        a_acc[ij] = a_acc[ij] + dt * v if ij in a_acc else dt * v
+    b_acc = {}
+    for (r, p, c), v in ju:
+        key = (p, r, c)
+        b_acc[key] = b_acc[key] + dt * v if key in b_acc else dt * v
+    A = op.xs.new_zeros((Bt, N, xd, xd))
+    for (r, c), v in a_acc.items():
+        A[:, :, r, c] = v
+    Bs = op.xs.new_zeros((Bt, N, P, xd, um))
+    for (p, r, c), v in b_acc.items():
+        Bs[:, :, p, r, c] = v
+    return LinearDynamics(A=A, Bs=Bs)

@@ -1,0 +1,65 @@
+"""Dynamics models of the flagship (counterpart of
+ilqgames_tpu/dynamics/models.py: `unicycle_4d` at :80 and `car_6d` at
+:146).
+
+Each model has a continuous vector field `ode(t, x, u)` over tensors
+whose last axis is the state (or control) index, and analytic sparse
+Jacobian entries `jac` in the JAX package's form. `kind` and `length`
+name the model's device ODE for the rollout kernel (csrc/sweep.cu).
+Trigonometry goes through `fmath`, which rounds the same on the CPU, in
+PyTorch on the card and in the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ilqgames_tpu_torch import fmath
+from ilqgames_tpu_torch.dynamics.base import SinglePlayerModel, true_div
+
+# Model kinds of the rollout kernel's device ODE table (csrc/sweep.cu).
+KIND_CAR_6D = 0
+KIND_UNICYCLE_4D = 1
+
+
+def unicycle_4d() -> SinglePlayerModel:
+    """[px py theta v] / [omega a]."""
+
+    def ode(t, x, u):
+        return torch.stack([x[..., 3] * fmath.cos(x[..., 2]),
+                            x[..., 3] * fmath.sin(x[..., 2]),
+                            u[..., 0], u[..., 1]], dim=-1)
+
+    def jac(t, x, u):
+        s, c = fmath.sin(x[..., 2]), fmath.cos(x[..., 2])
+        return ([((0, 2), -x[..., 3] * s), ((0, 3), c),
+                 ((1, 2), x[..., 3] * c), ((1, 3), s)],
+                [((2, 0), 1.0), ((3, 1), 1.0)])
+
+    return SinglePlayerModel("unicycle_4d", 4, 2, ode, position_dims=(0, 1),
+                             jac=jac, kind=KIND_UNICYCLE_4D)
+
+
+def car_6d(inter_axle_distance: float) -> SinglePlayerModel:
+    """Bicycle with acceleration state [px py theta phi v a] / [omega jerk]."""
+    L = inter_axle_distance
+
+    def ode(t, x, u):
+        return torch.stack([x[..., 4] * fmath.cos(x[..., 2]),
+                            x[..., 4] * fmath.sin(x[..., 2]),
+                            true_div(x[..., 4], L) * fmath.tan(x[..., 3]),
+                            u[..., 0], x[..., 5], u[..., 1]], dim=-1)
+
+    def jac(t, x, u):
+        s, c = fmath.sin(x[..., 2]), fmath.cos(x[..., 2])
+        cos_phi = fmath.cos(x[..., 3])
+        sec2 = 1.0 / (cos_phi * cos_phi)
+        return ([((0, 2), -x[..., 4] * s), ((0, 4), c),
+                 ((1, 2), x[..., 4] * c), ((1, 4), s),
+                 ((2, 3), true_div(x[..., 4], L) * sec2),
+                 ((2, 4), true_div(fmath.tan(x[..., 3]), L)),
+                 ((4, 5), 1.0)],
+                [((3, 0), 1.0), ((5, 1), 1.0)])
+
+    return SinglePlayerModel("car_6d", 6, 2, ode, position_dims=(0, 1),
+                             jac=jac, kind=KIND_CAR_6D, length=L)

@@ -1,0 +1,96 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel source in `ilqgames_tpu_torch/csrc/` is compiled by `nvcc`
+into a shared library with a plain C interface, loaded with ctypes, at
+first use. Problem dimensions are compile-time constants (`-D` flags),
+so every (source, dimensions) pair is its own library. Libraries are
+cached in `ilqgames_tpu_torch/_build/` under a hash of the source, the
+shared headers (`csrc/*.cuh`) and the flags. Nothing is downloaded: if `nvcc` is missing or the build
+fails, this raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+# No --use_fast_math, and no FMA contraction: every kernel then rounds
+# exactly as its plain PyTorch version's separate multiplies and adds.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_LOADED = {}
+
+
+def nvcc_path() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and in /usr/local/cuda/bin): the "
+            "CUDA kernels are built from csrc/ at first use on a CUDA machine")
+    return path
+
+
+def load(name: str, defines: dict) -> ctypes.CDLL:
+    """Build (if not cached) and load csrc/<name>.cu with `-D` defines."""
+    src = CSRC / f"{name}.cu"
+    flags = list(NVCC_FLAGS) + [f"-D{k}={v}"
+                                for k, v in sorted(defines.items())]
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for dep in [src, *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(dep.read_bytes())
+    out = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    if out in _LOADED:
+        return _LOADED[out]
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            tmp_out = Path(tmp) / out.name
+            proc = subprocess.run(
+                [nvcc_path(), *flags, "-o", str(tmp_out), str(src)],
+                capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed to build {src.name} "
+                    f"(rc {proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+            os.replace(tmp_out, out)
+    lib = ctypes.CDLL(str(out))
+    _LOADED[out] = lib
+    return lib
+
+
+def check_operands(named) -> torch.device:
+    """Validate a kernel's operands, given as (name, tensor, shape): float32,
+    contiguous, of the given shape, all on one CPU or CUDA device, which
+    is returned."""
+    dev = named[0][1].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}: CPU or CUDA only")
+    for name, t, shape in named:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, want "
+                             f"{tuple(shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: dtype {t.dtype}, want float32")
+        if t.device != dev:
+            raise ValueError(f"{name}: on {t.device}, others on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: not contiguous")
+    return dev
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a kernel's C function."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")

@@ -1,0 +1,259 @@
+"""Candidate rollout (kernel K4) and the linesearch merit sweep, counterpart
+of ilqgames_tpu/ops/pallas/sweep.py under its default configuration
+(merit_backend="xla", emit_us=False).
+
+`rollout_bm` launches csrc/sweep.cu on CUDA tensors and takes its plain
+PyTorch version `rollout_plain` (same operands and layout) on CPU
+tensors; any other device raises. It keeps a launch count.
+
+The merit of each candidate is computed outside the kernel from its
+emitted states: `_us_from_xs` rebuilds the controls with the kernel's
+fold order and `_xla_merits` folds the gated squared stage gradients
+over the knots in ascending order (control terms always, state terms
+for k > 0). Only the SUM cost structure is ported, so every extremal
+gate is 1 and is not materialized.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ilqgames_tpu_torch.costs import player_cost as pcost
+from ilqgames_tpu_torch.dynamics import base as dyn_base
+from ilqgames_tpu_torch.ops.cuda import build
+from ilqgames_tpu_torch.ops.cuda.layout import bm, mb, pad_batch
+from ilqgames_tpu_torch.types import GameSpec, OperatingPoint, Strategy, \
+    const_tensor
+
+_MAX_SUBSYS = 8
+
+
+class _SubsysTable(ctypes.Structure):
+    _fields_ = [("n", ctypes.c_int),
+                ("kind", ctypes.c_int * _MAX_SUBSYS),
+                ("xoff", ctypes.c_int * _MAX_SUBSYS),
+                ("uoff", ctypes.c_int * _MAX_SUBSYS),
+                ("length", ctypes.c_float * _MAX_SUBSYS)]
+
+
+def _device_table(dyn, spec: GameSpec) -> _SubsysTable:
+    """The rollout kernel's per-subsystem ODE table; raises for a model
+    with no device ODE."""
+    if not dyn.models or len(dyn.models) > _MAX_SUBSYS:
+        raise NotImplementedError(
+            f"dynamics {dyn.name!r}: the rollout kernel needs 1-"
+            f"{_MAX_SUBSYS} concatenated models with device ODEs")
+    tab = _SubsysTable()
+    tab.n = len(dyn.models)
+    off = 0
+    for i, m in enumerate(dyn.models):
+        if m.kind is None:
+            raise NotImplementedError(
+                f"model {m.name!r} has no device ODE in the rollout kernel")
+        tab.kind[i] = m.kind
+        tab.xoff[i] = off
+        tab.uoff[i] = i * spec.umax
+        tab.length[i] = m.length
+        off += m.xdim
+    return tab
+
+
+def _umask_flat(spec: GameSpec):
+    return tuple(1.0 if a < d else 0.0 for d in spec.udims
+                 for a in range(spec.umax))
+
+
+def load_kernels(spec: GameSpec) -> ctypes.CDLL:
+    """Build (once per shape) and load csrc/sweep.cu for this game's dims."""
+    lib = build.load("sweep", {"SW_X": spec.xdim,
+                               "SW_PU": spec.num_players * spec.umax})
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.sweep_rollout.argtypes = ([P] * 9 + [I] * 3 + [F, F, I, _SubsysTable,
+                                                       P])
+    lib.sweep_rollout.restype = I
+    return lib
+
+
+def rollout_plain(dyn, spec: GameSpec, x0m, op_bm: dict, st_bm: dict,
+                  scal_cb, emit_us: bool = False):
+    """Plain PyTorch K4: xs [N, x, C, B] (and us [N, Pu, C, B] when
+    `emit_us`) from x0m [x, B], op_bm {"xs" [N,x,B], "us" [N,Pu,B],
+    "t0" [1,B]}, st_bm {"Ps" [N,Pu,x,B], "alphas" [N,Pu,B]} and
+    scal_cb [C, B]."""
+    N, x, dt = spec.num_time_steps, spec.xdim, spec.dt
+    P, u = spec.num_players, spec.umax
+    C, B = scal_cb.shape
+    mask = const_tensor(_umask_flat(spec), x0m.device)[:, None, None]
+    ts = op_bm["t0"][0] + torch.arange(N, dtype=torch.float32,
+                                       device=x0m.device)[:, None] * dt
+    xc = x0m.T[None].expand(C, B, x)                  # state index last
+    xs_out, us_out = [], []
+    for k in range(N):
+        xs_out.append(xc.permute(2, 0, 1))
+        delta = xc - op_bm["xs"][k].T                 # [C, B, x]
+        Pk = st_bm["Ps"][k]                           # [Pu, x, B]
+        acc = Pk[:, 0, None, :] * delta[..., 0]       # [Pu, C, B]
+        for xx in range(1, x):
+            acc = acc + Pk[:, xx, None, :] * delta[..., xx]
+        row = ((op_bm["us"][k][:, None, :] - acc)
+               - scal_cb * st_bm["alphas"][k][:, None, :]) * mask
+        us_out.append(row)
+        xc = dyn_base.integrate(dyn, ts[k], dt, xc,
+                                row.permute(1, 2, 0).reshape(C, B, P, u))
+    xs = torch.stack(xs_out)
+    return (xs, torch.stack(us_out)) if emit_us else xs
+
+
+def rollout_bm(dyn, spec: GameSpec, x0m, op_bm: dict, st_bm: dict, scal_cb,
+               emit_us: bool = False):
+    """K4 on batch-minor operands (see `rollout_plain`). CUDA tensors
+    launch csrc/sweep.cu; CPU tensors take `rollout_plain`."""
+    N, x = spec.num_time_steps, spec.xdim
+    Pu = spec.num_players * spec.umax
+    C, B = scal_cb.shape
+    dev = build.check_operands([
+        ("x0m", x0m, (x, B)), ("xs", op_bm["xs"], (N, x, B)),
+        ("us", op_bm["us"], (N, Pu, B)), ("t0", op_bm["t0"], (1, B)),
+        ("Ps", st_bm["Ps"], (N, Pu, x, B)),
+        ("alphas", st_bm["alphas"], (N, Pu, B)), ("scal", scal_cb, (C, B))])
+    if dev.type == "cpu":
+        return rollout_plain(dyn, spec, x0m, op_bm, st_bm, scal_cb, emit_us)
+    tab = _device_table(dyn, spec)
+    lib = load_kernels(spec)
+    xs = torch.empty((N, x, C, B), dtype=torch.float32, device=dev)
+    us = (torch.empty((N, Pu, C, B), dtype=torch.float32, device=dev)
+          if emit_us else None)
+    umask = sum(1 << af for af, m in enumerate(_umask_flat(spec)) if m)
+    rc = lib.sweep_rollout(
+        x0m.data_ptr(), op_bm["xs"].data_ptr(), op_bm["us"].data_ptr(),
+        st_bm["Ps"].data_ptr(), st_bm["alphas"].data_ptr(),
+        op_bm["t0"].data_ptr(), scal_cb.data_ptr(), xs.data_ptr(),
+        us.data_ptr() if emit_us else None, N, C, B, spec.dt, spec.dt / 2,
+        umask, tab, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "sweep_rollout")
+    rollout_bm.launches += 1
+    return (xs, us) if emit_us else xs
+
+
+rollout_bm.launches = 0
+
+
+def _prep_common(spec: GameSpec, x0, last_op: OperatingPoint,
+                 strategy: Strategy, Bb: int):
+    """Batch-major containers -> padded batch-minor operand dicts."""
+    N, P, x, u = spec.num_time_steps, spec.num_players, spec.xdim, spec.umax
+    Bt = x0.shape[0]
+    pad = lambda a: pad_batch(bm(a), Bb).contiguous()
+    op = {"xs": pad(last_op.xs),
+          "us": pad(last_op.us.reshape(Bt, N, P * u)),
+          "t0": pad(last_op.t0[:, None])}
+    st = {"Ps": pad(strategy.Ps.reshape(Bt, N, P * u, x)),
+          "alphas": pad(strategy.alphas.reshape(Bt, N, P * u))}
+    return op, st, pad(x0)
+
+
+def _prep_al(spec: GameSpec, al_state: pcost.ALState, Bb: int):
+    """Batched ALState -> padded batch-minor merit operands
+    (lamS [N, nS, B] or None, lamC [N, nC, B] or None, mu [1, B])."""
+    def lam(lams):
+        cat = torch.cat(lams, dim=1)                  # [Bt, n, N]
+        if cat.shape[1] == 0:
+            return None
+        return pad_batch(bm(cat).permute(1, 0, 2), Bb).contiguous()
+
+    return (lam(al_state.state_lambdas), lam(al_state.control_lambdas),
+            pad_batch(bm(al_state.mu[:, None]), Bb))
+
+
+def _us_from_xs(spec: GameSpec, xs_cand, op_bm: dict, st_bm: dict, scal_cb):
+    """Every candidate's controls [N, Pu, C, B] rebuilt from its emitted
+    states [N, x, C, B], with the kernel's fold order."""
+    x = spec.xdim
+    mask = const_tensor(_umask_flat(spec), xs_cand.device)
+    delta = xs_cand - op_bm["xs"][:, :, None, :]      # [N, x, C, B]
+    Ps = st_bm["Ps"]                                  # [N, Pu, x, B]
+    acc = Ps[:, :, 0, None, :] * delta[:, None, 0]
+    for xx in range(1, x):
+        acc = acc + Ps[:, :, xx, None, :] * delta[:, None, xx]
+    row = ((op_bm["us"][:, :, None, :] - acc)
+           - scal_cb[None, None] * st_bm["alphas"][:, :, None, :])
+    return row * mask[None, :, None, None]
+
+
+def _xla_merits(player_costs, spec: GameSpec, xs_cand, us_cand, t0_bm,
+                lamS, lamC, mu):
+    """Raw merits [C, B] of emitted candidate trajectories (xs [N,x,C,B],
+    us [N,Pu,C,B]): per-knot squared stage gradients, control terms always
+    and state terms for k > 0, folded over the knots in ascending order.
+    Callers apply the 0.5 factor."""
+    N, P, u = spec.num_time_steps, spec.num_players, spec.umax
+    _, _, C, B = xs_cand.shape
+    n_sc = [len(pc.state_constraints) for pc in player_costs]
+    n_cc = [len(pc.control_constraints) for pc in player_costs]
+
+    def per_player(lam, counts):
+        # [N, n, B] -> per player [N, 1, B, n_i] (constraint index last).
+        if lam is None:
+            return tuple(xs_cand.new_zeros((N, 1, B, n)) for n in counts)
+        lam = lam.permute(0, 2, 1)[:, None]
+        offs = [sum(counts[:i]) for i in range(len(counts) + 1)]
+        return tuple(lam[..., offs[i]:offs[i + 1]] for i in range(P))
+
+    ts = t0_bm[0] + torch.arange(N, dtype=torch.float32,
+                                 device=xs_cand.device)[:, None] * spec.dt
+    s_cb, r_cb = pcost.stage_gradient_sq_tuple(
+        player_costs, spec, per_player(lamS, n_sc), per_player(lamC, n_cc),
+        mu[0], ts[:, None, :], xs_cand.permute(0, 2, 3, 1),
+        us_cand.reshape(N, P, u, C, B).permute(0, 3, 4, 1, 2))
+    state_term = s_cb[0]
+    for p_ in range(1, P):
+        state_term = state_term + s_cb[p_]
+    ctrl_term = r_cb[0]
+    for p_ in range(1, P):
+        ctrl_term = ctrl_term + r_cb[p_]
+    merit = ctrl_term[0]
+    for k in range(1, N):
+        merit = merit + (ctrl_term[k] + state_term[k])
+    return merit
+
+
+def rollout(dyn, spec: GameSpec, x0, last_op: OperatingPoint,
+            strategy: Strategy, scal=None, batch_block: int = 128
+            ) -> OperatingPoint:
+    """Batched rollout under affine strategies through K4 (counterpart of
+    rollout_pallas). With `scal` [Bt], rolls out
+    `strategy.scale_alphas(scal)` per lane."""
+    N, P, u, x = spec.num_time_steps, spec.num_players, spec.umax, spec.xdim
+    Bt = x0.shape[0]
+    op, st, x0m = _prep_common(spec, x0, last_op, strategy, batch_block)
+    if scal is None:
+        scal_cb = x0m.new_ones((1, x0m.shape[-1]))
+    else:
+        scal_cb = pad_batch(scal[None], batch_block).contiguous()
+    xs_r, us_r = rollout_bm(dyn, spec, x0m, op, st, scal_cb, emit_us=True)
+    return OperatingPoint(xs=mb(xs_r[:, :, 0], Bt),
+                          us=mb(us_r[:, :, 0], Bt).reshape(Bt, N, P, u),
+                          t0=last_op.t0)
+
+
+def sweep_merits(dyn, player_costs, spec: GameSpec, x0, last_op, strategy,
+                 scalings, al_state, batch_block: int = 128):
+    """Merit of every candidate stepsize: [Bt, C] (0.5 * the folded
+    squared stage gradients along each candidate's rollout). `scalings`
+    is [C] (shared) or [Bt, C] (per lane)."""
+    pcost.check_structures(player_costs)
+    Bt = x0.shape[0]
+    op, st, x0m = _prep_common(spec, x0, last_op, strategy, batch_block)
+    B = x0m.shape[-1]
+    lamS, lamC, mu = _prep_al(spec, al_state, batch_block)
+    if scalings.ndim == 2:
+        scal_cb = pad_batch(scalings.T, batch_block).contiguous()
+    else:
+        scal_cb = scalings[:, None].expand(-1, B).contiguous()
+    xs_cand = rollout_bm(dyn, spec, x0m, op, st, scal_cb)
+    us_cand = _us_from_xs(spec, xs_cand, op, st, scal_cb)
+    merits = _xla_merits(player_costs, spec, xs_cand, us_cand, op["t0"],
+                         lamS, lamC, mu)
+    return 0.5 * mb(merits, Bt)

@@ -1,0 +1,32 @@
+"""A minimal game description (counterpart of ilqgames_tpu/problem.py).
+
+Only the data the batched solver needs: the solve entry points live in
+solver/batched.py, which takes (dynamics, player_costs, spec).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from ilqgames_tpu_torch.costs.player_cost import PlayerCost
+from ilqgames_tpu_torch.dynamics.base import MultiPlayerDynamics
+from ilqgames_tpu_torch.types import GameSpec, OperatingPoint, Strategy
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Problem:
+    name: str
+    dynamics: MultiPlayerDynamics
+    player_costs: Tuple[PlayerCost, ...]
+    x0: torch.Tensor  # [xdim], on the CPU
+    spec: GameSpec
+
+    def initial_operating_point(self, t0: float = 0.0,
+                                device=None) -> OperatingPoint:
+        return OperatingPoint.zeros(self.spec, t0, device=device)
+
+    def initial_strategy(self, device=None) -> Strategy:
+        return Strategy.zeros(self.spec, device=device)

@@ -1,0 +1,41 @@
+"""The port stands alone: importing every module of ilqgames_tpu_torch
+pulls in no JAX, no flax and nothing of the JAX package."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+_SCRIPT = """
+import importlib, pkgutil, sys
+import ilqgames_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    ilqgames_tpu_torch.__path__, "ilqgames_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "ilqgames_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax():
+    out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert bad == "[]", bad
+    # Every module of the slice, down to the kernel wrappers.
+    assert int(n) >= 20, n
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """chip_smoke.py exits nonzero and prints no result line when no CUDA
+    device is visible (this machine's CPU build of torch has none)."""
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
