@@ -1,15 +1,21 @@
 """Benchmark of the port: batched three-player-intersection solves per
-second on one CUDA device (counterpart of the repo's bench.py with
-BENCH_QUEUE=0, the plain host-stepped driver).
+second on one CUDA device (counterpart of the repo's bench.py).
 
-Same workload as bench.py: the flagship, the reference exec main's
-solver parameters, bench.py's x0 draw (nominal x0 + 0.1 * N(0, 1) from
-numpy RandomState(0), prefix-stable in the batch size) and its baseline
-denominator (baselines/measured.json "perturbed_x0_batch"). Prints ONE
-JSON line with bench.py's fields plus the device, batch, wall time and
-the driver's counters. Needs a CUDA device: it never measures on a CPU.
+Same workload and defaults as bench.py: the flagship, the reference exec
+main's solver parameters, bench.py's x0 draw (nominal x0 + 0.1 * N(0, 1)
+from numpy RandomState(0), prefix-stable in the batch size) and its
+baseline denominator (baselines/measured.json "perturbed_x0_batch"). By
+default BENCH_TOTAL (4 x BENCH_BATCH) instances stream through
+BENCH_BATCH (2048) device lanes on the wave-refill queue driver, with
+harvest chunks of BENCH_HARVEST (32) lanes, BENCH_TPC (10) trips per
+`done` read, fused stages (K1) and the plain-PyTorch merit fold;
+BENCH_QUEUE=0 solves BENCH_BATCH instances on the plain host-stepped
+driver instead. Prints ONE JSON line with bench.py's fields plus the
+device, configuration, wall time, the driver's counters and the kernels'
+launch counts. Needs a CUDA device: it never measures on a CPU.
 
-    BENCH_BATCH=1024 python3 -m ilqgames_tpu_torch.bench
+    python3 -m ilqgames_tpu_torch.bench
+    BENCH_QUEUE=0 BENCH_BATCH=1024 python3 -m ilqgames_tpu_torch.bench
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch
 
 from ilqgames_tpu_torch.examples.three_player_intersection import \
     make_problem
-from ilqgames_tpu_torch.ops.cuda import lq, sweep
+from ilqgames_tpu_torch.ops.cuda import build, lq, stage, sweep
 from ilqgames_tpu_torch.solver import batched
 from ilqgames_tpu_torch.solver.params import SolverParams
 
@@ -95,39 +101,92 @@ def summarize(res, batch: int, elapsed: float) -> dict:
     }
 
 
-def run_bench(batch: int = 1024, device="cuda"):
-    """Solve the flagship batch once on `device`: (ALResult, JSON dict).
-    The kernels are built before the clock starts."""
+# The kernels' wrappers, by name (each keeps a launch count).
+KERNELS = {"K1": stage.lin_quad, "K2": lq.lq_backward, "K3": lq.lq_forward,
+           "K4": sweep.rollout_bm, "K5": sweep.rollout_merits,
+           "K6": sweep.consumer_merits}
+
+
+def launches() -> dict:
+    return {k: fn.launches for k, fn in KERNELS.items()}
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def build_kernels(spec) -> None:
+    """Build every kernel of the port for this game (one concurrent nvcc
+    per source) and load them."""
+    build.compile_all([stage.library(spec), lq.library(spec),
+                       sweep.library(spec), sweep.merit_library(spec)])
+    for load in (stage.load_kernels, lq.load_kernels, sweep.load_kernels,
+                 sweep.load_merit_kernel):
+        load(spec)
+
+
+def run_bench(batch: int = 2048, device="cuda", driver: str = "queue",
+              total=None, harvest_block: int = 32, trips_per_call: int = 10,
+              fuse_stages: bool = True):
+    """Solve the flagship on `device`: (ALResult, JSON dict). `driver`
+    "queue" streams `total` (default 4 * batch) instances through `batch`
+    lanes; "plain" solves `batch` instances at once. The kernels are built
+    before the clock starts."""
     set_precision()
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError("the benchmark measures on a CUDA device only")
     problem = make_problem()
-    lq.load_kernels(problem.spec)
-    sweep.load_kernels(problem.spec)
-    solver = batched.make_host_batched_solver(
-        problem.dynamics, problem.player_costs, problem.spec,
-        exec_main_params())
-    x0 = torch.tensor(perturbed_x0(problem, batch), device=dev)
+    build_kernels(problem.spec)
+    args = (problem.dynamics, problem.player_costs, problem.spec,
+            exec_main_params())
+    if driver == "queue":
+        n = 4 * batch if total is None else total
+        solver = batched.make_host_batched_queue_solver(
+            *args, device_batch=batch, trips_per_call=trips_per_call,
+            harvest_block=harvest_block, fuse_stages=fuse_stages)
+    elif driver == "plain":
+        n = batch
+        solver = batched.make_host_batched_solver(*args,
+                                                  fuse_stages=fuse_stages)
+    else:
+        raise ValueError(f"driver must be 'queue' or 'plain', got {driver!r}")
+    x0 = torch.tensor(perturbed_x0(problem, n), device=dev)
+    before = launches()
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     res = solver(x0)
     torch.cuda.synchronize(dev)
     elapsed = time.perf_counter() - t0
-    out = summarize(res, batch, elapsed)
+    out = summarize(res, n, elapsed)
     stats = solver.last_stats
-    out.update(device=torch.cuda.get_device_name(dev), B=batch,
-               wall_s=round(elapsed, 3), trips=stats["trips"],
-               host_syncs=stats["host_syncs"],
-               deep_rounds=stats["deep_rounds"],
-               collapse_exits=stats["collapse_exits"])
+    out.update(device=torch.cuda.get_device_name(dev), driver=driver,
+               B=batch, instances=n, fuse_stages=fuse_stages,
+               wall_s=round(elapsed, 3),
+               **{k: stats[k] for k in ("trips", "host_syncs", "deep_rounds",
+                                        "collapse_exits")})
+    if driver == "queue":
+        out.update(harvest_block=harvest_block,
+                   trips_per_call=trips_per_call,
+                   **{k: stats[k] for k in ("dispatches", "harvests",
+                                            "compactions")})
+    out["launches"] = {k: v - before[k] for k, v in launches().items()}
     return res, out
 
 
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("ilqgames_tpu_torch.bench needs a CUDA device")
-    _, out = run_bench(int(os.environ.get("BENCH_BATCH", "1024")))
+    env = os.environ.get
+    batch = int(env("BENCH_BATCH", "2048"))
+    if env("BENCH_QUEUE", "1") == "1":
+        _, out = run_bench(batch, driver="queue",
+                           total=int(env("BENCH_TOTAL", str(4 * batch))),
+                           harvest_block=int(env("BENCH_HARVEST", "32")),
+                           trips_per_call=int(env("BENCH_TPC", "10")))
+    else:
+        _, out = run_bench(batch, driver="plain")
     print(json.dumps(out))
 
 

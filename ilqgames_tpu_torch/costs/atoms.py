@@ -35,7 +35,9 @@ def quadratic(weight: float, dim: Optional[int], nominal: float = 0.0,
         return ([((dim, dim), torch.full_like(v[..., 0], weight))],
                 grad_pairs(t, v))
 
-    return Cost(name, evaluate, grad_pairs, quad_pairs)
+    return Cost(name, evaluate, grad_pairs, quad_pairs,
+                device=("quadratic", {"dim": dim, "weight": weight,
+                                      "nominal": nominal}))
 
 
 def quadratic_polyline2(weight: float, points, xidx: int, yidx: int,
@@ -81,4 +83,6 @@ def quadratic_polyline2(weight: float, points, xidx: int, yidx: int,
                  ((xidx, yidx), dxdy), ((yidx, xidx), dxdy)],
                 [(xidx, dx), (yidx, dy)])
 
-    return Cost(name, evaluate, grad_pairs, quad_pairs)
+    return Cost(name, evaluate, grad_pairs, quad_pairs,
+                device=("polyline", {"points": points, "xidx": xidx,
+                                     "yidx": yidx, "weight": weight}))

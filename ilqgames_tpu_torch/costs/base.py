@@ -11,7 +11,7 @@ state or control index on their last axis.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -25,12 +25,15 @@ class Cost:
     evaluate: (t_rel, v) -> value.
     grad_pairs_fn: (t, v) -> [(dim, value)].
     quad_pairs_fn: (t, v) -> ([((i, j), value)], [(dim, value)]).
+    device: the atom's form in the stage and merit kernels
+    (csrc/costs.cuh), (kind, {parameter: value}); None when it has none.
     """
 
     name: str
     evaluate: Callable
     grad_pairs_fn: Callable
     quad_pairs_fn: Callable
+    device: Optional[tuple] = None
 
     def gradient_pairs(self, t, v):
         return list(self.grad_pairs_fn(t, v))
@@ -48,6 +51,7 @@ class Constraint:
     is_equality: bool
     al_grad_pairs_fn: Callable
     al_quad_pairs_fn: Callable
+    device: Optional[tuple] = None  # as Cost.device
 
     def gradient_al_pairs(self, t, v, lam, mu):
         return list(self.al_grad_pairs_fn(t, v, lam, mu))

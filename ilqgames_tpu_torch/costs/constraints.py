@@ -75,4 +75,7 @@ def proximity(dims1: Tuple[int, int], dims2: Tuple[int, int],
         ]
         return hp, gp
 
-    return Constraint(name, g, False, al_grad_pairs, al_quad_pairs)
+    return Constraint(name, g, False, al_grad_pairs, al_quad_pairs,
+                      device=("proximity", {"dims": (x1, y1, x2, y2),
+                                            "threshold": threshold,
+                                            "sign": s}))

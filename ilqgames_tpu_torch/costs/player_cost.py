@@ -18,6 +18,7 @@ from typing import Tuple
 import torch
 
 from ilqgames_tpu_torch.costs.base import Constraint, Cost
+from ilqgames_tpu_torch.solver.ilq import _fixed_order_sum
 from ilqgames_tpu_torch.types import (DEFAULT_MU, GameSpec, OperatingPoint,
                                       QuadraticCosts, _Replace, const_tensor)
 
@@ -97,10 +98,12 @@ def check_structures(player_costs) -> None:
 
 def total_costs(player_costs, spec: GameSpec, op: OperatingPoint):
     """Per-player total costs of a batched operating point: (totals [B, P],
-    extreme_ks [B, P] int32, all zero under the SUM structure)."""
+    extreme_ks [B, P] int32, all zero under the SUM structure). The sum
+    over knots is a fixed-order fold: torch.sum's order depends on the
+    device and on the batch size, and a lane's total must not."""
     check_structures(player_costs)
     ts = spec.horizon_times(op.xs.device)
-    totals = torch.stack([pc.evaluate_stage(ts, op.xs, op.us).sum(-1)
+    totals = torch.stack([_fixed_order_sum(pc.evaluate_stage(ts, op.xs, op.us))
                           for pc in player_costs], dim=-1)
     return totals, torch.zeros(totals.shape, dtype=torch.int32,
                                device=totals.device)

@@ -1,0 +1,340 @@
+// Per-problem cost and dynamics math shared by the stage kernel K1
+// (stage.cu), the in-kernel merit K5 (sweep.cu) and the merit consumer K6
+// (merit.cu).
+//
+// Device forms of the flagship's atoms and models, each repeating its plain
+// PyTorch version operation by operation (with FMA contraction off):
+//   quadratic            costs/atoms.py:quadratic
+//   quadratic_polyline2  costs/atoms.py:quadratic_polyline2, with the query of
+//                        geometry.py:polyline_closest_point_xy
+//   proximity            costs/constraints.py:proximity, mu_eff_ineq of
+//                        costs/base.py
+//   car_6d, unicycle_4d  the Jacobian entries of dynamics/models.py
+// The problem arrives as a CostTable passed by value (atom kinds, dims,
+// weights, nominals, thresholds, signs, segment offsets; built by
+// ops/cuda/cost_table.py) and a small device array of polyline segments, 7
+// floats each: p1x p1y p2x p2y ux uy length, computed on the host in float32
+// as geometry._static_segments computes them.
+//
+// Pairs accumulate per key in pair order, the first pair of a key setting it
+// and later ones adding to it, as the plain versions' dict folds do; callers
+// keep a per-key "seen" bit for that.
+
+#pragma once
+
+#include "fmath.cuh"
+
+namespace costs {
+
+constexpr int MAX_ATOMS = 32;
+constexpr int MAX_PLAYERS = 8;
+constexpr int MAX_SUBSYS = 8;
+constexpr int KIND_QUADRATIC = 0;
+constexpr int KIND_POLYLINE = 1;
+constexpr int KIND_PROXIMITY = 2;
+constexpr int KIND_CAR_6D = 0;      // dynamics/models.py KIND_CAR_6D
+constexpr int KIND_UNICYCLE_4D = 1;  // dynamics/models.py KIND_UNICYCLE_4D
+constexpr float SMALL_NUMBER = 1e-4f;  // types.SMALL_NUMBER
+constexpr float EPS = 1e-12f;          // constraints._EPS
+
+}  // namespace costs
+
+extern "C" {
+
+// The concatenated models of the joint dynamics (ops/cuda/sweep.py
+// _device_table): kind, state offset, control offset (flat, player-major)
+// and inter-axle length of each.
+struct SubsysTable {
+  int n;
+  int kind[costs::MAX_SUBSYS];
+  int xoff[costs::MAX_SUBSYS];
+  int uoff[costs::MAX_SUBSYS];
+  float length[costs::MAX_SUBSYS];
+};
+
+// One atom of one player's cost. on < 0: the state; on = j: player j's
+// (padded) control. Quadratic: dim[0], w = weight, aux = nominal. Polyline:
+// dim[0..1] = x, y index, w = weight, seg0/nseg its segments, ends = first
+// and last point. Proximity: dim[0..3] = x1, y1, x2, y2, w = threshold,
+// aux = sign s (+1 keep within, -1 keep out), lam = its row of lamS.
+struct CostAtom {
+  int kind;
+  int player;
+  int on;
+  int dim[4];
+  int seg0;
+  int nseg;
+  int lam;
+  float w;
+  float aux;
+  float ends[4];
+};
+
+struct CostTable {
+  int n;
+  CostAtom atom[costs::MAX_ATOMS];
+  float state_reg[costs::MAX_PLAYERS];
+  float ctrl_reg[costs::MAX_PLAYERS];
+  int ctrl_players[costs::MAX_PLAYERS];  // bit j: player i has terms in u_j
+  int udims[costs::MAX_PLAYERS];
+};
+
+}  // extern "C"
+
+namespace costs {
+
+// torch.minimum: NaN if either is NaN.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return b < a ? b : a;
+}
+
+// torch.clamp_min(x, lo): NaN stays NaN.
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return (x != x) ? x : (x < lo ? lo : x);
+}
+
+struct Closest {
+  float cpx, cpy, p1x, p1y, ux, uy;
+  bool vertex, endpoint;
+};
+
+__device__ __forceinline__ void segment(const float* s, float qx, float qy,
+                                        float& cpx, float& cpy, float& ssd,
+                                        bool& vertex) {
+  const float rx = qx - s[0], ry = qy - s[1];
+  const float dot = rx * s[4] + ry * s[5];
+  const float cross = rx * s[5] - ry * s[4];
+  const float sq_p1 = rx * rx + ry * ry;
+  const float r2x = qx - s[2], r2y = qy - s[3];
+  const float sq_p2 = r2x * r2x + r2y * r2y;
+  const bool behind = dot < 0.0f;
+  const bool ahead = dot > s[6];
+  cpx = behind ? s[0] : (ahead ? s[2] : s[0] + dot * s[4]);
+  cpy = behind ? s[1] : (ahead ? s[3] : s[1] + dot * s[5]);
+  const float raw = behind ? sq_p1 : (ahead ? sq_p2 : cross * cross);
+  ssd = (cross == 0.0f) ? 0.0f : raw;
+  vertex = behind || ahead;
+}
+
+// geometry.polyline_closest_point_xy(need_sign=False): the winner is the
+// first segment whose |sq distance| is <= the NaN-propagating minimum over
+// all segments (segment 0 when that minimum is NaN).
+__device__ Closest closest(const CostAtom& a, const float* segs, float qx,
+                           float qy) {
+  const float* s0 = segs + 7 * a.seg0;
+  float cpx, cpy, ssd;
+  bool vertex;
+  float m = 0.0f;
+  for (int s = 0; s < a.nseg; ++s) {
+    segment(s0 + 7 * s, qx, qy, cpx, cpy, ssd, vertex);
+    m = (s == 0) ? ssd : nan_min(m, ssd);
+  }
+  int win = 0;
+  for (int s = 0; s < a.nseg; ++s) {
+    segment(s0 + 7 * s, qx, qy, cpx, cpy, ssd, vertex);
+    if (ssd <= m) { win = s; break; }
+  }
+  const float* w = s0 + 7 * win;
+  Closest c;
+  segment(w, qx, qy, c.cpx, c.cpy, ssd, c.vertex);
+  c.p1x = w[0];
+  c.p1y = w[1];
+  c.ux = w[4];
+  c.uy = w[5];
+  const float fx = c.cpx - a.ends[0], fy = c.cpy - a.ends[1];
+  const float lx = c.cpx - a.ends[2], ly = c.cpy - a.ends[3];
+  c.endpoint = (fx * fx + fy * fy < SMALL_NUMBER) ||
+               (lx * lx + ly * ly < SMALL_NUMBER);
+  return c;
+}
+
+// atoms.quadratic_polyline2's _scalars: (dx, dy, ddx, ddy, dxdy).
+__device__ void polyline_scalars(const CostAtom& a, const float* segs,
+                                 const float* v, float out[5]) {
+  const float qx = v[a.dim[0]], qy = v[a.dim[1]];
+  const Closest c = closest(a, segs, qx, qy);
+  const float w = a.w;
+  const float dxv = w * (qx - c.cpx);
+  const float dyv = w * (qy - c.cpy);
+  const float w_cross = w * ((qx - c.p1x) * c.uy - (qy - c.p1y) * c.ux);
+  const float dxi = w_cross * c.uy;
+  const float dyi = -w_cross * c.ux;
+  const float h0 = w * c.uy * c.uy, h1 = w * c.ux * c.ux;
+  const float h2 = -w * c.ux * c.uy;
+  const float gate = c.endpoint ? 0.0f : 1.0f;
+  out[0] = (c.vertex ? dxv : dxi) * gate;
+  out[1] = (c.vertex ? dyv : dyi) * gate;
+  out[2] = (c.vertex ? w : h0) * gate;
+  out[3] = (c.vertex ? w : h1) * gate;
+  out[4] = (c.vertex ? 0.0f : h2) * gate;
+}
+
+// base.mu_eff_ineq.
+__device__ __forceinline__ float mu_eff_ineq(float g, float lam, float mu) {
+  const bool inactive = (g <= SMALL_NUMBER) && (fabsf(lam) <= SMALL_NUMBER);
+  return inactive ? 0.0f : mu;
+}
+
+struct ProxGeom {
+  float dx, dy, ssq, prox, g, live;
+};
+
+__device__ __forceinline__ ProxGeom prox_geom(const CostAtom& a,
+                                              const float* v) {
+  ProxGeom p;
+  p.dx = v[a.dim[0]] - v[a.dim[2]];
+  p.dy = v[a.dim[1]] - v[a.dim[3]];
+  p.ssq = p.dx * p.dx + p.dy * p.dy;
+  p.prox = fmath::sqrt(clamp_min(p.ssq, EPS));
+  p.g = a.aux * (p.prox - a.w);
+  p.live = (p.ssq >= EPS) ? 1.0f : 0.0f;
+  return p;
+}
+
+// constraints.proximity's al_grad_pairs: (px, py) of
+// [(x1, px), (y1, py), (x2, -px), (y2, -py)].
+__device__ __forceinline__ void prox_grad(const CostAtom& a, const float* v,
+                                          float lam, float mu, float& px,
+                                          float& py) {
+  const ProxGeom p = prox_geom(a, v);
+  const float ct =
+      (lam + mu_eff_ineq(p.g, lam, mu) * p.g) * a.aux * p.live / p.prox;
+  px = ct * p.dx;
+  py = ct * p.dy;
+}
+
+// constraints.proximity's al_quad_pairs: px, py as above and the Hessian
+// entries hxx, hyy, hxy.
+__device__ __forceinline__ void prox_quad(const CostAtom& a, const float* v,
+                                          float lam, float mu, float& px,
+                                          float& py, float& hxx, float& hyy,
+                                          float& hxy) {
+  const ProxGeom p = prox_geom(a, v);
+  const float s = a.aux;
+  const float mu_eff = mu_eff_ineq(p.g, lam, mu);
+  const float lam_t = lam + mu_eff * p.g;
+  const float inv = 1.0f / p.prox;
+  const float gx = s * p.dx * inv;
+  const float gy = s * p.dy * inv;
+  const float ct = lam_t * p.live;
+  px = ct * gx;
+  py = ct * gy;
+  const float nx = p.dx * inv, ny = p.dy * inv;
+  hxx = (mu_eff * gx * gx + lam_t * s * (ny * ny) * inv) * p.live;
+  hyy = (mu_eff * gy * gy + lam_t * s * (nx * nx) * inv) * p.live;
+  hxy = (mu_eff * gx * gy - lam_t * s * (nx * ny) * inv) * p.live;
+}
+
+// Sparse accumulation into a thread's own dense vector: the first pair of
+// a key sets it, later ones add.
+template <int D>
+struct GradAcc {
+  static_assert(D <= 32, "one seen bit per key in a 32-bit word");
+  float g[D];
+  unsigned seen;
+  __device__ __forceinline__ void reset() { seen = 0u; }
+  __device__ __forceinline__ void add(int d, float v) {
+    g[d] = ((seen >> d) & 1u) ? g[d] + v : v;
+    seen |= 1u << d;
+  }
+  // sum over the seen keys, ascending, of g^2, from 0.
+  __device__ __forceinline__ float sq() const {
+    float s = 0.0f;
+    for (int d = 0; d < D; ++d)
+      if ((seen >> d) & 1u) s = s + g[d] * g[d];
+    return s;
+  }
+};
+
+// player_cost.stage_gradient_sq_tuple for one player i at one knot:
+// (state_sq, ctrl_sq) from the state v [X] and the padded controls
+// u [P * U]. lam(row) gives the multiplier of lamS row `row`.
+template <int X, int U, typename Lam>
+__device__ void gradient_sq(const CostTable& tab, const float* segs, int i,
+                            const float* v, const float* u, Lam lam, float mu,
+                            float& state_sq, float& ctrl_sq) {
+  GradAcc<X> gs;
+  gs.reset();
+  for (int n = 0; n < tab.n; ++n) {
+    const CostAtom& a = tab.atom[n];
+    if (a.player != i || a.on >= 0) continue;
+    if (a.kind == KIND_QUADRATIC) {
+      gs.add(a.dim[0], a.w * (v[a.dim[0]] - a.aux));
+    } else if (a.kind == KIND_POLYLINE) {
+      float sc[5];
+      polyline_scalars(a, segs, v, sc);
+      gs.add(a.dim[0], sc[0]);
+      gs.add(a.dim[1], sc[1]);
+    } else if (a.kind == KIND_PROXIMITY) {
+      float px, py;
+      prox_grad(a, v, lam(a.lam), mu, px, py);
+      gs.add(a.dim[0], px);
+      gs.add(a.dim[1], py);
+      gs.add(a.dim[2], -px);
+      gs.add(a.dim[3], -py);
+    }
+  }
+  state_sq = gs.sq();
+  GradAcc<U> gu;
+  gu.reset();
+  const float* ui = u + i * U;
+  for (int n = 0; n < tab.n; ++n) {
+    const CostAtom& a = tab.atom[n];
+    if (a.player != i || a.on != i) continue;
+    if (a.kind == KIND_QUADRATIC) gu.add(a.dim[0], a.w * (ui[a.dim[0]] - a.aux));
+  }
+  ctrl_sq = gu.sq();
+}
+
+// The models' analytic Jacobian entries at state x, in
+// dynamics/models.py's order: add(false, row, col, v) for df/dx and
+// add(true, row, flat control col, v) for df/du.
+template <typename Add>
+__device__ void jacobian(const SubsysTable& tab, const float* x, Add add) {
+  for (int s = 0; s < tab.n; ++s) {
+    const int o = tab.xoff[s];
+    const int q = tab.uoff[s];
+    if (tab.kind[s] == KIND_CAR_6D) {
+      const float L = tab.length[s];
+      const float sn = fmath::sin(x[o + 2]), cs = fmath::cos(x[o + 2]);
+      const float cos_phi = fmath::cos(x[o + 3]);
+      const float sec2 = 1.0f / (cos_phi * cos_phi);
+      add(false, o + 0, o + 2, -x[o + 4] * sn);
+      add(false, o + 0, o + 4, cs);
+      add(false, o + 1, o + 2, x[o + 4] * cs);
+      add(false, o + 1, o + 4, sn);
+      add(false, o + 2, o + 3, (x[o + 4] / L) * sec2);
+      add(false, o + 2, o + 4, fmath::tan(x[o + 3]) / L);
+      add(false, o + 4, o + 5, 1.0f);
+      add(true, o + 3, q + 0, 1.0f);
+      add(true, o + 5, q + 1, 1.0f);
+    } else if (tab.kind[s] == KIND_UNICYCLE_4D) {
+      const float sn = fmath::sin(x[o + 2]), cs = fmath::cos(x[o + 2]);
+      add(false, o + 0, o + 2, -x[o + 3] * sn);
+      add(false, o + 0, o + 3, cs);
+      add(false, o + 1, o + 2, x[o + 3] * cs);
+      add(false, o + 1, o + 3, sn);
+      add(true, o + 2, q + 0, 1.0f);
+      add(true, o + 3, q + 1, 1.0f);
+    }
+  }
+}
+
+// The merit increment of one knot k: the players' control terms always and
+// their state terms for k > 0, each summed over players left to right
+// (ops/cuda/sweep.py:merit_plain). Returns (ctrl, state) through refs.
+template <int X, int P, int U, typename Lam>
+__device__ void merit_terms(const CostTable& tab, const float* segs,
+                            const float* v, const float* u, Lam lam,
+                            float mu, float& ctrl_term, float& state_term) {
+  for (int i = 0; i < P; ++i) {
+    float s, r;
+    gradient_sq<X, U>(tab, segs, i, v, u, lam, mu, s, r);
+    state_term = (i == 0) ? s : state_term + s;
+    ctrl_term = (i == 0) ? r : ctrl_term + r;
+  }
+}
+
+}  // namespace costs

@@ -1,0 +1,220 @@
+// Fused linearize + quadraticize for Hopper (sm_90a): K1.
+//
+// Replaces the Pallas kernel ilqgames_tpu/ops/pallas/stage.py:_make_kernel
+// (launched by _lin_quad_parts through lin_quad_pallas). For every knot k
+// and lane b it computes, from the operating point, the AL multipliers and
+// mu:
+//   A = I + dt * Jx and Bf = dt * Ju from the models' analytic Jacobians
+//   (dynamics/base.py:linearize), and
+//   each player's Q, l, R and r from the sparse pairs of its atoms: state
+//   costs, state constraints with their AL terms, the state
+//   regularization diagonal; per control player, control costs and the
+//   control regularization times the control mask
+//   (costs/player_cost.py:quadraticize),
+// and writes them straight into the LQ kernel's batch-minor operand dict:
+// A [N,X,X,B], Bf [N,X,PU,B], Qf [N,P*X,X,B], lf [N,P*X,B],
+// Rf [N,P*P*U,U,B], rf [N,P*P*U,B]. Only the SUM cost structure is ported,
+// so the extremal gates are all ones and are not read.
+//
+// Design: one thread per (knot, lane), lanes fastest, so every load and
+// store of the batch-minor layout is coalesced across a warp. A thread
+// first writes every element of its outputs (zeros, and the identity of
+// A), then accumulates the sparse pairs in place in its own output
+// addresses, in pair order: the first pair of a key stores, later ones
+// add, as the plain version's dict folds do (a dense per-thread
+// accumulator does not fit: one player's Q alone is X*X = 256 floats).
+// The arithmetic is the plain version's, operation by operation, built
+// without FMA contraction.
+//
+// What bounds it on this card: stores. Per (knot, lane) it writes
+// X*X + X*PU + P*X*X + P*X + P*P*U*U + P*P*U floats, 1,222 for the
+// flagship, against ~60 floats read. At N=100, B=2048 that is ~1.0 GB,
+// ~0.3 ms at 3.35 TB/s; the polyline queries and trig are small beside it.
+
+#include <cuda_runtime.h>
+
+#include "costs.cuh"
+
+#if !defined(ST_X) || !defined(ST_P) || !defined(ST_U)
+#error "build with -DST_X=<xdim> -DST_P=<players> -DST_U=<umax>"
+#endif
+
+namespace {
+
+constexpr int X = ST_X;
+constexpr int P = ST_P;
+constexpr int U = ST_U;
+constexpr int PU = P * U;
+
+// One seen bit per entry of a thread's output block.
+template <int E>
+struct Seen {
+  unsigned w[(E + 31) / 32];
+  __device__ __forceinline__ void reset() {
+    for (int i = 0; i < (E + 31) / 32; ++i) w[i] = 0u;
+  }
+  __device__ __forceinline__ bool test_set(int e) {
+    const bool s = (w[e >> 5] >> (e & 31)) & 1u;
+    w[e >> 5] |= 1u << (e & 31);
+    return s;
+  }
+};
+
+// out[e * B] = out[e * B] + v, or = v for the first pair of entry e.
+template <int E>
+__device__ __forceinline__ void put(float* out, long B, Seen<E>& seen, int e,
+                                    float v) {
+  float* p = out + e * B;
+  *p = seen.test_set(e) ? *p + v : v;
+}
+
+__global__ void stage_kernel(const float* __restrict__ xs,
+                             const float* __restrict__ us,
+                             const float* __restrict__ lamS, int nS,
+                             const float* __restrict__ mu,
+                             const float* __restrict__ segs, float* A,
+                             float* Bf, float* Qf, float* lf, float* Rf,
+                             float* rf, int N, int B, float dt,
+                             const __grid_constant__ SubsysTable dyn,
+                             const __grid_constant__ CostTable tab) {
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long)N * B) return;
+  const long k = idx / B;
+  const int b = (int)(idx % B);
+  const long Bl = B;
+
+  float x[X], u[PU];
+  for (int r = 0; r < X; ++r) x[r] = xs[(k * X + r) * Bl + b];
+  for (int a = 0; a < PU; ++a) u[a] = us[(k * PU + a) * Bl + b];
+  const float mu_b = mu[b];
+  auto lam = [&](int row) { return lamS[(k * nS + row) * Bl + b]; };
+
+  float* Ak = A + k * X * X * Bl + b;
+  float* Bk = Bf + k * X * PU * Bl + b;
+  float* Qk = Qf + k * P * X * X * Bl + b;
+  float* lk = lf + k * P * X * Bl + b;
+  float* Rk = Rf + k * P * P * U * U * Bl + b;
+  float* rk = rf + k * P * P * U * Bl + b;
+  for (int e = 0; e < X * X; ++e) Ak[e * Bl] = (e % (X + 1) == 0) ? 1.0f : 0.0f;
+  for (int e = 0; e < X * PU; ++e) Bk[e * Bl] = 0.0f;
+  for (int e = 0; e < P * X * X; ++e) Qk[e * Bl] = 0.0f;
+  for (int e = 0; e < P * X; ++e) lk[e * Bl] = 0.0f;
+  for (int e = 0; e < P * P * U * U; ++e) Rk[e * Bl] = 0.0f;
+  for (int e = 0; e < P * P * U; ++e) rk[e * Bl] = 0.0f;
+
+  // ---- linearize: A = I + dt * Jx, Bf = dt * Ju ----
+  {
+    Seen<X * X> sa;
+    Seen<X * PU> sb;
+    sa.reset();
+    sb.reset();
+    for (int d = 0; d < X; ++d) sa.test_set(d * (X + 1));
+    costs::jacobian(dyn, x, [&](bool is_u, int r, int c, float v) {
+      if (is_u)
+        put(Bk, Bl, sb, r * PU + c, dt * v);
+      else
+        put(Ak, Bl, sa, r * X + c, dt * v);
+    });
+  }
+
+  // ---- quadraticize ----
+  for (int i = 0; i < P; ++i) {
+    float* Qi = Qk + i * X * X * Bl;
+    float* li = lk + i * X * Bl;
+    Seen<X * X> sq;
+    Seen<X> sl;
+    sq.reset();
+    sl.reset();
+    auto hq = [&](int r, int c, float v) { put(Qi, Bl, sq, r * X + c, v); };
+    auto gq = [&](int r, float v) { put(li, Bl, sl, r, v); };
+    for (int n = 0; n < tab.n; ++n) {
+      const CostAtom& a = tab.atom[n];
+      if (a.player != i || a.on >= 0) continue;
+      if (a.kind == costs::KIND_QUADRATIC) {
+        const int d = a.dim[0];
+        hq(d, d, a.w);
+        gq(d, a.w * (x[d] - a.aux));
+      } else if (a.kind == costs::KIND_POLYLINE) {
+        float sc[5];
+        costs::polyline_scalars(a, segs, x, sc);
+        const int xi = a.dim[0], yi = a.dim[1];
+        hq(xi, xi, sc[2]);
+        hq(yi, yi, sc[3]);
+        hq(xi, yi, sc[4]);
+        hq(yi, xi, sc[4]);
+        gq(xi, sc[0]);
+        gq(yi, sc[1]);
+      } else if (a.kind == costs::KIND_PROXIMITY) {
+        float px, py, hxx, hyy, hxy;
+        costs::prox_quad(a, x, lam(a.lam), mu_b, px, py, hxx, hyy, hxy);
+        const int x1 = a.dim[0], y1 = a.dim[1], x2 = a.dim[2], y2 = a.dim[3];
+        hq(x1, x1, hxx);
+        hq(y1, y1, hyy);
+        hq(x1, y1, hxy);
+        hq(y1, x1, hxy);
+        hq(x2, x2, hxx);
+        hq(y2, y2, hyy);
+        hq(x2, y2, hxy);
+        hq(y2, x2, hxy);
+        hq(x1, x2, -hxx);
+        hq(x2, x1, -hxx);
+        hq(y1, y2, -hyy);
+        hq(y2, y1, -hyy);
+        hq(x1, y2, -hxy);
+        hq(y2, x1, -hxy);
+        hq(y1, x2, -hxy);
+        hq(x2, y1, -hxy);
+        gq(x1, px);
+        gq(y1, py);
+        gq(x2, -px);
+        gq(y2, -py);
+      }
+    }
+    if (tab.state_reg[i] != 0.0f)
+      for (int d = 0; d < X; ++d) hq(d, d, tab.state_reg[i]);
+
+    for (int j = 0; j < P; ++j) {
+      if (!((tab.ctrl_players[i] >> j) & 1)) continue;
+      float* Rij = Rk + (i * P + j) * U * U * Bl;
+      float* rij = rk + (i * P + j) * U * Bl;
+      Seen<U * U> sR;
+      Seen<U> sr;
+      sR.reset();
+      sr.reset();
+      for (int n = 0; n < tab.n; ++n) {
+        const CostAtom& a = tab.atom[n];
+        if (a.player != i || a.on != j || a.kind != costs::KIND_QUADRATIC)
+          continue;
+        const int d = a.dim[0];
+        put(Rij, Bl, sR, d * U + d, a.w);
+        put(rij, Bl, sr, d, a.w * (u[j * U + d] - a.aux));
+      }
+      if (tab.ctrl_reg[i] != 0.0f)
+        for (int c = 0; c < U; ++c)
+          put(Rij, Bl, sR, c * U + c,
+              tab.ctrl_reg[i] * (c < tab.udims[j] ? 1.0f : 0.0f));
+    }
+  }
+}
+
+constexpr int BLOCK = 128;
+
+}  // namespace
+
+extern "C" {
+
+// xs [N,X,B], us [N,PU,B], lamS [N,nS,B] (null when nS = 0), mu [B],
+// segs [*, 7] -> A, Bf, Qf, lf, Rf, rf (see the header).
+int stage_lin_quad(const float* xs, const float* us, const float* lamS,
+                   int nS, const float* mu, const float* segs, float* A,
+                   float* Bf, float* Qf, float* lf, float* Rf, float* rf,
+                   int N, int B, float dt, SubsysTable dyn, CostTable tab,
+                   void* stream) {
+  const long total = (long)N * B;
+  const int grid = (int)((total + BLOCK - 1) / BLOCK);
+  stage_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+      xs, us, lamS, nS, mu, segs, A, Bf, Qf, lf, Rf, rf, N, B, dt, dyn, tab);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -17,9 +17,14 @@ to the correctly rounded float32 root.
 
 Method for sin, cos and tan (Cephes sinf/cosf/tanf): reduce |x| by multiples of pi/4 with a
 three-part Cody-Waite constant to r in [-pi/4, pi/4], then minimax
-polynomials for sin(r) and cos(r) picked by octant. Accuracy is within
-a few float32 ulps for |x| < 8192, and the results stay deterministic
-beyond.
+polynomials for sin(r) and cos(r) picked by octant. That reduction is
+accurate for |x| < 8192 only, and beyond it its result grows without
+bound (sin(1e14) came out as -inf), so larger arguments are first
+reduced modulo the float64 value of 2*pi with fmod, which is exact on
+every device, and rounded back to float32. Accuracy is within a few
+float32 ulps for |x| < 8192 and within 1e-6 up to |x| ~ 1e9 (the float64
+modulus differs from 2*pi by 2.4e-16, once per period); every finite
+argument gives a value in [-1, 1].
 """
 
 from __future__ import annotations
@@ -30,6 +35,16 @@ FOPI = 1.27323954473516  # 4 / pi
 DP1 = 0.78515625
 DP2 = 2.4187564849853515625e-4
 DP3 = 3.77489497744594108e-8
+LARGE = 8192.0
+TWO_PI = 6.283185307179586  # float64 2*pi
+
+
+def _large(x: torch.Tensor) -> torch.Tensor:
+    """x, with arguments beyond +-LARGE replaced by their exact float64
+    remainder modulo TWO_PI (rounded to float32), sign kept."""
+    ax = torch.abs(x)
+    red = torch.fmod(ax.double(), TWO_PI).to(x.dtype)
+    return torch.where(ax > LARGE, torch.copysign(red, x), x)
 
 
 def _reduce(x: torch.Tensor):
@@ -53,6 +68,7 @@ def _cos_poly(z: torch.Tensor) -> torch.Tensor:
 
 
 def sin(x: torch.Tensor) -> torch.Tensor:
+    x = _large(x)
     r, q = _reduce(x)
     z = r * r
     s, c = _sin_poly(r, z), _cos_poly(z)
@@ -62,6 +78,7 @@ def sin(x: torch.Tensor) -> torch.Tensor:
 
 
 def cos(x: torch.Tensor) -> torch.Tensor:
+    x = _large(x)
     r, q = _reduce(x)
     z = r * r
     s, c = _sin_poly(r, z), _cos_poly(z)
@@ -70,6 +87,7 @@ def cos(x: torch.Tensor) -> torch.Tensor:
 
 
 def tan(x: torch.Tensor) -> torch.Tensor:
+    x = _large(x)
     r, q = _reduce(x)
     z = r * r
     s, c = _sin_poly(r, z), _cos_poly(z)

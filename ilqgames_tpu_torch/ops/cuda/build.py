@@ -42,32 +42,58 @@ def nvcc_path() -> str:
     return path
 
 
-def load(name: str, defines: dict) -> ctypes.CDLL:
-    """Build (if not cached) and load csrc/<name>.cu with `-D` defines."""
+def _target(name: str, defines: dict):
+    """(source, nvcc flags, library path) of csrc/<name>.cu with defines."""
     src = CSRC / f"{name}.cu"
     flags = list(NVCC_FLAGS) + [f"-D{k}={v}"
                                 for k, v in sorted(defines.items())]
     digest = hashlib.sha256(" ".join(flags).encode())
     for dep in [src, *sorted(CSRC.glob("*.cuh"))]:
         digest.update(dep.read_bytes())
-    out = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    return src, flags, BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def _compile(targets) -> None:
+    """Run one nvcc per target not built yet, all at once, and wait."""
+    todo = [t for t in targets if not t[2].exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src, flags, out in todo:
+            tmp_out = Path(tmp) / out.name
+            procs.append((src, out, tmp_out, subprocess.Popen(
+                [nvcc_path(), *flags, "-o", str(tmp_out), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        errors = []
+        for src, out, tmp_out, proc in procs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed to build {src.name} "
+                              f"(rc {proc.returncode}):\n{stdout}\n{stderr}")
+            else:
+                os.replace(tmp_out, out)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+
+
+def load(name: str, defines: dict) -> ctypes.CDLL:
+    """Build (if not cached) and load csrc/<name>.cu with `-D` defines."""
+    target = _target(name, defines)
+    out = target[2]
     if out in _LOADED:
         return _LOADED[out]
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            tmp_out = Path(tmp) / out.name
-            proc = subprocess.run(
-                [nvcc_path(), *flags, "-o", str(tmp_out), str(src)],
-                capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {src.name} "
-                    f"(rc {proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp_out, out)
+    _compile([target])
     lib = ctypes.CDLL(str(out))
     _LOADED[out] = lib
     return lib
+
+
+def compile_all(libraries) -> None:
+    """Build the (name, defines) libraries not cached yet, one concurrent
+    nvcc process each."""
+    _compile([_target(name, defines) for name, defines in libraries])
 
 
 def check_operands(named) -> torch.device:

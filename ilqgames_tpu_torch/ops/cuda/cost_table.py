@@ -1,0 +1,112 @@
+"""The problem description that the stage kernel K1 and the merit kernels
+K5 and K6 read (csrc/costs.cuh): every player's atoms, with their kinds,
+dims, weights, nominals, thresholds, signs and polyline segments, as a
+ctypes struct passed by value, and the polyline segments as a small device
+tensor.
+
+An atom or constraint with no device form raises NotImplementedError, so
+a kernel is never launched on a problem it cannot compute.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ilqgames_tpu_torch import geometry
+from ilqgames_tpu_torch.costs import player_cost as pcost
+from ilqgames_tpu_torch.types import GameSpec, const_tensor
+
+MAX_ATOMS = 32
+MAX_PLAYERS = 8
+KIND = {"quadratic": 0, "polyline": 1, "proximity": 2}
+
+
+class CostAtom(ctypes.Structure):
+    _fields_ = [("kind", ctypes.c_int), ("player", ctypes.c_int),
+                ("on", ctypes.c_int), ("dim", ctypes.c_int * 4),
+                ("seg0", ctypes.c_int), ("nseg", ctypes.c_int),
+                ("lam", ctypes.c_int), ("w", ctypes.c_float),
+                ("aux", ctypes.c_float), ("ends", ctypes.c_float * 4)]
+
+
+class CostTable(ctypes.Structure):
+    _fields_ = [("n", ctypes.c_int), ("atom", CostAtom * MAX_ATOMS),
+                ("state_reg", ctypes.c_float * MAX_PLAYERS),
+                ("ctrl_reg", ctypes.c_float * MAX_PLAYERS),
+                ("ctrl_players", ctypes.c_int * MAX_PLAYERS),
+                ("udims", ctypes.c_int * MAX_PLAYERS)]
+
+
+def _device_form(atom):
+    if atom.device is None:
+        raise NotImplementedError(
+            f"{atom.name!r} has no device form in the stage and merit "
+            "kernels (csrc/costs.cuh)")
+    return atom.device
+
+
+@functools.lru_cache(maxsize=None)
+def _build(player_costs, spec: GameSpec):
+    """(CostTable, segment rows) of a game: rows of 7 Python floats,
+    p1x p1y p2x p2y ux uy length, as geometry computes them."""
+    pcost.check_structures(player_costs)
+    if len(player_costs) > MAX_PLAYERS:
+        raise NotImplementedError(f"more than {MAX_PLAYERS} players")
+    tab = CostTable()
+    segs = []
+    atoms = []
+    lam_row = 0
+    for i, pc in enumerate(player_costs):
+        if pc.control_constraints:
+            raise NotImplementedError(
+                f"player {i}: control constraints have no device form in "
+                "the stage and merit kernels")
+        for c in pc.state_costs:
+            atoms.append((i, -1, _device_form(c), None))
+        for con in pc.state_constraints:
+            atoms.append((i, -1, _device_form(con), lam_row))
+            lam_row += 1
+        for j, c in pc.control_costs:
+            if _device_form(c)[0] != "quadratic":
+                raise NotImplementedError(
+                    f"{c.name!r}: only quadratic control costs have a "
+                    "device form")
+            atoms.append((i, j, c.device, None))
+        tab.state_reg[i] = pc.state_regularization
+        tab.ctrl_reg[i] = pc.control_regularization
+        tab.ctrl_players[i] = sum(1 << j for j in pc.control_players())
+    for i, d in enumerate(spec.udims):
+        tab.udims[i] = d
+    if len(atoms) > MAX_ATOMS:
+        raise NotImplementedError(f"more than {MAX_ATOMS} cost atoms")
+
+    for n, (i, on, (kind, prm), lam) in enumerate(atoms):
+        a = tab.atom[n]
+        a.kind, a.player, a.on = KIND[kind], i, on
+        if kind == "quadratic":
+            a.dim[0], a.w, a.aux = prm["dim"], prm["weight"], prm["nominal"]
+        elif kind == "polyline":
+            pts, rows = geometry._static_segments(prm["points"])
+            a.dim[0], a.dim[1], a.w = prm["xidx"], prm["yidx"], prm["weight"]
+            a.seg0, a.nseg = len(segs), len(rows)
+            for p1, p2, unit, length in rows:
+                segs.append(p1 + p2 + unit + (length,))
+            a.ends[:] = [float(pts[0][0]), float(pts[0][1]),
+                         float(pts[-1][0]), float(pts[-1][1])]
+        elif kind == "proximity":
+            a.dim[:] = list(prm["dims"])
+            a.w, a.aux, a.lam = prm["threshold"], prm["sign"], lam
+        else:
+            raise NotImplementedError(f"atom kind {kind!r}")
+    tab.n = len(atoms)
+    return tab, tuple(v for row in segs for v in row) or (0.0,)
+
+
+def cost_table(player_costs, spec: GameSpec, device):
+    """(CostTable, segments [n, 7] float32 on `device`) for the kernels."""
+    tab, flat = _build(tuple(player_costs), spec)
+    segs = const_tensor(flat, torch.device(device))
+    return tab, segs

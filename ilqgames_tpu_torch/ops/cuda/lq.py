@@ -14,6 +14,7 @@ lf [N,P*x,B], Rf [N,P*P*u,u,B], rf [N,P*P*u,B].
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,10 +35,16 @@ def _pad_rows(spec: GameSpec):
             for a in range(d, spec.umax)]
 
 
+def library(spec: GameSpec):
+    """(source name, defines) of csrc/lq.cu for this game's dims."""
+    return "lq", {"LQ_X": spec.xdim, "LQ_P": spec.num_players,
+                  "LQ_U": spec.umax}
+
+
+@functools.lru_cache(maxsize=None)
 def load_kernels(spec: GameSpec) -> ctypes.CDLL:
     """Build (once per shape) and load csrc/lq.cu for this game's dims."""
-    lib = build.load("lq", {"LQ_X": spec.xdim, "LQ_P": spec.num_players,
-                            "LQ_U": spec.umax})
+    lib = build.load(*library(spec))
     lib.lq_backward.argtypes = [_P] * 8 + [_I] * 4 + [_P]
     lib.lq_backward.restype = _I
     lib.lq_forward.argtypes = [_P] * 5 + [_I] * 2 + [_P]

@@ -1,33 +1,42 @@
-"""Candidate rollout (kernel K4) and the linesearch merit sweep, counterpart
-of ilqgames_tpu/ops/pallas/sweep.py under its default configuration
-(merit_backend="xla", emit_us=False).
+"""Candidate rollout (kernel K4), the rollout with in-kernel merit (K5),
+the merit consumer (K6) and the linesearch merit sweep: counterpart of
+ilqgames_tpu/ops/pallas/sweep.py with emit_us=False.
 
-`rollout_bm` launches csrc/sweep.cu on CUDA tensors and takes its plain
-PyTorch version `rollout_plain` (same operands and layout) on CPU
-tensors; any other device raises. It keeps a launch count.
+Each kernel's wrapper (`rollout_bm`: K4 and `rollout_merits`: K5, in
+csrc/sweep.cu; `consumer_merits`: K6, in csrc/merit.cu) launches it on
+CUDA tensors and takes its plain PyTorch version on CPU tensors; any
+other device raises. Each keeps a launch count.
 
-The merit of each candidate is computed outside the kernel from its
-emitted states: `_us_from_xs` rebuilds the controls with the kernel's
-fold order and `_xla_merits` folds the gated squared stage gradients
-over the knots in ascending order (control terms always, state terms
-for k > 0). Only the SUM cost structure is ported, so every extremal
-gate is 1 and is not materialized.
+The sweep's `merit_backend` picks how a candidate's merit is computed,
+as the JAX package's does:
+- "xla" (default): K4 emits the candidates' states, `_us_from_xs`
+  rebuilds their controls with the kernel's fold order, and `merit_plain`
+  folds the squared stage gradients over the knots in ascending order
+  (control terms always, state terms for k > 0) in plain PyTorch;
+- "pallas": the same emission, folded by K6;
+- "kernel": K5 rolls out and folds in one kernel, emitting only merits.
+The three compute the same operations in the same order. Only the SUM
+cost structure is ported, so every extremal gate is 1 and is not
+materialized.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ilqgames_tpu_torch.costs import player_cost as pcost
 from ilqgames_tpu_torch.dynamics import base as dyn_base
 from ilqgames_tpu_torch.ops.cuda import build
+from ilqgames_tpu_torch.ops.cuda.cost_table import CostTable, cost_table
 from ilqgames_tpu_torch.ops.cuda.layout import bm, mb, pad_batch
 from ilqgames_tpu_torch.types import GameSpec, OperatingPoint, Strategy, \
     const_tensor
 
 _MAX_SUBSYS = 8
+MERIT_BACKENDS = ("xla", "kernel", "pallas")
 
 
 class _SubsysTable(ctypes.Structure):
@@ -65,15 +74,48 @@ def _umask_flat(spec: GameSpec):
                  for a in range(spec.umax))
 
 
+def library(spec: GameSpec):
+    """(source name, defines) of csrc/sweep.cu (K4, K5)."""
+    return "sweep", {"SW_X": spec.xdim, "SW_PU": spec.num_players * spec.umax,
+                     "SW_U": spec.umax}
+
+
+def merit_library(spec: GameSpec):
+    """(source name, defines) of csrc/merit.cu (K6)."""
+    return "merit", {"MR_X": spec.xdim, "MR_P": spec.num_players,
+                     "MR_U": spec.umax}
+
+
+@functools.lru_cache(maxsize=None)
 def load_kernels(spec: GameSpec) -> ctypes.CDLL:
-    """Build (once per shape) and load csrc/sweep.cu for this game's dims."""
-    lib = build.load("sweep", {"SW_X": spec.xdim,
-                               "SW_PU": spec.num_players * spec.umax})
+    """Build (once per shape) and load csrc/sweep.cu (K4, K5) for this
+    game's dims."""
+    lib = build.load(*library(spec))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sweep_rollout.argtypes = ([P] * 9 + [I] * 3 + [F, F, I, _SubsysTable,
                                                        P])
     lib.sweep_rollout.restype = I
+    lib.sweep_rollout_merit.argtypes = ([P] * 8 + [I] + [P] * 3 + [I] * 3
+                                        + [F, F, I, _SubsysTable, CostTable,
+                                           P])
+    lib.sweep_rollout_merit.restype = I
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_merit_kernel(spec: GameSpec) -> ctypes.CDLL:
+    """Build (once per shape) and load csrc/merit.cu (K6)."""
+    lib = build.load(*merit_library(spec))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.merit_consumer.argtypes = ([P] * 3 + [I] + [P] * 3 + [I] * 3
+                                   + [CostTable, P])
+    lib.merit_consumer.restype = I
+    return lib
+
+
+def merit_operands(lamS, N: int, B: int) -> list:
+    """The multiplier operand of a kernel, for build.check_operands."""
+    return [] if lamS is None else [("lamS", lamS, (N, lamS.shape[1], B))]
 
 
 def rollout_plain(dyn, spec: GameSpec, x0m, op_bm: dict, st_bm: dict,
@@ -140,18 +182,79 @@ def rollout_bm(dyn, spec: GameSpec, x0m, op_bm: dict, st_bm: dict, scal_cb,
 rollout_bm.launches = 0
 
 
+def rollout_merits_plain(dyn, player_costs, spec: GameSpec, x0m, op_bm: dict,
+                         st_bm: dict, scal_cb, lamS, lamC, mu):
+    """Plain PyTorch K5: K4's rollout, the rebuilt controls and
+    `merit_plain`'s fold: raw merits [C, B]."""
+    xs = rollout_plain(dyn, spec, x0m, op_bm, st_bm, scal_cb)
+    us = _us_from_xs(spec, xs, op_bm, st_bm, scal_cb)
+    return merit_plain(player_costs, spec, xs, us, op_bm["t0"], lamS, lamC,
+                       mu)
+
+
+def rollout_merits(dyn, player_costs, spec: GameSpec, x0m, op_bm: dict,
+                   st_bm: dict, scal_cb, lamS, lamC, mu):
+    """K5: raw merits [C, B] of the candidates' rollouts (operands as
+    `rollout_plain`'s, plus the batch-minor multipliers of `_prep_al`).
+    CUDA tensors launch csrc/sweep.cu's rollout with in-kernel merit; CPU
+    tensors take `rollout_merits_plain`."""
+    N, x = spec.num_time_steps, spec.xdim
+    Pu = spec.num_players * spec.umax
+    C, B = scal_cb.shape
+    dev = build.check_operands([
+        ("x0m", x0m, (x, B)), ("xs", op_bm["xs"], (N, x, B)),
+        ("us", op_bm["us"], (N, Pu, B)), ("t0", op_bm["t0"], (1, B)),
+        ("Ps", st_bm["Ps"], (N, Pu, x, B)),
+        ("alphas", st_bm["alphas"], (N, Pu, B)), ("scal", scal_cb, (C, B)),
+        ("mu", mu, (1, B))] + merit_operands(lamS, N, B))
+    if dev.type == "cpu":
+        return rollout_merits_plain(dyn, player_costs, spec, x0m, op_bm,
+                                    st_bm, scal_cb, lamS, lamC, mu)
+    if lamC is not None:
+        raise NotImplementedError("control constraints are not ported yet")
+    tab = _device_table(dyn, spec)
+    costs, segs = cost_table(player_costs, spec, dev)
+    lib = load_kernels(spec)
+    merits = torch.empty((C, B), dtype=torch.float32, device=dev)
+    umask = sum(1 << af for af, m in enumerate(_umask_flat(spec)) if m)
+    rc = lib.sweep_rollout_merit(
+        x0m.data_ptr(), op_bm["xs"].data_ptr(), op_bm["us"].data_ptr(),
+        st_bm["Ps"].data_ptr(), st_bm["alphas"].data_ptr(),
+        op_bm["t0"].data_ptr(), scal_cb.data_ptr(),
+        None if lamS is None else lamS.data_ptr(),
+        0 if lamS is None else lamS.shape[1], mu.data_ptr(), segs.data_ptr(),
+        merits.data_ptr(), N, C, B, spec.dt, spec.dt / 2, umask, tab, costs,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "sweep_rollout_merit")
+    rollout_merits.launches += 1
+    return merits
+
+
+rollout_merits.launches = 0
+
+
+def _prep_op(spec: GameSpec, x0, last_op: OperatingPoint, Bb: int):
+    """Batch-major x0 and operating point -> padded batch-minor
+    ({"xs" [N,x,B], "us" [N,Pu,B], "t0" [1,B]}, x0m [x,B])."""
+    N, P, u = spec.num_time_steps, spec.num_players, spec.umax
+    Bt = x0.shape[0]
+    pad = lambda a: pad_batch(bm(a), Bb).contiguous()
+    op = {"xs": pad(last_op.xs),
+          "us": pad(last_op.us.reshape(Bt, N, P * u)),
+          "t0": pad(last_op.t0[:, None])}
+    return op, pad(x0)
+
+
 def _prep_common(spec: GameSpec, x0, last_op: OperatingPoint,
                  strategy: Strategy, Bb: int):
     """Batch-major containers -> padded batch-minor operand dicts."""
     N, P, x, u = spec.num_time_steps, spec.num_players, spec.xdim, spec.umax
     Bt = x0.shape[0]
     pad = lambda a: pad_batch(bm(a), Bb).contiguous()
-    op = {"xs": pad(last_op.xs),
-          "us": pad(last_op.us.reshape(Bt, N, P * u)),
-          "t0": pad(last_op.t0[:, None])}
+    op, x0m = _prep_op(spec, x0, last_op, Bb)
     st = {"Ps": pad(strategy.Ps.reshape(Bt, N, P * u, x)),
           "alphas": pad(strategy.alphas.reshape(Bt, N, P * u))}
-    return op, st, pad(x0)
+    return op, st, x0m
 
 
 def _prep_al(spec: GameSpec, al_state: pcost.ALState, Bb: int):
@@ -182,12 +285,12 @@ def _us_from_xs(spec: GameSpec, xs_cand, op_bm: dict, st_bm: dict, scal_cb):
     return row * mask[None, :, None, None]
 
 
-def _xla_merits(player_costs, spec: GameSpec, xs_cand, us_cand, t0_bm,
+def merit_plain(player_costs, spec: GameSpec, xs_cand, us_cand, t0_bm,
                 lamS, lamC, mu):
     """Raw merits [C, B] of emitted candidate trajectories (xs [N,x,C,B],
     us [N,Pu,C,B]): per-knot squared stage gradients, control terms always
     and state terms for k > 0, folded over the knots in ascending order.
-    Callers apply the 0.5 factor."""
+    Callers apply the 0.5 factor. The plain version of K5 and K6."""
     N, P, u = spec.num_time_steps, spec.num_players, spec.umax
     _, _, C, B = xs_cand.shape
     n_sc = [len(pc.state_constraints) for pc in player_costs]
@@ -219,6 +322,40 @@ def _xla_merits(player_costs, spec: GameSpec, xs_cand, us_cand, t0_bm,
     return merit
 
 
+def consumer_merits(player_costs, spec: GameSpec, xs_cand, us_cand, t0_bm,
+                    lamS, lamC, mu):
+    """K6: raw merits [C, B] of emitted candidate trajectories (operands
+    as `merit_plain`'s). CUDA tensors launch csrc/merit.cu; CPU tensors
+    take `merit_plain`."""
+    N, x = spec.num_time_steps, spec.xdim
+    Pu = spec.num_players * spec.umax
+    _, _, C, B = xs_cand.shape
+    dev = build.check_operands([
+        ("xs", xs_cand, (N, x, C, B)), ("us", us_cand, (N, Pu, C, B)),
+        ("t0", t0_bm, (1, B)), ("mu", mu, (1, B))]
+        + merit_operands(lamS, N, B))
+    if dev.type == "cpu":
+        return merit_plain(player_costs, spec, xs_cand, us_cand, t0_bm, lamS,
+                           lamC, mu)
+    if lamC is not None:
+        raise NotImplementedError("control constraints are not ported yet")
+    costs, segs = cost_table(player_costs, spec, dev)
+    lib = load_merit_kernel(spec)
+    merits = torch.empty((C, B), dtype=torch.float32, device=dev)
+    rc = lib.merit_consumer(
+        xs_cand.data_ptr(), us_cand.data_ptr(),
+        None if lamS is None else lamS.data_ptr(),
+        0 if lamS is None else lamS.shape[1], mu.data_ptr(), segs.data_ptr(),
+        merits.data_ptr(), N, C, B, costs,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "merit_consumer")
+    consumer_merits.launches += 1
+    return merits
+
+
+consumer_merits.launches = 0
+
+
 def rollout(dyn, spec: GameSpec, x0, last_op: OperatingPoint,
             strategy: Strategy, scal=None, batch_block: int = 128
             ) -> OperatingPoint:
@@ -238,8 +375,30 @@ def rollout(dyn, spec: GameSpec, x0, last_op: OperatingPoint,
                           t0=last_op.t0)
 
 
+def sweep_merits_bm(dyn, player_costs, spec: GameSpec, x0m, op_bm: dict,
+                    st_bm: dict, scal_cb, lamS, lamC, mu,
+                    merit_backend: str = "xla"):
+    """Merits [C, B] (0.5 * the folded squared stage gradients) of the
+    candidates scal_cb [C, B] on batch-minor operands, through the chosen
+    `merit_backend` (see the module docstring)."""
+    if merit_backend == "kernel":
+        merits = rollout_merits(dyn, player_costs, spec, x0m, op_bm, st_bm,
+                                scal_cb, lamS, lamC, mu)
+    elif merit_backend in ("xla", "pallas"):
+        xs_cand = rollout_bm(dyn, spec, x0m, op_bm, st_bm, scal_cb)
+        us_cand = _us_from_xs(spec, xs_cand, op_bm, st_bm, scal_cb)
+        fold = consumer_merits if merit_backend == "pallas" else merit_plain
+        merits = fold(player_costs, spec, xs_cand, us_cand, op_bm["t0"],
+                      lamS, lamC, mu)
+    else:
+        raise ValueError(f"merit_backend must be one of {MERIT_BACKENDS}, "
+                         f"got {merit_backend!r}")
+    return 0.5 * merits
+
+
 def sweep_merits(dyn, player_costs, spec: GameSpec, x0, last_op, strategy,
-                 scalings, al_state, batch_block: int = 128):
+                 scalings, al_state, batch_block: int = 128,
+                 merit_backend: str = "xla"):
     """Merit of every candidate stepsize: [Bt, C] (0.5 * the folded
     squared stage gradients along each candidate's rollout). `scalings`
     is [C] (shared) or [Bt, C] (per lane)."""
@@ -252,8 +411,6 @@ def sweep_merits(dyn, player_costs, spec: GameSpec, x0, last_op, strategy,
         scal_cb = pad_batch(scalings.T, batch_block).contiguous()
     else:
         scal_cb = scalings[:, None].expand(-1, B).contiguous()
-    xs_cand = rollout_bm(dyn, spec, x0m, op, st, scal_cb)
-    us_cand = _us_from_xs(spec, xs_cand, op, st, scal_cb)
-    merits = _xla_merits(player_costs, spec, xs_cand, us_cand, op["t0"],
-                         lamS, lamC, mu)
-    return 0.5 * mb(merits, Bt)
+    merits = sweep_merits_bm(dyn, player_costs, spec, x0m, op, st, scal_cb,
+                             lamS, lamC, mu, merit_backend)
+    return mb(merits, Bt)

@@ -1,11 +1,17 @@
 """Batch-level AL + iLQ solver driving the CUDA kernels (counterpart of
-ilqgames_tpu/solver/batched.py:55-847 under `fuse_stages=False`).
+ilqgames_tpu/solver/batched.py:55-1057).
 
 The machine mirrors the JAX package's flat per-lane state machine: the
 same accept rules, merit carryover across inner solves and AL
-bookkeeping, on whole batches. Linearize and quadraticize are plain
-PyTorch over every lane and knot; the horizon recursions run as the
+bookkeeping, on whole batches. The horizon recursions run as the
 hand-written kernels K2/K3 (ops/cuda/lq.py) and K4 (ops/cuda/sweep.py).
+With `fuse_stages` (the drivers' default, as in the JAX package),
+linearize and quadraticize run as the stage kernel K1 (ops/cuda/stage.py)
+from (op, al) every trip, feeding K2 batch-minor, and no quadraticization
+is carried; without it they are plain PyTorch over every lane and knot
+and the quadraticization is carried. `merit_backend` picks how the
+linesearch merits are folded (ops/cuda/sweep.py: plain PyTorch, K5 or
+K6).
 
 Where the JAX package decides on device (`while_loop`, `cond` on any()),
 the port reads one flag to the host per round: the deep-ladder round
@@ -22,14 +28,15 @@ import torch
 
 from ilqgames_tpu_torch.costs import player_cost as pcost
 from ilqgames_tpu_torch.dynamics import base as dyn_base
-from ilqgames_tpu_torch.ops.cuda import lq, sweep
+from ilqgames_tpu_torch.ops.cuda import lq, stage, sweep
+from ilqgames_tpu_torch.ops.cuda.layout import mb, pad_batch
 from ilqgames_tpu_torch.solver import ilq
 from ilqgames_tpu_torch.solver.al import ALResult, constraint_violations, \
     max_constraint_violation
 from ilqgames_tpu_torch.solver.fused import _FusedCarry
 from ilqgames_tpu_torch.solver.params import SolverParams
-from ilqgames_tpu_torch.types import OperatingPoint, Strategy, tree_leaves, \
-    tree_map
+from ilqgames_tpu_torch.types import OperatingPoint, QuadraticCosts, \
+    Strategy, tree_leaves, tree_map
 
 
 def new_stats() -> dict:
@@ -58,6 +65,53 @@ def _bwhere(mask, a, b):
     return tree_map(sel, a, b)
 
 
+def _resolve_fuse_for(params: SolverParams, fuse_stages, dyn) -> bool:
+    """fuse_stages None -> True (the JAX package's default); False for
+    dynamics without analytic Jacobians, which K1 needs, and for open
+    loop (which the port does not run yet)."""
+    fs = True if fuse_stages is None else bool(fuse_stages)
+    if params.open_loop or dyn.ode_jac is None:
+        return False
+    return fs
+
+
+def _empty_quad(Bt: int, device) -> QuadraticCosts:
+    """Zero-size quadraticization placeholder of the fused-stage machine,
+    which recomputes the quadraticization from (op, al) every trip: a
+    carried one is never consumed with a stale al, since failed lanes
+    always pass through the reinit boundary."""
+    z = lambda *s: torch.zeros((Bt,) + s, device=device)
+    return QuadraticCosts(Q=z(0, 0, 0, 0), l=z(0, 0, 0), R=z(0, 0, 0, 0, 0),
+                          r=z(0, 0, 0, 0))
+
+
+def _expected_decrease_bm(spec, ops: dict, al_r, dxs):
+    """`ilq._expected_decrease` from the batch-minor stage and LQ arrays
+    (ops, al_r [ns, Pu, B], dxs [N, x, B]): [B]. The same left folds and
+    the same `ilq._fixed_order_sum` over the same (knot, player, index)
+    order as the batch-major form, with the strategy's zero terminal row,
+    so both give the same bits on every device."""
+    N, P, x, u = spec.num_time_steps, spec.num_players, spec.xdim, spec.umax
+    B = dxs.shape[-1]
+    R6 = ops["Rf"].reshape(N, P, P, u, u, B)
+    r5 = ops["rf"].reshape(N, P, P, u, B)
+    R_ii = torch.stack([R6[:, i, i] for i in range(P)], 1)   # [N,P,u,u,B]
+    r_ii = torch.stack([r5[:, i, i] for i in range(P)], 1)   # [N,P,u,B]
+    Rr = R_ii[:, :, :, 0] * r_ii[:, :, 0, None]              # [N,P,u,B]
+    for v in range(1, u):
+        Rr = Rr + R_ii[:, :, :, v] * r_ii[:, :, v, None]
+    Q6 = ops["Qf"].reshape(N, P, x, x, B)
+    l5 = ops["lf"].reshape(N, P, x, B)
+    Ql = Q6[1:, :, :, 0] * l5[1:, :, 0, None]                # [N-1,P,x,B]
+    for y in range(1, x):
+        Ql = Ql + Q6[1:, :, :, y] * l5[1:, :, y, None]
+    alphas = torch.cat([al_r, al_r.new_zeros((1,) + al_r.shape[1:])])
+    control = ilq._fixed_order_sum(
+        (alphas.reshape(N, P, u, B) * Rr).reshape(-1, B).T)
+    state = ilq._fixed_order_sum((dxs[1:, None] * Ql).reshape(-1, B).T)
+    return -control - state
+
+
 def _check_supported(player_costs, params: SolverParams):
     pcost.check_structures(player_costs)
     if params.open_loop:
@@ -71,36 +125,95 @@ def _check_supported(player_costs, params: SolverParams):
 
 
 def iteration_step_batched(dyn, player_costs, spec, params, x0, al_state, c,
-                           *, active=None, batch_block=128, stats=None):
+                           *, active=None, batch_block=128, stats=None,
+                           fuse_stages=False, merit_backend="xla"):
     """ONE iLQ iteration for a whole batch (the batch-level twin of
     ilq.iteration_step). `active` ([Bt] bool) marks lanes whose results the
-    caller keeps; lanes outside it cannot force deep-ladder rounds."""
+    caller keeps; lanes outside it cannot force deep-ladder rounds.
+    `fuse_stages`: linearize and quadraticize through K1 from (c.op,
+    al_state) and keep the operands batch-minor; `c.quad` is not read."""
     _check_supported(player_costs, params)
     Bt = x0.shape[0]
     dev = x0.device
     last_op = c.op
+    Bb = batch_block
 
-    lin = dyn_base.linearize(dyn, spec, c.op)
-    lqsol = lq.solve_lq_feedback(
-        spec, lin, c.quad, x0 - c.op.xs[:, 0],
-        adaptive_regularization=params.adaptive_regularization,
-        batch_block=batch_block)
-    expected_decrease = ilq._expected_decrease(
-        spec, c.quad, lqsol.strategy.alphas, lqsol.delta_xs)
-    lq_strategy = lqsol.strategy
+    if fuse_stages:
+        N, P, um, xd = (spec.num_time_steps, spec.num_players, spec.umax,
+                        spec.xdim)
+        op_bm, x0m = sweep._prep_op(spec, x0, last_op, Bb)
+        lamS, lamC, mu_bm = sweep._prep_al(spec, al_state, Bb)
+        ops = stage.lin_quad(dyn, player_costs, spec, op_bm, lamS, lamC,
+                             mu_bm)
+        Ps_r, al_r, dxs = lq.solve_lq_feedback_bm(
+            spec, ops, x0m - op_bm["xs"][0],
+            adaptive_regularization=params.adaptive_regularization)
+        st_bm = {"Ps": torch.cat([Ps_r, Ps_r.new_zeros((1,) + Ps_r.shape[1:])]),
+                 "alphas": torch.cat([al_r,
+                                      al_r.new_zeros((1,) + al_r.shape[1:])])}
+        expected_decrease = _expected_decrease_bm(spec, ops, al_r, dxs)[:Bt]
+        lq_strategy = Strategy(
+            Ps=mb(st_bm["Ps"], Bt).reshape(Bt, N, P, um, xd),
+            alphas=mb(st_bm["alphas"], Bt).reshape(Bt, N, P, um))
 
-    def sweep_chunk_fn(scal_c):
-        return sweep.sweep_merits(dyn, player_costs, spec, x0, last_op,
-                                  lq_strategy, scal_c, al_state,
-                                  batch_block=batch_block)
+        def sweep_chunk_fn(scal_c):
+            scal_cb = scal_c[:, None].expand(-1, x0m.shape[-1]).contiguous()
+            m = sweep.sweep_merits_bm(dyn, player_costs, spec, x0m, op_bm,
+                                      st_bm, scal_cb, lamS, lamC, mu_bm,
+                                      merit_backend)
+            return m[:, :Bt].T
 
-    def sweep_compact_fn(sel, scal_w):
-        # Gather the selected lanes into one block; scal_w [Bc, CD] gives
-        # each gathered lane its own candidate window.
-        g = lambda t: tree_map(lambda a: a[sel], t)
-        return sweep.sweep_merits(dyn, player_costs, spec, x0[sel],
-                                  g(last_op), g(lq_strategy), scal_w,
-                                  g(al_state), batch_block=sel.shape[0])
+        def sweep_compact_fn(sel, scal_w):
+            # Gather the selected lanes (the last axis) into one block;
+            # scal_w [Bc, CD] gives each gathered lane its own window.
+            g = lambda a: None if a is None else a[..., sel]
+            m = sweep.sweep_merits_bm(
+                dyn, player_costs, spec, g(x0m),
+                {k: g(v) for k, v in op_bm.items()},
+                {k: g(v) for k, v in st_bm.items()}, scal_w.T.contiguous(),
+                g(lamS), g(lamC), g(mu_bm), merit_backend)
+            return m.T
+
+        def reroll_fn(scal_lane):
+            scal_cb = pad_batch(scal_lane[None], Bb).contiguous()
+            xs_r, us_r = sweep.rollout_bm(dyn, spec, x0m, op_bm, st_bm,
+                                          scal_cb, emit_us=True)
+            return OperatingPoint(
+                xs=mb(xs_r[:, :, 0], Bt),
+                us=mb(us_r[:, :, 0], Bt).reshape(Bt, N, P, um), t0=last_op.t0)
+
+        quad_of = lambda op: _empty_quad(Bt, dev)
+    else:
+        lin = dyn_base.linearize(dyn, spec, c.op)
+        lqsol = lq.solve_lq_feedback(
+            spec, lin, c.quad, x0 - c.op.xs[:, 0],
+            adaptive_regularization=params.adaptive_regularization,
+            batch_block=batch_block)
+        expected_decrease = ilq._expected_decrease(
+            spec, c.quad, lqsol.strategy.alphas, lqsol.delta_xs)
+        lq_strategy = lqsol.strategy
+
+        def sweep_chunk_fn(scal_c):
+            return sweep.sweep_merits(dyn, player_costs, spec, x0, last_op,
+                                      lq_strategy, scal_c, al_state,
+                                      batch_block=batch_block,
+                                      merit_backend=merit_backend)
+
+        def sweep_compact_fn(sel, scal_w):
+            # Gather the selected lanes into one block; scal_w [Bc, CD]
+            # gives each gathered lane its own candidate window.
+            g = lambda t: tree_map(lambda a: a[sel], t)
+            return sweep.sweep_merits(dyn, player_costs, spec, x0[sel],
+                                      g(last_op), g(lq_strategy), scal_w,
+                                      g(al_state), batch_block=sel.shape[0],
+                                      merit_backend=merit_backend)
+
+        def reroll_fn(scal_lane):
+            return sweep.rollout(dyn, spec, x0, last_op, lq_strategy,
+                                 scal=scal_lane, batch_block=batch_block)
+
+        quad_of = lambda op: pcost.quadraticize(player_costs, spec, op,
+                                                al_state)
 
     n_cand = params.max_backtracking_steps
     scalings = params.initial_alpha_scaling * (
@@ -185,9 +298,8 @@ def iteration_step_batched(dyn, player_costs, spec, params, x0, al_state, c,
 
     strategy_sel = lq_strategy.replace(
         alphas=lq_strategy.alphas * scal_sel[:, None, None, None])
-    op_sel = sweep.rollout(dyn, spec, x0, last_op, lq_strategy,
-                           scal=scal_sel, batch_block=batch_block)
-    quad_sel = pcost.quadraticize(player_costs, spec, op_sel, al_state)
+    op_sel = reroll_fn(scal_sel)
+    quad_sel = quad_of(op_sel)
 
     converged = passed & (merit_sel <= c.last_merit) & (
         torch.abs(c.last_merit - merit_sel) < params.convergence_tolerance)
@@ -204,15 +316,17 @@ def iteration_step_batched(dyn, player_costs, spec, params, x0, al_state, c,
 
 
 def _init_inner_batched(dyn, player_costs, spec, x0, op, strategy, al,
-                        last_merit, *, batch_block):
+                        last_merit, *, batch_block, fuse_stages=False):
     """Batched ILQSolver::Solve initialization: roll out from the warm
-    start and quadraticize at the current multipliers."""
+    start and quadraticize at the current multipliers (not carried under
+    `fuse_stages`)."""
     Bt = x0.shape[0]
     xs = op.xs.clone()
     xs[:, 0] = x0
     current_op = sweep.rollout(dyn, spec, x0, op.replace(xs=xs), strategy,
                                batch_block=batch_block)
-    quad = pcost.quadraticize(player_costs, spec, current_op, al)
+    quad = (_empty_quad(Bt, x0.device) if fuse_stages else
+            pcost.quadraticize(player_costs, spec, current_op, al))
     zi = torch.zeros((Bt,), dtype=torch.int32, device=x0.device)
     zb = torch.zeros((Bt,), dtype=torch.bool, device=x0.device)
     return ilq._SolveCarry(
@@ -223,11 +337,12 @@ def _init_inner_batched(dyn, player_costs, spec, x0, op, strategy, al,
 
 
 def _trip_batched(dyn, player_costs, spec, params, x0, fc, *, batch_block,
-                  stats=None):
+                  stats=None, fuse_stages=False, merit_backend="xla"):
     """One trip of the flat machine, batch-level (twin of fused._trip)."""
     c2 = iteration_step_batched(
         dyn, player_costs, spec, params, x0, fc.al, fc.c, active=~fc.done,
-        batch_block=batch_block, stats=stats)
+        batch_block=batch_block, stats=stats, fuse_stages=fuse_stages,
+        merit_backend=merit_backend)
     inner_iters = fc.inner_iters + 1
     cum_iters = fc.cum_iters + 1
     inner_end = c2.converged | c2.failed | (
@@ -260,7 +375,7 @@ def _trip_batched(dyn, player_costs, spec, params, x0, fc, *, batch_block,
         al_inc = al_inc.replace(mu=al_inc.mu * params.geometric_mu_scaling)
         c3 = _init_inner_batched(
             dyn, player_costs, spec, x0, warm_op, warm_strategy, al_inc,
-            c2.last_merit, batch_block=batch_block)
+            c2.last_merit, batch_block=batch_block, fuse_stages=fuse_stages)
     else:
         c3, al_inc, violation_new = c2, fc.al, fc.violation
 
@@ -277,12 +392,14 @@ def _trip_batched(dyn, player_costs, spec, params, x0, fc, *, batch_block,
     )
 
 
-def _carry0(dyn, player_costs, spec, x0_b, wop_b, wst_b, al_b, batch_block):
+def _carry0(dyn, player_costs, spec, x0_b, wop_b, wst_b, al_b, batch_block,
+            fuse_stages=False):
     Bt = x0_b.shape[0]
     dev = x0_b.device
     c0 = _init_inner_batched(
         dyn, player_costs, spec, x0_b, wop_b, wst_b, al_b,
-        torch.full((Bt,), torch.inf, device=dev), batch_block=batch_block)
+        torch.full((Bt,), torch.inf, device=dev), batch_block=batch_block,
+        fuse_stages=fuse_stages)
     return _FusedCarry(
         c=c0, al=al_b, warm_op=c0.op, warm_strategy=c0.strategy,
         inner_iters=torch.zeros((Bt,), dtype=torch.int32, device=dev),
@@ -306,14 +423,17 @@ def _pad_args(args, m):
     return tuple(tree_map(pad1, a) for a in args), Bt
 
 
-def _driver_parts(dyn, player_costs, spec, params, batch_block):
+def _driver_parts(dyn, player_costs, spec, params, batch_block,
+                  fuse_stages=False, merit_backend="xla"):
     """(trip, finalize): the masked trip and the result assembly shared by
     the host-stepped drivers."""
     _check_supported(player_costs, params)
 
     def trip(x0_b, fc, stats=None):
         fc2 = _trip_batched(dyn, player_costs, spec, params, x0_b, fc,
-                            batch_block=batch_block, stats=stats)
+                            batch_block=batch_block, stats=stats,
+                            fuse_stages=fuse_stages,
+                            merit_backend=merit_backend)
         return _bwhere(fc.done, fc, fc2)
 
     def finalize(fc):
@@ -328,17 +448,9 @@ def _driver_parts(dyn, player_costs, spec, params, batch_block):
     return trip, finalize
 
 
-def make_host_batched_solver(dyn, player_costs, spec, params,
-                             warm_op=None, warm_strategy=None,
-                             batch_block: int = 128):
-    """Batched solve stepped from the host: fn(x0 [B, xdim]) -> batched
-    ALResult, on x0's device. Each trip advances every unfinished lane by
-    one iLQ iteration; the host loops until every lane is done, reading
-    one all-done flag per trip. After a call, `fn.last_stats` holds the
-    run's counters (trips, host syncs, deep-ladder rounds, f32-collapse
-    exits)."""
-    trip, finalize = _driver_parts(dyn, player_costs, spec, params,
-                                   batch_block)
+def _fresh_init(dyn, player_costs, spec, warm_op, warm_strategy, batch_block,
+                fuse_stages):
+    """init(x0_b) -> the carry of a fresh solve of every lane of x0_b."""
     if warm_op is None:
         warm_op = OperatingPoint.zeros(spec)
     if warm_strategy is None:
@@ -351,7 +463,27 @@ def make_host_batched_solver(dyn, player_costs, spec, params,
         bc = lambda t: tree_map(
             lambda a: a.to(dev)[None].expand((Bt,) + a.shape).contiguous(), t)
         return _carry0(dyn, player_costs, spec, x0_b, bc(warm_op),
-                       bc(warm_strategy), al0, batch_block)
+                       bc(warm_strategy), al0, batch_block, fuse_stages)
+
+    return init
+
+
+def make_host_batched_solver(dyn, player_costs, spec, params,
+                             warm_op=None, warm_strategy=None,
+                             batch_block: int = 128, fuse_stages=None,
+                             merit_backend: str = "xla"):
+    """Batched solve stepped from the host: fn(x0 [B, xdim]) -> batched
+    ALResult, on x0's device. Each trip advances every unfinished lane by
+    one iLQ iteration; the host loops until every lane is done, reading
+    one all-done flag per trip. `fuse_stages` None means True (K1), as in
+    the JAX package. After a call, `fn.last_stats` holds the run's
+    counters (trips, host syncs, deep-ladder rounds, f32-collapse
+    exits)."""
+    fuse_stages = _resolve_fuse_for(params, fuse_stages, dyn)
+    trip, finalize = _driver_parts(dyn, player_costs, spec, params,
+                                   batch_block, fuse_stages, merit_backend)
+    init = _fresh_init(dyn, player_costs, spec, warm_op, warm_strategy,
+                       batch_block, fuse_stages)
 
     def run(x0):
         stats = new_stats()
@@ -364,6 +496,149 @@ def make_host_batched_solver(dyn, player_costs, spec, params,
         stats["collapse_exits"] = int(stats["collapse_exits"])
         run.last_stats = stats
         return tree_map(lambda a: a[:Bt], out)
+
+    run.last_stats = None
+    return run
+
+
+def _to_device(a, dev) -> torch.Tensor:
+    """A host index array on `dev`, copied without waiting for the
+    card's queue to drain (from pinned memory)."""
+    t = torch.from_numpy(a)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t
+
+
+def make_host_batched_queue_solver(dyn, player_costs, spec, params,
+                                   warm_op=None, warm_strategy=None,
+                                   device_batch: int = 1024,
+                                   trips_per_call: int = 10,
+                                   batch_block: int = 128,
+                                   harvest_block=None, fuse_stages=None,
+                                   merit_backend: str = "xla"):
+    """Wave-refill batched solve (counterpart of the JAX package's
+    make_host_batched_queue_solver): keeps `device_batch` lanes busy by
+    harvesting finished lanes and refilling them from the pending
+    instances, so the batch does not idle behind its slowest lanes.
+    fn(x0 [B_total, xdim]) -> ALResult for all instances, in order, on
+    x0's device.
+
+    Per-instance results are bitwise equal to make_host_batched_solver's:
+    the trip is the same (_driver_parts), every kernel and plain op is
+    lane-elementwise (lanes meet only in the selection-invariant packing
+    of the deep ladder and the any-lane reinit branch), and a refilled
+    lane starts exactly as lane 0 of a fresh solve.
+
+    Mechanics:
+    - each dispatch runs `trips_per_call` masked trips, and then reads
+      `done` once; between reads the host tracks it;
+    - harvest/refill goes in chunks of `harvest_block` lanes (default
+      `batch_block`): finalize the chunk's lanes, write their results
+      into a device-resident result buffer (in place), start the next
+      pending instances in those lanes, and retire as done the lanes
+      with no pending instance left. Ragged final chunks are padded
+      with duplicate lanes, which rewrite the same rows;
+    - once no instance is pending, the batch is compacted to half its
+      size while the active lanes fit.
+    After a call, `fn.last_stats` holds dispatches, harvests,
+    compactions, done_per_dispatch and the trip counters of
+    make_host_batched_solver."""
+    import numpy as np
+
+    fuse_stages = _resolve_fuse_for(params, fuse_stages, dyn)
+    trip, finalize = _driver_parts(dyn, player_costs, spec, params,
+                                   batch_block, fuse_stages, merit_backend)
+    init = _fresh_init(dyn, player_costs, spec, warm_op, warm_strategy,
+                       batch_block, fuse_stages)
+    H = batch_block if harvest_block is None else harvest_block
+
+    def put_rows(dst, idx, src):
+        tree_map(lambda d, s_: d.index_put_((idx,), s_), dst, src)
+
+    def run(x0_all):
+        dev = x0_all.device
+        stats = dict(new_stats(), dispatches=0, harvests=0, compactions=0,
+                     done_per_dispatch=[])
+        Btot = x0_all.shape[0]
+        D = min(-(-device_batch // H) * H, -(-Btot // H) * H)
+        n0 = min(D, Btot)
+        slot_inst = np.full((D,), -1, np.int64)
+        slot_inst[:n0] = np.arange(n0)
+        x0d = torch.cat([x0_all[:n0],
+                         x0_all[:1].expand(D - n0, x0_all.shape[1])])
+        next_i = n0
+        harvested = np.zeros((Btot,), bool)
+        fc = init(x0d)
+        if D > n0:
+            fc.done[n0:] = True
+        buf = None
+
+        while not harvested.all():
+            for _ in range(trips_per_call):
+                fc = trip(x0d, fc, stats)
+                stats["trips"] += 1
+            stats["dispatches"] += 1
+            stats["host_syncs"] += 1
+            done = fc.done.cpu().numpy().copy()
+            stats["done_per_dispatch"].append(int(done.sum()))
+            while True:
+                elig = np.nonzero(done & (slot_inst >= 0))[0]
+                pending = next_i < Btot
+                # Full chunks while instances remain; ragged chunks only
+                # in the final drain, where every harvested lane retires.
+                if not (len(elig) >= H or (not pending and len(elig))):
+                    break
+                lanes = elig[:H]
+                n = len(lanes)
+                inst = slot_inst[lanes]
+                k = min(n, Btot - next_i)
+                keep = np.zeros((H,), bool)
+                keep[:k] = True
+                fill = np.zeros((H,), np.int64)
+                fill[:k] = np.arange(next_i, next_i + k)
+                next_i += k
+                pad = lambda a: np.concatenate([a, np.full(H - n, a[0])])
+                idx = _to_device(np.stack(
+                    [pad(lanes), pad(inst), fill, keep.astype(np.int64)]),
+                    dev)
+                lanes_d, inst_d, fill_d, keep_d = idx[0], idx[1], idx[2], \
+                    idx[3].bool()
+                res = finalize(tree_map(lambda a: a[lanes_d], fc))
+                if buf is None:
+                    buf = tree_map(
+                        lambda a: a.new_zeros((Btot,) + a.shape[1:]), res)
+                put_rows(buf, inst_d, res)
+                x0_new = x0_all[fill_d]
+                new_fc = init(x0_new)
+                put_rows(fc, lanes_d, new_fc)
+                fc.done[lanes_d] = ~keep_d
+                x0d[lanes_d] = x0_new
+                stats["harvests"] += 1
+                harvested[inst] = True
+                slot_inst[lanes] = np.where(keep[:n], fill[:n], -1)
+                done[lanes] = ~keep[:n]
+            # Drain compaction: with no instance pending, gather the
+            # active lanes into half the batch while they fit.
+            if next_i >= Btot:
+                while D > batch_block:
+                    active_idx = np.nonzero(~done)[0]
+                    newD = D // 2
+                    if (newD < batch_block or newD % batch_block
+                            or len(active_idx) > newD):
+                        break
+                    fill_idx = np.nonzero(done)[0][:newD - len(active_idx)]
+                    perm = np.concatenate([active_idx, fill_idx])
+                    perm_d = _to_device(perm, dev)
+                    fc = tree_map(lambda a: a[perm_d], fc)
+                    x0d = x0d[perm_d]
+                    slot_inst = slot_inst[perm]
+                    done = done[perm]
+                    D = newD
+                    stats["compactions"] += 1
+        stats["collapse_exits"] = int(stats["collapse_exits"])
+        run.last_stats = stats
+        return buf
 
     run.last_stats = None
     return run

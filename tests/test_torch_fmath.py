@@ -34,6 +34,29 @@ def test_fmath_accuracy(name):
         assert np.max(np.abs(got - ref)) <= 1e-6
 
 
+@pytest.mark.parametrize("name", ["sin", "cos", "tan"])
+def test_fmath_large_arguments(name):
+    """Beyond 8192 rad (the headings of diverged lanes): within 1e-6 of the
+    true value up to 1e9 rad (tan: away from its poles), and sin and cos
+    within [-1, 1] for every finite float32, up to the largest."""
+    rng = np.random.RandomState(2)
+    mid = np.concatenate([rng.uniform(8192.0, 1e9, 20000),
+                          -rng.uniform(8192.0, 1e9, 20000)]).astype(np.float32)
+    huge = np.concatenate([10.0 ** rng.uniform(9.0, 38.5, 20000),
+                           [3.4028235e38, -3.4028235e38]]).astype(np.float32)
+    fn = getattr(fmath, name)
+    got = fn(torch.tensor(mid)).double().numpy()
+    ref = getattr(np, name)(mid.astype(np.float64))
+    if name == "tan":
+        keep = np.abs(np.cos(mid.astype(np.float64))) > 0.1
+        np.testing.assert_allclose(got[keep], ref[keep], rtol=1e-5,
+                                   atol=1e-6)
+    else:
+        assert np.max(np.abs(got - ref)) <= 1e-6
+        assert np.abs(fn(torch.tensor(huge)).numpy()).max() <= 1.0
+    assert bool(torch.isfinite(fn(torch.tensor(huge))).all())
+
+
 def test_fmath_special_values():
     """Zeros map to sin 0, cos 1, tan 0; NaN and infinities give NaN."""
     x = torch.tensor([0.0, -0.0, float("nan"), float("inf"), -float("inf")])

@@ -126,13 +126,15 @@ def test_init_parity(setup):
 
 
 def test_full_solve_parity(setup):
+    """The unfused stages (the drivers' default is fused stages,
+    held in test_torch_solver_fused_solve.py)."""
     jprob, prob, x0 = setup
     run_ref = jfused.make_host_batched_solver(
         jprob.dynamics, jprob.player_costs, jprob.spec, JParams(**PARAMS),
         trips_per_call=10)
     run = batched.make_host_batched_solver(
         prob.dynamics, prob.player_costs, prob.spec, SolverParams(**PARAMS),
-        batch_block=4)
+        batch_block=4, fuse_stages=False)
     ref = run_ref(jnp.asarray(x0))
     got = run(torch.tensor(x0))
     np.testing.assert_array_equal(got.converged.numpy(),
