@@ -26,7 +26,24 @@ in-kernel merit) and K6 (merit consumer). Phases:
 5. the bench's default path: 8192 instances through 2048 lanes on the
    wave-refill queue driver, harvest chunks of 32, fused stages, launch
    counters reset just before, against the JAX package's outcome on the
-   same draw and configuration (BENCH_r05.json).
+   same draw and configuration (BENCH_r05.json);
+6. the probes (ilqgames_tpu_torch/tools/, the counterparts of the JAX
+   package's TPU probes under tools/): the probe kernels P1 (dependent
+   multiply-add chain), P2 (every instantiated rung of the probe rollout)
+   and P3 (x * 2 + 1) against their plain versions, each rung's registers
+   and stack frame from ptxas; every other distinct (kernel, cost table,
+   shape) that the probe registry launches against its plain version on
+   the registry's own operands; then the four probe modules with the
+   launch counters reset just before, one JSON line per case.
+
+Every kernel's entry in the kernels line carries its bound: the larger of
+the bytes it must move (each operand read once, each output written once)
+over 3.35 TB/s and its float32 operations over 33.5e12 per second (the
+H100 SXM's published 67 TFLOP/s counts an FMA as two; the kernels issue
+separate multiplies and adds). The operations are counted on this run's
+operands by running the kernel's plain version, which repeats them in
+order, under tools/_probe.float_ops: adds, multiplies, divides, roots,
+min/max and roundings, one per output element.
 
 Prints the kernels' JSON line and the card line, then, last,
 {"ok": true, "device": {...}}. Exits nonzero, with no result line, when
@@ -46,7 +63,12 @@ import time
 # operations in the same order, without FMA contraction, so the two are
 # expected to agree bit for bit; the script prints how many lanes do.
 TOL = {"K1": 1e-5, "K2": 2e-4, "K3": 5e-4, "K4": 2e-4, "K5": 1e-5,
-       "K6": 1e-5}
+       "K6": 1e-5, "P1": 0.0, "P2": 1e-5, "P3": 0.0}
+PEAK_BYTES = 3.35e12      # H100 SXM HBM3, bytes/s
+# The H100 SXM's 67 TFLOP/s in float32 outside the tensor cores counts an
+# FMA as two operations. The kernels build with --fmad=false, so each
+# multiply and each add issues on its own: half that many per second.
+PEAK_F32_OPS = 67e12 / 2
 TRIP_TOL = 2e-3           # merits and trajectories, card vs CPU, per trip
 DIVERGED_BAND = (0.02, 0.12)  # JAX: 0.0566 at B=1024, 0.058 queue (r05)
 JAX_COST_P50 = (3057.4, 855.7, 78.2)        # plain driver, B=1024
@@ -89,6 +111,42 @@ def _compare(name, got, ref, tol):
     if not bool((err <= bound).all()):
         _fail(f"{name}: disagrees with its plain version beyond {tol:g}")
     return max_abs
+
+
+def _nbytes(*objs) -> int:
+    """Bytes of the tensors in `objs` (tensors, dicts and tuples of them,
+    None skipped)."""
+    import torch
+
+    total = 0
+    for o in objs:
+        if isinstance(o, dict):
+            total += _nbytes(*o.values())
+        elif isinstance(o, (tuple, list)):
+            total += _nbytes(*o)
+        elif isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+    return total
+
+
+def _bound(nbytes, ops):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for work that moves `nbytes` and does `ops` float32 operations."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _entry(name, source, replaces, err, ms, plain_ms, nbytes, ops,
+           library_ms=None):
+    """One kernel's record of the kernels line (its launches are added
+    once the path that runs it has run)."""
+    bound_ms, bound_by = _bound(nbytes, ops)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err, "ms": round(ms, 4),
+            "plain_ms": round(plain_ms, 4), "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": (None if library_ms is None
+                           else round(library_ms, 4))}
 
 
 def _time_ms(fn, reps):
@@ -148,6 +206,169 @@ def _check_outcome(what, res, out, shape, launches, kernels, jax_p50):
           flush=True)
 
 
+PROBE_MODULES = (("kernel_floor", 10), ("sweep_floor", 10),
+                 ("kernel_profile", 10), ("profile_components", 1))
+
+
+def _ptxas_lines(spec):
+    """Registers and stack frame of every P2 rung (by name) and of K4, K5
+    from the builds' ptxas reports."""
+    import re
+
+    from ilqgames_tpu_torch.ops.cuda import build, probes, sweep
+
+    by_args = {probes.template_args(r): name
+               for name, r in probes.RUNGS.items()}
+    for lib in (probes.library(spec), sweep.library(spec)):
+        for mangled, info in sorted(build.ptxas_report(*lib).items()):
+            m = re.search(r"probe_rollout_kernelI((?:L[ib]\d+E)+)E", mangled)
+            if m:
+                label = "P2 " + by_args.get(tuple(
+                    int(v) for v in re.findall(r"L[ib](\d+)E", m.group(1))),
+                    mangled)
+            else:
+                label = next((k for n, k in (
+                    ("rollout_merit_kernel", "K5"), ("rollout_kernel", "K4"),
+                    ("fma_chain_kernel", "P1"), ("smoke_kernel", "P3"))
+                    if n in mangled), mangled)
+            print("# ptxas " + json.dumps({"kernel": label, **info}),
+                  flush=True)
+
+
+def _outputs(result):
+    """(name, tensor) pairs of a kernel's result: a tensor, a tuple or a
+    dict of tensors."""
+    if isinstance(result, dict):
+        return list(result.items())
+    if isinstance(result, (tuple, list)):
+        return [(str(i), t) for i, t in enumerate(result)]
+    return [("", result)]
+
+
+def phase6(spec, dev):
+    """The probes: P1-P3 against their plain versions at the probes'
+    shapes, the rungs' ptxas reports, every distinct launch of the probe
+    registry against its plain version, then every probe module from
+    zeroed launch counters. Returns the kernels-line entries of P1-P3."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from ilqgames_tpu_torch.ops.cuda import probes, sweep
+    from ilqgames_tpu_torch.tools import _probe, sweep_floor
+
+    _ptxas_lines(spec)
+    ctx = _probe.Context(dev)
+    N = spec.num_time_steps
+    out = []
+    err = {"P1": 0.0, "P2": 0.0, "P3": 0.0}
+    seen = set()          # the (kernel, cost table, shape) keys checked
+
+    # P1 on kernel_floor's x0 [16, 128], 100 steps.
+    x = ctx.tensors(("floor", 26, 128), lambda: _probe.floor_draws(
+        spec, 26, 128))["x0"]
+    want, n_ops = _probe.float_ops(lambda: probes.fma_chain_plain(x, N))
+    err["P1"] = _compare("P1 fma_chain", probes.fma_chain(spec, x, N), want,
+                         TOL["P1"])
+    seen.add(("P1", x.numel()))
+    p1 = (_time_ms(lambda: probes.fma_chain(spec, x, N), 20),
+          _time_ms(lambda: probes.fma_chain_plain(x, N), 1),
+          2 * _nbytes(x), n_ops)
+
+    # P2, every rung, on sweep_floor5e.py's operands (C=8, B=128, drawn
+    # lamS) with the full cost table and kernel_floor's fixed controls; a
+    # gate in [0.5, 1.5), scal per (candidate, lane) and t0 per lane from
+    # RandomState(1), so that a rung that reads a wrong entry of them
+    # disagrees.
+    d = sweep_floor._draws(ctx, "5e")
+    C, B = d["scal"].shape
+    ufix = ctx.tensors(("floor", C, B), lambda: _probe.floor_draws(
+        spec, C, B))["ufix"]
+    rng = np.random.RandomState(1)
+    f32 = lambda a: torch.tensor(a.astype(np.float32), device=dev)
+    gate = f32(0.5 + rng.rand(*d["gate"].shape))
+    scal = f32(0.1 + 0.9 * rng.rand(C, B))
+    op = {"xs": d["xs"], "us": d["us"], "t0": f32(rng.rand(1, B))}
+    st = {"Ps": d["Ps"], "alphas": d["al"]}
+    kw = dict(ufix=ufix, gate=gate, lamS=d["lamS"], mu=d["mu"])
+    for rung, r in probes.RUNGS.items():
+        args = (rung, ctx.dyn, ctx.costs, spec, d["x0c"], op, st, scal)
+        got = probes.probe_rollout(*args, **kw)
+        want, ops_r = _probe.float_ops(
+            lambda: probes.probe_rollout_plain(*args, **kw))
+        for key in want:
+            err["P2"] = max(err["P2"], _compare(
+                f"P2 {rung} {key}", got[key], want[key], TOL["P2"]))
+        seen.add(("P2", rung, "full" if r.merit == "table" else None, C, B))
+        if rung == "emit_xs_us":
+            top, top_ops, top_out = args, ops_r, got
+    p2 = (_time_ms(lambda: probes.probe_rollout(*top), 20),
+          _time_ms(lambda: probes.probe_rollout_plain(*top), 1),
+          _nbytes(top[4:], top_out), top_ops)
+
+    # P3 on [128, 256].
+    xs3 = f32(np.random.RandomState(0).randn(128, 256))
+    want, n_ops = _probe.float_ops(lambda: probes.smoke_plain(xs3))
+    err["P3"] = _compare("P3 smoke", probes.smoke(spec, xs3), want,
+                         TOL["P3"])
+    seen.add(("P3", xs3.numel()))
+    one = torch.ones((), device=dev)
+    p3 = (_time_ms(lambda: probes.smoke(spec, xs3), 20),
+          _time_ms(lambda: probes.smoke_plain(xs3), 20), 2 * _nbytes(xs3),
+          n_ops, _time_ms(lambda: torch.add(one, xs3, alpha=2.0), 20))
+
+    # Every other distinct (kernel, cost table, shape) that the probe
+    # modules launch, once, on the module's own operands.
+    mods = [importlib.import_module(f"ilqgames_tpu_torch.tools.{name}")
+            for name, _ in PROBE_MODULES]
+    t0 = time.perf_counter()
+    n_checked = 0
+    for mod in mods:
+        for call in _probe.checks(mod.CASES, ctx, seen):
+            kern = call.key[0]
+            got, want = _outputs(call.fn()), _outputs(call.plain())
+            for (name, g), (_, w) in zip(got, want):
+                e = _compare(f"{kern} {call.key[1:]} {name}".rstrip(), g, w,
+                             TOL[kern])
+                if kern in err:
+                    err[kern] = max(err[kern], e)
+            n_checked += 1
+    print(f"# phase 6: {n_checked} more distinct probe launches held "
+          f"against their plain versions in {time.perf_counter() - t0:.1f} "
+          f"s; {len(seen)} in all", flush=True)
+
+    src = "ilqgames_tpu_torch/csrc/probes.cu"
+    out.append(_entry("P1 fma_chain (16 x 128, 100 x 50)", src,
+                      "tools/kernel_floor.py:63", err["P1"], *p1))
+    out.append(_entry(
+        f"P2 probe_rollout (16 rungs; top rung emit_xs_us, C={C}, B={B})",
+        src, "tools/sweep_floor5.py:73", err["P2"], *p2))
+    out.append(_entry("P3 smoke (128 x 256)", src,
+                      "tools/profile_components.py:101", err["P3"], *p3))
+
+    # The probe modules, from zeroed counters.
+    counted = {"P1": probes.fma_chain, "P2": probes.probe_rollout,
+               "P3": probes.smoke, "K4": sweep.rollout_bm,
+               "K5": sweep.rollout_merits, "K6": sweep.consumer_merits}
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    lines = 0
+    for mod, (_, reps) in zip(mods, PROBE_MODULES):
+        lines += sum(1 for _ in mod.run(reps=reps, ctx=ctx))
+    launches = {k: fn.launches for k, fn in counted.items()}
+    print(f"# phase 6: {lines} probe lines in "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches}",
+          flush=True)
+    if min(launches.values()) <= 0:
+        _fail(f"phase 6: a kernel of the probe path was not launched: "
+              f"{launches}")
+    for e in out:
+        e["launches"] = launches[e["name"][:2]]
+    return out
+
+
 def main():
     import torch
 
@@ -160,9 +381,10 @@ def main():
     from ilqgames_tpu_torch.dynamics import base as dyn_base
     from ilqgames_tpu_torch.examples.three_player_intersection import \
         make_problem
-    from ilqgames_tpu_torch.ops.cuda import lq, stage, sweep
+    from ilqgames_tpu_torch.ops.cuda import build, lq, probes, stage, sweep
     from ilqgames_tpu_torch.solver import batched
     from ilqgames_tpu_torch.solver.al import constraint_violations
+    from ilqgames_tpu_torch.tools._probe import float_ops
     from ilqgames_tpu_torch.types import tree_map
 
     dev = torch.device("cuda")
@@ -174,9 +396,13 @@ def main():
     problem = make_problem()
     spec = problem.spec
     t0 = time.perf_counter()
+    build.compile_all([stage.library(spec), lq.library(spec),
+                       sweep.library(spec), sweep.merit_library(spec),
+                       probes.library(spec)])
     bench.build_kernels(spec)
+    probes.load_kernels(spec)
     print(f"# build: {time.perf_counter() - t0:.1f} s (concurrent nvcc: "
-          f"csrc/stage.cu, lq.cu, sweep.cu, merit.cu)", flush=True)
+          f"csrc/stage.cu, lq.cu, sweep.cu, merit.cu, probes.cu)", flush=True)
 
     # ---- phase 2: each kernel against its plain version ----
     B = 1024
@@ -193,30 +419,31 @@ def main():
     ops = lq.lq_operands(spec, lin, c0.quad)
     kernels = []
 
-    def entry(name, source, replaces, err, ms, plain_ms):
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "max_abs_err": err,
-                        "ms": round(ms, 4), "plain_ms": round(plain_ms, 4)})
+    def entry(*args):
+        kernels.append(_entry(*args))
 
     Ps_k, al_k = lq.lq_backward(spec, ops)
-    Ps_p, al_p = lq.lq_backward_plain(spec, ops)
+    (Ps_p, al_p), n_ops = float_ops(lambda: lq.lq_backward_plain(spec, ops))
     err = max(_compare("K2 Ps", Ps_k, Ps_p, TOL["K2"]),
               _compare("K2 alphas", al_k, al_p, TOL["K2"]))
     entry("K2 lq_backward (B=1024)", "ilqgames_tpu_torch/csrc/lq.cu",
           "ilqgames_tpu/ops/pallas/lq.py:82", err,
           _time_ms(lambda: lq.lq_backward(spec, ops), 10),
-          _time_ms(lambda: lq.lq_backward_plain(spec, ops), 2))
+          _time_ms(lambda: lq.lq_backward_plain(spec, ops), 2),
+          _nbytes(ops, Ps_k, al_k), n_ops)
 
     dx0 = (x0 - c0.op.xs[:, 0]).T.contiguous()
     dxs_k = lq.lq_forward(spec, ops["A"], ops["Bf"], al_k, dx0)
-    dxs_p = lq.lq_forward_plain(spec, ops["A"], ops["Bf"], al_k, dx0)
+    dxs_p, n_ops = float_ops(lambda: lq.lq_forward_plain(
+        spec, ops["A"], ops["Bf"], al_k, dx0))
     entry("K3 lq_forward (B=1024)", "ilqgames_tpu_torch/csrc/lq.cu",
           "ilqgames_tpu/ops/pallas/lq.py:254",
           _compare("K3 dxs", dxs_k, dxs_p, TOL["K3"]),
           _time_ms(lambda: lq.lq_forward(spec, ops["A"], ops["Bf"], al_k,
                                          dx0), 20),
           _time_ms(lambda: lq.lq_forward_plain(spec, ops["A"], ops["Bf"],
-                                               al_k, dx0), 3))
+                                               al_k, dx0), 3),
+          _nbytes(ops["A"], ops["Bf"], al_k, dx0, dxs_k), n_ops)
 
     sol = lq.solve_lq_feedback(spec, lin, c0.quad, x0 - c0.op.xs[:, 0])
     op_bm, st_bm, x0m = sweep._prep_common(spec, x0, c0.op, sol.strategy, 1)
@@ -227,12 +454,13 @@ def main():
         args = (dyn, spec, x0m[:, :Bk].contiguous(), sub(op_bm), sub(st_bm),
                 scal.expand(C, Bk).contiguous())
         xs_k = sweep.rollout_bm(*args)
-        xs_p = sweep.rollout_plain(*args)
+        xs_p, n_ops = float_ops(lambda: sweep.rollout_plain(*args))
         entry(f"K4 rollout (C={C}, B={Bk})", "ilqgames_tpu_torch/csrc/sweep.cu",
               "ilqgames_tpu/ops/pallas/sweep.py:176",
               _compare(f"K4 xs C={C} B={Bk}", xs_k, xs_p, TOL["K4"]),
               _time_ms(lambda: sweep.rollout_bm(*args), 20),
-              _time_ms(lambda: sweep.rollout_plain(*args), 3))
+              _time_ms(lambda: sweep.rollout_plain(*args), 3),
+              _nbytes(args[2:], xs_k), n_ops)
 
     # K1 at B=2048, on the first rollout of bench's draw with the
     # multipliers and mu of one AL update.
@@ -245,13 +473,14 @@ def main():
     lamS, lamC, mu1 = sweep._prep_al(spec, al1, 1)
     k1_args = (dyn, costs, spec, op1, lamS, lamC, mu1)
     ops_k = stage.lin_quad(*k1_args)
-    ops_p = stage.lin_quad_plain(*k1_args)
+    ops_p, n_ops = float_ops(lambda: stage.lin_quad_plain(*k1_args))
     err = max(_compare(f"K1 {name}", ops_k[name], ops_p[name], TOL["K1"])
               for name in ops_p)
     entry(f"K1 lin_quad (B={B1})", "ilqgames_tpu_torch/csrc/stage.cu",
           "ilqgames_tpu/ops/pallas/stage.py:65", err,
           _time_ms(lambda: stage.lin_quad(*k1_args), 20),
-          _time_ms(lambda: stage.lin_quad_plain(*k1_args), 3))
+          _time_ms(lambda: stage.lin_quad_plain(*k1_args), 3),
+          _nbytes(k1_args[3:], ops_k), n_ops)
 
     # K5 and K6 on the LQ strategy at those operands.
     Ps_r, al_r, _ = lq.solve_lq_feedback_bm(spec, ops_k, x1m - op1["xs"][0])
@@ -267,26 +496,29 @@ def main():
         k5_args = (dyn, costs, spec, x1m[:, :Bk].contiguous(), sub(op1),
                    sub(st1), scal_cb, lam_k, None, mu_k)
         m5_k = sweep.rollout_merits(*k5_args)
-        m5_p = sweep.rollout_merits_plain(*k5_args)
+        m5_p, n_ops = float_ops(lambda: sweep.rollout_merits_plain(
+            *k5_args))
         entry(f"K5 rollout+merit (C={C}, B={Bk})",
               "ilqgames_tpu_torch/csrc/sweep.cu",
               "ilqgames_tpu/ops/pallas/sweep.py:176",
               _compare(f"K5 merits C={C} B={Bk}", m5_k, m5_p, TOL["K5"]),
               _time_ms(lambda: sweep.rollout_merits(*k5_args), 20),
-              _time_ms(lambda: sweep.rollout_merits_plain(*k5_args), 1))
+              _time_ms(lambda: sweep.rollout_merits_plain(*k5_args), 1),
+              _nbytes(k5_args[3:], m5_k), n_ops)
         xs_c = sweep.rollout_bm(dyn, spec, x1m[:, :Bk].contiguous(), sub(op1),
                                 sub(st1), scal_cb)
         us_c = sweep._us_from_xs(spec, xs_c, sub(op1), sub(st1), scal_cb)
         k6_args = (costs, spec, xs_c, us_c, sub(op1)["t0"], lam_k, None,
                    mu_k)
         m6_k = sweep.consumer_merits(*k6_args)
-        m6_p = sweep.merit_plain(*k6_args)
+        m6_p, n_ops = float_ops(lambda: sweep.merit_plain(*k6_args))
         entry(f"K6 merit consumer (C={C}, B={Bk})",
               "ilqgames_tpu_torch/csrc/merit.cu",
               "ilqgames_tpu/ops/pallas/sweep.py:395",
               _compare(f"K6 merits C={C} B={Bk}", m6_k, m6_p, TOL["K6"]),
               _time_ms(lambda: sweep.consumer_merits(*k6_args), 20),
-              _time_ms(lambda: sweep.merit_plain(*k6_args), 3))
+              _time_ms(lambda: sweep.merit_plain(*k6_args), 3),
+              _nbytes(k6_args[2:], m6_k), n_ops)
         same = torch.equal(m5_k.nan_to_num(), m6_k.nan_to_num())
         print(f"# K5 == K4 + K6 bitwise (C={C}, B={Bk}): {same}", flush=True)
         if not same:
@@ -379,6 +611,9 @@ def main():
         k["launches"] = (backend_launches["kernel"][name] if name == "K5"
                          else backend_launches["pallas"][name]
                          if name == "K6" else launches[name])
+
+    # ---- phase 6: the probes ----
+    kernels += phase6(spec, dev)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

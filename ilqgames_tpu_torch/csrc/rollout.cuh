@@ -1,0 +1,90 @@
+// The rollout's per-thread dynamics, shared by the candidate rollout K4 and
+// the rollout with in-kernel merit K5 (sweep.cu) and by the probe rollout P2
+// (probes.cu): the joint ODE of the flagship's models, one RK4 step with 2
+// substeps, and the affine control law. Each repeats its plain PyTorch
+// version operation by operation (built with FMA contraction off).
+//
+// The models come from a table of subsystems (kind, state offset, control
+// offset, inter-axle length each): a SubsysTable passed at run time, as K4
+// and K5 take it, whose offsets index the thread's state arrays at run
+// time; or, in P2's static layout, a type whose entries are compile-time
+// constants (probes.cu FlagshipTable), so that every index resolves.
+
+#pragma once
+
+#include "costs.cuh"
+
+// Internal linkage, as when these lived in sweep.cu's anonymous namespace:
+// each kernel library is one translation unit.
+namespace {
+namespace rollout {
+
+using costs::KIND_CAR_6D;
+using costs::KIND_UNICYCLE_4D;
+
+// The flagship's models are time-invariant: `t` is accepted for the
+// interface and unused.
+template <typename Tab>
+__device__ void ode(const Tab& tab, float t, const float* x, const float* u,
+                    float* dx) {
+  for (int s = 0; s < tab.n; ++s) {
+    const int o = tab.xoff[s];
+    const int q = tab.uoff[s];
+    if (tab.kind[s] == KIND_CAR_6D) {
+      dx[o + 0] = x[o + 4] * fmath::cos(x[o + 2]);
+      dx[o + 1] = x[o + 4] * fmath::sin(x[o + 2]);
+      dx[o + 2] = (x[o + 4] / tab.length[s]) * fmath::tan(x[o + 3]);
+      dx[o + 3] = u[q + 0];
+      dx[o + 4] = x[o + 5];
+      dx[o + 5] = u[q + 1];
+    } else if (tab.kind[s] == KIND_UNICYCLE_4D) {
+      dx[o + 0] = x[o + 3] * fmath::cos(x[o + 2]);
+      dx[o + 1] = x[o + 3] * fmath::sin(x[o + 2]);
+      dx[o + 2] = u[q + 0];
+      dx[o + 3] = u[q + 1];
+    }
+  }
+}
+
+// One zero-order-hold step from time t: RK4 with 2 substeps of h = dt / 2.
+template <int X, typename Tab>
+__device__ void integrate(const Tab& tab, float t, float h, float* x,
+                          const float* u) {
+  float k1[X], k2[X], k3[X], k4[X], tmp[X];
+  for (int sub = 0; sub < 2; ++sub) {
+    const float ts = t + (float)sub * h;
+    ode(tab, ts, x, u, k1);
+    for (int r = 0; r < X; ++r) { k1[r] = h * k1[r]; tmp[r] = x[r] + 0.5f * k1[r]; }
+    ode(tab, ts + 0.5f * h, tmp, u, k2);
+    for (int r = 0; r < X; ++r) { k2[r] = h * k2[r]; tmp[r] = x[r] + 0.5f * k2[r]; }
+    ode(tab, ts + 0.5f * h, tmp, u, k3);
+    for (int r = 0; r < X; ++r) { k3[r] = h * k3[r]; tmp[r] = x[r] + k3[r]; }
+    ode(tab, ts + h, tmp, u, k4);
+    for (int r = 0; r < X; ++r) {
+      k4[r] = h * k4[r];
+      x[r] = x[r] + (k1[r] + 2.0f * (k2[r] + k3[r]) + k4[r]) / 6.0f;
+    }
+  }
+}
+
+// The control law at knot k: u = ((u_ref - P delta) - sc * alpha) * mask,
+// with P delta a left fold over the state index.
+template <int X, int PU>
+__device__ __forceinline__ void control_law(
+    const float* __restrict__ xs, const float* __restrict__ us,
+    const float* __restrict__ Ps, const float* __restrict__ al, int k, int b,
+    long Bl, float sc, int umask_bits, const float* x, float* u) {
+  float delta[X];
+  for (int r = 0; r < X; ++r) delta[r] = x[r] - xs[((long)k * X + r) * Bl + b];
+  for (int af = 0; af < PU; ++af) {
+    const float* Pk = Ps + (((long)k * PU + af) * X) * Bl + b;
+    float acc = Pk[0] * delta[0];
+    for (int xx = 1; xx < X; ++xx) acc = acc + Pk[xx * Bl] * delta[xx];
+    const long ka = ((long)k * PU + af) * Bl + b;
+    const float row = (us[ka] - acc) - sc * al[ka];
+    u[af] = row * (((umask_bits >> af) & 1) ? 1.0f : 0.0f);
+  }
+}
+
+}  // namespace rollout
+}  // namespace

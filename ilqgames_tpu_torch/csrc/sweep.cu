@@ -17,7 +17,7 @@
 // always, state terms for k > 0) accumulated in registers in ascending k;
 // it emits only the raw merits [C, B]. Its fold is K6's and merit_plain's.
 //
-// Dynamics: device functions for car_6d and unicycle_4d
+// Dynamics: the device functions of rollout.cuh for car_6d and unicycle_4d
 // (ilqgames_tpu/dynamics/models.py:80-175), chosen per subsystem by a small
 // table (kind, state offset, control offset, inter-axle length) passed by
 // value. Time is t = t0 + k*dt in float32 (unused by these two models).
@@ -44,7 +44,7 @@
 
 #include <cuda_runtime.h>
 
-#include "costs.cuh"
+#include "rollout.cuh"
 
 #if !defined(SW_X) || !defined(SW_PU) || !defined(SW_U)
 #error "build with -DSW_X=<xdim> -DSW_PU=<players*umax> -DSW_U=<umax>"
@@ -56,69 +56,6 @@ constexpr int X = SW_X;
 constexpr int PU = SW_PU;
 constexpr int U = SW_U;
 constexpr int P = PU / U;
-using costs::KIND_CAR_6D;
-using costs::KIND_UNICYCLE_4D;
-
-// The flagship's models are time-invariant: `t` is accepted for the
-// interface and unused.
-__device__ void ode(const SubsysTable& tab, float t, const float* x,
-                    const float* u, float* dx) {
-  for (int s = 0; s < tab.n; ++s) {
-    const int o = tab.xoff[s];
-    const int q = tab.uoff[s];
-    if (tab.kind[s] == KIND_CAR_6D) {
-      dx[o + 0] = x[o + 4] * fmath::cos(x[o + 2]);
-      dx[o + 1] = x[o + 4] * fmath::sin(x[o + 2]);
-      dx[o + 2] = (x[o + 4] / tab.length[s]) * fmath::tan(x[o + 3]);
-      dx[o + 3] = u[q + 0];
-      dx[o + 4] = x[o + 5];
-      dx[o + 5] = u[q + 1];
-    } else if (tab.kind[s] == KIND_UNICYCLE_4D) {
-      dx[o + 0] = x[o + 3] * fmath::cos(x[o + 2]);
-      dx[o + 1] = x[o + 3] * fmath::sin(x[o + 2]);
-      dx[o + 2] = u[q + 0];
-      dx[o + 3] = u[q + 1];
-    }
-  }
-}
-
-// One zero-order-hold step from time t: RK4 with 2 substeps of h = dt / 2.
-__device__ void integrate(const SubsysTable& tab, float t, float h, float* x,
-                          const float* u) {
-  float k1[X], k2[X], k3[X], k4[X], tmp[X];
-  for (int sub = 0; sub < 2; ++sub) {
-    const float ts = t + (float)sub * h;
-    ode(tab, ts, x, u, k1);
-    for (int r = 0; r < X; ++r) { k1[r] = h * k1[r]; tmp[r] = x[r] + 0.5f * k1[r]; }
-    ode(tab, ts + 0.5f * h, tmp, u, k2);
-    for (int r = 0; r < X; ++r) { k2[r] = h * k2[r]; tmp[r] = x[r] + 0.5f * k2[r]; }
-    ode(tab, ts + 0.5f * h, tmp, u, k3);
-    for (int r = 0; r < X; ++r) { k3[r] = h * k3[r]; tmp[r] = x[r] + k3[r]; }
-    ode(tab, ts + h, tmp, u, k4);
-    for (int r = 0; r < X; ++r) {
-      k4[r] = h * k4[r];
-      x[r] = x[r] + (k1[r] + 2.0f * (k2[r] + k3[r]) + k4[r]) / 6.0f;
-    }
-  }
-}
-
-// The control law at knot k: u = ((u_ref - P delta) - sc * alpha) * mask,
-// with P delta a left fold over the state index.
-__device__ __forceinline__ void control_law(
-    const float* __restrict__ xs, const float* __restrict__ us,
-    const float* __restrict__ Ps, const float* __restrict__ al, int k, int b,
-    long Bl, float sc, int umask_bits, const float* x, float* u) {
-  float delta[X];
-  for (int r = 0; r < X; ++r) delta[r] = x[r] - xs[((long)k * X + r) * Bl + b];
-  for (int af = 0; af < PU; ++af) {
-    const float* Pk = Ps + (((long)k * PU + af) * X) * Bl + b;
-    float acc = Pk[0] * delta[0];
-    for (int xx = 1; xx < X; ++xx) acc = acc + Pk[xx * Bl] * delta[xx];
-    const long ka = ((long)k * PU + af) * Bl + b;
-    const float row = (us[ka] - acc) - sc * al[ka];
-    u[af] = row * (((umask_bits >> af) & 1) ? 1.0f : 0.0f);
-  }
-}
 
 __global__ void rollout_kernel(
     const float* __restrict__ x0, const float* __restrict__ xs,
@@ -138,12 +75,13 @@ __global__ void rollout_kernel(
   for (int k = 0; k < N; ++k) {
     for (int r = 0; r < X; ++r)
       xs_out[(((long)k * X + r) * Cl + c) * Bl + b] = x[r];
-    control_law(xs, us, Ps, al, k, b, Bl, sc, umask_bits, x, u);
+    rollout::control_law<X, PU>(xs, us, Ps, al, k, b, Bl, sc, umask_bits, x,
+                                u);
     if (us_out)
       for (int af = 0; af < PU; ++af)
         us_out[(((long)k * PU + af) * Cl + c) * Bl + b] = u[af];
     const float t = t0[b] + (float)k * dt;
-    integrate(tab, t, h, x, u);
+    rollout::integrate<X>(tab, t, h, x, u);
   }
 }
 
@@ -166,14 +104,15 @@ __global__ void rollout_merit_kernel(
   for (int r = 0; r < X; ++r) x[r] = x0[r * Bl + b];
   float merit = 0.0f;
   for (int k = 0; k < N; ++k) {
-    control_law(xs, us, Ps, al, k, b, Bl, sc, umask_bits, x, u);
+    rollout::control_law<X, PU>(xs, us, Ps, al, k, b, Bl, sc, umask_bits, x,
+                                u);
     auto lam = [&](int row) { return lamS[((long)k * nS + row) * Bl + b]; };
     float ctrl_term, state_term;
     costs::merit_terms<X, P, U>(cost, segs, x, u, lam, mu_b, ctrl_term,
                                 state_term);
     merit = (k == 0) ? ctrl_term : merit + (ctrl_term + state_term);
     const float t = t0[b] + (float)k * dt;
-    integrate(tab, t, h, x, u);
+    rollout::integrate<X>(tab, t, h, x, u);
   }
   merit_out[idx] = merit;
 }

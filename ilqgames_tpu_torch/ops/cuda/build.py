@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -27,8 +28,11 @@ BUILD_DIR = _PKG / "_build"
 
 # No --use_fast_math, and no FMA contraction: every kernel then rounds
 # exactly as its plain PyTorch version's separate multiplies and adds.
+# -Xptxas -v: each kernel's registers, stack frame and spills, kept beside
+# the library (`ptxas_report`).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _LOADED = {}
 
@@ -74,8 +78,37 @@ def _compile(targets) -> None:
                               f"(rc {proc.returncode}):\n{stdout}\n{stderr}")
             else:
                 os.replace(tmp_out, out)
+                _report_path(out).write_text(stdout + stderr)
         if errors:
             raise RuntimeError("\n".join(errors))
+
+
+def _report_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
+def ptxas_report(name: str, defines: dict) -> dict:
+    """{kernel's mangled name: {"registers", "stack", "spill_stores",
+    "spill_loads"}} from the build of csrc/<name>.cu with `defines` (built
+    first if it is not yet)."""
+    target = _target(name, defines)
+    _compile([target])
+    out, cur = {}, None
+    for line in _report_path(target[2]).read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        m = m or re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def load(name: str, defines: dict) -> ctypes.CDLL:

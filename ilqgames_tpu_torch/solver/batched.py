@@ -18,8 +18,8 @@ the port reads one flag to the host per round: the deep-ladder round
 condition, the any-lane reinit condition and the all-done condition of
 the driver. `run.last_stats["host_syncs"]` counts those reads.
 
-Only the feedback-Nash, linesearch-on, constrained, SUM-structure
-configuration of the flagship is ported; the others raise.
+Only the feedback-Nash, constrained, SUM-structure configuration of the
+flagship is ported; the others raise.
 """
 
 from __future__ import annotations
@@ -116,8 +116,6 @@ def _check_supported(player_costs, params: SolverParams):
     pcost.check_structures(player_costs)
     if params.open_loop:
         raise NotImplementedError("open-loop Nash is not ported yet")
-    if not params.linesearch:
-        raise NotImplementedError("linesearch=False is not ported yet")
     if not pcost.is_constrained(player_costs):
         raise NotImplementedError(
             "unconstrained problems are not ported yet (the flat AL machine "
@@ -214,6 +212,15 @@ def iteration_step_batched(dyn, player_costs, spec, params, x0, al_state, c,
 
         quad_of = lambda op: pcost.quadraticize(player_costs, spec, op,
                                                 al_state)
+
+    if not params.linesearch:
+        # The full step at the initial scaling, taken on every lane.
+        scal = torch.full((Bt,), params.initial_alpha_scaling, device=dev)
+        trial_op = reroll_fn(scal)
+        return c.replace(
+            op=trial_op,
+            strategy=lq_strategy.scale_alphas(params.initial_alpha_scaling),
+            quad=quad_of(trial_op), iteration=c.iteration + 1)
 
     n_cand = params.max_backtracking_steps
     scalings = params.initial_alpha_scaling * (

@@ -213,3 +213,32 @@ def test_expected_decrease(setup):
         torch.tensor(alphas), torch.tensor(dxs))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_trip_parity_without_linesearch(setup, fuse):
+    """`linesearch=False`: every lane takes the step at the initial
+    scaling, against the vmapped JAX trip with the same parameters (the
+    configuration of the trip_no_linesearch probe)."""
+    jprob, prob, x0 = setup
+    kw = dict(PARAMS, linesearch=False)
+    fc_ref = _jax_carry0(jprob, jnp.asarray(x0))
+    fc = convert.from_fused_carry(fc_ref)
+    trip_ref = jax.jit(jax.vmap(lambda x, f: jfused._trip(
+        jprob.dynamics, jprob.player_costs, jprob.spec, JParams(**kw), x, f)))
+    for i in range(3):
+        fc_ref = trip_ref(jnp.asarray(x0), fc_ref)
+        fc = batched._trip_batched(prob.dynamics, prob.player_costs,
+                                   prob.spec, SolverParams(**kw),
+                                   torch.tensor(x0), fc, batch_block=4,
+                                   fuse_stages=fuse)
+        np.testing.assert_array_equal(fc.c.iteration.numpy(),
+                                      np.asarray(fc_ref.c.iteration))
+        np.testing.assert_array_equal(fc.done.numpy(),
+                                      np.asarray(fc_ref.done))
+        np.testing.assert_allclose(fc.c.op.xs.numpy(),
+                                   np.asarray(fc_ref.c.op.xs),
+                                   rtol=2e-3, atol=2e-3, err_msg=f"trip {i}")
+        np.testing.assert_allclose(fc.c.strategy.alphas.numpy(),
+                                   np.asarray(fc_ref.c.strategy.alphas),
+                                   rtol=2e-3, atol=2e-3, err_msg=f"trip {i}")
