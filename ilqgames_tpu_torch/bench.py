@@ -114,16 +114,18 @@ def launches() -> dict:
 def reset_launches() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    sweep.rollout_bm.by_shape.clear()
 
 
-def build_kernels(spec) -> None:
+def build_kernels(dyn, spec) -> None:
     """Build every kernel of the port for this game (one concurrent nvcc
     per source) and load them."""
     build.compile_all([stage.library(spec), lq.library(spec),
-                       sweep.library(spec), sweep.merit_library(spec)])
-    for load in (stage.load_kernels, lq.load_kernels, sweep.load_kernels,
+                       sweep.library(dyn, spec), sweep.merit_library(spec)])
+    for load in (stage.load_kernels, lq.load_kernels,
                  sweep.load_merit_kernel):
         load(spec)
+    sweep.load_kernels(dyn, spec)
 
 
 def run_bench(batch: int = 2048, device="cuda", driver: str = "queue",
@@ -138,7 +140,7 @@ def run_bench(batch: int = 2048, device="cuda", driver: str = "queue",
     if dev.type != "cuda":
         raise ValueError("the benchmark measures on a CUDA device only")
     problem = make_problem()
-    build_kernels(problem.spec)
+    build_kernels(problem.dynamics, problem.spec)
     args = (problem.dynamics, problem.player_costs, problem.spec,
             exec_main_params())
     if driver == "queue":

@@ -5,10 +5,17 @@
 // version operation by operation (built with FMA contraction off).
 //
 // The models come from a table of subsystems (kind, state offset, control
-// offset, inter-axle length each): a SubsysTable passed at run time, as K4
-// and K5 take it, whose offsets index the thread's state arrays at run
-// time; or, in P2's static layout, a type whose entries are compile-time
-// constants (probes.cu FlagshipTable), so that every index resolves.
+// offset, inter-axle length each): a SubsysTable passed at run time, as K5
+// takes it, whose offsets index the thread's state arrays at run time; or a
+// type whose entries are compile-time constants (probes.cu FlagshipTable),
+// so that every index resolves.
+//
+// K4's warp design (sweep.cu) integrates each subsystem in its own warp:
+// `sub_ode`, `sub_integrate` and `control_rows` below are `ode`,
+// `integrate` and `control_law` restricted to one subsystem's state rows
+// and its player's control rows. The joint field is block-diagonal and
+// every RK4 and control-row operation is elementwise or a per-row fold, so
+// the restriction computes the same operations in the same order.
 
 #pragma once
 
@@ -83,6 +90,73 @@ __device__ __forceinline__ void control_law(
     const long ka = ((long)k * PU + af) * Bl + b;
     const float row = (us[ka] - acc) - sc * al[ka];
     u[af] = row * (((umask_bits >> af) & 1) ? 1.0f : 0.0f);
+  }
+}
+
+// State dimension of a model kind.
+template <int KIND>
+constexpr int kind_dim = KIND == KIND_CAR_6D ? 6 : 4;
+
+// `ode` for one subsystem of kind KIND: x [kind_dim] its state, u its
+// player's controls. Time-invariant, so it takes no t.
+template <int KIND>
+__device__ __forceinline__ void sub_ode(float length, const float* x,
+                                        const float* u, float* dx) {
+  static_assert(KIND == KIND_CAR_6D || KIND == KIND_UNICYCLE_4D,
+                "no device ODE for this model kind");
+  if constexpr (KIND == KIND_CAR_6D) {
+    dx[0] = x[4] * fmath::cos(x[2]);
+    dx[1] = x[4] * fmath::sin(x[2]);
+    dx[2] = (x[4] / length) * fmath::tan(x[3]);
+    dx[3] = u[0];
+    dx[4] = x[5];
+    dx[5] = u[1];
+  } else {
+    dx[0] = x[3] * fmath::cos(x[2]);
+    dx[1] = x[3] * fmath::sin(x[2]);
+    dx[2] = u[0];
+    dx[3] = u[1];
+  }
+}
+
+// `integrate` for one subsystem: RK4 with 2 substeps of h on its state.
+template <int KIND>
+__device__ __forceinline__ void sub_integrate(float length, float h, float* x,
+                                              const float* u) {
+  constexpr int D = kind_dim<KIND>;
+  float k1[D], k2[D], k3[D], k4[D], tmp[D];
+  for (int sub = 0; sub < 2; ++sub) {
+    sub_ode<KIND>(length, x, u, k1);
+    for (int r = 0; r < D; ++r) { k1[r] = h * k1[r]; tmp[r] = x[r] + 0.5f * k1[r]; }
+    sub_ode<KIND>(length, tmp, u, k2);
+    for (int r = 0; r < D; ++r) { k2[r] = h * k2[r]; tmp[r] = x[r] + 0.5f * k2[r]; }
+    sub_ode<KIND>(length, tmp, u, k3);
+    for (int r = 0; r < D; ++r) { k3[r] = h * k3[r]; tmp[r] = x[r] + k3[r]; }
+    sub_ode<KIND>(length, tmp, u, k4);
+    for (int r = 0; r < D; ++r) {
+      k4[r] = h * k4[r];
+      x[r] = x[r] + (k1[r] + 2.0f * (k2[r] + k3[r]) + k4[r]) / 6.0f;
+    }
+  }
+}
+
+// `control_law` for the U control rows Q .. Q+U-1 of PU (one player's) at
+// knot k, from the whole state x [X]: u [U].
+template <int X, int PU, int Q, int U>
+__device__ __forceinline__ void control_rows(
+    const float* __restrict__ xs, const float* __restrict__ us,
+    const float* __restrict__ Ps, const float* __restrict__ al, int k, int b,
+    long Bl, float sc, int umask_bits, const float* x, float* u) {
+  float delta[X];
+  for (int r = 0; r < X; ++r) delta[r] = x[r] - xs[((long)k * X + r) * Bl + b];
+  for (int a = 0; a < U; ++a) {
+    const int af = Q + a;
+    const float* Pk = Ps + (((long)k * PU + af) * X) * Bl + b;
+    float acc = Pk[0] * delta[0];
+    for (int xx = 1; xx < X; ++xx) acc = acc + Pk[xx * Bl] * delta[xx];
+    const long ka = ((long)k * PU + af) * Bl + b;
+    const float row = (us[ka] - acc) - sc * al[ka];
+    u[a] = row * (((umask_bits >> af) & 1) ? 1.0f : 0.0f);
   }
 }
 

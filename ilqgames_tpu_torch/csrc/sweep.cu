@@ -12,42 +12,47 @@
 // emitted trajectories (ops/cuda/sweep.py: merit_plain, or K6 in merit.cu).
 //
 // K5 replaces the same Pallas kernel with compute_merit=True
-// (merit_backend="kernel"): K4's rollout, with each knot's merit increment
-// (the players' squared stage-gradient sums of costs.cuh, control terms
-// always, state terms for k > 0) accumulated in registers in ascending k;
-// it emits only the raw merits [C, B]. Its fold is K6's and merit_plain's.
+// (merit_backend="kernel"): the same rollout, one thread per chain on the
+// run-time table, with each knot's merit increment (the players' squared
+// stage-gradient sums of costs.cuh, control terms always, state terms for
+// k > 0) accumulated in registers in ascending k; it emits only the raw
+// merits [C, B]. Its fold is K6's and merit_plain's.
 //
-// Dynamics: the device functions of rollout.cuh for car_6d and unicycle_4d
-// (ilqgames_tpu/dynamics/models.py:80-175), chosen per subsystem by a small
-// table (kind, state offset, control offset, inter-axle length) passed by
-// value. Time is t = t0 + k*dt in float32 (unused by these two models).
+// Dynamics: car_6d and unicycle_4d (ilqgames_tpu/dynamics/models.py:80-175)
+// through the device functions of rollout.cuh, chosen per subsystem. The
+// library is built for one game's layout of subsystems (kind, state offset,
+// control offset, inter-axle length each), given as defines by
+// ops/cuda/sweep.py:library: K4 reads it as compile-time constants (Sub<S>
+// below); K5 takes the same table at run time (SubsysTable) and keeps the
+// one-thread rollout of rollout.cuh.
 // sin, cos and tan are the port's own float32 routines (fmath.cuh), which
 // round exactly as ilqgames_tpu_torch/fmath.py does in PyTorch on the CPU
 // and on the card: CUDA's sinf and the CPU's sin differ in the last bit,
 // and along the diverged tail of a batch that difference grows until it
-// flips linesearch decisions between the card and the CPU.
+// flips linesearch decisions between the card and the CPU. The arithmetic
+// follows the plain PyTorch versions (ops/cuda/sweep.py: rollout_plain,
+// _us_from_xs, merit_plain) operation by operation, with FMA contraction
+// off (--fmad=false).
 //
-// Design: one thread per (candidate, lane), the state in registers or
-// thread-local memory, so each candidate's arithmetic runs on one code
-// path. The arithmetic follows the plain PyTorch versions
-// (ops/cuda/sweep.py: rollout_plain, _us_from_xs, merit_plain) operation by
-// operation, with FMA contraction off (--fmad=false).
-//
-// What bounds it on this card: per knot a thread reads ~130 floats of
-// operands (x_ref, u_ref, P, alpha) shared by the C candidates of its lane
-// and K4 writes X (+ PU) floats; the RK4 step is ~8 evaluations of the
-// ODE's sin/cos/tan, and K5 adds the cost gradients (three polyline queries
-// and six proximity terms per knot). At C=1, B=1024 that is 1024 threads
-// (8 blocks of 128) on 132 SMs, so the card is mostly idle and the kernel
-// is bound by one thread's dependent-latency chain over 100 knots; at
-// C=8, B=128 likewise.
+// What bounds K4 on this card: one chain (candidate, lane) is 100 knots of
+// an RK4 step, ~3,000 dependent-latency float32 operations each, and the
+// main path launches 1,024-2,048 chains: throughput and bytes are far
+// below the card's, the chain's latency is the bound. K4's design cuts the
+// chain: one warp per subsystem (rollout_warp_kernel). A block holds 32
+// chains, consecutive lanes b across a warp's threads, times S warps; warp
+// s computes its player's control rows, stores its rows of xs and us
+// (coalesced over b) and integrates its subsystem. The subsystems meet once
+// per knot, in a double-buffered state [2][X][32] in shared memory and one
+// barrier: each warp reads the whole state for the control law. The chain
+// per knot is then the longest subsystem's RK4 (a car_6d: 3 of the 8 trig
+// calls of each joint ODE evaluation) plus the barrier.
 
 #include <cuda_runtime.h>
 
 #include "rollout.cuh"
 
-#if !defined(SW_X) || !defined(SW_PU) || !defined(SW_U)
-#error "build with -DSW_X=<xdim> -DSW_PU=<players*umax> -DSW_U=<umax>"
+#if !defined(SW_X) || !defined(SW_PU) || !defined(SW_U) || !defined(SW_NSUB)
+#error "build with -DSW_X -DSW_PU -DSW_U and the layout defines of ops/cuda/sweep.py:library"
 #endif
 
 namespace {
@@ -56,32 +61,92 @@ constexpr int X = SW_X;
 constexpr int PU = SW_PU;
 constexpr int U = SW_U;
 constexpr int P = PU / U;
+constexpr int WARP = 32;
 
-__global__ void rollout_kernel(
+// The game's subsystems: each list define is SW_ITEM(v) per subsystem.
+constexpr int NSUB = SW_NSUB;
+#define SW_ITEM(v) v,
+constexpr int SUB_KIND[] = {SW_SUB_KIND};
+constexpr int SUB_XOFF[] = {SW_SUB_XOFF};
+constexpr int SUB_UOFF[] = {SW_SUB_UOFF};
+constexpr float SUB_LENGTH[] = {SW_SUB_LENGTH};
+#undef SW_ITEM
+static_assert(NSUB >= 1 && NSUB <= costs::MAX_SUBSYS &&
+                  sizeof(SUB_KIND) == NSUB * sizeof(int) &&
+                  sizeof(SUB_XOFF) == NSUB * sizeof(int) &&
+                  sizeof(SUB_UOFF) == NSUB * sizeof(int) &&
+                  sizeof(SUB_LENGTH) == NSUB * sizeof(float),
+              "one SW_ITEM per subsystem in each layout define");
+
+// Subsystem S's entries, as compile-time constants.
+template <int S>
+struct Sub {
+  static constexpr int kind = SUB_KIND[S];
+  static constexpr int xoff = SUB_XOFF[S];
+  static constexpr int uoff = SUB_UOFF[S];
+  static constexpr float length = SUB_LENGTH[S];
+  static constexpr int dim = rollout::kind_dim<kind>;
+};
+
+// f(Sub<s>{}) for a subsystem index s known at run time: a chain of
+// branches, uniform across a warp in K4 (s is the warp's index).
+template <int S = 0, typename F>
+__device__ __forceinline__ auto on_sub(int s, F f) {
+  if constexpr (S + 1 < NSUB)
+    return s == S ? f(Sub<S>{}) : on_sub<S + 1>(s, f);
+  else
+    return f(Sub<S>{});
+}
+
+// K4: warp s of a block integrates subsystem s of the block's 32 chains.
+// Tail threads (chain index >= C * B) compute on the last chain and store
+// nothing to device memory, so every thread reaches every barrier.
+__global__ void __launch_bounds__(WARP * NSUB) rollout_warp_kernel(
     const float* __restrict__ x0, const float* __restrict__ xs,
     const float* __restrict__ us, const float* __restrict__ Ps,
-    const float* __restrict__ al, const float* __restrict__ t0,
-    const float* __restrict__ scal, float* __restrict__ xs_out,
-    float* __restrict__ us_out, int N, int C, int B, float dt, float h,
-    int umask_bits, SubsysTable tab) {
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long)C * B) return;
+    const float* __restrict__ al, const float* __restrict__ scal,
+    float* __restrict__ xs_out, float* __restrict__ us_out, int N, int C,
+    int B, float h, int umask_bits) {
+  __shared__ float state[2][X][WARP];
+  const int lane = threadIdx.x % WARP;
+  const int w = threadIdx.x / WARP;
+  const long total = (long)C * B;
+  const long idx_raw = (long)blockIdx.x * WARP + lane;
+  const bool live = idx_raw < total;
+  const long idx = live ? idx_raw : total - 1;
   const int c = (int)(idx / B);
   const int b = (int)(idx % B);
   const long Bl = B, Cl = C;
   const float sc = scal[idx];
-  float x[X], u[PU];
-  for (int r = 0; r < X; ++r) x[r] = x0[r * Bl + b];
+  on_sub(w, [&](auto q) {
+    using S = decltype(q);
+    for (int j = 0; j < S::dim; ++j)
+      state[0][S::xoff + j][lane] = x0[(S::xoff + j) * Bl + b];
+  });
+  __syncthreads();
   for (int k = 0; k < N; ++k) {
-    for (int r = 0; r < X; ++r)
-      xs_out[(((long)k * X + r) * Cl + c) * Bl + b] = x[r];
-    rollout::control_law<X, PU>(xs, us, Ps, al, k, b, Bl, sc, umask_bits, x,
-                                u);
-    if (us_out)
-      for (int af = 0; af < PU; ++af)
-        us_out[(((long)k * PU + af) * Cl + c) * Bl + b] = u[af];
-    const float t = t0[b] + (float)k * dt;
-    rollout::integrate<X>(tab, t, h, x, u);
+    const int cur = k & 1;
+    float x[X];
+    for (int r = 0; r < X; ++r) x[r] = state[cur][r][lane];
+    on_sub(w, [&](auto q) {
+      using S = decltype(q);
+      constexpr int O = S::xoff, Q = S::uoff, D = S::dim;
+      float u[U];
+      rollout::control_rows<X, PU, Q, U>(xs, us, Ps, al, k, b, Bl, sc,
+                                         umask_bits, x, u);
+      if (live) {
+        for (int j = 0; j < D; ++j)
+          xs_out[(((long)k * X + O + j) * Cl + c) * Bl + b] = x[O + j];
+        if (us_out)
+          for (int a = 0; a < U; ++a)
+            us_out[(((long)k * PU + Q + a) * Cl + c) * Bl + b] = u[a];
+      }
+      float xo[D];
+      for (int j = 0; j < D; ++j) xo[j] = x[O + j];
+      rollout::sub_integrate<S::kind>(S::length, h, xo, u);
+      for (int j = 0; j < D; ++j) state[cur ^ 1][O + j][lane] = xo[j];
+    });
+    __syncthreads();
   }
 }
 
@@ -119,6 +184,17 @@ __global__ void rollout_merit_kernel(
 
 constexpr int BLOCK = 128;
 
+// Whether the run-time table describes the layout this library was built
+// for.
+bool matches_layout(const SubsysTable& tab) {
+  if (tab.n != NSUB) return false;
+  for (int s = 0; s < NSUB; ++s)
+    if (tab.kind[s] != SUB_KIND[s] || tab.xoff[s] != SUB_XOFF[s] ||
+        tab.uoff[s] != SUB_UOFF[s] || tab.length[s] != SUB_LENGTH[s])
+      return false;
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -126,16 +202,19 @@ extern "C" {
 // x0 [X,B], xs [N,X,B], us [N,PU,B], Ps [N,PU,X,B], al [N,PU,B], t0 [B],
 // scal [C,B] -> xs_out [N,X,C,B] and, when us_out is not null,
 // us_out [N,PU,C,B]. h = dt / 2. Bit af of umask_bits marks a real control.
+// Returns cudaErrorInvalidValue when `tab` is not the built layout. The
+// models are time-invariant, so K4 reads no t0.
 int sweep_rollout(const float* x0, const float* xs, const float* us,
                   const float* Ps, const float* al, const float* t0,
                   const float* scal, float* xs_out, float* us_out, int N,
                   int C, int B, float dt, float h, int umask_bits,
                   SubsysTable tab, void* stream) {
+  if (!matches_layout(tab)) return (int)cudaErrorInvalidValue;
   const long total = (long)C * B;
-  const int grid = (int)((total + BLOCK - 1) / BLOCK);
-  rollout_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      x0, xs, us, Ps, al, t0, scal, xs_out, us_out, N, C, B, dt, h,
-      umask_bits, tab);
+  if (total == 0) return 0;
+  const int grid = (int)((total + WARP - 1) / WARP);
+  rollout_warp_kernel<<<grid, WARP * NSUB, 0, (cudaStream_t)stream>>>(
+      x0, xs, us, Ps, al, scal, xs_out, us_out, N, C, B, h, umask_bits);
   return (int)cudaGetLastError();
 }
 

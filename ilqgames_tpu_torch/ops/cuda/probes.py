@@ -4,10 +4,11 @@ kernel's time goes.
 
 - `fma_chain` (P1): the kernel_floor probe's chain of dependent
   multiply-adds, a floor of float32 latency.
-- `probe_rollout` (P2): K4's rollout with compile-time switches, one
-  instantiated rung per entry of `RUNGS`, from the floor of one RK4 step
-  (fixed controls, compile-time state offsets) up to the production
-  control law with emission (the top rung, `"emit_xs_us"`, is K4 with
+- `probe_rollout` (P2): the one-thread-per-chain rollout with
+  compile-time switches, one instantiated rung per entry of `RUNGS`, from
+  the floor of one RK4 step (fixed controls, compile-time state offsets)
+  up to the production control law with emission (the top rung,
+  `"emit_xs_us"`, is K4's design before one warp per subsystem, with
   `emit_us=True`) or with the merit content of K5 folded in several ways.
 - `smoke` (P3): o = x * 2 + 1.
 

@@ -5,7 +5,8 @@ ilqgames_tpu/ops/pallas/sweep.py with emit_us=False.
 Each kernel's wrapper (`rollout_bm`: K4 and `rollout_merits`: K5, in
 csrc/sweep.cu; `consumer_merits`: K6, in csrc/merit.cu) launches it on
 CUDA tensors and takes its plain PyTorch version on CPU tensors; any
-other device raises. Each keeps a launch count.
+other device raises. Each keeps a launch count. csrc/sweep.cu is built
+per game: its layout of subsystems is compile-time (`library`).
 
 The sweep's `merit_backend` picks how a candidate's merit is computed,
 as the JAX package's does:
@@ -22,6 +23,7 @@ materialized.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -74,10 +76,21 @@ def _umask_flat(spec: GameSpec):
                  for a in range(spec.umax))
 
 
-def library(spec: GameSpec):
-    """(source name, defines) of csrc/sweep.cu (K4, K5)."""
-    return "sweep", {"SW_X": spec.xdim, "SW_PU": spec.num_players * spec.umax,
-                     "SW_U": spec.umax}
+def library(dyn, spec: GameSpec):
+    """(source name, defines) of csrc/sweep.cu (K4, K5) for this game: its
+    dims, and its layout of subsystems from `_device_table`'s data (so a
+    model with no device ODE raises): the count SW_NSUB and, per field, a
+    list of SW_ITEM(v), one per subsystem (nvcc splits a define's value at
+    commas): kinds, state offsets, control offsets, and inter-axle lengths
+    as exact float32 hex literals."""
+    tab = _device_table(dyn, spec)
+    n = tab.n
+    items = lambda vals: "".join(f"SW_ITEM({v})" for v in vals)
+    return "sweep", {
+        "SW_X": spec.xdim, "SW_PU": spec.num_players * spec.umax,
+        "SW_U": spec.umax, "SW_NSUB": n, "SW_SUB_KIND": items(tab.kind[:n]),
+        "SW_SUB_XOFF": items(tab.xoff[:n]), "SW_SUB_UOFF": items(tab.uoff[:n]),
+        "SW_SUB_LENGTH": items(f"{v.hex()}f" for v in tab.length[:n])}
 
 
 def merit_library(spec: GameSpec):
@@ -87,10 +100,9 @@ def merit_library(spec: GameSpec):
 
 
 @functools.lru_cache(maxsize=None)
-def load_kernels(spec: GameSpec) -> ctypes.CDLL:
-    """Build (once per shape) and load csrc/sweep.cu (K4, K5) for this
-    game's dims."""
-    lib = build.load(*library(spec))
+def load_kernels(dyn, spec: GameSpec) -> ctypes.CDLL:
+    """Build (once per game) and load csrc/sweep.cu (K4, K5)."""
+    lib = build.load(*library(dyn, spec))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sweep_rollout.argtypes = ([P] * 9 + [I] * 3 + [F, F, I, _SubsysTable,
                                                        P])
@@ -151,7 +163,9 @@ def rollout_plain(dyn, spec: GameSpec, x0m, op_bm: dict, st_bm: dict,
 def rollout_bm(dyn, spec: GameSpec, x0m, op_bm: dict, st_bm: dict, scal_cb,
                emit_us: bool = False):
     """K4 on batch-minor operands (see `rollout_plain`). CUDA tensors
-    launch csrc/sweep.cu; CPU tensors take `rollout_plain`."""
+    launch csrc/sweep.cu's rollout (one warp per subsystem); CPU tensors
+    take `rollout_plain`. Launches are also counted per (C, B, emit_us) in
+    `rollout_bm.by_shape`."""
     N, x = spec.num_time_steps, spec.xdim
     Pu = spec.num_players * spec.umax
     C, B = scal_cb.shape
@@ -163,7 +177,7 @@ def rollout_bm(dyn, spec: GameSpec, x0m, op_bm: dict, st_bm: dict, scal_cb,
     if dev.type == "cpu":
         return rollout_plain(dyn, spec, x0m, op_bm, st_bm, scal_cb, emit_us)
     tab = _device_table(dyn, spec)
-    lib = load_kernels(spec)
+    lib = load_kernels(dyn, spec)
     xs = torch.empty((N, x, C, B), dtype=torch.float32, device=dev)
     us = (torch.empty((N, Pu, C, B), dtype=torch.float32, device=dev)
           if emit_us else None)
@@ -176,10 +190,12 @@ def rollout_bm(dyn, spec: GameSpec, x0m, op_bm: dict, st_bm: dict, scal_cb,
         umask, tab, torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "sweep_rollout")
     rollout_bm.launches += 1
+    rollout_bm.by_shape[(C, B, emit_us)] += 1
     return (xs, us) if emit_us else xs
 
 
 rollout_bm.launches = 0
+rollout_bm.by_shape = collections.Counter()
 
 
 def rollout_merits_plain(dyn, player_costs, spec: GameSpec, x0m, op_bm: dict,
@@ -214,7 +230,7 @@ def rollout_merits(dyn, player_costs, spec: GameSpec, x0m, op_bm: dict,
         raise NotImplementedError("control constraints are not ported yet")
     tab = _device_table(dyn, spec)
     costs, segs = cost_table(player_costs, spec, dev)
-    lib = load_kernels(spec)
+    lib = load_kernels(dyn, spec)
     merits = torch.empty((C, B), dtype=torch.float32, device=dev)
     umask = sum(1 << af for af, m in enumerate(_umask_flat(spec)) if m)
     rc = lib.sweep_rollout_merit(

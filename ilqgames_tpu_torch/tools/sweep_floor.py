@@ -6,7 +6,8 @@ otherwise:
 
 - P2 rungs (ops/cuda/probes.py RUNGS) for the structural steps: the floor
   law, the production law, the state layout (compile-time offsets against
-  K4's run-time SubsysTable), the per-lane time, the merit fold's gate,
+  the run-time SubsysTable that K5 takes, as K4's one-thread design did
+  before one warp per subsystem), the per-lane time, the merit fold's gate,
   knot-0 and accumulator choices, and raw merit content;
 - K5 (sweep.rollout_merits) on sub-tables of the flagship's costs for the
   cost-content cases (tools/sweep_floor5b.py's filters, `_probe`);
@@ -258,17 +259,19 @@ def _cases():
         c("5.v1_ctrl_law", s["5"], "P2 prod_static (production law)",
           p2("5", "prod_static")),
         c("5.v2_scratch_x", s["5"], "P2 prod_table (run-time SubsysTable "
-          "layout, as K4)", p2("5", "prod_table"),
+          "layout, as K5 and K4's one-thread design)", p2("5", "prod_table"),
           "x through a VMEM scratch ref has no CUDA form; the analogue is "
-          "the state indexed through run-time subsystem offsets (K4's "
+          "the state indexed through run-time subsystem offsets (K5's "
           "layout) against v1's compile-time offsets"),
         c("5.v3_lane_t", s["5"], "P2 lane_t (per-lane t)", p2("5", "lane_t"),
           "the flagship's models ignore t, so nvcc drops it"),
-        c("5.v3_emit", s["5"], "P2 emit_xs and emit_xs_us (the top rung), "
-          "K4 beside", p2("5", "emit_xs", beside=("emit_xs_us",)),
-          "no TPU case: v3 + emission, K4's shape"),
+        c("5.v3_emit", s["5"], "P2 emit_xs and emit_xs_us (the top rung)",
+          p2("5", "emit_xs", beside=("emit_xs_us",)),
+          "no TPU case: v3 + emission, K4's one-thread design before one "
+          "warp per subsystem"),
         c("5.k4", s["5"], "K4 (emit xs, as shipped)", k4("5"),
-          "no TPU case: K4 beside v3"),
+          "no TPU case: K4, one warp per subsystem, beside v3 + "
+          "emission"),
         c("5.v4_merit_zero", s["5"], "P2 gate_select_global on the empty "
           "table", p2("5", "gate_select_global", "empty")),
         c("5.v5_merit_real", s["5"], "K5 (full table, lamS 0)",
