@@ -13,29 +13,41 @@
 // dx_{k+1} = A_k dx_k - sum_af Bf[:, af] alpha_af, with the open-loop A of
 // the reference's shipped forward pass (no -B P feedback term).
 //
-// Design. K2 runs one block of NT threads per lane. The block keeps the
-// lane's value-function carry Z [P][X][X] and zeta [P][X], the knot's
-// operands and every temporary in shared memory (about 11 KB). It walks
-// the knots backward in phases separated by __syncthreads(). Each output
-// element of a phase (an entry of B_i^T Z_i, of the augmented system, of
-// F or of the new Z_i) is one thread's left fold, in the same order as
-// the plain version. The LU pivot search runs on one thread, and the
-// eliminations and the back-substitution are parallel over columns.
-// Operands are batch-minor ([..., B]), as the JAX package lays them out:
-// a block reads its lane's operands with stride B, and the blocks of
-// neighbouring lanes share the sectors through L2. K3 runs one block per
-// lane with one thread per state row, and keeps dx in shared memory.
+// Design. K2 runs G = LQ_G lanes per block (default 8: eight floats of
+// neighbouring lanes fill one 32-byte sector) and one warp per lane. The
+// whole block stages each knot's operands of its G lanes (A, Bf, Qf, lf,
+// Rf, rf: 1,222 floats a lane) from device memory into shared memory,
+// consecutive threads on consecutive lanes, so every read is coalesced and
+// no device load is left inside a fold. The next knot's operands are
+// copied by cp.async into a second buffer while a knot computes, so the
+// staging hides behind the knot's work. The same pass writes the previous
+// knot's outputs, coalesced the same way. Two block barriers per knot
+// order the staging;
+// every other phase is one warp's work on its own lane, separated by
+// __syncwarp(). Each output element of a phase is one left fold in the
+// plain version's order. The two largest phases, T_i = Z_i F and the value
+// update, run in register tiles (a thread holds four adjacent columns of
+// six rows, read as float4), so that a shared-memory load feeds several
+// folds; the others give each thread whole entries. The LU pivot search is
+// a warp reduction (NaN-propagating max, then the first row attaining it
+// by ballot). The eliminations touch only the columns right of the pivot:
+// the entries left of it are never read again. R_i P_j is formed once per
+// knot (RP) and the value update folds from it. A lane takes 5,028 floats
+// of dynamic shared memory with both operand buffers and its padding
+// against bank conflicts (160,896 B a block at G = 8). Lanes past B compute on
+// the last lane, meet every barrier and store nothing.
 //
-// What bounds them on this card. Per knot, K2 reads about 1.2 K floats
-// of operands per lane and does about 40 kFLOP. At B = 1024 there are
-// 1024 blocks of NT threads, about 8 per SM. The time is the chain of
-// about 26 barrier-separated phases per knot, and the card's FLOP/s and
-// bandwidth are not the limit. An earlier version ran one thread per
-// lane through spilled local memory. On an H100 (700 W power limit) it
-// took 57-67 ms at B = 1024, N = 100 for any block size from 4 to 32
-// threads. K3 does about 0.7 kFLOP per knot and lane; each knot is one
-// 22-term fold per thread between two barriers, so it is bound by that
-// chain over the horizon.
+// What bounds them on this card. K2 does 74,970 float32 operations per
+// knot and lane (counted on the plain version) against 1,324 floats moved,
+// so it is operation-bound; at B = 1024 it has 128 blocks, one per SM,
+// eight warps each. Its time is each warp's instruction stream over the
+// knot's phases (the folds, their shared-memory loads and index
+// arithmetic) and the LU's dependent chain, with two warps per scheduler
+// to hide latency. K3 does about 0.7 kFLOP per
+// knot and lane; each knot is one 22-term fold per thread between two
+// barriers, so it is bound by that chain over the horizon. K3 runs one
+// block per lane with one thread per state row, and keeps dx in shared
+// memory.
 //
 // Arithmetic follows the plain PyTorch versions (ops/cuda/lq.py)
 // operation by operation: left folds over the contraction index,
@@ -64,206 +76,426 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 }
 
-constexpr int NT = 128;         // threads of a K2 block
-constexpr int PPU = P * P * U;  // rows of Rf and rf at one knot
-static_assert((PU - 1) * W <= NT, "an elimination step needs a thread per entry");
-static_assert(X + 1 <= NT, "back-substitution needs a thread per column");
+#ifndef LQ_G
+#define LQ_G 8
+#endif
 
-__global__ void __launch_bounds__(NT) lq_backward_kernel(
+constexpr int G = LQ_G;         // lanes of a K2 block, one warp each
+constexpr int NTB = 32 * G;     // threads of a K2 block
+constexpr int PPU = P * P * U;  // rows of Rf and rf at one knot
+
+// A lane's floats in shared memory. The arrays read as float4 rows (Z, T,
+// F, RP, and Qf of the staged operands) start at multiples of four floats:
+// the carry and the knot's temporaries first, then the staged operands,
+// twice over: the knot's own and the next knot's, in flight. A lane's
+// stride is 4 more than a multiple of 32 floats, so that the staging's
+// stores, eight lanes of one element side by side, fall in distinct banks.
+constexpr int pad4(int n) { return (n + 3) / 4 * 4; }
+constexpr int OFF_Z = 0;                        // Z [P][X][X]
+constexpr int OFF_T = OFF_Z + PX * X;           // Z_i F [P][X][X]
+constexpr int OFF_F = OFF_T + PX * X;           // F [X][X]
+constexpr int OFF_RP = OFF_F + X * X;           // R_i P [P][PU][X]
+constexpr int OFF_ZETA = OFF_RP + P * PU * X;   // zeta [P][X]
+constexpr int OFF_BIZ = OFF_ZETA + PX;          // B_i^T Z_i [PU][X]
+constexpr int OFF_M = OFF_BIZ + PU * X;         // [S | Yp | Ya] [PU][W]
+constexpr int OFF_XS = OFF_M + PU * W;          // [P | alpha] [PU][X + 1]
+constexpr int OFF_BETA = OFF_XS + PU * (X + 1); // beta [X]
+constexpr int OFF_BUMP = OFF_BETA + X;          // bump [PU]
+constexpr int OFF_W = OFF_BUMP + PU;            // w [P][X]
+constexpr int OFF_COEF = OFF_W + PX;            // coef [P][PU]
+constexpr int OFF_S = pad4(OFF_COEF + P * PU);  // the staged operands:
+constexpr int S_Q = 0;                          //   Qf [PX][X]
+constexpr int S_A = S_Q + PX * X;               //   A [X][X]
+constexpr int S_B = S_A + X * X;                //   Bf [X][PU]
+constexpr int S_L = S_B + X * PU;               //   lf [PX]
+constexpr int S_R = S_L + PX;                   //   Rf [PPU][U]
+constexpr int S_RV = S_R + PPU * U;             //   rf [PPU]
+constexpr int STAGED = pad4(S_RV + PPU);
+constexpr int LANE_USED = OFF_S + 2 * STAGED;
+constexpr int LANE = LANE_USED + ((4 - LANE_USED) % 32 + 32) % 32;
+constexpr int SMEM_BYTES = G * LANE * (int)sizeof(float);
+
+// The value update's tiles: a thread holds four adjacent columns of
+// MR rows of every player, rows rg, rg + RG, ... of each.
+constexpr int CG = X / 4;   // column groups of four
+constexpr int RG = 32 / CG;  // row groups
+constexpr int MR = X / RG;   // rows of one player per thread
+static_assert(X % 4 == 0 && 32 % CG == 0 && X % RG == 0,
+              "K2's value-update tiles need x a multiple of 4 whose "
+              "quarter divides 32 and is divided by 32 / (x / 4)");
+#ifdef LQ_SMEM
+static_assert(SMEM_BYTES == LQ_SMEM,
+              "ops/cuda/lq.py:backward_smem_bytes disagrees with the layout");
+#endif
+static_assert(SMEM_BYTES <= 232448, "a block may use 227 KB of shared memory");
+static_assert(X + 1 <= 32 && W <= 32 && PU <= 32,
+              "a warp needs a thread per column and per pivot row");
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+// a + s * v, lane by lane, as separate multiplies and adds.
+__device__ __forceinline__ float4 madd4(float4 a, float s, float4 v) {
+  return make_float4(a.x + s * v.x, a.y + s * v.y, a.z + s * v.z,
+                     a.w + s * v.w);
+}
+
+// Stage n floats per lane of the batch-minor array src, from element base,
+// into each lane's region at off, with loads and stores or, ASYNC, with
+// cp.async copies. Consecutive threads read consecutive lanes; lanes past
+// B read the last lane.
+template <bool ASYNC>
+__device__ __forceinline__ void stage(float* sm, int off,
+                                      const float* __restrict__ src,
+                                      long base, int n, int b0, int B,
+                                      int tid) {
+  const long Bl = B;
+  for (int idx = tid; idx < n * G; idx += NTB) {
+    const int e = idx / G, g = idx % G;
+    const int b = min(b0 + g, B - 1);
+    float* dst = sm + g * LANE + off + e;
+    const float* from = src + (base + e) * Bl + b;
+    if constexpr (ASYNC) {
+      const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                   "l"(from));
+    } else {
+      *dst = *from;
+    }
+  }
+}
+
+// Stage knot s's operands into buffer buf of every lane by cp.async, as
+// one commit group.
+__device__ __forceinline__ void stage_knot(
+    float* sm, int buf, const float* __restrict__ A,
+    const float* __restrict__ Bf, const float* __restrict__ Qf,
+    const float* __restrict__ lf, const float* __restrict__ Rf,
+    const float* __restrict__ rf, int s, int b0, int B, int tid) {
+  const int o = OFF_S + buf * STAGED;
+  stage<true>(sm, o + S_Q, Qf, (long)s * PX * X, PX * X, b0, B, tid);
+  stage<true>(sm, o + S_A, A, (long)s * X * X, X * X, b0, B, tid);
+  stage<true>(sm, o + S_B, Bf, (long)s * X * PU, X * PU, b0, B, tid);
+  stage<true>(sm, o + S_L, lf, (long)s * PX, PX, b0, B, tid);
+  stage<true>(sm, o + S_R, Rf, (long)s * PPU * U, PPU * U, b0, B, tid);
+  stage<true>(sm, o + S_RV, rf, (long)s * PPU, PPU, b0, B, tid);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Write knot s's [P | alpha] of the block's lanes below B, coalesced.
+__device__ __forceinline__ void store_knot(const float* sm,
+                                           float* __restrict__ Ps,
+                                           float* __restrict__ al, int s,
+                                           int b0, int B, int tid) {
+  const long Bl = B;
+  for (int idx = tid; idx < PU * (X + 1) * G; idx += NTB) {
+    const int e = idx / G, g = idx % G, b = b0 + g;
+    if (b >= B) continue;
+    const int af = e / (X + 1), z = e % (X + 1);
+    const float v = sm[g * LANE + OFF_XS + e];
+    if (z < X)
+      Ps[(((long)s * PU + af) * X + z) * Bl + b] = v;
+    else
+      al[((long)s * PU + af) * Bl + b] = v;
+  }
+}
+
+__global__ void __launch_bounds__(NTB) lq_backward_kernel(
     const float* __restrict__ A, const float* __restrict__ Bf,
     const float* __restrict__ Qf, const float* __restrict__ lf,
     const float* __restrict__ Rf, const float* __restrict__ rf,
     float* __restrict__ Ps, float* __restrict__ al, int N, int B,
     int pad_mask, int adaptive) {
-  const int b = blockIdx.x;
+  extern __shared__ float sm[];
   const int tid = threadIdx.x;
-  const long Bl = B;
-
-  __shared__ float Z[P][X][X], zeta[P][X];          // value-function carry
-  __shared__ float Am[X][X], Bm[X][PU], R[PPU][U], r[PPU];
-  __shared__ float BiZ[PU][X], M[PU][W], Xs[PU][X + 1];
-  __shared__ float F[X][X], beta[X], bump[PU];
-  __shared__ float T[P][X][X], w[P][X], coef[P][PU];
-  __shared__ int piv;
+  const int b0 = blockIdx.x * G;
+  const int lt = tid % 32;
+  float* L = sm + (tid / 32) * LANE;  // this warp's lane
+  float* Z = L + OFF_Z;
+  float* zeta = L + OFF_ZETA;
+  float* BiZ = L + OFF_BIZ;
+  float* M = L + OFF_M;
+  float* Xs = L + OFF_XS;
+  float* F = L + OFF_F;
+  float* beta = L + OFF_BETA;
+  float* bump = L + OFF_BUMP;
+  float* T = L + OFF_T;
+  float* w = L + OFF_W;
+  float* coef = L + OFF_COEF;
+  float* RP = L + OFF_RP;
+  constexpr int XA = X + 1;  // row length of Xs
+  const int c0 = 4 * (lt % CG), rg = lt / CG;  // the thread's tile
 
   // Terminal condition: the last knot's quadraticization.
-  for (int e = tid; e < PX * X; e += NT)
-    (&Z[0][0][0])[e] = Qf[((long)(N - 1) * PX * X + e) * Bl + b];
-  for (int e = tid; e < PX; e += NT)
-    (&zeta[0][0])[e] = lf[((long)(N - 1) * PX + e) * Bl + b];
+  stage<false>(sm, OFF_Z, Qf, (long)(N - 1) * PX * X, PX * X, b0, B, tid);
+  stage<false>(sm, OFF_ZETA, lf, (long)(N - 1) * PX, PX, b0, B, tid);
+  if (N >= 2)
+    stage_knot(sm, 0, A, Bf, Qf, lf, Rf, rf, N - 2, b0, B, tid);
 
   for (int s = N - 2; s >= 0; --s) {
-    for (int e = tid; e < X * X; e += NT)
-      (&Am[0][0])[e] = A[((long)s * X * X + e) * Bl + b];
-    for (int e = tid; e < X * PU; e += NT)
-      (&Bm[0][0])[e] = Bf[((long)s * X * PU + e) * Bl + b];
-    for (int e = tid; e < PPU * U; e += NT)
-      (&R[0][0])[e] = Rf[((long)s * PPU * U + e) * Bl + b];
-    for (int e = tid; e < PPU; e += NT)
-      r[e] = rf[((long)s * PPU + e) * Bl + b];
+    const int cur = (N - 2 - s) & 1;
+    __syncthreads();  // every warp is done with knot s + 1
+    if (s < N - 2) store_knot(sm, Ps, al, s + 1, b0, B, tid);
+    if (s > 0) {  // knot s - 1 into the buffer knot s + 1 left
+      stage_knot(sm, cur ^ 1, A, Bf, Qf, lf, Rf, rf, s - 1, b0, B, tid);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    }
     __syncthreads();
+    const float* St = L + OFF_S + cur * STAGED;
+    const float* Qs = St + S_Q;
+    const float* Am = St + S_A;
+    const float* Bm = St + S_B;
+    const float* ls = St + S_L;
+    const float* R = St + S_R;
+    const float* r = St + S_RV;
 
     // B_i^T Z_i, rows over (player i, control a).
-    for (int e = tid; e < PU * X; e += NT) {
-      const int af = e / X, y = e % X, i = af / U;
-      float acc = Bm[0][af] * Z[i][0][y];
-      for (int xx = 1; xx < X; ++xx) acc = acc + Bm[xx][af] * Z[i][xx][y];
-      BiZ[af][y] = acc;
+    for (int e = lt; e < PU * X; e += 32) {
+      const int af = e / X, y = e % X;
+      const float* Zi = Z + (af / U) * X * X;
+      float acc = Bm[af] * Zi[y];
+      for (int xx = 1; xx < X; ++xx)
+        acc = acc + Bm[xx * PU + af] * Zi[xx * X + y];
+      BiZ[e] = acc;
     }
-    __syncthreads();
+    __syncwarp();
 
-    // The augmented system [S | B_i^T Z_i A | B_i^T zeta_i + r_ii]; S gets
-    // the own R block and identity on padded controls.
-    for (int e = tid; e < PU * W; e += NT) {
-      const int af = e / W, c = e % W, i = af / U, a = af % U;
-      float acc;
-      if (c < PU) {
-        acc = BiZ[af][0] * Bm[0][c];
-        for (int y = 1; y < X; ++y) acc = acc + BiZ[af][y] * Bm[y][c];
-        acc = acc + ((c / U) == i ? R[(i * P + i) * U + a][c % U] : 0.0f);
-        if ((pad_mask >> af) & 1) acc = acc + (c == af ? 1.0f : 0.0f);
-      } else if (c < PU + X) {
-        const int z = c - PU;
-        acc = BiZ[af][0] * Am[0][z];
-        for (int y = 1; y < X; ++y) acc = acc + BiZ[af][y] * Am[y][z];
-      } else {
-        acc = Bm[0][af] * zeta[i][0];
-        for (int xx = 1; xx < X; ++xx) acc = acc + Bm[xx][af] * zeta[i][xx];
-        acc = acc + r[(i * P + i) * U + a];
-      }
-      M[af][c] = acc;
+    // The augmented system [S | B_i^T Z_i A | B_i^T zeta_i + r_ii], one
+    // loop per block of columns so that a warp's threads take one path; S
+    // gets the own R block and identity on padded controls.
+    for (int e = lt; e < PU * PU; e += 32) {
+      const int af = e / PU, c = e % PU, i = af / U, a = af % U;
+      const float* Bz = BiZ + af * X;
+      float acc = Bz[0] * Bm[c];
+      for (int y = 1; y < X; ++y) acc = acc + Bz[y] * Bm[y * PU + c];
+      acc = acc + ((c / U) == i ? R[((i * P + i) * U + a) * U + c % U]
+                                : 0.0f);
+      if ((pad_mask >> af) & 1) acc = acc + (c == af ? 1.0f : 0.0f);
+      M[af * W + c] = acc;
     }
-    __syncthreads();
+    for (int e = lt; e < PU * X; e += 32) {
+      const int af = e / X, z = e % X;
+      const float* Bz = BiZ + af * X;
+      float acc = Bz[0] * Am[z];
+      for (int y = 1; y < X; ++y) acc = acc + Bz[y] * Am[y * X + z];
+      M[af * W + PU + z] = acc;
+    }
+    if (lt < PU) {
+      const int af = lt, i = af / U, a = af % U;
+      float acc = Bm[af] * zeta[i * X];
+      for (int xx = 1; xx < X; ++xx)
+        acc = acc + Bm[xx * PU + af] * zeta[i * X + xx];
+      M[af * W + PU + X] = acc + r[(i * P + i) * U + a];
+    }
+    __syncwarp();
 
     // Gershgorin column regularization (adds 0 off the diagonal, as the
     // plain version's diag_embed does).
     if (adaptive) {
-      if (tid < PU) {
-        const int c = tid;
-        float colsum = fabsf(M[0][c]);
-        for (int rr = 1; rr < PU; ++rr) colsum = colsum + fabsf(M[rr][c]);
-        const float d = M[c][c];
+      if (lt < PU) {
+        const int c = lt;
+        float colsum = fabsf(M[c]);
+        for (int rr = 1; rr < PU; ++rr)
+          colsum = colsum + fabsf(M[rr * W + c]);
+        const float d = M[c * W + c];
         const float radius = colsum - fabsf(d);
         bump[c] = (d - radius < MIN_GERSHGORIN_EVAL)
                       ? radius + MIN_GERSHGORIN_EVAL : 0.0f;
       }
-      __syncthreads();
-      if (tid < PU * PU) {
-        const int rr = tid / PU, c = tid % PU;
-        M[rr][c] = M[rr][c] + (c == rr ? bump[rr] : 0.0f);
+      __syncwarp();
+      for (int e = lt; e < PU * PU; e += 32) {
+        const int rr = e / PU, c = e % PU;
+        M[rr * W + c] = M[rr * W + c] + (c == rr ? bump[rr] : 0.0f);
       }
-      __syncthreads();
+      __syncwarp();
     }
 
-    // LU with partial pivoting on the augmented rows.
+    // LU with partial pivoting on the augmented rows. The pivot is the
+    // first row attaining the NaN-propagating column max (row k on NaN).
+#pragma unroll
     for (int k = 0; k < PU; ++k) {
-      if (tid == 0) {
-        float m = fabsf(M[k][k]);
-        for (int rr = k + 1; rr < PU; ++rr) m = nan_max(m, fabsf(M[rr][k]));
-        int p = k;  // stays k when the column holds a NaN
-        for (int rr = k; rr < PU; ++rr)
-          if (fabsf(M[rr][k]) >= m) { p = rr; break; }
-        piv = p;
+      const bool mine = lt >= k && lt < PU;
+      const float v = mine ? fabsf(M[lt * W + k]) : 0.0f;
+      float m = v;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, o));
+      const unsigned hit = __ballot_sync(0xffffffffu, mine && v >= m);
+      const int p = hit ? __ffs(hit) - 1 : k;
+      if (p != k && lt < W) {
+        const float tmp = M[k * W + lt];
+        M[k * W + lt] = M[p * W + lt];
+        M[p * W + lt] = tmp;
       }
-      __syncthreads();
-      const int p = piv;
-      if (p != k && tid < W) {
-        const float tmp = M[k][tid];
-        M[k][tid] = M[p][tid];
-        M[p][tid] = tmp;
+      __syncwarp();
+      // Rows below k, columns right of k. This step writes nothing it
+      // reads (row k and column k stay), and what it leaves in column k
+      // below the pivot is never read again.
+      const int nc = W - 1 - k;
+      const float inv = 1.0f / M[k * W + k];
+      for (int e = lt; e < (PU - 1 - k) * nc; e += 32) {
+        const int rr = k + 1 + e / nc, c = k + 1 + e % nc;
+        const float f = M[rr * W + k] * inv;
+        M[rr * W + c] = M[rr * W + c] - f * M[k * W + c];
       }
-      __syncthreads();
-      const bool elim = tid < (PU - 1 - k) * W;
-      const int rr = k + 1 + tid / W, c = tid % W;
-      float f = 0.0f, pivot_c = 0.0f;
-      if (elim) {
-        f = M[rr][k] * (1.0f / M[k][k]);
-        pivot_c = M[k][c];
-      }
-      __syncthreads();
-      if (elim) M[rr][c] = M[rr][c] - f * pivot_c;
-      __syncthreads();
+      __syncwarp();
     }
 
     // Back-substitution, one thread per right-hand side.
-    if (tid <= X) {
-      const int c = tid;
+    if (lt < XA) {
+      const int c = lt;
       for (int k = PU - 1; k >= 0; --k) {
-        float acc = M[k][PU + c];
-        for (int j = k + 1; j < PU; ++j) acc = acc - M[k][j] * Xs[j][c];
-        Xs[k][c] = acc / M[k][k];
+        float acc = M[k * W + PU + c];
+        for (int j = k + 1; j < PU; ++j)
+          acc = acc - M[k * W + j] * Xs[j * XA + c];
+        Xs[k * XA + c] = acc / M[k * W + k];
       }
     }
-    __syncthreads();
+    __syncwarp();
 
-    // Outputs; closed-loop transition F and drift beta.
-    for (int e = tid; e < PU * (X + 1); e += NT) {
-      const int af = e / (X + 1), z = e % (X + 1);
-      if (z < X)
-        Ps[(((long)s * PU + af) * X + z) * Bl + b] = Xs[af][z];
-      else
-        al[((long)s * PU + af) * Bl + b] = Xs[af][X];
-    }
-    for (int e = tid; e < X * X; e += NT) {
+    // Closed-loop transition F and drift beta.
+    for (int e = lt; e < X * X; e += 32) {
       const int rr = e / X, z = e % X;
-      float f = Am[rr][z];
-      for (int af = 0; af < PU; ++af) f = f - Bm[rr][af] * Xs[af][z];
-      F[rr][z] = f;
+      float f = Am[e];
+      for (int af = 0; af < PU; ++af)
+        f = f - Bm[rr * PU + af] * Xs[af * XA + z];
+      F[e] = f;
     }
-    if (tid < X) {
-      float acc = -(Bm[tid][0] * Xs[0][X]);
-      for (int af = 1; af < PU; ++af) acc = acc - Bm[tid][af] * Xs[af][X];
-      beta[tid] = acc;
+    if (lt < X) {
+      float acc = -(Bm[lt * PU] * Xs[X]);
+      for (int af = 1; af < PU; ++af)
+        acc = acc - Bm[lt * PU + af] * Xs[af * XA + X];
+      beta[lt] = acc;
     }
-    __syncthreads();
+    __syncwarp();
 
-    // Value updates of all players; each reads only its own old Z_i.
-    for (int e = tid; e < P * X * X; e += NT) {
-      const int i = e / (X * X), rr = (e / X) % X, z = e % X;
-      float acc = Z[i][rr][0] * F[0][z];
-      for (int y = 1; y < X; ++y) acc = acc + Z[i][rr][y] * F[y][z];
-      T[i][rr][z] = acc;
-    }
-    for (int e = tid; e < P * X; e += NT) {
-      const int i = e / X, rr = e % X;
-      float acc = Z[i][rr][0] * beta[0];
-      for (int y = 1; y < X; ++y) acc = acc + Z[i][rr][y] * beta[y];
-      w[i][rr] = zeta[i][rr] + acc;
-    }
-    for (int e = tid; e < P * PU; e += NT) {
-      const int i = e / PU, ja = e % PU, j = ja / U;
-      const float* Rrow = R[i * PU + ja];  // row (i, j, a) of R
-      float Ra = Rrow[0] * Xs[j * U][X];
-      for (int v = 1; v < U; ++v) Ra = Ra + Rrow[v] * Xs[j * U + v][X];
-      coef[i][ja] = Ra - r[i * PU + ja];
-    }
-    __syncthreads();
-
-    for (int e = tid; e < P * X; e += NT) {
-      const int i = e / X, z = e % X;
-      float acc = F[0][z] * w[i][0];
-      for (int xx = 1; xx < X; ++xx) acc = acc + F[xx][z] * w[i][xx];
-      const float zn = acc + lf[((long)s * PX + i * X + z) * Bl + b];
-      float cross = 0.0f;
-      for (int ja = 0; ja < PU; ++ja) cross = cross + Xs[ja][z] * coef[i][ja];
-      zeta[i][z] = zn + cross;
-    }
-    for (int e = tid; e < P * X * X; e += NT) {
-      const int i = e / (X * X), a = (e / X) % X, c = e % X;
-      float acc = F[0][a] * T[i][0][c];
-      for (int xx = 1; xx < X; ++xx) acc = acc + F[xx][a] * T[i][xx][c];
-      float prp = 0.0f;
-      for (int ja = 0; ja < PU; ++ja) {
-        const int j = ja / U;
-        const float* Rrow = R[i * PU + ja];
-        float RP = Rrow[0] * Xs[j * U][c];
-        for (int v = 1; v < U; ++v) RP = RP + Rrow[v] * Xs[j * U + v][c];
-        prp = prp + Xs[ja][a] * RP;
+    // What the value updates read: T_i = Z_i F, w_i = zeta_i + Z_i beta,
+    // coef_i = R_i alpha - r_i, and R_i P once per (i, j, a) row.
+    // T in tiles: per four knots of y, a float4 of each held row of Z and
+    // of the four rows of F; each entry still folds y in order. The folds
+    // start from -0, the identity of IEEE addition (-0 + p == p for every
+    // p), so the first step equals the plain version's bare product.
+    {
+      float4 acc[P][MR];
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+#pragma unroll
+        for (int m = 0; m < MR; ++m)
+          acc[i][m] = make_float4(-0.0f, -0.0f, -0.0f, -0.0f);
+#pragma unroll 1
+      for (int y0 = 0; y0 < X; y0 += 4) {
+        float4 fy[4];
+#pragma unroll
+        for (int d = 0; d < 4; ++d) fy[d] = ld4(F + (y0 + d) * X + c0);
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+#pragma unroll
+          for (int m = 0; m < MR; ++m) {
+            const float4 z = ld4(Z + (i * X + rg + RG * m) * X + y0);
+            const float zy[4] = {z.x, z.y, z.z, z.w};
+#pragma unroll
+            for (int d = 0; d < 4; ++d)
+              acc[i][m] = madd4(acc[i][m], zy[d], fy[d]);
+          }
+        }
       }
-      Z[i][a][c] =
-          acc + Qf[(((long)s * PX + i * X + a) * X + c) * Bl + b] + prp;
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+#pragma unroll
+        for (int m = 0; m < MR; ++m)
+          st4(T + (i * X + rg + RG * m) * X + c0, acc[i][m]);
     }
+    for (int e = lt; e < PX; e += 32) {
+      const float* Zr = Z + e * X;
+      float acc = Zr[0] * beta[0];
+      for (int y = 1; y < X; ++y) acc = acc + Zr[y] * beta[y];
+      w[e] = zeta[e] + acc;
+    }
+    for (int e = lt; e < P * PU; e += 32) {
+      const int j = (e % PU) / U;
+      const float* Rrow = R + e * U;  // row (i, j, a) of R
+      float Ra = Rrow[0] * Xs[j * U * XA + X];
+      for (int v = 1; v < U; ++v) Ra = Ra + Rrow[v] * Xs[(j * U + v) * XA + X];
+      coef[e] = Ra - r[e];
+    }
+    for (int e = lt; e < P * PU * X; e += 32) {
+      const int row = e / X, c = e % X;  // row (i, j, a) of R
+      const int j = (row % PU) / U;
+      const float* Rrow = R + row * U;
+      float acc = Rrow[0] * Xs[j * U * XA + c];
+      for (int v = 1; v < U; ++v) acc = acc + Rrow[v] * Xs[(j * U + v) * XA + c];
+      RP[e] = acc;
+    }
+    __syncwarp();
+
+    // Value updates of all players.
+    for (int e = lt; e < PX; e += 32) {
+      const int i = e / X, z = e % X;
+      const float* wi = w + i * X;
+      float acc = F[z] * wi[0];
+      for (int xx = 1; xx < X; ++xx) acc = acc + F[xx * X + z] * wi[xx];
+      const float zn = acc + ls[e];
+      float cross = 0.0f;
+      for (int ja = 0; ja < PU; ++ja)
+        cross = cross + Xs[ja * XA + z] * coef[i * PU + ja];
+      zeta[e] = zn + cross;
+    }
+    // Z in the same tiles: row (i, a) of F^T T_i + Q_i + P^T R_i P, the
+    // F column entries and the P rows shared across players.
+    {
+      float4 acc[P][MR], prp[P][MR];
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+#pragma unroll
+        for (int m = 0; m < MR; ++m) {
+          acc[i][m] = make_float4(-0.0f, -0.0f, -0.0f, -0.0f);
+          prp[i][m] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+#pragma unroll 1
+      for (int xx = 0; xx < X; ++xx) {
+        float fa[MR];
+#pragma unroll
+        for (int m = 0; m < MR; ++m) fa[m] = F[xx * X + rg + RG * m];
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+          const float4 t = ld4(T + (i * X + xx) * X + c0);
+#pragma unroll
+          for (int m = 0; m < MR; ++m)
+            acc[i][m] = madd4(acc[i][m], fa[m], t);
+        }
+      }
+#pragma unroll 1
+      for (int ja = 0; ja < PU; ++ja) {
+        float pa[MR];
+#pragma unroll
+        for (int m = 0; m < MR; ++m) pa[m] = Xs[ja * XA + rg + RG * m];
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+          const float4 rp = ld4(RP + (i * PU + ja) * X + c0);
+#pragma unroll
+          for (int m = 0; m < MR; ++m) prp[i][m] = madd4(prp[i][m], pa[m], rp);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+#pragma unroll
+        for (int m = 0; m < MR; ++m) {
+          const int e = (i * X + rg + RG * m) * X + c0;
+          const float4 q = ld4(Qs + e), a = acc[i][m], p = prp[i][m];
+          st4(Z + e, make_float4((a.x + q.x) + p.x, (a.y + q.y) + p.y,
+                                 (a.z + q.z) + p.z, (a.w + q.w) + p.w));
+        }
+      }
+    }
+  }
+  if (N >= 2) {
     __syncthreads();
+    store_knot(sm, Ps, al, 0, b0, B, tid);
   }
 }
 
@@ -310,8 +542,22 @@ int lq_backward(const float* A, const float* Bf, const float* Qf,
                 const float* lf, const float* Rf, const float* rf,
                 float* Ps, float* al, int N, int B, int pad_mask,
                 int adaptive, void* stream) {
-  lq_backward_kernel<<<B, NT, 0, (cudaStream_t)stream>>>(
-      A, Bf, Qf, lf, Rf, rf, Ps, al, N, B, pad_mask, adaptive);
+  // Above 48 KB a block's dynamic shared memory needs the kernel's
+  // opt-in, once per device.
+  static unsigned opted_in = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 32 || !((opted_in >> dev) & 1u)) {
+    err = cudaFuncSetAttribute(lq_backward_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 32) opted_in |= 1u << dev;
+  }
+  lq_backward_kernel<<<(B + G - 1) / G, NTB, SMEM_BYTES,
+                       (cudaStream_t)stream>>>(A, Bf, Qf, lf, Rf, rf, Ps, al,
+                                               N, B, pad_mask, adaptive);
   return (int)cudaGetLastError();
 }
 

@@ -9,6 +9,15 @@ CPU tensors; any other device raises. Each keeps a launch count.
 Layout is batch-minor ([..., B]), the operand dict of the JAX package's
 `solve_lq_feedback_bm`: A [N,x,x,B], Bf [N,x,Pu,B], Qf [N,P*x,x,B],
 lf [N,P*x,B], Rf [N,P*P*u,u,B], rf [N,P*P*u,B].
+
+K2 runs `LQ_G` lanes per block, one warp per lane. While a knot computes,
+the block copies the next knot's operands of its lanes into a second
+buffer of dynamic shared memory (cp.async, consecutive threads on
+consecutive lanes, so the reads coalesce), and each warp works through its
+lane's knot on its own, between `__syncwarp()`s; T = Z_i F and the value
+update run in register tiles, and R_i P is formed once per knot.
+`backward_smem_bytes` is the block's shared memory in csrc/lq.cu's
+layout, which checks it at compile time.
 """
 
 from __future__ import annotations
@@ -35,10 +44,40 @@ def _pad_rows(spec: GameSpec):
             for a in range(d, spec.umax)]
 
 
+LQ_G = 8                # K2 lanes per block (one warp each)
+SMEM_LIMIT = 232448     # shared memory a block may use on an H100, bytes
+
+
+def backward_smem_bytes(spec: GameSpec) -> int:
+    """K2's dynamic shared memory per block, csrc/lq.cu's layout: per lane
+    the value-function carry and the knot's temporaries, then two buffers
+    of a knot's staged operands, each part padded to a multiple of 4
+    floats and the lane to 4 more than a multiple of 32."""
+    P, x, u = spec.num_players, spec.xdim, spec.umax
+    Pu, Px = P * u, P * x
+    pad4 = lambda n: -(-n // 4) * 4
+    staged = x * x + x * Pu + Px * x + Px + P * P * u * u + P * P * u
+    carry = Px * x + Px
+    temps = (Pu * x + Pu * (Pu + x + 1) + Pu * (x + 1) + x * x + x + Pu
+             + Px * x + Px + P * Pu + P * Pu * x)
+    used = pad4(carry + temps) + 2 * pad4(staged)
+    return 4 * LQ_G * (used + (4 - used) % 32)
+
+
 def library(spec: GameSpec):
     """(source name, defines) of csrc/lq.cu for this game's dims."""
+    x, quarter = spec.xdim, spec.xdim // 4
+    if x % 4 or 32 % quarter or x % (32 // quarter):
+        raise ValueError(f"K2's value-update tiles take x a multiple of 4 "
+                         f"whose quarter divides 32 and is divided by 32 / "
+                         f"(x / 4); x = {x}")
+    smem = backward_smem_bytes(spec)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K2 needs {smem} B of shared memory per block at "
+                         f"{LQ_G} lanes, above the {SMEM_LIMIT} B a block "
+                         "may use")
     return "lq", {"LQ_X": spec.xdim, "LQ_P": spec.num_players,
-                  "LQ_U": spec.umax}
+                  "LQ_U": spec.umax, "LQ_G": LQ_G, "LQ_SMEM": smem}
 
 
 @functools.lru_cache(maxsize=None)

@@ -2,27 +2,25 @@
 against on the card) against the JAX package's Pallas kernels in
 interpret mode and its XLA scan solver, on the same inputs at N=11, B=4.
 Tolerances are those of tests/test_pallas_lq.py (LU with pivoting vs
-linalg.solve differ in op order, not semantics)."""
+linalg.solve differ in op order, not semantics). K2's build defines and
+shared memory; on the card, K2 bitwise against its plain version.
+
+The JAX package is imported inside the fixture that uses it, so that the
+card's tests collect where only the port's dependencies are installed."""
+
+import types
 
 import numpy as np
 import pytest
 import torch
 
-jax = pytest.importorskip("jax")
-import jax.numpy as jnp  # noqa: E402
-
-from ilqgames_tpu.costs import player_cost as jpc  # noqa: E402
-from ilqgames_tpu.dynamics import base as jdyn  # noqa: E402
-from ilqgames_tpu.examples.three_player_intersection import \
-    make_problem as jmake  # noqa: E402
-from ilqgames_tpu.ops.pallas.lq import solve_lq_feedback_pallas  # noqa: E402
-from ilqgames_tpu.solver.lq_feedback import solve_lq_feedback as jsolve  # noqa: E402
-from ilqgames_tpu.types import OperatingPoint, Strategy  # noqa: E402
-
+from ilqgames_tpu_torch.dynamics import base as dyn_base
 from ilqgames_tpu_torch.examples.three_player_intersection import \
-    make_problem  # noqa: E402
-from ilqgames_tpu_torch.ops.cuda import lq  # noqa: E402
-from ilqgames_tpu_torch.types import LinearDynamics, QuadraticCosts  # noqa: E402
+    make_problem
+from ilqgames_tpu_torch.ops.cuda import lq
+from ilqgames_tpu_torch.solver import batched
+from ilqgames_tpu_torch.types import GameSpec, LinearDynamics, \
+    QuadraticCosts
 
 torch.set_num_threads(1)
 
@@ -30,23 +28,42 @@ B, N = 4, 11
 
 
 @pytest.fixture(scope="module")
-def lq_inputs():
+def jx():
+    """The JAX package's pieces these parity tests use."""
+    jax = pytest.importorskip("jax")
+    return types.SimpleNamespace(
+        jax=jax, jnp=pytest.importorskip("jax.numpy"),
+        jpc=pytest.importorskip("ilqgames_tpu.costs.player_cost"),
+        jdyn=pytest.importorskip("ilqgames_tpu.dynamics.base"),
+        jmake=pytest.importorskip(
+            "ilqgames_tpu.examples.three_player_intersection").make_problem,
+        pallas=pytest.importorskip(
+            "ilqgames_tpu.ops.pallas.lq").solve_lq_feedback_pallas,
+        jsolve=pytest.importorskip(
+            "ilqgames_tpu.solver.lq_feedback").solve_lq_feedback,
+        jtypes=pytest.importorskip("ilqgames_tpu.types"))
+
+
+@pytest.fixture(scope="module")
+def lq_inputs(jx):
     """LQ operands at the first rollout of perturbed x0 (as
     tests/test_pallas_lq.py builds them), in both packages' containers."""
-    problem = jmake(num_time_steps=N)
+    jax, jnp = jx.jax, jx.jnp
+    problem = jx.jmake(num_time_steps=N)
     dyn, costs, spec = problem.dynamics, problem.player_costs, problem.spec
     rng = np.random.RandomState(0)
     x0b = jnp.asarray(np.tile(np.asarray(problem.x0)[None], (B, 1))
                       + 0.1 * rng.randn(B, spec.xdim).astype(np.float32))
-    al0 = jpc.ALState.init(costs, spec)
-    warm_op, warm_st = OperatingPoint.zeros(spec), Strategy.zeros(spec)
+    al0 = jx.jpc.ALState.init(costs, spec)
+    warm_op = jx.jtypes.OperatingPoint.zeros(spec)
+    warm_st = jx.jtypes.Strategy.zeros(spec)
 
     def init_one(x0):
         last_op = warm_op.replace(xs=warm_op.xs.at[0].set(x0))
-        op = jdyn.rollout(dyn, spec, x0, last_op, warm_st)
-        _, ek = jpc.total_costs(costs, spec, op)
-        return (jdyn.linearize(dyn, spec, op),
-                jpc.quadraticize(costs, spec, op, al0, ek), x0 - op.xs[0])
+        op = jx.jdyn.rollout(dyn, spec, x0, last_op, warm_st)
+        _, ek = jx.jpc.total_costs(costs, spec, op)
+        return (jx.jdyn.linearize(dyn, spec, op),
+                jx.jpc.quadraticize(costs, spec, op, al0, ek), x0 - op.xs[0])
 
     lin, quad, dx0 = jax.vmap(init_one)(x0b)
     t = lambda a: torch.tensor(np.asarray(a))
@@ -64,24 +81,24 @@ def _assert_lq(got, Ps, alphas, dxs, n=B):
                                rtol=5e-4, atol=5e-4)
 
 
-def test_lq_vs_pallas_interpret(lq_inputs):
+def test_lq_vs_pallas_interpret(jx, lq_inputs):
     spec, (lin, quad, dx0), (tlin, tquad, tdx0) = lq_inputs
-    ref = solve_lq_feedback_pallas(spec, lin, quad, dx0, batch_block=4,
-                                   interpret=True)
+    ref = jx.pallas(spec, lin, quad, dx0, batch_block=4, interpret=True)
     got = lq.solve_lq_feedback(make_problem(num_time_steps=N).spec, tlin,
                                tquad, tdx0, batch_block=4)
     _assert_lq(got, ref.strategy.Ps, ref.strategy.alphas, ref.delta_xs)
 
 
-def test_lq_vs_xla_scan(lq_inputs):
+def test_lq_vs_xla_scan(jx, lq_inputs):
     spec, (lin, quad, dx0), (tlin, tquad, tdx0) = lq_inputs
-    ref = jax.vmap(lambda l, q, d: jsolve(spec, l, q, d))(lin, quad, dx0)
+    ref = jx.jax.vmap(lambda l, q, d: jx.jsolve(spec, l, q, d))(lin, quad,
+                                                                 dx0)
     got = lq.solve_lq_feedback(make_problem(num_time_steps=N).spec, tlin,
                                tquad, tdx0, batch_block=4)
     _assert_lq(got, ref.strategy.Ps, ref.strategy.alphas, ref.delta_xs)
 
 
-def test_lq_batch_padding(lq_inputs):
+def test_lq_batch_padding(jx, lq_inputs):
     """Three lanes padded to a block of four: padded lanes must not leak,
     and the result matches the unpadded JAX reference."""
     spec, (lin, quad, dx0), (tlin, tquad, tdx0) = lq_inputs
@@ -92,7 +109,8 @@ def test_lq_batch_padding(lq_inputs):
     got4 = lq.solve_lq_feedback(tspec, tlin, tquad, tdx0, batch_block=4)
     np.testing.assert_array_equal(got3.strategy.alphas.numpy(),
                                   got4.strategy.alphas[:3].numpy())
-    ref = jax.vmap(lambda l, q, d: jsolve(spec, l, q, d))(lin, quad, dx0)
+    ref = jx.jax.vmap(lambda l, q, d: jx.jsolve(spec, l, q, d))(lin, quad,
+                                                                 dx0)
     _assert_lq(got3, ref.strategy.Ps, ref.strategy.alphas, ref.delta_xs,
                n=3)
 
@@ -129,3 +147,60 @@ def test_lq_kernels_match_plain_on_card(lq_inputs):
                                batch_block=4)
     _assert_lq(cpu, gpu.strategy.Ps.cpu(), gpu.strategy.alphas.cpu(),
                gpu.delta_xs.cpu())
+
+
+def test_k2_build_defines_and_shared_memory():
+    """K2's library carries its lanes per block and the shared memory that
+    csrc/lq.cu checks its layout against; the flagship fits a block at 8
+    lanes with the operands double-buffered, and a build that would not
+    fit is refused before nvcc runs."""
+    spec = make_problem().spec
+    name, d = lq.library(spec)
+    assert name == "lq" and d["LQ_G"] == lq.LQ_G == 8
+    # 3,774 floats a lane, 5,000 with the operands' second buffer (each
+    # part padded to 4 floats), padded to 4 more than a multiple of 32.
+    assert d["LQ_SMEM"] == lq.backward_smem_bytes(spec) == 8 * 5028 * 4 \
+        <= lq.SMEM_LIMIT == 232448
+    with pytest.raises(ValueError, match="shared memory"):
+        lq.library(GameSpec(xdims=(4, 4, 4, 4), udims=(3, 3, 3, 3)))
+
+
+def _port_operands(n, batch_block, nan_lane):
+    """K2's operands at the first rollout of x0 near the flagship's start
+    (N=11, from a seed), made by the port on the CPU, with a NaN in one
+    entry of Qf at knot 5 of lane `nan_lane`."""
+    problem = make_problem(num_time_steps=N)
+    dyn, spec = problem.dynamics, problem.spec
+    rng = np.random.RandomState(6)
+    x0 = torch.tensor(np.tile(problem.x0.numpy()[None], (n, 1))
+                      + 0.1 * rng.randn(n, spec.xdim).astype(np.float32))
+    c = batched._fresh_init(dyn, problem.player_costs, spec, None, None, 128,
+                            False)(x0).c
+    ops = lq.lq_operands(spec, dyn_base.linearize(dyn, spec, c.op), c.quad,
+                         batch_block)
+    ops["Qf"][5, 3, 2, nan_lane] = float("nan")
+    return spec, ops
+
+
+@pytest.mark.cuda
+def test_k2_bitwise_on_card_ragged_group():
+    """K2 against `lq_backward_plain` on the card, bit for bit, at B=12
+    (lanes padded to a multiple of 4): a last group of 4 lanes at 8 lanes
+    per block, and one lane with a NaN operand."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    spec, ops = _port_operands(12, 4, nan_lane=7)
+    ops = {k: v.cuda() for k, v in ops.items()}
+    assert ops["A"].shape[-1] == 12
+    want = lq.lq_backward_plain(spec, ops)
+    launches = lq.lq_backward.launches
+    got = lq.lq_backward(spec, ops)
+    torch.cuda.synchronize()
+    assert lq.lq_backward.launches == launches + 1
+    assert bool(want[0][:, :, :, 7].isnan().any())
+    for g, w in zip(got, want):
+        nan = w.isnan()
+        assert torch.equal(g.isnan(), nan)
+        # Bit patterns, so that -0.0 and +0.0 count as different.
+        assert torch.equal(g.view(torch.int32)[~nan],
+                           w.view(torch.int32)[~nan])

@@ -81,6 +81,48 @@ def test_smoke_plain_is_exact():
     np.testing.assert_array_equal(got.numpy(), x * np.float32(2) + 1)
 
 
+SMOKE_SIZES = [1, 3, 5, 32771]
+
+
+@pytest.mark.parametrize("n", SMOKE_SIZES)
+def test_smoke_plain_matches_numpy_at_odd_sizes(n):
+    """P3's plain version against numpy at sizes with a ragged tail; on
+    the CPU the wrapper launches nothing."""
+    x = np.random.RandomState(n).randn(n).astype(np.float32)
+    before = probes.smoke.launches
+    got = probes.smoke(make_problem().spec, torch.tensor(x))
+    assert probes.smoke.launches == before
+    np.testing.assert_array_equal(probes.smoke_plain(torch.tensor(x)).numpy(),
+                                  x * np.float32(2) + np.float32(1))
+    np.testing.assert_array_equal(got.numpy(), x * np.float32(2) + 1)
+
+
+def test_smoke_wrapper_refuses_bad_operands():
+    spec = make_problem().spec
+    with pytest.raises(TypeError, match="float32"):
+        probes.smoke(spec, torch.zeros(8, dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        probes.smoke(spec, torch.zeros(4, 4).T)
+    with pytest.raises(ValueError, match="device"):
+        probes.smoke(spec, torch.zeros(8, device="meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", SMOKE_SIZES)
+def test_smoke_kernel_bitwise_on_card(n):
+    """P3 on the card against its plain version, bit for bit, at sizes
+    that leave a ragged tail."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    x = torch.tensor(np.random.RandomState(n).randn(n).astype(np.float32),
+                     device="cuda")
+    before = probes.smoke.launches
+    got = probes.smoke(make_problem().spec, x)
+    torch.cuda.synchronize()
+    assert probes.smoke.launches == before + 1
+    assert torch.equal(got, probes.smoke_plain(x))
+
+
 @pytest.mark.parametrize("rung,C", [("fixed_u", 1), ("plus", 1),
                                     ("plus", 3)])
 def test_floor_rungs_match_jax_integrate(games, rung, C):
