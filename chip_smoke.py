@@ -14,9 +14,11 @@ in-kernel merit) and K6 (merit consumer). Phases:
 2. each kernel against its plain PyTorch version on the card, on operands
    from a real flagship stage (the first rollout of bench.py's x0 draw;
    K1 with the multipliers of one AL update), at the main path's shapes,
-   with both times and the count of bitwise-equal lanes; K2 and K4 with
-   their ptxas registers and stack (the script fails on a stack frame or
-   a spill in either);
+   with both times and the count of bitwise-equal lanes; K2-K5 with
+   their ptxas registers and stack (the script fails on a spill in any of
+   them and on a stack frame in K2, K3 or K4); K3 at B=1024 and at the
+   queue's B=2048, K5 at C=8/B=128 and C=1/B=2048, each against K4 + K6
+   bit for bit;
 3. six trips on the card against six on the CPU (plain versions) from
    the same carry, without and with fused stages: decisions exactly
    equal; then six fused trips on the card with the K5 and the K6 merit
@@ -35,7 +37,7 @@ in-kernel merit) and K6 (merit consumer). Phases:
    multiply-add chain), P2 (every instantiated rung of the probe rollout)
    and P3 (x * 2 + 1, also at 1, 3, 5 and 32771 elements) against their
    plain versions, the registers and stack frame of each rung and of K2-K5
-   from ptxas; K4 beside the rungs prod_static (one
+   from ptxas; K4 and K5 beside the rungs prod_static (one
    thread per chain on a compile-time layout) and emit_xs_us (one thread
    per chain on the run-time table, K4's design before one warp per
    subsystem), timed in turns on the probes' bounded operands; every
@@ -71,9 +73,9 @@ import time
 # Tolerances, |kernel - plain| <= tol + tol * |plain|, those of the JAX
 # package's kernel tests. Each kernel repeats its plain version's float32
 # operations in the same order, without FMA contraction, so the two are
-# expected to agree bit for bit; the script prints how many lanes do. K2
-# and K4 are held to that (phase 3's card-vs-CPU decisions rest on it).
-TOL = {"K1": 1e-5, "K2": 0.0, "K3": 5e-4, "K4": 0.0, "K5": 1e-5,
+# expected to agree bit for bit; the script prints how many lanes do. K2-K5
+# are held to that (phase 3's card-vs-CPU decisions rest on it).
+TOL = {"K1": 1e-5, "K2": 0.0, "K3": 0.0, "K4": 0.0, "K5": 0.0,
        "K6": 1e-5, "P1": 0.0, "P2": 1e-5, "P3": 0.0}
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3, bytes/s
 # The H100 SXM's 67 TFLOP/s in float32 outside the tensor cores counts an
@@ -129,6 +131,30 @@ def _compare(name, got, ref, tol):
     return max_abs
 
 
+def _ptxas(label, lib, kernel, stack_ok=False):
+    """The ptxas report of `kernel` (a substring of its mangled name) in
+    the build of `lib`, printed; fails on a spill, and on a stack frame
+    unless `stack_ok`."""
+    from ilqgames_tpu_torch.ops.cuda import build
+
+    info = next(i for m, i in build.ptxas_report(*lib).items()
+                if kernel in m)
+    print(f"# {label} ptxas " + json.dumps(info), flush=True)
+    bad = ("spill_stores", "spill_loads") + (() if stack_ok else ("stack",))
+    if any(info[f] for f in bad):
+        _fail(f"{label}: ptxas reports a spill or a stack frame: {info}")
+    return info
+
+
+def _same_bits(a, b) -> bool:
+    """NaN in the same places and every other entry bitwise equal."""
+    import torch
+
+    nan = torch.isnan(b)
+    return bool(torch.equal(torch.isnan(a), nan) and torch.equal(
+        a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]))
+
+
 def _nbytes(*objs) -> int:
     """Bytes of the tensors in `objs` (tensors, dicts and tuples of them,
     None skipped)."""
@@ -143,6 +169,12 @@ def _nbytes(*objs) -> int:
         elif isinstance(o, torch.Tensor):
             total += o.numel() * o.element_size()
     return total
+
+
+def _read(op: dict) -> dict:
+    """An operating point's entries that K1 and K4-K6 read: the models and
+    the ported cost atoms are time-invariant, so none of them reads t0."""
+    return {k: v for k, v in op.items() if k != "t0"}
 
 
 def _bound(nbytes, ops):
@@ -227,7 +259,8 @@ PROBE_MODULES = (("kernel_floor", 10), ("sweep_floor", 10),
 
 
 # A kernel's name in the ptxas reports -> its label (first match wins).
-PTXAS_LABELS = (("rollout_merit_kernel", "K5"), ("rollout_warp_kernel", "K4"),
+PTXAS_LABELS = (("rollout_merit_warp_kernel", "K5"),
+                ("rollout_warp_kernel", "K4"),
                 ("lq_backward_kernel", "K2"), ("lq_forward_kernel", "K3"),
                 ("fma_chain_kernel", "P1"), ("smoke_kernel", "P3"))
 
@@ -330,18 +363,24 @@ def phase6(dyn, spec, dev):
           _time_ms(lambda: probes.probe_rollout_plain(*top), 1),
           _nbytes(top[4:], top_out), top_ops)
 
-    # The ladder's K4 rows on these bounded operands (no heading beyond
-    # 8192 rad), in turns: K4 (one warp per subsystem, emitting xs and us)
-    # beside one thread per chain on a compile-time layout (P2 prod_static,
-    # no emission) and on the run-time table (P2 emit_xs_us, K4's design
+    # The ladder's K4 and K5 rows on these bounded operands (no heading
+    # beyond 8192 rad), in turns: K4 (one warp per subsystem, emitting xs
+    # and us) and K5 (the same warps with the full table's merit) beside
+    # one thread per chain on a compile-time layout (P2 prod_static, no
+    # emission) and on the run-time table (P2 emit_xs_us, K4's design
     # before one warp per subsystem).
     k4_args = (ctx.dyn, spec, *sweep_floor._k4_operands(ctx, "5e", "x0c"))
     want = sweep.rollout_plain(*k4_args, emit_us=True)
     for nm, g, w in zip(("xs", "us"), sweep.rollout_bm(*k4_args,
                                                        emit_us=True), want):
         _compare(f"K4 {nm} (probes' operands)", g, w, TOL["K4"])
+    k5_args = (ctx.dyn, ctx.costs, spec, *k4_args[2:], d["lamS"], None,
+               d["mu"])
+    _compare("K5 merits (probes' operands)", sweep.rollout_merits(*k5_args),
+             sweep.rollout_merits_plain(*k5_args), TOL["K5"])
     designs = {
         "K4": lambda: sweep.rollout_bm(*k4_args, emit_us=True),
+        "K5": lambda: sweep.rollout_merits(*k5_args),
         "P2 prod_static": lambda: probes.probe_rollout(*static, **kw),
         "P2 emit_xs_us": lambda: probes.probe_rollout(*top)}
     order = list(designs) + list(designs)[::-1]
@@ -476,11 +515,7 @@ def main():
     def entry(*args):
         kernels.append(_entry(*args))
 
-    k2_ptxas = next(info for m, info in build.ptxas_report(
-        *lq.library(spec)).items() if "lq_backward_kernel" in m)
-    print("# K2 ptxas " + json.dumps(k2_ptxas), flush=True)
-    if any(k2_ptxas[f] for f in ("stack", "spill_stores", "spill_loads")):
-        _fail(f"K2: ptxas reports a stack frame or spills: {k2_ptxas}")
+    _ptxas("K2", lq.library(spec), "lq_backward_kernel")
     Ps_k, al_k = lq.lq_backward(spec, ops)
     (Ps_p, al_p), n_ops = float_ops(lambda: lq.lq_backward_plain(spec, ops))
     err = max(_compare("K2 Ps", Ps_k, Ps_p, TOL["K2"]),
@@ -489,20 +524,33 @@ def main():
           "ilqgames_tpu/ops/pallas/lq.py:82", err,
           _time_ms(lambda: lq.lq_backward(spec, ops), 10),
           _time_ms(lambda: lq.lq_backward_plain(spec, ops), 2),
-          _nbytes(ops, Ps_k, al_k), n_ops)
+          # Knot N-1 of A, Bf, Rf and rf is never read: it is the
+          # terminal condition, Qf and lf only.
+          _nbytes({k: ops[k] for k in ("Qf", "lf")},
+                  {k: ops[k][:-1] for k in ("A", "Bf", "Rf", "rf")}, Ps_k,
+                  al_k), n_ops)
 
-    dx0 = (x0 - c0.op.xs[:, 0]).T.contiguous()
-    dxs_k = lq.lq_forward(spec, ops["A"], ops["Bf"], al_k, dx0)
-    dxs_p, n_ops = float_ops(lambda: lq.lq_forward_plain(
-        spec, ops["A"], ops["Bf"], al_k, dx0))
-    entry("K3 lq_forward (B=1024)", "ilqgames_tpu_torch/csrc/lq.cu",
-          "ilqgames_tpu/ops/pallas/lq.py:254",
-          _compare("K3 dxs", dxs_k, dxs_p, TOL["K3"]),
-          _time_ms(lambda: lq.lq_forward(spec, ops["A"], ops["Bf"], al_k,
-                                         dx0), 20),
-          _time_ms(lambda: lq.lq_forward_plain(spec, ops["A"], ops["Bf"],
-                                               al_k, dx0), 3),
-          _nbytes(ops["A"], ops["Bf"], al_k, dx0, dxs_k), n_ops)
+    k3_ptxas = _ptxas("K3", lq.library(spec), "lq_forward_kernel")
+
+    def k3_row(Bk, A, Bf, al, dx0):
+        """K3 against its plain version at Bk lanes, and its entry."""
+        args = (spec, A, Bf, al, dx0)
+        dxs_k = lq.lq_forward(*args)
+        dxs_p, n_ops = float_ops(lambda: lq.lq_forward_plain(*args))
+        err = _compare(f"K3 dxs B={Bk}", dxs_k, dxs_p, TOL["K3"])
+        ms = _time_ms(lambda: lq.lq_forward(*args), 20)
+        knots = spec.num_time_steps - 1
+        print(f"# K3 B={Bk}: {ms:.4f} ms ({1e3 * ms / knots:.3f} us per "
+              f"knot; registers {k3_ptxas['registers']}, stack "
+              f"{k3_ptxas['stack']} B)", flush=True)
+        entry(f"K3 lq_forward (B={Bk})", "ilqgames_tpu_torch/csrc/lq.cu",
+              "ilqgames_tpu/ops/pallas/lq.py:254", err, ms,
+              _time_ms(lambda: lq.lq_forward_plain(*args), 3),
+              # knots 0 .. N-2 of A and Bf make dx_1 .. dx_{N-1}
+              _nbytes(A[:-1], Bf[:-1], al, dx0, dxs_k), n_ops)
+
+    k3_row(B, ops["A"], ops["Bf"], al_k,
+           (x0 - c0.op.xs[:, 0]).T.contiguous())
 
     # K4 where the main path launches it: C=1, B=2048 with emit_us (phase
     # 1 of the linesearch and the reroll), C=8, B=128 (the deep rounds),
@@ -515,11 +563,7 @@ def main():
     sol = lq.solve_lq_feedback(spec, dyn_base.linearize(dyn, spec, cw.op),
                                cw.quad, x1 - cw.op.xs[:, 0])
     op_bm, st_bm, x0m = sweep._prep_common(spec, x1, cw.op, sol.strategy, 1)
-    k4_ptxas = next(info for m, info in build.ptxas_report(
-        *sweep.library(dyn, spec)).items() if "rollout_warp_kernel" in m)
-    print("# K4 ptxas " + json.dumps(k4_ptxas), flush=True)
-    if any(k4_ptxas[f] for f in ("stack", "spill_stores", "spill_loads")):
-        _fail(f"K4: ptxas reports a stack frame or spills: {k4_ptxas}")
+    k4_ptxas = _ptxas("K4", sweep.library(dyn, spec), "rollout_warp_kernel")
     for C, Bk, emit in ((1, B1, True), (8, 128, False), (1, B, False)):
         scal = (0.1 * 0.5 ** torch.arange(1, C + 1, dtype=torch.float32,
                                           device=dev))[:, None]
@@ -542,7 +586,8 @@ def main():
         entry(f"K4 rollout ({shape})", "ilqgames_tpu_torch/csrc/sweep.cu",
               "ilqgames_tpu/ops/pallas/sweep.py:176", err, ms_k4,
               _time_ms(lambda: sweep.rollout_plain(*args, emit_us=emit), 1),
-              _nbytes(args[2:], [g for _, g in got]), n_ops)
+              _nbytes(args[2], _read(args[3]), args[4:],
+                      [g for _, g in got]), n_ops)
 
     # K1 at B=2048, on the first rollout of bench's draw with the
     # multipliers and mu of one AL update.
@@ -560,10 +605,15 @@ def main():
           "ilqgames_tpu/ops/pallas/stage.py:65", err,
           _time_ms(lambda: stage.lin_quad(*k1_args), 20),
           _time_ms(lambda: stage.lin_quad_plain(*k1_args), 3),
-          _nbytes(k1_args[3:], ops_k), n_ops)
+          _nbytes(_read(op1), k1_args[4:], ops_k), n_ops)
 
-    # K5 and K6 on the LQ strategy at those operands.
-    Ps_r, al_r, _ = lq.solve_lq_feedback_bm(spec, ops_k, x1m - op1["xs"][0])
+    # K3 at the queue's lanes (B=2048) on K1's operands and K2's alphas
+    # there; then K5 and K6 on that LQ strategy.
+    Ps_r, al_r = lq.lq_backward(spec, ops_k)
+    k3_row(B1, ops_k["A"], ops_k["Bf"], al_r,
+           (x1m - op1["xs"][0]).contiguous())
+    k5_ptxas = _ptxas("K5", sweep.library(dyn, spec),
+                      "rollout_merit_warp_kernel", stack_ok=True)
     zero = lambda a: a.new_zeros((1,) + a.shape[1:])
     st1 = {"Ps": torch.cat([Ps_r, zero(Ps_r)]),
            "alphas": torch.cat([al_r, zero(al_r)])}
@@ -578,13 +628,17 @@ def main():
         m5_k = sweep.rollout_merits(*k5_args)
         m5_p, n_ops = float_ops(lambda: sweep.rollout_merits_plain(
             *k5_args))
+        err = _compare(f"K5 merits C={C} B={Bk}", m5_k, m5_p, TOL["K5"])
+        ms_k5 = _time_ms(lambda: sweep.rollout_merits(*k5_args), 20)
+        print(f"# K5 C={C}, B={Bk}: {ms_k5:.4f} ms ({1e3 * ms_k5 / N:.3f} "
+              f"us per knot; registers {k5_ptxas['registers']}, stack "
+              f"{k5_ptxas['stack']} B)", flush=True)
         entry(f"K5 rollout+merit (C={C}, B={Bk})",
               "ilqgames_tpu_torch/csrc/sweep.cu",
-              "ilqgames_tpu/ops/pallas/sweep.py:176",
-              _compare(f"K5 merits C={C} B={Bk}", m5_k, m5_p, TOL["K5"]),
-              _time_ms(lambda: sweep.rollout_merits(*k5_args), 20),
+              "ilqgames_tpu/ops/pallas/sweep.py:176", err, ms_k5,
               _time_ms(lambda: sweep.rollout_merits_plain(*k5_args), 1),
-              _nbytes(k5_args[3:], m5_k), n_ops)
+              _nbytes(k5_args[3], _read(k5_args[4]), k5_args[5:], m5_k),
+              n_ops)
         xs_c = sweep.rollout_bm(dyn, spec, x1m[:, :Bk].contiguous(), sub(op1),
                                 sub(st1), scal_cb)
         us_c = sweep._us_from_xs(spec, xs_c, sub(op1), sub(st1), scal_cb)
@@ -598,8 +652,8 @@ def main():
               _compare(f"K6 merits C={C} B={Bk}", m6_k, m6_p, TOL["K6"]),
               _time_ms(lambda: sweep.consumer_merits(*k6_args), 20),
               _time_ms(lambda: sweep.merit_plain(*k6_args), 3),
-              _nbytes(k6_args[2:], m6_k), n_ops)
-        same = torch.equal(m5_k.nan_to_num(), m6_k.nan_to_num())
+              _nbytes(k6_args[2:4], k6_args[5:], m6_k), n_ops)
+        same = _same_bits(m5_k, m6_k)
         print(f"# K5 == K4 + K6 bitwise (C={C}, B={Bk}): {same}", flush=True)
         if not same:
             _fail(f"K5 and K4 + K6 disagree at C={C}, B={Bk}")
@@ -655,8 +709,7 @@ def main():
     for backend, kname in (("kernel", "K5"), ("pallas", "K6")):
         fc, ref = runs[backend], runs["xla"]
         _same_decisions(f"merit_backend={backend!r} vs 'xla'", fc, ref)
-        if not torch.equal(fc.c.last_merit.nan_to_num(),
-                           ref.c.last_merit.nan_to_num()):
+        if not _same_bits(fc.c.last_merit, ref.c.last_merit):
             _fail(f"merit_backend={backend!r}: merits differ from 'xla'")
         n = backend_launches[backend][kname]
         print(f"# merit_backend={backend!r}: six fused trips on the card, "

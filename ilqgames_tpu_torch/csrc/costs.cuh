@@ -19,6 +19,12 @@
 // Pairs accumulate per key in pair order, the first pair of a key setting it
 // and later ones adding to it, as the plain versions' dict folds do; callers
 // keep a per-key "seen" bit for that.
+//
+// The atoms read the state through `v[d]` for any V that has it: a thread's
+// own array (K1, K6, the probes), or a Column of a [X][32] shared-memory
+// array (K5, whose warps share a block's state), so that a run-time index d
+// of the CostTable never indexes a register array (which puts the array on
+// the stack).
 
 #pragma once
 
@@ -121,8 +127,9 @@ __device__ __forceinline__ void segment(const float* s, float qx, float qy,
 // geometry.polyline_closest_point_xy(need_sign=False): the winner is the
 // first segment whose |sq distance| is <= the NaN-propagating minimum over
 // all segments (segment 0 when that minimum is NaN).
-__device__ Closest closest(const CostAtom& a, const float* segs, float qx,
-                           float qy) {
+__device__ __forceinline__ Closest closest(const CostAtom& a,
+                                           const float* segs, float qx,
+                                           float qy) {
   const float* s0 = segs + 7 * a.seg0;
   float cpx, cpy, ssd;
   bool vertex;
@@ -151,8 +158,10 @@ __device__ Closest closest(const CostAtom& a, const float* segs, float qx,
 }
 
 // atoms.quadratic_polyline2's _scalars: (dx, dy, ddx, ddy, dxdy).
-__device__ void polyline_scalars(const CostAtom& a, const float* segs,
-                                 const float* v, float out[5]) {
+template <typename V>
+__device__ __forceinline__ void polyline_scalars(const CostAtom& a,
+                                                 const float* segs,
+                                                 const V& v, float out[5]) {
   const float qx = v[a.dim[0]], qy = v[a.dim[1]];
   const Closest c = closest(a, segs, qx, qy);
   const float w = a.w;
@@ -181,8 +190,8 @@ struct ProxGeom {
   float dx, dy, ssq, prox, g, live;
 };
 
-__device__ __forceinline__ ProxGeom prox_geom(const CostAtom& a,
-                                              const float* v) {
+template <typename V>
+__device__ __forceinline__ ProxGeom prox_geom(const CostAtom& a, const V& v) {
   ProxGeom p;
   p.dx = v[a.dim[0]] - v[a.dim[2]];
   p.dy = v[a.dim[1]] - v[a.dim[3]];
@@ -195,7 +204,8 @@ __device__ __forceinline__ ProxGeom prox_geom(const CostAtom& a,
 
 // constraints.proximity's al_grad_pairs: (px, py) of
 // [(x1, px), (y1, py), (x2, -px), (y2, -py)].
-__device__ __forceinline__ void prox_grad(const CostAtom& a, const float* v,
+template <typename V>
+__device__ __forceinline__ void prox_grad(const CostAtom& a, const V& v,
                                           float lam, float mu, float& px,
                                           float& py) {
   const ProxGeom p = prox_geom(a, v);
@@ -207,7 +217,8 @@ __device__ __forceinline__ void prox_grad(const CostAtom& a, const float* v,
 
 // constraints.proximity's al_quad_pairs: px, py as above and the Hessian
 // entries hxx, hyy, hxy.
-__device__ __forceinline__ void prox_quad(const CostAtom& a, const float* v,
+template <typename V>
+__device__ __forceinline__ void prox_quad(const CostAtom& a, const V& v,
                                           float lam, float mu, float& px,
                                           float& py, float& hxx, float& hyy,
                                           float& hxy) {
@@ -248,14 +259,80 @@ struct GradAcc {
   }
 };
 
+// GradAcc's accumulation in registers that a run-time key never indexes:
+// each add compares the key with every d. For small D (a player's
+// controls).
+template <int D>
+struct SelectGradAcc {
+  static_assert(D <= 32, "one seen bit per key in a 32-bit word");
+  float g[D];
+  unsigned seen;
+  __device__ __forceinline__ void reset() { seen = 0u; }
+  __device__ __forceinline__ void add(int d, float v) {
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+      if (j == d) g[j] = ((seen >> j) & 1u) ? g[j] + v : v;
+    seen |= 1u << d;
+  }
+  __device__ __forceinline__ float sq() const {
+    float s = 0.0f;
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      if ((seen >> d) & 1u) s = s + g[d] * g[d];
+    return s;
+  }
+};
+
+// GradAcc's accumulation in one thread's column of a [D][32] shared array.
+template <int D>
+struct ColumnGradAcc {
+  static_assert(D <= 32, "one seen bit per key in a 32-bit word");
+  float* g;  // the thread's entry of row 0; row d is 32 floats further
+  unsigned seen;
+  __device__ __forceinline__ void reset() { seen = 0u; }
+  __device__ __forceinline__ void add(int d, float v) {
+    float& e = g[32 * d];
+    e = ((seen >> d) & 1u) ? e + v : v;
+    seen |= 1u << d;
+  }
+  __device__ __forceinline__ float sq() const {
+    float s = 0.0f;
+    for (int d = 0; d < D; ++d)
+      if ((seen >> d) & 1u) s = s + g[32 * d] * g[32 * d];
+    return s;
+  }
+};
+
+// A thread's column of a [rows][32] shared array, read as v[d].
+struct Column {
+  const float* p;  // the thread's entry of row 0
+  __device__ __forceinline__ float operator[](int d) const {
+    return p[32 * d];
+  }
+};
+
+// A thread's D values in registers, read as v[d] at a run-time d by
+// selects.
+template <int D>
+struct Selected {
+  const float* r;
+  __device__ __forceinline__ float operator[](int d) const {
+    float v = r[0];
+#pragma unroll
+    for (int j = 1; j < D; ++j) v = (d == j) ? r[j] : v;
+    return v;
+  }
+};
+
 // player_cost.stage_gradient_sq_tuple for one player i at one knot:
-// (state_sq, ctrl_sq) from the state v [X] and the padded controls
-// u [P * U]. lam(row) gives the multiplier of lamS row `row`.
-template <int X, int U, typename Lam>
-__device__ void gradient_sq(const CostTable& tab, const float* segs, int i,
-                            const float* v, const float* u, Lam lam, float mu,
-                            float& state_sq, float& ctrl_sq) {
-  GradAcc<X> gs;
+// (state_sq, ctrl_sq) from the state v [X] and player i's controls ui [U],
+// accumulated in gs (keys 0 .. X-1) and gu (keys 0 .. U-1). lam(row) gives
+// the multiplier of lamS row `row`.
+template <typename V, typename SAcc, typename C, typename CAcc, typename Lam>
+__device__ __forceinline__ void gradient_sq_into(
+    const CostTable& tab, const float* segs, int i, const V& v, SAcc& gs,
+    const C& ui, CAcc& gu, Lam lam, float mu, float& state_sq,
+    float& ctrl_sq) {
   gs.reset();
   for (int n = 0; n < tab.n; ++n) {
     const CostAtom& a = tab.atom[n];
@@ -277,15 +354,25 @@ __device__ void gradient_sq(const CostTable& tab, const float* segs, int i,
     }
   }
   state_sq = gs.sq();
-  GradAcc<U> gu;
   gu.reset();
-  const float* ui = u + i * U;
   for (int n = 0; n < tab.n; ++n) {
     const CostAtom& a = tab.atom[n];
     if (a.player != i || a.on != i) continue;
     if (a.kind == KIND_QUADRATIC) gu.add(a.dim[0], a.w * (ui[a.dim[0]] - a.aux));
   }
   ctrl_sq = gu.sq();
+}
+
+// gradient_sq_into on a thread's own state v [X] and padded controls
+// u [P * U], accumulated in its own arrays.
+template <int X, int U, typename Lam>
+__device__ void gradient_sq(const CostTable& tab, const float* segs, int i,
+                            const float* v, const float* u, Lam lam, float mu,
+                            float& state_sq, float& ctrl_sq) {
+  GradAcc<X> gs;
+  GradAcc<U> gu;
+  const float* ui = u + i * U;
+  gradient_sq_into(tab, segs, i, v, gs, ui, gu, lam, mu, state_sq, ctrl_sq);
 }
 
 // The models' analytic Jacobian entries at state x, in

@@ -13,7 +13,7 @@
 // dx_{k+1} = A_k dx_k - sum_af Bf[:, af] alpha_af, with the open-loop A of
 // the reference's shipped forward pass (no -B P feedback term).
 //
-// Design. K2 runs G = LQ_G lanes per block (default 8: eight floats of
+// Design. K2 runs G = LQ_G lanes per block (8: eight floats of
 // neighbouring lanes fill one 32-byte sector) and one warp per lane. The
 // whole block stages each knot's operands of its G lanes (A, Bf, Qf, lf,
 // Rf, rf: 1,222 floats a lane) from device memory into shared memory,
@@ -37,17 +37,26 @@
 // against bank conflicts (160,896 B a block at G = 8). Lanes past B compute on
 // the last lane, meet every barrier and store nothing.
 //
+// K3 runs FG = LQ_FWD_G lanes per block (16) and one thread per (state
+// row, lane), consecutive threads on consecutive lanes, so that every read
+// of A, Bf and alpha and every write of dxs is coalesced over the lanes.
+// Each knot's operands of the block's lanes (X X + X PU + PU floats a lane)
+// are copied by 16-byte cp.async copies into a ring of three staged knots
+// in dynamic shared memory (70,784 B a block): two knots are in flight
+// while one folds. dx is a double-buffered [2][X][FG] shared array, and
+// one block barrier per knot orders both. Lanes past B compute on the last
+// lane, meet every barrier and store nothing.
+//
 // What bounds them on this card. K2 does 74,970 float32 operations per
 // knot and lane (counted on the plain version) against 1,324 floats moved,
 // so it is operation-bound; at B = 1024 it has 128 blocks, one per SM,
 // eight warps each. Its time is each warp's instruction stream over the
 // knot's phases (the folds, their shared-memory loads and index
 // arithmetic) and the LU's dependent chain, with two warps per scheduler
-// to hide latency. K3 does about 0.7 kFLOP per
-// knot and lane; each knot is one 22-term fold per thread between two
-// barriers, so it is bound by that chain over the horizon. K3 runs one
-// block per lane with one thread per state row, and keeps dx in shared
-// memory.
+// to hide latency. K3 does 2 (X + PU) operations per state row, knot and
+// lane against X X + X PU + PU floats read: it is bound by the bytes it
+// moves (153 MB at B = 1024, 94% of them A and Bf), which its ring keeps in
+// flight behind each knot's chain of one 22-term fold and one barrier.
 //
 // Arithmetic follows the plain PyTorch versions (ops/cuda/lq.py)
 // operation by operation: left folds over the contraction index,
@@ -59,6 +68,10 @@
 
 #if !defined(LQ_X) || !defined(LQ_P) || !defined(LQ_U)
 #error "build with -DLQ_X=<xdim> -DLQ_P=<players> -DLQ_U=<umax>"
+#endif
+#if !defined(LQ_G) || !defined(LQ_SMEM) || !defined(LQ_FWD_G) || \
+    !defined(LQ_FWD_SMEM)
+#error "build through ops/cuda/lq.py:library, which sets the block layouts"
 #endif
 
 namespace {
@@ -75,10 +88,6 @@ constexpr float MIN_GERSHGORIN_EVAL = 1e-3f;
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 }
-
-#ifndef LQ_G
-#define LQ_G 8
-#endif
 
 constexpr int G = LQ_G;         // lanes of a K2 block, one warp each
 constexpr int NTB = 32 * G;     // threads of a K2 block
@@ -123,10 +132,8 @@ constexpr int MR = X / RG;   // rows of one player per thread
 static_assert(X % 4 == 0 && 32 % CG == 0 && X % RG == 0,
               "K2's value-update tiles need x a multiple of 4 whose "
               "quarter divides 32 and is divided by 32 / (x / 4)");
-#ifdef LQ_SMEM
 static_assert(SMEM_BYTES == LQ_SMEM,
               "ops/cuda/lq.py:backward_smem_bytes disagrees with the layout");
-#endif
 static_assert(SMEM_BYTES <= 232448, "a block may use 227 KB of shared memory");
 static_assert(X + 1 <= 32 && W <= 32 && PU <= 32,
               "a warp needs a thread per column and per pivot row");
@@ -499,35 +506,153 @@ __global__ void __launch_bounds__(NTB) lq_backward_kernel(
   }
 }
 
-constexpr int NT3 = 32;  // threads of a K3 block, one per state row
-static_assert(X <= NT3, "K3 needs a thread per state row");
+// K3's lanes per block and its ring of staged knots.
+constexpr int FG = LQ_FWD_G;      // lanes of a K3 block
+constexpr int NT3 = X * FG;       // threads: one per (state row, lane)
+constexpr int FSTAGES = 3;        // knots staged: the one folded, two in flight
+constexpr int FV = 4;             // lanes per 16-byte copy (when aligned)
+// One staged knot, lane-minor: A transposed [X(y)][X(row)][FG], Bf
+// transposed [PU][X(row)][FG], alpha [PU][FG]. A thread (row, g) reads
+// A[row][y] at (y X + row) FG + g, so that a warp's 32 threads (two rows
+// of sixteen lanes) read 32 consecutive floats.
+constexpr int F_A = 0;
+constexpr int F_B = F_A + X * X * FG;
+constexpr int F_AL = F_B + PU * X * FG;
+constexpr int FKNOT = F_AL + PU * FG;
+constexpr int F_DX = FSTAGES * FKNOT;  // dx [2][X][FG] after the ring
+constexpr int FWD_SMEM = (F_DX + 2 * X * FG) * (int)sizeof(float);
+static_assert(NT3 <= 1024, "K3 needs a thread per (state row, lane)");
+static_assert(FG % FV == 0, "a block's lanes are whole 16-byte copies");
+static_assert(FWD_SMEM <= 232448, "a block may use 227 KB of shared memory");
+static_assert(FWD_SMEM == LQ_FWD_SMEM,
+              "ops/cuda/lq.py:forward_smem_bytes disagrees with the layout");
 
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+// Copy knot k's A, Bf and alpha of lanes b0 .. b0 + FG - 1 into `buf` by
+// cp.async, V lanes a copy. Consecutive threads take consecutive lanes, so
+// that the FG lanes of one element are one 64-byte read; lanes past B read
+// the last V lanes.
+template <int V>
+__device__ __forceinline__ void fwd_copy(float* buf,
+                                         const float* __restrict__ A,
+                                         const float* __restrict__ Bf,
+                                         const float* __restrict__ al,
+                                         int k, int b0, int B, int tid) {
+  constexpr int GV = FG / V;
+  const long Bl = B;
+  auto cp = [&](float* d, const float* s) {
+    if constexpr (V == 4) cp_async16(d, s); else cp_async4(d, s);
+  };
+  for (int idx = tid; idx < X * X * GV; idx += NT3) {
+    const int g = V * (idx % GV), row = (idx / GV) % X, y = idx / (X * GV);
+    const int b = min(b0 + g, B - V);
+    cp(buf + F_A + (y * X + row) * FG + g,
+       A + (((long)k * X + row) * X + y) * Bl + b);
+  }
+  for (int idx = tid; idx < PU * X * GV; idx += NT3) {
+    const int g = V * (idx % GV), row = (idx / GV) % X, af = idx / (X * GV);
+    const int b = min(b0 + g, B - V);
+    cp(buf + F_B + (af * X + row) * FG + g,
+       Bf + (((long)k * X + row) * PU + af) * Bl + b);
+  }
+  for (int idx = tid; idx < PU * GV; idx += NT3) {
+    const int g = V * (idx % GV), af = idx / GV;
+    const int b = min(b0 + g, B - V);
+    cp(buf + F_AL + af * FG + g, al + ((long)k * PU + af) * Bl + b);
+  }
+}
+
+// Stage knot k as one commit group: 16-byte copies when `vec` (every
+// lane group of four is 16-byte aligned, see lq_forward), else 4-byte
+// copies.
+__device__ __forceinline__ void fwd_stage(float* buf,
+                                          const float* __restrict__ A,
+                                          const float* __restrict__ Bf,
+                                          const float* __restrict__ al,
+                                          int k, int b0, int B, int tid,
+                                          bool vec) {
+  if (vec)
+    fwd_copy<FV>(buf, A, Bf, al, k, b0, B, tid);
+  else
+    fwd_copy<1>(buf, A, Bf, al, k, b0, B, tid);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// K3: FG lanes per block, thread (row, g) computes state row `row` of lane
+// b0 + g. dx lives in a double-buffered [2][X][FG] shared array; each
+// knot's operands arrive through a ring of FSTAGES staged knots, so that
+// FSTAGES - 1 knots of copies are in flight while a knot folds. One block
+// barrier per knot: it makes knot k's copies and dx_k visible, and frees
+// the ring slot and the dx buffer that knot k - 1 read.
 __global__ void __launch_bounds__(NT3) lq_forward_kernel(
     const float* __restrict__ A, const float* __restrict__ Bf,
     const float* __restrict__ al, const float* __restrict__ dx0,
-    float* __restrict__ dxs, int N, int B) {
-  const int b = blockIdx.x;
-  const int row = threadIdx.x;
+    float* __restrict__ dxs, int N, int B, bool vec) {
+  extern __shared__ __align__(16) float fsm[];
+  const int tid = threadIdx.x;
+  const int g = tid % FG, row = tid / FG;
+  const int b0 = blockIdx.x * FG;
+  const bool live = b0 + g < B;
+  const int b = min(b0 + g, B - 1);
   const long Bl = B;
-  __shared__ float xs[X];
-  if (row < X) xs[row] = dx0[row * Bl + b];
-  __syncthreads();
-  for (int k = 0; k < N - 1; ++k) {
-    float acc = 0.0f;
-    if (row < X) {
-      const float* Ak = A + ((long)k * X + row) * X * Bl + b;
-      const float* Bk = Bf + ((long)k * X + row) * PU * Bl + b;
-      const float* ak = al + (long)k * PU * Bl + b;
-      dxs[((long)k * X + row) * Bl + b] = xs[row];
-      acc = Ak[0] * xs[0];
-      for (int y = 1; y < X; ++y) acc = acc + Ak[y * Bl] * xs[y];
-      for (int af = 0; af < PU; ++af) acc = acc - Bk[af * Bl] * ak[af * Bl];
-    }
-    __syncthreads();
-    if (row < X) xs[row] = acc;
-    __syncthreads();
+  const int ns = N - 1;
+  float* dx = fsm + F_DX;
+  float own = dx0[row * Bl + b];  // this thread's row of dx_k
+  dx[row * FG + g] = own;
+  for (int s = 0; s < FSTAGES - 1; ++s) {
+    if (s < ns) fwd_stage(fsm + s * FKNOT, A, Bf, al, s, b0, B, tid, vec);
+    else asm volatile("cp.async.commit_group;\n" ::);
   }
-  if (row < X) dxs[((long)(N - 1) * X + row) * Bl + b] = xs[row];
+  for (int k = 0; k < ns; ++k) {
+    // Groups committed: knots 0 .. k + FSTAGES - 2; knot k's is done when
+    // at most FSTAGES - 2 are pending.
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(FSTAGES - 2));
+    __syncthreads();
+    const int kn = k + FSTAGES - 1;
+    if (kn < ns)
+      fwd_stage(fsm + (kn % FSTAGES) * FKNOT, A, Bf, al, kn, b0, B, tid,
+                vec);
+    else
+      asm volatile("cp.async.commit_group;\n" ::);
+    const float* op = fsm + (k % FSTAGES) * FKNOT;
+    const float* xc = dx + (k & 1) * X * FG + g;
+    float acc = op[F_A + row * FG + g] * xc[0];
+#pragma unroll
+    for (int y = 1; y < X; ++y)
+      acc = acc + op[F_A + (y * X + row) * FG + g] * xc[y * FG];
+#pragma unroll
+    for (int af = 0; af < PU; ++af)
+      acc = acc - op[F_B + (af * X + row) * FG + g] * op[F_AL + af * FG + g];
+    if (live) dxs[((long)k * X + row) * Bl + b] = own;
+    own = acc;
+    dx[((k + 1) & 1) * X * FG + row * FG + g] = acc;
+  }
+  if (live) dxs[((long)ns * X + row) * Bl + b] = own;
+}
+
+// Above 48 KB a block's dynamic shared memory needs the kernel's opt-in,
+// once per device; `opted` keeps a bit per device done.
+int opt_in_smem(const void* kernel, int bytes, unsigned& opted) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 32 && ((opted >> dev) & 1u)) return 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 32) opted |= 1u << dev;
+  return 0;
 }
 
 }  // namespace
@@ -542,19 +667,10 @@ int lq_backward(const float* A, const float* Bf, const float* Qf,
                 const float* lf, const float* Rf, const float* rf,
                 float* Ps, float* al, int N, int B, int pad_mask,
                 int adaptive, void* stream) {
-  // Above 48 KB a block's dynamic shared memory needs the kernel's
-  // opt-in, once per device.
-  static unsigned opted_in = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 32 || !((opted_in >> dev) & 1u)) {
-    err = cudaFuncSetAttribute(lq_backward_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 32) opted_in |= 1u << dev;
-  }
+  static unsigned opted = 0;
+  if (int rc = opt_in_smem((const void*)lq_backward_kernel, SMEM_BYTES,
+                           opted))
+    return rc;
   lq_backward_kernel<<<(B + G - 1) / G, NTB, SMEM_BYTES,
                        (cudaStream_t)stream>>>(A, Bf, Qf, lf, Rf, rf, Ps, al,
                                                N, B, pad_mask, adaptive);
@@ -562,10 +678,19 @@ int lq_backward(const float* A, const float* Bf, const float* Qf,
 }
 
 // A [N,X,X,B], Bf [N,X,PU,B], al [N-1,PU,B], dx0 [X,B] -> dxs [N,X,B].
+// The operands are staged by 16-byte copies when B % 4 == 0 and A, Bf and
+// al start on 16-byte boundaries (every row then starts on one), else by
+// 4-byte copies.
 int lq_forward(const float* A, const float* Bf, const float* al,
                const float* dx0, float* dxs, int N, int B, void* stream) {
-  lq_forward_kernel<<<B, NT3, 0, (cudaStream_t)stream>>>(A, Bf, al, dx0, dxs,
-                                                         N, B);
+  static unsigned opted = 0;
+  if (int rc = opt_in_smem((const void*)lq_forward_kernel, FWD_SMEM, opted))
+    return rc;
+  const bool vec = B % FV == 0 &&
+                   (((size_t)A | (size_t)Bf | (size_t)al) & 15) == 0;
+  lq_forward_kernel<<<(B + FG - 1) / FG, NT3, FWD_SMEM,
+                      (cudaStream_t)stream>>>(A, Bf, al, dx0, dxs, N, B,
+                                              vec);
   return (int)cudaGetLastError();
 }
 

@@ -21,7 +21,7 @@
 // What bounds it on this card: reading the trajectories, (X + PU) floats
 // per knot per thread, 8.8 KB per (candidate, lane) at N=100: ~9 MB at
 // C=1, B=1024 (~3 us at 3.35 TB/s). At these sizes there are only C*B
-// threads (8 to 16 blocks of 128 on 132 SMs), so like K5 it is bound by
+// threads (8 to 16 blocks of 128 on 132 SMs), so it is bound by
 // one thread's chain over the knots (three polyline queries, six
 // proximity terms, a correctly rounded sqrt per proximity term) rather
 // than by bandwidth.

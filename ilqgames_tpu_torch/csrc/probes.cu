@@ -10,14 +10,14 @@
 //   Built with --fmad=false, each step is a separate multiply and add, so
 //   it is a floor of dependent float32 latency, not of FMA issue.
 // P2 probe_rollout_kernel<...> (the RK4 cases of kernel_floor.py and the
-//   rungs of sweep_floor5*.py): one thread per (candidate, lane), like K5
-//   and K4's design before one warp per subsystem, with the rollout of
+//   rungs of sweep_floor5*.py): one thread per (candidate, lane), like K4's
+//   and K5's designs before one warp per subsystem, with the rollout of
 //   rollout.cuh and compile-time switches that each add one feature of the
 //   shipped kernels:
 //     LAYOUT  the flagship's subsystem table as compile-time constants
 //             (FlagshipTable: every state index can resolve) or passed at
-//             run time, as K5 takes it (offsets index the state at run
-//             time)
+//             run time, as K4 and K5 took it before (offsets index the
+//             state at run time)
 //     LAW     fixed u [PU, B]; the floor law u = -P delta - alpha; the
 //             kernel_floor probe's u = P delta + alpha; the production law
 //             of K4 and K5 (rollout.cuh control_law)

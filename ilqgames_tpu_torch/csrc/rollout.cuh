@@ -1,17 +1,17 @@
-// The rollout's per-thread dynamics, shared by the candidate rollout K4 and
-// the rollout with in-kernel merit K5 (sweep.cu) and by the probe rollout P2
+// The rollout's dynamics, shared by the candidate rollout K4 and the rollout
+// with in-kernel merit K5 (sweep.cu) and by the probe rollout P2
 // (probes.cu): the joint ODE of the flagship's models, one RK4 step with 2
 // substeps, and the affine control law. Each repeats its plain PyTorch
 // version operation by operation (built with FMA contraction off).
 //
-// The models come from a table of subsystems (kind, state offset, control
-// offset, inter-axle length each): a SubsysTable passed at run time, as K5
-// takes it, whose offsets index the thread's state arrays at run time; or a
-// type whose entries are compile-time constants (probes.cu FlagshipTable),
-// so that every index resolves.
+// P2's one thread per chain takes the models from a table of subsystems
+// (kind, state offset, control offset, inter-axle length each): a
+// SubsysTable passed at run time, whose offsets index the thread's state
+// arrays at run time; or a type whose entries are compile-time constants
+// (probes.cu FlagshipTable), so that every index resolves.
 //
-// K4's warp design (sweep.cu) integrates each subsystem in its own warp:
-// `sub_ode`, `sub_integrate` and `control_rows` below are `ode`,
+// K4's and K5's warp design (sweep.cu) integrates each subsystem in its own
+// warp: `sub_ode`, `sub_integrate` and `control_rows` below are `ode`,
 // `integrate` and `control_law` restricted to one subsystem's state rows
 // and its player's control rows. The joint field is block-diagonal and
 // every RK4 and control-row operation is elementwise or a per-row fold, so

@@ -12,19 +12,19 @@
 // emitted trajectories (ops/cuda/sweep.py: merit_plain, or K6 in merit.cu).
 //
 // K5 replaces the same Pallas kernel with compute_merit=True
-// (merit_backend="kernel"): the same rollout, one thread per chain on the
-// run-time table, with each knot's merit increment (the players' squared
-// stage-gradient sums of costs.cuh, control terms always, state terms for
-// k > 0) accumulated in registers in ascending k; it emits only the raw
+// (merit_backend="kernel"): the same rollout, with each knot's merit
+// increment (the players' squared stage-gradient sums of costs.cuh, control
+// terms always, state terms for k > 0) folded over the players left to
+// right and then over the knots in ascending k; it emits only the raw
 // merits [C, B]. Its fold is K6's and merit_plain's.
 //
 // Dynamics: car_6d and unicycle_4d (ilqgames_tpu/dynamics/models.py:80-175)
 // through the device functions of rollout.cuh, chosen per subsystem. The
 // library is built for one game's layout of subsystems (kind, state offset,
 // control offset, inter-axle length each), given as defines by
-// ops/cuda/sweep.py:library: K4 reads it as compile-time constants (Sub<S>
-// below); K5 takes the same table at run time (SubsysTable) and keeps the
-// one-thread rollout of rollout.cuh.
+// ops/cuda/sweep.py:library: K4 and K5 read it as compile-time constants
+// (Sub<S> below). The run-time SubsysTable they are handed is only checked
+// against it.
 // sin, cos and tan are the port's own float32 routines (fmath.cuh), which
 // round exactly as ilqgames_tpu_torch/fmath.py does in PyTorch on the CPU
 // and on the card: CUDA's sinf and the CPU's sin differ in the last bit,
@@ -46,6 +46,23 @@
 // barrier: each warp reads the whole state for the control law. The chain
 // per knot is then the longest subsystem's RK4 (a car_6d: 3 of the 8 trig
 // calls of each joint ODE evaluation) plus the barrier.
+//
+// K5 (rollout_merit_warp_kernel) is K4's design, with the merit split over
+// the same warps. Player i's terms need the whole state x_k and only
+// player i's controls u_k, which warp s computes when s is player i's
+// subsystem (the library refuses a game where a player's controls are not
+// one subsystem's rows). So within knot k each warp, after its control
+// rows, computes its player's (state_sq, ctrl_sq) and writes them to a
+// double-buffered [2][P][2][32] shared array; after the knot's barrier warp
+// 0 folds the players' terms left to right and adds them to the merit it
+// keeps in a register. x_k is read from the shared state, which knot k + 1
+// overwrites, so each knot's terms are computed within it. The CostTable's
+// indices are run-time values: the state is read from shared memory and
+// the state gradient accumulated in a per-warp [X][32] shared array, so
+// that no register array is indexed at run time (which would put it on the
+// stack). The chain per knot is then the slowest warp's RK4 plus its own
+// player's terms, where one thread per chain would run all three players'
+// terms after the joint RK4.
 
 #include <cuda_runtime.h>
 
@@ -150,39 +167,79 @@ __global__ void __launch_bounds__(WARP * NSUB) rollout_warp_kernel(
   }
 }
 
-__global__ void rollout_merit_kernel(
+// K5: K4's warps, each also computing the merit terms of the player whose
+// controls it owns, from the knot's state in shared memory. Warp 0 folds
+// the players' terms of a knot after the knot's barrier.
+__global__ void __launch_bounds__(WARP * NSUB) rollout_merit_warp_kernel(
     const float* __restrict__ x0, const float* __restrict__ xs,
     const float* __restrict__ us, const float* __restrict__ Ps,
-    const float* __restrict__ al, const float* __restrict__ t0,
-    const float* __restrict__ scal, const float* __restrict__ lamS, int nS,
-    const float* __restrict__ mu, const float* __restrict__ segs,
-    float* __restrict__ merit_out, int N, int C, int B, float dt, float h,
-    int umask_bits, const __grid_constant__ SubsysTable tab,
+    const float* __restrict__ al, const float* __restrict__ scal,
+    const float* __restrict__ lamS, int nS, const float* __restrict__ mu,
+    const float* __restrict__ segs, float* __restrict__ merit_out, int N,
+    int C, int B, float h, int umask_bits,
     const __grid_constant__ CostTable cost) {
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long)C * B) return;
+  __shared__ float state[2][X][WARP];
+  __shared__ float grad[NSUB][X][WARP];    // each warp's state gradient
+  __shared__ float terms[2][P][2][WARP];   // (state_sq, ctrl_sq) per player
+  const int lane = threadIdx.x % WARP;
+  const int w = threadIdx.x / WARP;
+  const long total = (long)C * B;
+  const long idx_raw = (long)blockIdx.x * WARP + lane;
+  const bool live = idx_raw < total;
+  const long idx = live ? idx_raw : total - 1;
   const int b = (int)(idx % B);
   const long Bl = B;
   const float sc = scal[idx];
   const float mu_b = mu[b];
-  float x[X], u[PU];
-  for (int r = 0; r < X; ++r) x[r] = x0[r * Bl + b];
+  on_sub(w, [&](auto q) {
+    using S = decltype(q);
+    for (int j = 0; j < S::dim; ++j)
+      state[0][S::xoff + j][lane] = x0[(S::xoff + j) * Bl + b];
+  });
+  __syncthreads();
+  // Knot kt's merit increment, players folded left to right (warp 0).
   float merit = 0.0f;
+  auto fold = [&](int kt) {
+    const int t = kt & 1;
+    float st = terms[t][0][0][lane], ct = terms[t][0][1][lane];
+    for (int i = 1; i < P; ++i) {
+      st = st + terms[t][i][0][lane];
+      ct = ct + terms[t][i][1][lane];
+    }
+    merit = (kt == 0) ? ct : merit + (ct + st);
+  };
   for (int k = 0; k < N; ++k) {
-    rollout::control_law<X, PU>(xs, us, Ps, al, k, b, Bl, sc, umask_bits, x,
-                                u);
-    auto lam = [&](int row) { return lamS[((long)k * nS + row) * Bl + b]; };
-    float ctrl_term, state_term;
-    costs::merit_terms<X, P, U>(cost, segs, x, u, lam, mu_b, ctrl_term,
-                                state_term);
-    merit = (k == 0) ? ctrl_term : merit + (ctrl_term + state_term);
-    const float t = t0[b] + (float)k * dt;
-    rollout::integrate<X>(tab, t, h, x, u);
+    const int cur = k & 1;
+    if (w == 0 && k > 0) fold(k - 1);
+    float x[X];
+    for (int r = 0; r < X; ++r) x[r] = state[cur][r][lane];
+    on_sub(w, [&](auto q) {
+      using S = decltype(q);
+      constexpr int O = S::xoff, Q = S::uoff, D = S::dim, I = Q / U;
+      float u[U];
+      rollout::control_rows<X, PU, Q, U>(xs, us, Ps, al, k, b, Bl, sc,
+                                         umask_bits, x, u);
+      auto lam = [&](int row) { return lamS[((long)k * nS + row) * Bl + b]; };
+      costs::ColumnGradAcc<X> gs{&grad[w][0][lane]};
+      costs::SelectGradAcc<U> gu;
+      float s_sq, r_sq;
+      costs::gradient_sq_into(cost, segs, I, costs::Column{&state[cur][0][lane]},
+                              gs, costs::Selected<U>{u}, gu, lam, mu_b, s_sq,
+                              r_sq);
+      terms[cur][I][0][lane] = s_sq;
+      terms[cur][I][1][lane] = r_sq;
+      float xo[D];
+      for (int j = 0; j < D; ++j) xo[j] = x[O + j];
+      rollout::sub_integrate<S::kind>(S::length, h, xo, u);
+      for (int j = 0; j < D; ++j) state[cur ^ 1][O + j][lane] = xo[j];
+    });
+    __syncthreads();
   }
-  merit_out[idx] = merit;
+  if (w == 0) {
+    fold(N - 1);
+    if (live) merit_out[idx] = merit;
+  }
 }
-
-constexpr int BLOCK = 128;
 
 // Whether the run-time table describes the layout this library was built
 // for.
@@ -219,18 +276,21 @@ int sweep_rollout(const float* x0, const float* xs, const float* us,
 }
 
 // K5: as sweep_rollout, plus lamS [N,nS,B] (null when nS = 0), mu [B] and
-// the cost table -> raw merits merit_out [C,B]; emits no trajectory.
+// the cost table -> raw merits merit_out [C,B]; emits no trajectory. The
+// models and the ported atoms are time-invariant, so K5 reads no t0.
 int sweep_rollout_merit(const float* x0, const float* xs, const float* us,
                         const float* Ps, const float* al, const float* t0,
                         const float* scal, const float* lamS, int nS,
                         const float* mu, const float* segs, float* merit_out,
                         int N, int C, int B, float dt, float h, int umask_bits,
                         SubsysTable tab, CostTable cost, void* stream) {
+  if (!matches_layout(tab)) return (int)cudaErrorInvalidValue;
   const long total = (long)C * B;
-  const int grid = (int)((total + BLOCK - 1) / BLOCK);
-  rollout_merit_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      x0, xs, us, Ps, al, t0, scal, lamS, nS, mu, segs, merit_out, N, C, B,
-      dt, h, umask_bits, tab, cost);
+  if (total == 0) return 0;
+  const int grid = (int)((total + WARP - 1) / WARP);
+  rollout_merit_warp_kernel<<<grid, WARP * NSUB, 0, (cudaStream_t)stream>>>(
+      x0, xs, us, Ps, al, scal, lamS, nS, mu, segs, merit_out, N, C, B, h,
+      umask_bits, cost);
   return (int)cudaGetLastError();
 }
 

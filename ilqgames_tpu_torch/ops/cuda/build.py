@@ -149,6 +149,15 @@ def check_operands(named) -> torch.device:
     return dev
 
 
+def stream(dev: torch.device) -> int:
+    """The raw handle of the current stream on a CUDA device, for a
+    kernel's C function: the value of
+    `torch.cuda.current_stream(dev).cuda_stream` without building a Stream
+    object (0.8 against 6.8-12.0 us on an H100 host, tools/launch_split)."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def check(rc: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a kernel's C function."""
     if rc != 0:

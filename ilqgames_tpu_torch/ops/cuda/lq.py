@@ -18,6 +18,13 @@ lane's knot on its own, between `__syncwarp()`s; T = Z_i F and the value
 update run in register tiles, and R_i P is formed once per knot.
 `backward_smem_bytes` is the block's shared memory in csrc/lq.cu's
 layout, which checks it at compile time.
+
+K3 runs `FWD_G` lanes per block and one thread per (state row, lane), so
+that its reads of A, Bf and alpha coalesce over the lanes; each knot's
+operands of the block's lanes are copied by 16-byte cp.async copies into a
+ring of `FWD_STAGES` shared-memory slots ahead of the knot that folds
+them, and dx is double-buffered in shared memory (one barrier per knot).
+`forward_smem_bytes` is its shared memory, checked the same way.
 """
 
 from __future__ import annotations
@@ -46,6 +53,8 @@ def _pad_rows(spec: GameSpec):
 
 LQ_G = 8                # K2 lanes per block (one warp each)
 SMEM_LIMIT = 232448     # shared memory a block may use on an H100, bytes
+FWD_G = 16              # K3 lanes per block (one 64-byte read an element)
+FWD_STAGES = 3          # K3's ring: the knot folded and two in flight
 
 
 def backward_smem_bytes(spec: GameSpec) -> int:
@@ -64,9 +73,22 @@ def backward_smem_bytes(spec: GameSpec) -> int:
     return 4 * LQ_G * (used + (4 - used) % 32)
 
 
+def forward_smem_bytes(spec: GameSpec) -> int:
+    """K3's dynamic shared memory per block, csrc/lq.cu's layout: a ring of
+    `FWD_STAGES` knots of A, Bf and alpha for `FWD_G` lanes, and dx
+    twice."""
+    x, Pu = spec.xdim, spec.num_players * spec.umax
+    return 4 * FWD_G * (FWD_STAGES * (x * x + x * Pu + Pu) + 2 * x)
+
+
 def library(spec: GameSpec):
     """(source name, defines) of csrc/lq.cu for this game's dims."""
     x, quarter = spec.xdim, spec.xdim // 4
+    fwd = forward_smem_bytes(spec)
+    if fwd > SMEM_LIMIT or x * FWD_G > 1024:
+        raise ValueError(f"K3 needs {x * FWD_G} threads and {fwd} B of "
+                         f"shared memory per block at {FWD_G} lanes, above "
+                         f"1024 or {SMEM_LIMIT} B")
     if x % 4 or 32 % quarter or x % (32 // quarter):
         raise ValueError(f"K2's value-update tiles take x a multiple of 4 "
                          f"whose quarter divides 32 and is divided by 32 / "
@@ -77,7 +99,8 @@ def library(spec: GameSpec):
                          f"{LQ_G} lanes, above the {SMEM_LIMIT} B a block "
                          "may use")
     return "lq", {"LQ_X": spec.xdim, "LQ_P": spec.num_players,
-                  "LQ_U": spec.umax, "LQ_G": LQ_G, "LQ_SMEM": smem}
+                  "LQ_U": spec.umax, "LQ_G": LQ_G, "LQ_SMEM": smem,
+                  "LQ_FWD_G": FWD_G, "LQ_FWD_SMEM": fwd}
 
 
 @functools.lru_cache(maxsize=None)
@@ -274,8 +297,7 @@ def lq_backward(spec: GameSpec, ops: dict, adaptive: bool = True):
     pad_mask = sum(1 << af for af in _pad_rows(spec))
     args = [ops[k].data_ptr() for k in ("A", "Bf", "Qf", "lf", "Rf", "rf")]
     rc = lib.lq_backward(*args, Ps.data_ptr(), al.data_ptr(), N, B, pad_mask,
-                         int(adaptive),
-                         torch.cuda.current_stream(dev).cuda_stream)
+                         int(adaptive), build.stream(dev))
     build.check(rc, "lq_backward")
     lq_backward.launches += 1
     return Ps, al
@@ -300,7 +322,7 @@ def lq_forward(spec: GameSpec, A, Bf, alphas, dx0):
     dxs = torch.empty((N, x, B), dtype=torch.float32, device=dev)
     rc = lib.lq_forward(A.data_ptr(), Bf.data_ptr(), alphas.data_ptr(),
                         dx0.data_ptr(), dxs.data_ptr(), N, B,
-                        torch.cuda.current_stream(dev).cuda_stream)
+                        build.stream(dev))
     build.check(rc, "lq_forward")
     lq_forward.launches += 1
     return dxs

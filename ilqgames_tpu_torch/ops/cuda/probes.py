@@ -130,14 +130,6 @@ def load_kernels(spec: GameSpec) -> ctypes.CDLL:
     return lib
 
 
-def _stream(dev):
-    """The raw handle of the current stream on a CUDA device: the value of
-    `torch.cuda.current_stream(dev).cuda_stream` without building a
-    Stream object (~12 us on an H100 host, tools/launch_split)."""
-    index = torch.cuda.current_device() if dev.index is None else dev.index
-    return torch._C._cuda_getCurrentRawStream(index)
-
-
 # ---- P1 ----
 
 def fma_chain_plain(x, steps: int):
@@ -155,8 +147,8 @@ def fma_chain(spec: GameSpec, x, steps: int):
     if dev.type == "cpu":
         return fma_chain_plain(x, steps)
     out = torch.empty_like(x)
-    rc = load_kernels(spec).probe_fma_chain(x.data_ptr(), out.data_ptr(),
-                                            x.numel(), steps, _stream(dev))
+    rc = load_kernels(spec).probe_fma_chain(
+        x.data_ptr(), out.data_ptr(), x.numel(), steps, build.stream(dev))
     build.check(rc, "probe_fma_chain")
     fma_chain.launches += 1
     return out
@@ -194,7 +186,7 @@ def smoke(spec: GameSpec, x):
         return smoke_plain(x)
     out = torch.empty_like(x)
     rc = _smoke_fn(spec)(x.data_ptr(), out.data_ptr(), x.numel(),
-                         _stream(dev))
+                         build.stream(dev))
     build.check(rc, "probe_smoke")
     smoke.launches += 1
     return out
@@ -389,7 +381,8 @@ def probe_rollout(rung_name: str, dyn, player_costs, spec: GameSpec, x0c,
         o.cost, segs = cost_table(player_costs, spec, dev)
         o.segs, o.mu, o.lamS = ptr(segs), ptr(mu), ptr(lamS)
         o.nS = 0 if lamS is None else lamS.shape[1]
-    rc = load_kernels(spec).probe_rollout(r.id, ctypes.byref(o), _stream(dev))
+    rc = load_kernels(spec).probe_rollout(r.id, ctypes.byref(o),
+                                          build.stream(dev))
     build.check(rc, f"probe_rollout[{rung_name}]")
     probe_rollout.launches += 1
     return out

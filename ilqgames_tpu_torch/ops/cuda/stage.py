@@ -104,7 +104,7 @@ def lin_quad(dyn, player_costs, spec: GameSpec, op_bm: dict, lamS, lamC,
         None if lamS is None else lamS.data_ptr(), nS, mu.data_ptr(),
         segs.data_ptr(), *(out[k].data_ptr() for k in
                            ("A", "Bf", "Qf", "lf", "Rf", "rf")),
-        N, B, spec.dt, tab, costs, torch.cuda.current_stream(dev).cuda_stream)
+        N, B, spec.dt, tab, costs, build.stream(dev))
     build.check(rc, "stage_lin_quad")
     lin_quad.launches += 1
     return out

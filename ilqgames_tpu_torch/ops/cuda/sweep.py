@@ -6,7 +6,10 @@ Each kernel's wrapper (`rollout_bm`: K4 and `rollout_merits`: K5, in
 csrc/sweep.cu; `consumer_merits`: K6, in csrc/merit.cu) launches it on
 CUDA tensors and takes its plain PyTorch version on CPU tensors; any
 other device raises. Each keeps a launch count. csrc/sweep.cu is built
-per game: its layout of subsystems is compile-time (`library`).
+per game: its layout of subsystems is compile-time (`library`). K4 and K5
+run one warp per subsystem over 32 chains; K5's warp s also computes the
+merit terms of the player whose controls it owns (checked by `library`),
+and one warp folds the players' terms after each knot's barrier.
 
 The sweep's `merit_backend` picks how a candidate's merit is computed,
 as the JAX package's does:
@@ -82,9 +85,23 @@ def library(dyn, spec: GameSpec):
     model with no device ODE raises): the count SW_NSUB and, per field, a
     list of SW_ITEM(v), one per subsystem (nvcc splits a define's value at
     commas): kinds, state offsets, control offsets, and inter-axle lengths
-    as exact float32 hex literals."""
+    as exact float32 hex literals. K5's warp s computes the merit terms of
+    player SW_SUB_UOFF[s] / umax, so a game where a player's controls are
+    not exactly one subsystem's rows is refused here."""
     tab = _device_table(dyn, spec)
-    n = tab.n
+    n, u = tab.n, spec.umax
+    for i in range(spec.num_players):
+        owners = sum(tab.uoff[s] == i * u for s in range(n))
+        if owners != 1:
+            raise ValueError(
+                f"K5 computes player {i}'s merit terms in the warp of the "
+                f"subsystem that owns its controls (rows {i * u}-"
+                f"{i * u + u - 1}); {owners} of the game's {n} subsystems "
+                "do, and it needs exactly one")
+    if n != spec.num_players:
+        raise ValueError(
+            f"K4 and K5 run one warp per subsystem on its player's controls; "
+            f"the game has {n} subsystems for {spec.num_players} players")
     items = lambda vals: "".join(f"SW_ITEM({v})" for v in vals)
     return "sweep", {
         "SW_X": spec.xdim, "SW_PU": spec.num_players * spec.umax,
@@ -187,7 +204,7 @@ def rollout_bm(dyn, spec: GameSpec, x0m, op_bm: dict, st_bm: dict, scal_cb,
         st_bm["Ps"].data_ptr(), st_bm["alphas"].data_ptr(),
         op_bm["t0"].data_ptr(), scal_cb.data_ptr(), xs.data_ptr(),
         us.data_ptr() if emit_us else None, N, C, B, spec.dt, spec.dt / 2,
-        umask, tab, torch.cuda.current_stream(dev).cuda_stream)
+        umask, tab, build.stream(dev))
     build.check(rc, "sweep_rollout")
     rollout_bm.launches += 1
     rollout_bm.by_shape[(C, B, emit_us)] += 1
@@ -212,8 +229,8 @@ def rollout_merits(dyn, player_costs, spec: GameSpec, x0m, op_bm: dict,
                    st_bm: dict, scal_cb, lamS, lamC, mu):
     """K5: raw merits [C, B] of the candidates' rollouts (operands as
     `rollout_plain`'s, plus the batch-minor multipliers of `_prep_al`).
-    CUDA tensors launch csrc/sweep.cu's rollout with in-kernel merit; CPU
-    tensors take `rollout_merits_plain`."""
+    CUDA tensors launch csrc/sweep.cu's rollout with in-kernel merit (one
+    warp per subsystem); CPU tensors take `rollout_merits_plain`."""
     N, x = spec.num_time_steps, spec.xdim
     Pu = spec.num_players * spec.umax
     C, B = scal_cb.shape
@@ -240,7 +257,7 @@ def rollout_merits(dyn, player_costs, spec: GameSpec, x0m, op_bm: dict,
         None if lamS is None else lamS.data_ptr(),
         0 if lamS is None else lamS.shape[1], mu.data_ptr(), segs.data_ptr(),
         merits.data_ptr(), N, C, B, spec.dt, spec.dt / 2, umask, tab, costs,
-        torch.cuda.current_stream(dev).cuda_stream)
+        build.stream(dev))
     build.check(rc, "sweep_rollout_merit")
     rollout_merits.launches += 1
     return merits
@@ -363,7 +380,7 @@ def consumer_merits(player_costs, spec: GameSpec, xs_cand, us_cand, t0_bm,
         None if lamS is None else lamS.data_ptr(),
         0 if lamS is None else lamS.shape[1], mu.data_ptr(), segs.data_ptr(),
         merits.data_ptr(), N, C, B, costs,
-        torch.cuda.current_stream(dev).cuda_stream)
+        build.stream(dev))
     build.check(rc, "merit_consumer")
     consumer_merits.launches += 1
     return merits

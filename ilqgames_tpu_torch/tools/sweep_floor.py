@@ -6,7 +6,7 @@ otherwise:
 
 - P2 rungs (ops/cuda/probes.py RUNGS) for the structural steps: the floor
   law, the production law, the state layout (compile-time offsets against
-  the run-time SubsysTable that K5 takes, as K4's one-thread design did
+  the run-time SubsysTable that K4's and K5's one-thread designs took
   before one warp per subsystem), the per-lane time, the merit fold's gate,
   knot-0 and accumulator choices, and raw merit content;
 - K5 (sweep.rollout_merits) on sub-tables of the flagship's costs for the
@@ -259,10 +259,12 @@ def _cases():
         c("5.v1_ctrl_law", s["5"], "P2 prod_static (production law)",
           p2("5", "prod_static")),
         c("5.v2_scratch_x", s["5"], "P2 prod_table (run-time SubsysTable "
-          "layout, as K5 and K4's one-thread design)", p2("5", "prod_table"),
+          "layout, as K4's and K5's one-thread designs)",
+          p2("5", "prod_table"),
           "x through a VMEM scratch ref has no CUDA form; the analogue is "
-          "the state indexed through run-time subsystem offsets (K5's "
-          "layout) against v1's compile-time offsets"),
+          "the state indexed through run-time subsystem offsets (K4's and "
+          "K5's layout before one warp per subsystem) against v1's "
+          "compile-time offsets"),
         c("5.v3_lane_t", s["5"], "P2 lane_t (per-lane t)", p2("5", "lane_t"),
           "the flagship's models ignore t, so nvcc drops it"),
         c("5.v3_emit", s["5"], "P2 emit_xs and emit_xs_us (the top rung)",

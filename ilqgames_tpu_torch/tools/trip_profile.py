@@ -36,7 +36,7 @@ WARM, TRACED = 10, 10
 # A CUDA kernel's name -> the port's kernel it belongs to (else "glue").
 KERNEL_NAMES = (("stage_kernel", "K1"), ("lq_backward_kernel", "K2"),
                 ("lq_forward_kernel", "K3"), ("rollout_warp_kernel", "K4"),
-                ("rollout_merit_kernel", "K5"), ("merit_kernel", "K6"))
+                ("rollout_merit_warp_kernel", "K5"), ("merit_kernel", "K6"))
 
 
 def kernel_of(name: str) -> str:

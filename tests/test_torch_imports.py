@@ -39,3 +39,13 @@ def test_chip_smoke_refuses_without_cuda():
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_kernel_wrappers_share_one_stream_helper():
+    """Every kernel wrapper passes its C function the current stream's raw
+    handle from `build.stream`; none builds a Stream object at launch."""
+    cuda = REPO / "ilqgames_tpu_torch" / "ops" / "cuda"
+    for name in ("lq", "sweep", "stage", "probes"):
+        src = (cuda / f"{name}.py").read_text()
+        assert "current_stream" not in src, name
+        assert "build.stream(dev)" in src, name

@@ -2,8 +2,9 @@
 against on the card) against the JAX package's Pallas kernels in
 interpret mode and its XLA scan solver, on the same inputs at N=11, B=4.
 Tolerances are those of tests/test_pallas_lq.py (LU with pivoting vs
-linalg.solve differ in op order, not semantics). K2's build defines and
-shared memory; on the card, K2 bitwise against its plain version.
+linalg.solve differ in op order, not semantics). K2's and K3's build
+defines and shared memory; on the card, K2 and K3 bitwise against their
+plain versions.
 
 The JAX package is imported inside the fixture that uses it, so that the
 card's tests collect where only the port's dependencies are installed."""
@@ -165,6 +166,26 @@ def test_k2_build_defines_and_shared_memory():
         lq.library(GameSpec(xdims=(4, 4, 4, 4), udims=(3, 3, 3, 3)))
 
 
+def test_k3_build_defines_and_shared_memory():
+    """K3's library carries its lanes per block and the shared memory that
+    csrc/lq.cu checks its layout against: a ring of three knots of A, Bf
+    and alpha (358 floats a lane at the flagship's widths) and dx twice,
+    for 16 lanes; a build that would not fit a block's shared memory is
+    refused before nvcc runs."""
+    spec = make_problem().spec
+    name, d = lq.library(spec)
+    assert name == "lq" and d["LQ_FWD_G"] == lq.FWD_G == 16
+    assert lq.FWD_STAGES == 3
+    knot = 16 * 16 + 16 * 6 + 6
+    assert knot == 358
+    assert d["LQ_FWD_SMEM"] == lq.forward_smem_bytes(spec) \
+        == 4 * 16 * (3 * knot + 2 * 16) == 70784 <= lq.SMEM_LIMIT
+    # 256 threads a block: one per (state row, lane).
+    assert spec.xdim * lq.FWD_G == 256
+    with pytest.raises(ValueError, match="K3"):
+        lq.library(GameSpec(xdims=(64, 64), udims=(2, 2)))
+
+
 def _port_operands(n, batch_block, nan_lane):
     """K2's operands at the first rollout of x0 near the flagship's start
     (N=11, from a seed), made by the port on the CPU, with a NaN in one
@@ -204,3 +225,47 @@ def test_k2_bitwise_on_card_ragged_group():
         # Bit patterns, so that -0.0 and +0.0 count as different.
         assert torch.equal(g.view(torch.int32)[~nan],
                            w.view(torch.int32)[~nan])
+
+
+def _offset_view(t):
+    """A contiguous copy of t that starts one float past its storage's
+    start, so that its data pointer is 4 bytes off a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, offset", [(12, False), (11, False), (12, True)],
+                         ids=["B12-16-byte", "B11-4-byte",
+                              "B12-offset-4-byte"])
+def test_k3_bitwise_on_card_ragged_group(B, offset):
+    """K3 against `lq_forward_plain` on the card, bit for bit, at B=12
+    (16-byte copies), B=11 (4-byte copies) and B=12 on views of A, Bf and
+    alpha one float past a 16-byte boundary (4-byte copies): one block of
+    16 lanes with its last 4 or 5 past B, NaN alphas on lane 7 (a NaN
+    operand of K2) and a NaN entry of A on lane 10."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    spec, ops = _port_operands(12, 4, nan_lane=7)
+    _, al = lq.lq_backward_plain(spec, ops)
+    ops["A"][3, 2, 5, 10] = float("nan")
+    dx0 = torch.tensor(0.1 * np.random.RandomState(7).randn(
+        spec.xdim, 12).astype(np.float32))
+    args = [t[..., :B].contiguous().cuda()
+            for t in (ops["A"], ops["Bf"], al, dx0)]
+    if offset:
+        args[:3] = [_offset_view(t) for t in args[:3]]
+    assert bool(al[:, :, 7].isnan().any())
+    want = lq.lq_forward_plain(spec, *args)
+    launches = lq.lq_forward.launches
+    got = lq.lq_forward(spec, *args)
+    torch.cuda.synchronize()
+    assert lq.lq_forward.launches == launches + 1
+    nan = want.isnan()
+    assert bool(nan[:, :, 10].any()) and not bool(nan[:, :, 0].any())
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(got.view(torch.int32)[~nan],
+                       want.view(torch.int32)[~nan])

@@ -14,7 +14,7 @@ from ilqgames_tpu_torch.tools import trip_profile
     ("(anonymous namespace)::stage_kernel(float const*)", "K1"),
     ("lq_backward_kernel", "K2"), ("lq_forward_kernel", "K3"),
     ("(anonymous namespace)::rollout_warp_kernel(float const*, int)", "K4"),
-    ("rollout_merit_kernel", "K5"), ("merit_kernel", "K6"),
+    ("rollout_merit_warp_kernel", "K5"), ("merit_kernel", "K6"),
     ("void at::native::elementwise_kernel<128, 2>", "glue")])
 def test_kernel_of(name, kernel):
     assert trip_profile.kernel_of(name) == kernel
