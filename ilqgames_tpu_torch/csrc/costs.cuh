@@ -21,10 +21,10 @@
 // keep a per-key "seen" bit for that.
 //
 // The atoms read the state through `v[d]` for any V that has it: a thread's
-// own array (K1, K6, the probes), or a Column of a [X][32] shared-memory
-// array (K5, whose warps share a block's state), so that a run-time index d
-// of the CostTable never indexes a register array (which puts the array on
-// the stack).
+// own array (K1, the probes), or a Column of a [X][32] shared-memory array
+// (K5, whose warps share a block's state, and K6), so that a run-time index
+// d of the CostTable never indexes a register array (which puts the array
+// on the stack).
 
 #pragma once
 
@@ -406,21 +406,6 @@ __device__ void jacobian(const SubsysTable& tab, const float* x, Add add) {
       add(true, o + 2, q + 0, 1.0f);
       add(true, o + 3, q + 1, 1.0f);
     }
-  }
-}
-
-// The merit increment of one knot k: the players' control terms always and
-// their state terms for k > 0, each summed over players left to right
-// (ops/cuda/sweep.py:merit_plain). Returns (ctrl, state) through refs.
-template <int X, int P, int U, typename Lam>
-__device__ void merit_terms(const CostTable& tab, const float* segs,
-                            const float* v, const float* u, Lam lam,
-                            float mu, float& ctrl_term, float& state_term) {
-  for (int i = 0; i < P; ++i) {
-    float s, r;
-    gradient_sq<X, U>(tab, segs, i, v, u, lam, mu, s, r);
-    state_term = (i == 0) ? s : state_term + s;
-    ctrl_term = (i == 0) ? r : ctrl_term + r;
   }
 }
 

@@ -66,6 +66,8 @@
 
 #include <cuda_runtime.h>
 
+#include "smem.cuh"
+
 #if !defined(LQ_X) || !defined(LQ_P) || !defined(LQ_U)
 #error "build with -DLQ_X=<xdim> -DLQ_P=<players> -DLQ_U=<umax>"
 #endif
@@ -134,7 +136,7 @@ static_assert(X % 4 == 0 && 32 % CG == 0 && X % RG == 0,
               "quarter divides 32 and is divided by 32 / (x / 4)");
 static_assert(SMEM_BYTES == LQ_SMEM,
               "ops/cuda/lq.py:backward_smem_bytes disagrees with the layout");
-static_assert(SMEM_BYTES <= 232448, "a block may use 227 KB of shared memory");
+static_assert(SMEM_BYTES <= MAX_SMEM, "a block may use 227 KB of shared memory");
 static_assert(X + 1 <= 32 && W <= 32 && PU <= 32,
               "a warp needs a thread per column and per pivot row");
 
@@ -523,7 +525,7 @@ constexpr int F_DX = FSTAGES * FKNOT;  // dx [2][X][FG] after the ring
 constexpr int FWD_SMEM = (F_DX + 2 * X * FG) * (int)sizeof(float);
 static_assert(NT3 <= 1024, "K3 needs a thread per (state row, lane)");
 static_assert(FG % FV == 0, "a block's lanes are whole 16-byte copies");
-static_assert(FWD_SMEM <= 232448, "a block may use 227 KB of shared memory");
+static_assert(FWD_SMEM <= MAX_SMEM, "a block may use 227 KB of shared memory");
 static_assert(FWD_SMEM == LQ_FWD_SMEM,
               "ops/cuda/lq.py:forward_smem_bytes disagrees with the layout");
 
@@ -638,21 +640,6 @@ __global__ void __launch_bounds__(NT3) lq_forward_kernel(
     dx[((k + 1) & 1) * X * FG + row * FG + g] = acc;
   }
   if (live) dxs[((long)ns * X + row) * Bl + b] = own;
-}
-
-// Above 48 KB a block's dynamic shared memory needs the kernel's opt-in,
-// once per device; `opted` keeps a bit per device done.
-int opt_in_smem(const void* kernel, int bytes, unsigned& opted) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 32 && ((opted >> dev) & 1u)) return 0;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 32) opted |= 1u << dev;
-  return 0;
 }
 
 }  // namespace

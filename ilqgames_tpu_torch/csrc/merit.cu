@@ -8,27 +8,46 @@
 // lane, each knot's merit increment over the knots in ascending order:
 //   merit = ctrl[0], then merit = merit + (ctrl[k] + state[k]) for k >= 1,
 // where state[k] and ctrl[k] are the players' squared stage-gradient sums
-// (costs.cuh: gradient_sq, player_cost.stage_gradient_sq_tuple) summed over
-// players left to right. The result is the raw merit [C, B] (callers apply
-// the 0.5). The fold is merit_plain's and K5's, operation by operation,
-// built without FMA contraction. The atoms ported are time-invariant, so
-// the knot times are not formed.
+// (costs.cuh: gradient_sq_into, player_cost.stage_gradient_sq_tuple) summed
+// over players left to right. The result is the raw merit [C, B] (callers
+// apply the 0.5). The fold is merit_plain's and K5's, operation by
+// operation, built without FMA contraction. The atoms ported are
+// time-invariant, so the knot times are not formed.
 //
-// Design: one thread per (candidate, lane), a loop over the knots, the
-// running merit in a register; neighbouring lanes read neighbouring
-// addresses of every [.., C, B] row.
+// What bounds it on this card: the bytes are few (the trajectories once,
+// (X + PU) floats per knot and chain: ~9 MB at C=1, B=2048, ~3 us at 3.35
+// TB/s) and so are the operations (~670 per knot and chain). What is long
+// is one knot's chain of dependent operations: three players' polyline
+// queries and six proximity terms, each with a correctly rounded sqrt. One
+// thread per chain looping over the knots would run N such chains in a row
+// on C * B threads: 8 to 16 blocks of 128 on 132 SMs at the main path's
+// shapes.
 //
-// What bounds it on this card: reading the trajectories, (X + PU) floats
-// per knot per thread, 8.8 KB per (candidate, lane) at N=100: ~9 MB at
-// C=1, B=1024 (~3 us at 3.35 TB/s). At these sizes there are only C*B
-// threads (8 to 16 blocks of 128 on 132 SMs), so it is bound by
-// one thread's chain over the knots (three polyline queries, six
-// proximity terms, a correctly rounded sqrt per proximity term) rather
-// than by bandwidth.
+// Design: a knot's terms depend only on that knot's rows, so every
+// (knot, chain) item is its own thread; only the fold over the knots is
+// serial. A block takes LANES consecutive chains and all N knots: a warp's
+// 32 threads are 32 / LANES knots of those chains, so each row of xs and
+// us is read in LANES-float runs. A thread stages its knot's state in its
+// own column of its warp's [X][32] shared array and accumulates the state
+// gradient in another (costs::Column, ColumnGradAcc), its controls in
+// registers read by selects (Selected, SelectGradAcc), so no register
+// array is indexed at run time and nothing goes on the stack. It writes
+// its knot's (state, ctrl) pair, summed over the players left to right, to
+// the block's [N][2][LANES] shared array; after one barrier a thread per
+// chain folds its N pairs in ascending k. The block's warps cover the
+// items in as few passes of at most MAX_WARPS warps as they can: at N=100,
+// one pass of 25 warps.
+//
+// LANES and MAX_WARPS were chosen on the card among blocks of 2, 4, 8, 16
+// or 32 chains, of 8 to 32 warps at most, and with each player's terms in
+// a thread of its own: eight chains in one pass of up to 32 warps was the
+// fastest at C=8, B=128, the deep rounds' shape, and within 6% of the
+// fastest at C=1, B=2048 (PERF.md, section 6).
 
 #include <cuda_runtime.h>
 
 #include "costs.cuh"
+#include "smem.cuh"
 
 #if !defined(MR_X) || !defined(MR_P) || !defined(MR_U)
 #error "build with -DMR_X=<xdim> -DMR_P=<players> -DMR_U=<umax>"
@@ -40,51 +59,94 @@ constexpr int X = MR_X;
 constexpr int P = MR_P;
 constexpr int U = MR_U;
 constexpr int PU = P * U;
+constexpr int WARP = 32;
+constexpr int LANES = 8;       // chains per block
+constexpr int MAX_WARPS = 32;  // warps per block at most
+static_assert(WARP % LANES == 0, "a warp holds whole knots of the chains");
 
-__global__ void merit_kernel(const float* __restrict__ xs,
-                             const float* __restrict__ us,
-                             const float* __restrict__ lamS, int nS,
-                             const float* __restrict__ mu,
-                             const float* __restrict__ segs,
-                             float* __restrict__ merit_out, int N, int C,
-                             int B, const __grid_constant__ CostTable cost) {
-  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long)C * B) return;
-  const int c = (int)(idx / B);
-  const int b = (int)(idx % B);
-  const long Bl = B, Cl = C;
-  const float mu_b = mu[b];
-  float x[X], u[PU];
-  float merit = 0.0f;
-  for (int k = 0; k < N; ++k) {
-    for (int r = 0; r < X; ++r) x[r] = xs[(((long)k * X + r) * Cl + c) * Bl + b];
-    for (int a = 0; a < PU; ++a)
-      u[a] = us[(((long)k * PU + a) * Cl + c) * Bl + b];
-    auto lam = [&](int row) { return lamS[((long)k * nS + row) * Bl + b]; };
-    float ctrl_term, state_term;
-    costs::merit_terms<X, P, U>(cost, segs, x, u, lam, mu_b, ctrl_term,
-                                state_term);
-    merit = (k == 0) ? ctrl_term : merit + (ctrl_term + state_term);
+__global__ void __launch_bounds__(MAX_WARPS * WARP)
+    merit_kernel(const float* __restrict__ xs, const float* __restrict__ us,
+                 const float* __restrict__ lamS, int nS,
+                 const float* __restrict__ mu, const float* __restrict__ segs,
+                 float* __restrict__ merit_out, int N, int C, int B,
+                 const __grid_constant__ CostTable cost) {
+  extern __shared__ float smem[];
+  const int nw = blockDim.x / WARP;
+  const int w = threadIdx.x / WARP;
+  const int lane = threadIdx.x % WARP;
+  float* state = smem + w * X * WARP + lane;         // [nw][X][32]
+  float* grad = smem + (nw + w) * X * WARP + lane;   // [nw][X][32]
+  float* terms = smem + 2 * nw * X * WARP;           // [N][2][LANES]
+  const long CB = (long)C * B;
+  for (int it = threadIdx.x; it < LANES * N; it += blockDim.x) {
+    const int j = it % LANES;
+    const int k = it / LANES;
+    const long idx = (long)blockIdx.x * LANES + j;
+    if (idx >= CB) continue;
+    const int b = (int)(idx % B);
+    for (int r = 0; r < X; ++r)
+      state[WARP * r] = xs[((long)k * X + r) * CB + idx];
+    float u[PU];
+#pragma unroll
+    for (int a = 0; a < PU; ++a) u[a] = us[((long)k * PU + a) * CB + idx];
+    auto lam = [&](int row) { return lamS[((long)k * nS + row) * B + b]; };
+    const float mu_b = mu[b];
+    costs::ColumnGradAcc<X> gs{grad};
+    costs::SelectGradAcc<U> gu;
+    float st = 0.0f, ct = 0.0f;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      float s_sq, r_sq;
+      costs::gradient_sq_into(cost, segs, i, costs::Column{state}, gs,
+                              costs::Selected<U>{u + i * U}, gu, lam, mu_b,
+                              s_sq, r_sq);
+      st = (i == 0) ? s_sq : st + s_sq;
+      ct = (i == 0) ? r_sq : ct + r_sq;
+    }
+    terms[2 * k * LANES + j] = st;
+    terms[(2 * k + 1) * LANES + j] = ct;
   }
-  merit_out[idx] = merit;
+  __syncthreads();
+  if (threadIdx.x < LANES) {
+    const int j = threadIdx.x;
+    const long idx = (long)blockIdx.x * LANES + j;
+    if (idx < CB) {
+      float merit = terms[LANES + j];
+      for (int k = 1; k < N; ++k)
+        merit = merit + (terms[(2 * k + 1) * LANES + j] +
+                         terms[2 * k * LANES + j]);
+      merit_out[idx] = merit;
+    }
+  }
 }
-
-constexpr int BLOCK = 128;
 
 }  // namespace
 
 extern "C" {
 
 // xs [N,X,C,B], us [N,PU,C,B], lamS [N,nS,B] (null when nS = 0), mu [B],
-// segs [*, 7] -> raw merits merit_out [C,B].
+// segs [*, 7] -> raw merits merit_out [C,B]. The block's shared memory
+// grows with N (the opt-in is to the most a block may use); a launch that
+// does not fit returns its error.
 int merit_consumer(const float* xs, const float* us, const float* lamS,
                    int nS, const float* mu, const float* segs,
                    float* merit_out, int N, int C, int B, CostTable cost,
                    void* stream) {
+  static unsigned opted = 0;
   const long total = (long)C * B;
-  const int grid = (int)((total + BLOCK - 1) / BLOCK);
-  merit_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      xs, us, lamS, nS, mu, segs, merit_out, N, C, B, cost);
+  if (total == 0 || N == 0) return 0;
+  if (int rc = opt_in_smem((const void*)merit_kernel, MAX_SMEM, opted))
+    return rc;
+  // The block's LANES * N items in the fewest passes of at most MAX_WARPS
+  // warps, spread evenly over the passes.
+  const int needed = (LANES * N + WARP - 1) / WARP;
+  const int passes = (needed + MAX_WARPS - 1) / MAX_WARPS;
+  const int nw = (needed + passes - 1) / passes;
+  const size_t bytes = (2 * (size_t)nw * X * WARP + 2 * (size_t)N * LANES) *
+                       sizeof(float);
+  merit_kernel<<<(int)((total + LANES - 1) / LANES), nw * WARP, bytes,
+                 (cudaStream_t)stream>>>(xs, us, lamS, nS, mu, segs,
+                                         merit_out, N, C, B, cost);
   return (int)cudaGetLastError();
 }
 

@@ -4,9 +4,12 @@ the warp of the subsystem that owns its controls), the refusal of a game
 where a player's controls are not one subsystem's rows, and the premise of
 the split: per-player terms at each knot, folded over the players left to
 right and then over the knots, equal `rollout_merits_plain` bit for bit.
-On the card, K5 against its plain version at chain counts that are not a
-multiple of 32. The JAX package is not imported: these run on the card
-too."""
+The premise of K6, the merit consumer: the same per-knot terms on each
+knot's operands alone, folded in the same order, equal `merit_plain` bit
+for bit. On the card, K5 against its plain version at chain counts that
+are not a multiple of 32, and K6 against `merit_plain` at chain and knot
+counts that do not fill a block. The JAX package is not imported: these
+run on the card too."""
 
 import numpy as np
 import pytest
@@ -77,20 +80,18 @@ def _merit_operands(N, C, B, device="cpu", seed=0):
     return dyn, costs, spec, (x0m, op, st, scal, lamS, None, mu)
 
 
-def _warp_decomposition(dyn, costs, spec, x0m, op, st, scal, lamS, lamC,
-                        mu):
-    """K5's order of operations in plain PyTorch: each knot's per-player
-    (state_sq, ctrl_sq), as each warp computes them, folded over the
-    players left to right and then over the knots (control terms always,
-    state terms for k > 0)."""
+def _knot_by_knot(costs, spec, xs, us, t0, lamS, mu):
+    """The merit of emitted trajectories (xs [N, x, C, B], us [N, Pu, C,
+    B]) one knot at a time: each knot's per-player (state_sq, ctrl_sq)
+    from one call of `stage_gradient_sq_tuple` on that knot's operands
+    alone, folded over the players left to right and then over the knots
+    (control terms always, state terms for k > 0)."""
     N, P, u = spec.num_time_steps, spec.num_players, spec.umax
-    C, B = scal.shape
-    xs = sweep.rollout_plain(dyn, spec, x0m, op, st, scal)
-    us = sweep._us_from_xs(spec, xs, op, st, scal)
+    _, _, C, B = xs.shape
     counts = [len(pc.state_constraints) for pc in costs]
     offs = np.cumsum([0] + counts)
-    ts = op["t0"][0] + torch.arange(N, dtype=torch.float32,
-                                    device=xs.device)[:, None] * spec.dt
+    ts = t0[0] + torch.arange(N, dtype=torch.float32,
+                              device=xs.device)[:, None] * spec.dt
     no_ctrl = tuple(xs.new_zeros((1, B, 0)) for _ in range(P))
     merit = None
     for k in range(N):
@@ -105,6 +106,21 @@ def _warp_decomposition(dyn, costs, spec, x0m, op, st, scal, lamS, lamC,
             ctrl = ctrl + r[i]
         merit = ctrl if k == 0 else merit + (ctrl + state)
     return merit
+
+
+def _emitted(dyn, spec, x0m, op, st, scal):
+    """K4's emitted candidate states and their rebuilt controls."""
+    xs = sweep.rollout_plain(dyn, spec, x0m, op, st, scal)
+    return xs, sweep._us_from_xs(spec, xs, op, st, scal)
+
+
+def _warp_decomposition(dyn, costs, spec, x0m, op, st, scal, lamS, lamC,
+                        mu):
+    """K5's order of operations in plain PyTorch: each knot's per-player
+    (state_sq, ctrl_sq), as each warp computes them, folded over the
+    players left to right and then over the knots."""
+    xs, us = _emitted(dyn, spec, x0m, op, st, scal)
+    return _knot_by_knot(costs, spec, xs, us, op["t0"], lamS, mu)
 
 
 def _assert_same_bits(got, want):
@@ -122,6 +138,22 @@ def test_warp_decomposition_equals_plain_merits(C, B):
     dyn, costs, spec, args = _merit_operands(N=11, C=C, B=B, seed=C + B)
     want = sweep.rollout_merits_plain(dyn, costs, spec, *args)
     got = _warp_decomposition(dyn, costs, spec, *args)
+    assert bool(want.isnan().any()) and bool(want.isfinite().any())
+    _assert_same_bits(got, want)
+
+
+@pytest.mark.parametrize("C,B", [(3, 12), (1, 37)])
+def test_knot_decomposition_equals_merit_plain(C, B):
+    """The premise of K6's split: each knot's terms computed on that
+    knot's operands alone, folded over the players left to right and then
+    over the knots in ascending order, equal `merit_plain` bit for bit,
+    NaN lane and huge headings included (nonzero lamS and mu)."""
+    dyn, costs, spec, (x0m, op, st, scal, lamS, lamC, mu) = _merit_operands(
+        N=11, C=C, B=B, seed=C + B)
+    xs, us = _emitted(dyn, spec, x0m, op, st, scal)
+    want = sweep.merit_plain(costs, spec, xs, us, op["t0"], lamS, lamC, mu)
+    got = _knot_by_knot(costs, spec, xs, us, op["t0"], lamS, mu)
+    assert bool(lamS.abs().min() > 0) and bool(mu.min() > 0)
     assert bool(want.isnan().any()) and bool(want.isfinite().any())
     _assert_same_bits(got, want)
 
@@ -154,5 +186,27 @@ def test_merit_kernel_bitwise_on_card(C, B):
     got = sweep.rollout_merits(dyn, costs, spec, *args)
     torch.cuda.synchronize()
     assert sweep.rollout_merits.launches == launches + 1
+    assert bool(want.isnan().any())
+    _assert_same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,C,B", [(11, 3, 12), (11, 1, 37), (100, 8, 128)],
+                         ids=["N11-C3-B12", "N11-C1-B37", "N100-C8-B128"])
+def test_consumer_kernel_bitwise_on_card(N, C, B):
+    """K6 (the knots in parallel, the fold in order) against `merit_plain`
+    on the card: bitwise equal, NaN in the same places, at chain and knot
+    counts that do not fill a block, and at the deep rounds' shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card)")
+    dyn, costs, spec, (x0m, op, st, scal, lamS, lamC, mu) = _merit_operands(
+        N=N, C=C, B=B, device="cuda", seed=C + B)
+    xs, us = _emitted(dyn, spec, x0m, op, st, scal)
+    want = sweep.merit_plain(costs, spec, xs, us, op["t0"], lamS, lamC, mu)
+    launches = sweep.consumer_merits.launches
+    got = sweep.consumer_merits(costs, spec, xs, us, op["t0"], lamS, lamC,
+                                mu)
+    torch.cuda.synchronize()
+    assert sweep.consumer_merits.launches == launches + 1
     assert bool(want.isnan().any())
     _assert_same_bits(got, want)
