@@ -21,7 +21,7 @@ in-kernel merit) and K6 (merit consumer). Phases:
    per knot (K6 also per launch replayed from a CUDA graph, the device's
    time without the wrapper's host steps), K5 against K4 + K6 bit for
    bit;
-3. six trips on the card against six on the CPU (plain versions) from
+3. four trips on the card against four on the CPU (plain versions) from
    the same carry, without and with fused stages: decisions exactly
    equal; then six fused trips on the card with the K5 and the K6 merit
    backends against the plain fold: decisions and merits exactly equal
@@ -47,7 +47,25 @@ in-kernel merit) and K6 (merit consumer). Phases:
    (kernel, cost table, shape) that the probe registry launches against
    its plain version on the registry's own operands; then the four probe
    modules with the launch counters reset just before, one JSON line per
-   case.
+   case;
+7. the replanning path: (a) the cold solve of the flagship's nominal x0
+   (exec main parameters, one lane in a block of 8, the latency
+   configuration) against the reference solver's converged trajectory
+   (tests/golden/three_player_intersection_exec_params.txt, with
+   tests/test_golden.py's bounds per player); (b) the warm replan
+   latency of that instance (bench.run_latency: p50, p95, trips, host
+   syncs and launches per replan, one profiled replan); (c) the batched
+   receding-horizon runtime at full width, 1024 instances of bench.py's
+   draw replanned 7 times (final time 2 s, every 0.25 s, planner budget
+   0.25 s, max_solver_iters 20, lane blocks of 128), launch counters
+   reset just before; after (b) and after (c), each kernel at each shape
+   that cell launched it (counted per shape; K4's also against
+   sweep.rollout_bm.by_shape), on a copy of the arguments of its first
+   launch at that shape, against its plain version and timed, one
+   kernels-line entry each with the kernel's launches over the cell;
+   (d) a short replanning run (4 lanes, 2 cycles) on the card and on the
+   CPU (plain versions): decisions equal, states and the splicer's
+   arrays bitwise equal.
 
 Every kernel's entry in the kernels line carries its bound: the larger of
 the bytes it must move (each operand read once, each output written once)
@@ -89,6 +107,18 @@ DIVERGED_BAND = (0.02, 0.12)  # JAX: 0.0566 at B=1024, 0.058 queue (r05)
 JAX_COST_P50 = (3057.4, 855.7, 78.2)        # plain driver, B=1024
 JAX_QUEUE_COST_P50 = (3024.2, 837.1, 76.3)  # queue, 8192 through 2048
 COST_P50_REL = 0.15
+# tests/test_golden.py: per player, the distance between the cold solve's
+# and the reference solver's positions, max and mean over the horizon (m).
+GOLDEN = os.path.join("tests", "golden",
+                      "three_player_intersection_exec_params.txt")
+GOLDEN_POSITIONS = ((0, 1), (6, 7), (12, 13))
+GOLDEN_MAX_M, GOLDEN_MEAN_M = 2.0, 1.0
+RH_B, RH_FINAL_TIME, RH_REPLANS = 1024, 2.0, 7
+# Phase 3: trips on the card against trips on the CPU (the CPU's plain
+# versions take most of the phase's time).
+CPU_TRIPS = 4
+# Phase 7d: a budget that keeps the CPU's run under a minute.
+RH_SMALL = dict(max_solver_iters=2, unconstrained_solver_max_iters=2)
 
 
 def _fail(msg: str) -> None:
@@ -472,6 +502,346 @@ def phase6(dyn, spec, dev):
     return out
 
 
+# Each kernel's wrapper and plain version (module, wrapper, plain), its
+# source, the TPU kernel it replaces and its label in the kernels line.
+KERNEL_SITES = {
+    "K1": ("stage", "lin_quad", "lin_quad_plain",
+           "ilqgames_tpu_torch/csrc/stage.cu",
+           "ilqgames_tpu/ops/pallas/stage.py:65", "lin_quad"),
+    "K2": ("lq", "lq_backward", "lq_backward_plain",
+           "ilqgames_tpu_torch/csrc/lq.cu", "ilqgames_tpu/ops/pallas/lq.py:82",
+           "lq_backward"),
+    "K3": ("lq", "lq_forward", "lq_forward_plain",
+           "ilqgames_tpu_torch/csrc/lq.cu",
+           "ilqgames_tpu/ops/pallas/lq.py:254", "lq_forward"),
+    "K4": ("sweep", "rollout_bm", "rollout_plain",
+           "ilqgames_tpu_torch/csrc/sweep.cu",
+           "ilqgames_tpu/ops/pallas/sweep.py:176", "rollout"),
+    "K5": ("sweep", "rollout_merits", "rollout_merits_plain",
+           "ilqgames_tpu_torch/csrc/sweep.cu",
+           "ilqgames_tpu/ops/pallas/sweep.py:176", "rollout+merit"),
+    "K6": ("sweep", "consumer_merits", "merit_plain",
+           "ilqgames_tpu_torch/csrc/merit.cu",
+           "ilqgames_tpu/ops/pallas/sweep.py:395", "merit consumer"),
+}
+OUTPUT_NAMES = {"K2": ("Ps", "alphas"), "K3": ("dxs",), "K4": ("xs", "us"),
+                "K5": ("merits",), "K6": ("merits",)}
+
+
+def _k4_shape(C, B, emit_us) -> str:
+    return f"C={C}, B={B}" + (", emit_us" if emit_us else "")
+
+
+def _launch_shape(name, arg) -> str:
+    """The shape of a launch of kernel `name`, from its arguments
+    (`arg(parameter)`); K4's as `sweep.rollout_bm.by_shape` keys it."""
+    if name == "K1":
+        return f"B={arg('op_bm')['xs'].shape[-1]}"
+    if name == "K2":
+        return f"B={arg('ops')['A'].shape[-1]}" + (
+            "" if arg("adaptive") else ", fixed regularization")
+    if name == "K3":
+        return f"B={arg('dx0').shape[-1]}"
+    if name == "K6":
+        _, _, C, B = arg("xs_cand").shape
+        return f"C={C}, B={B}"
+    C, B = arg("scal_cb").shape
+    return _k4_shape(C, B, name == "K4" and arg("emit_us"))
+
+
+def _launch_bytes(name, a, outs) -> int:
+    """Bytes a launch must move: what the kernel reads of its arguments
+    `a` (as phase 2 counts them) and its outputs."""
+    if name == "K1":
+        return _nbytes(_read(a["op_bm"]), a["lamS"], a["lamC"], a["mu"], outs)
+    if name == "K2":
+        ops = a["ops"]
+        return _nbytes({k: ops[k] for k in ("Qf", "lf")},
+                       {k: ops[k][:-1] for k in ("A", "Bf", "Rf", "rf")},
+                       outs)
+    if name == "K3":
+        return _nbytes(a["A"][:-1], a["Bf"][:-1], a["alphas"], a["dx0"],
+                       outs)
+    if name == "K6":
+        return _nbytes(a["xs_cand"], a["us_cand"], a["lamS"], a["lamC"],
+                       a["mu"], outs)
+    merit = (a["lamS"], a["lamC"], a["mu"]) if name == "K5" else ()
+    return _nbytes(a["x0m"], _read(a["op_bm"]), a["st_bm"], a["scal_cb"],
+                   merit, outs)
+
+
+def _clone(obj):
+    """A copy of the tensors in `obj` (tensors, dicts and tuples of them);
+    anything else as it is."""
+    import torch
+
+    if isinstance(obj, dict):
+        return {k: _clone(v) for k, v in obj.items()}
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_clone(v) for v in obj)
+    return obj.clone() if isinstance(obj, torch.Tensor) else obj
+
+
+class _Spy:
+    """Kernel wrapper `fn` (named `name`) seen through `_FirstLaunches`
+    `owner`: each call that launches (the wrapper's own count goes up)
+    is counted per shape in owner.tally, and the first at each shape
+    leaves a copy of its arguments, by parameter name, in owner.seen. A
+    wrapper counts on its module's name for itself (`rollout_bm.launches
+    += 1`), which is this spy while it stands in that name, so the
+    spy's attributes (`launches`, `by_shape`) are the wrapper's own,
+    read and written there."""
+
+    def __init__(self, owner, name, fn, sig):
+        for attr, value in (("_owner", owner), ("_name", name), ("_fn", fn),
+                            ("_sig", sig)):
+            object.__setattr__(self, attr, value)
+        object.__setattr__(self, "_index",
+                           {p: i for i, p in enumerate(sig.parameters)})
+
+    def __getattr__(self, attr):
+        return getattr(self._fn, attr)
+
+    def __setattr__(self, attr, value):
+        setattr(self._fn, attr, value)
+
+    def __call__(self, *args, **kwargs):
+        before = self._fn.launches
+        out = self._fn(*args, **kwargs)
+        if self._fn.launches != before:
+            params = self._sig.parameters
+
+            def arg(p):
+                i = self._index[p]
+                return (args[i] if i < len(args)
+                        else kwargs.get(p, params[p].default))
+
+            key = (self._name, _launch_shape(self._name, arg))
+            self._owner.tally[key] += 1
+            if key not in self._owner.seen:
+                bound = self._sig.bind(*args, **kwargs)
+                bound.apply_defaults()
+                self._owner.seen[key] = _clone(dict(bound.arguments))
+        return out
+
+
+class _FirstLaunches:
+    """While active, each kernel wrapper stands behind a `_Spy` in its
+    module: `seen[(name, shape)]` keeps a copy of the arguments of the
+    wrapper's first launch at each shape and `tally` counts the launches
+    per shape, to hold every (kernel, shape) that a run launched against
+    its plain version afterwards. The spies add to no wrapper's count."""
+
+    def __init__(self):
+        import collections
+
+        self.seen, self.tally = {}, collections.Counter()
+        self._saved = []
+
+    def __enter__(self):
+        import importlib
+        import inspect
+
+        for name, (mod, attr, *_) in KERNEL_SITES.items():
+            module = importlib.import_module(f"ilqgames_tpu_torch.ops.cuda."
+                                             f"{mod}")
+            fn = getattr(module, attr)
+            self._saved.append((module, attr, fn))
+            setattr(module, attr, self._spy(name, fn, inspect.signature(fn)))
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in self._saved:
+            setattr(module, attr, fn)
+        self._saved.clear()
+
+    def _spy(self, name, fn, sig):
+        return _Spy(self, name, fn, sig)
+
+
+def _once_ms(fn):
+    """Ms of one call of `fn`, on CUDA events (for a plain version that
+    takes seconds and has just been run once)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def _hold_launches(cell, spy, launches):
+    """Every (kernel, shape) that `cell`'s run launched, on the arguments
+    of its first launch there, against its plain version (tolerance TOL),
+    timed both ways; one kernels-line entry each, with the kernel's
+    launches over the cell's run."""
+    import importlib
+
+    from ilqgames_tpu_torch.tools._probe import float_ops
+
+    print(f"# {cell}: launches by (kernel, shape) " + json.dumps(
+        [[*key, n] for key, n in sorted(spy.tally.items())]), flush=True)
+    entries = []
+    for (name, shape), a in sorted(spy.seen.items()):
+        mod, attr, plain_attr, source, replaces, label = KERNEL_SITES[name]
+        module = importlib.import_module(f"ilqgames_tpu_torch.ops.cuda.{mod}")
+        fn, plain = getattr(module, attr), getattr(module, plain_attr)
+        got = _outputs(fn(**a))
+        want, n_ops = float_ops(lambda: plain(**a))
+        names = OUTPUT_NAMES.get(name, [k for k, _ in got])
+        err = max(_compare(f"{name} {nm} {shape} ({cell})", g, w, TOL[name])
+                  for nm, (_, g), (_, w) in zip(names, got, _outputs(want)))
+        entries.append(dict(_entry(
+            f"{name} {label} ({shape}; {cell})", source, replaces, err,
+            _time_ms(lambda: fn(**a), 20), _once_ms(lambda: plain(**a)),
+            _launch_bytes(name, a, [g for _, g in got]), n_ops),
+            launches=launches[name]))
+    return entries
+
+
+def _check_k4_held(cell, spy, by_shape):
+    """Every K4 shape that `sweep.rollout_bm.by_shape` counted in the
+    cell's run was held, with the same count of launches."""
+    print(f"# {cell}: K4 launches by (C, B, emit_us): " + json.dumps(
+        [[*key, n] for key, n in sorted(by_shape.items())]), flush=True)
+    counted = {_k4_shape(*key): n for key, n in by_shape.items()}
+    held = {shape: n for (name, shape), n in spy.tally.items()
+            if name == "K4"}
+    if counted != held:
+        _fail(f"{cell}: K4's launches by shape {counted}, held {held}")
+
+
+def phase7(problem, dev):
+    """The replanning path: the cold solve against the reference's
+    trajectory, the warm replan latency, the receding-horizon runtime at
+    full width, each kernel at each shape these two cells launched it
+    against its plain version, and a short run on the card against the
+    CPU. Returns the kernels-line entries of the two cells' launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ilqgames_tpu_torch import bench
+    from ilqgames_tpu_torch.ops.cuda import sweep
+    from ilqgames_tpu_torch.runtime import receding_horizon as rh
+
+    # (a) + (b): the latency configuration's cold solve, then its replans.
+    bench.reset_launches()
+    with _FirstLaunches() as spy:
+        res0, lat = bench.run_latency(dev)
+    torch.cuda.synchronize()
+    launches = bench.launches()
+    _check_k4_held("latency", spy, sweep.rollout_bm.by_shape)
+    print(json.dumps(lat), flush=True)
+    kernels = _hold_launches("latency", spy, launches)
+    ref = np.loadtxt(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), GOLDEN))
+    xs = res0.op.xs[0].cpu().numpy()
+    if xs.shape != ref.shape:
+        _fail(f"golden: trajectory shape {xs.shape}, reference {ref.shape}")
+    for i, (xi, yi) in enumerate(GOLDEN_POSITIONS):
+        err = np.hypot(xs[:, xi] - ref[:, xi], xs[:, yi] - ref[:, yi])
+        print(f"# golden P{i + 1}: max {err.max():.4f} m, mean "
+              f"{err.mean():.4f} m (bounds {GOLDEN_MAX_M}, {GOLDEN_MEAN_M})",
+              flush=True)
+        if not (err.max() < GOLDEN_MAX_M and err.mean() < GOLDEN_MEAN_M):
+            _fail(f"golden: P{i + 1} beyond tests/test_golden.py's bounds")
+
+    # (c) the receding-horizon runtime at full width.
+    params = dataclasses.replace(bench.exec_main_params(),
+                                 max_solver_iters=20)
+    x0 = torch.tensor(bench.perturbed_x0(problem, RH_B), device=dev)
+    bench.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _FirstLaunches() as spy:
+        states, times, state = rh.simulate_batched(
+            problem, params, x0, final_time=RH_FINAL_TIME,
+            replan_interval=0.25, planner_time=0.25, batch_block=128)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bench.launches()
+    _check_k4_held("receding horizon", spy, sweep.rollout_bm.by_shape)
+    st = rh.simulate_batched.last_stats
+    cycles_s = wall - st["cold_s"]
+    n = len(st["cycles"])
+    out = {"cell": f"receding horizon {RH_B} x {n} replans",
+           "wall_s": round(wall, 3), "cold_s": round(st["cold_s"], 3),
+           "cycles_s": round(cycles_s, 3),
+           "replans_per_s": round(RH_B * n / cycles_s, 3),
+           "cold_trips": st["cold"]["trips"],
+           "cold_converged": float(st["first"].converged.float().mean()),
+           "converged_per_cycle": [float(c["converged"].float().mean())
+                                   for c in st["cycles"]],
+           "trips_per_cycle": [c["trips"] for c in st["cycles"]],
+           "host_syncs_per_cycle": [c["host_syncs"] for c in st["cycles"]],
+           "deep_rounds_per_cycle": [c["deep_rounds"] for c in st["cycles"]],
+           "launches": launches}
+    print(json.dumps(out), flush=True)
+    if n != RH_REPLANS or not bool((state.num_replans == RH_REPLANS).all()):
+        _fail(f"receding horizon: {n} cycles, num_replans "
+              f"{state.num_replans.unique().tolist()}, want {RH_REPLANS}")
+    t_end = 0.25 * RH_REPLANS
+    if not (bool((state.t == t_end).all()) and float(times[-1]) == t_end):
+        _fail(f"receding horizon: t {state.t.unique().tolist()}, times "
+              f"{times.tolist()}, want {t_end}")
+    if tuple(states.shape) != (n + 1, RH_B, problem.spec.xdim):
+        _fail(f"receding horizon: states shape {tuple(states.shape)}")
+    # A lane the cold solve left diverged (a player cost > 1e6, or not a
+    # number) may go on to overflow; every other lane stays finite.
+    calm = (st["first"].total_costs <= 1e6).all(1)
+    bad = calm & ~torch.isfinite(states).all(-1).all(0)
+    if bool(bad.any()):
+        _fail(f"receding horizon: non-finite states on lanes "
+              f"{bad.nonzero().flatten().tolist()[:16]} that the cold solve "
+              "did not leave diverged")
+    if min(launches[k] for k in ("K1", "K2", "K3", "K4")) <= 0:
+        _fail(f"receding horizon: a kernel of the path was not launched: "
+              f"{launches}")
+    print(f"# receding horizon: {int(calm.sum())} of {RH_B} lanes not "
+          "diverged by the cold solve, all finite; launches counted from 0 "
+          "over the run", flush=True)
+    kernels += _hold_launches("receding horizon", spy, launches)
+
+    # (d) the card against the CPU, 4 lanes, 2 cycles.
+    small = dataclasses.replace(bench.exec_main_params(), **RH_SMALL)
+    x0c = torch.tensor(bench.perturbed_x0(problem, 4))
+    t0 = time.perf_counter()
+    runs = {}
+    for where, x in (("CPU", x0c), ("card", x0c.to(dev))):
+        states, times, state = rh.simulate_batched(
+            problem, small, x, final_time=0.75, batch_block=4)
+        sp, st = state.splicer, rh.simulate_batched.last_stats
+        runs[where] = ({
+            "states": states, "times": times, "x": state.x, "t": state.t,
+            "converged": state.converged, "num_replans": state.num_replans,
+            "cold converged": st["first"].converged,
+            "splicer xs": sp.op.xs, "splicer us": sp.op.us,
+            "splicer t0": sp.op.t0, "splicer Ps": sp.strategy.Ps,
+            "splicer alphas": sp.strategy.alphas,
+            "splicer length": sp.length},
+            [c["trips"] for c in st["cycles"]])
+    (cpu, cpu_trips), (card, card_trips) = runs["CPU"], runs["card"]
+    for name, c in cpu.items():
+        g = card[name].cpu()
+        if not (_same_bits(g, c) if c.dtype == torch.float32
+                else torch.equal(g, c)):
+            _fail(f"replanning card vs CPU: {name} differs")
+    if card_trips != cpu_trips:
+        _fail(f"replanning card vs CPU: trips per cycle {card_trips} vs "
+              f"{cpu_trips}")
+    print(f"# replanning card vs CPU (4 lanes, 2 cycles, {RH_SMALL}): "
+          f"decisions equal, every array bitwise equal; trips per cycle "
+          f"{cpu_trips}, cold converged {cpu['cold converged'].tolist()}, "
+          f"converged {cpu['converged'].tolist()} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return kernels
+
+
 def main():
     import torch
 
@@ -681,7 +1051,7 @@ def main():
 
     elapsed(2)
 
-    # ---- phase 3: six trips on the card against six on the CPU ----
+    # ---- phase 3: trips on the card against trips on the CPU ----
     Bt = 64
     x0c = torch.tensor(bench.perturbed_x0(problem, Bt))
     x0g = x0c.to(dev)
@@ -689,7 +1059,7 @@ def main():
         trip, _ = batched._driver_parts(dyn, costs, spec, params, 128, fuse)
         fc_cpu = carry0(x0c, fuse)
         fc_gpu = tree_map(lambda a: a.to(dev), fc_cpu)
-        for i in range(6):
+        for i in range(CPU_TRIPS):
             fc_cpu = trip(x0c, fc_cpu)
             fc_gpu = trip(x0g, fc_gpu)
             _same_decisions(f"fuse_stages={fuse} trip {i}, card vs CPU",
@@ -780,6 +1150,10 @@ def main():
     # ---- phase 6: the probes ----
     kernels += phase6(dyn, spec, dev)
     elapsed(6)
+
+    # ---- phase 7: the replanning path ----
+    kernels += phase7(problem, dev)
+    elapsed(7)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -12,14 +12,18 @@ harvest chunks of BENCH_HARVEST (32) lanes, BENCH_TPC (10) trips per
 BENCH_QUEUE=0 solves BENCH_BATCH instances on the plain host-stepped
 driver instead. Prints ONE JSON line with bench.py's fields plus the
 device, configuration, wall time, the driver's counters and the kernels'
-launch counts. Needs a CUDA device: it never measures on a CPU.
+launch counts. BENCH_LATENCY=1 measures the warm replan latency of one
+instance instead (`run_latency`, the counterpart of bench_all.py's
+`latency_single_solve`). Needs a CUDA device: it never measures on a CPU.
 
     python3 -m ilqgames_tpu_torch.bench
     BENCH_QUEUE=0 BENCH_BATCH=1024 python3 -m ilqgames_tpu_torch.bench
+    BENCH_LATENCY=1 python3 -m ilqgames_tpu_torch.bench
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -35,6 +39,11 @@ from ilqgames_tpu_torch.solver import batched
 from ilqgames_tpu_torch.solver.params import SolverParams
 
 _BASELINE = Path(__file__).resolve().parents[1] / "baselines" / "measured.json"
+# The reference's hard replan budget (src/receding_horizon_simulator.cpp:119).
+REPLAN_BUDGET_S = 0.25
+# bench_all.py's latency configuration: replans timed (the first dropped),
+# lanes per block (one instance padded) and trips per dispatch.
+LAT_REPS, LAT_BLOCK, LAT_TPC = 20, 8, 20
 
 
 def set_precision() -> None:
@@ -128,17 +137,105 @@ def build_kernels(dyn, spec) -> None:
     sweep.load_kernels(dyn, spec)
 
 
+def _cuda_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("the benchmark measures on a CUDA device only")
+    return dev
+
+
+def run_latency(device="cuda"):
+    """Warm replan latency of one instance (counterpart of bench_all.py's
+    latency_single_solve, :265-305): a cold solve of the flagship's x0
+    with the exec main's parameters, then LAT_REPS warm re-solves from
+    its knot-2 state, warm-started on the cold solve's operating point,
+    strategy and multipliers, with max_solver_iters=20; the first is
+    dropped. One lane padded to LAT_BLOCK, the latency configuration.
+    Then one more replan under torch.profiler: the CUDA kernels it
+    launches and their device time. Returns (cold ALResult, JSON dict):
+    p50/p95 seconds against the reference's budget, and per replan the
+    trips, dispatches, host syncs and launches of K1-K6."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ilqgames_tpu_torch.tools import trip_profile
+
+    set_precision()
+    dev = _cuda_device(device)
+    problem = make_problem()
+    build_kernels(problem.dynamics, problem.spec)
+    args = (problem.dynamics, problem.player_costs, problem.spec)
+    kw = dict(trips_per_call=LAT_TPC, batch_block=LAT_BLOCK)
+    cold = batched.make_host_batched_solver(
+        *args, exec_main_params(), warm_op=problem.initial_operating_point(),
+        warm_strategy=problem.initial_strategy(), **kw)
+    warm = batched.make_host_batched_warm_solver(
+        *args, dataclasses.replace(exec_main_params(), max_solver_iters=20),
+        **kw)
+    t0 = time.perf_counter()
+    res0 = cold(problem.x0[None].to(dev))
+    torch.cuda.synchronize(dev)
+    cold_s = time.perf_counter() - t0
+    x1 = res0.op.xs[:, 2]
+    replan = lambda: warm(x1, res0.op, res0.strategy, res0.al_state)
+
+    lat, per = [], []
+    for _ in range(LAT_REPS):
+        before = launches()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = replan()
+        torch.cuda.synchronize(dev)
+        lat.append(time.perf_counter() - t0)
+        per.append(dict(warm.last_stats, launches={
+            k: v - before[k] for k, v in launches().items()}))
+    lat = np.asarray(lat[1:])
+    p50, p95 = float(np.percentile(lat, 50)), float(np.percentile(lat, 95))
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with prof:
+        replan()
+        torch.cuda.synchronize(dev)
+    trips = warm.last_stats["trips"]
+    traced = trip_profile.summarize(prof.events(), trips, p50)
+    last = per[-1]
+    out = {"metric": "warm_single_solve_latency_p50", "value": round(p50, 4),
+           "unit": "s", "p95": round(p95, 4),
+           "budget_s": REPLAN_BUDGET_S,
+           "budget_source": "the reference's hard replan budget "
+                            "(src/receding_horizon_simulator.cpp:119)",
+           "device": torch.cuda.get_device_name(dev), "driver": "latency",
+           "reps": LAT_REPS, "batch_block": LAT_BLOCK,
+           "trips_per_call": LAT_TPC, "cold_s": round(cold_s, 3),
+           "cold_trips": cold.last_stats["trips"],
+           "cold_converged": bool(res0.converged[0]),
+           "converged": bool(res.converged[0]),
+           "iterations": int(res.cumulative_iterations[0]),
+           **{k: last[k] for k in ("trips", "dispatches", "host_syncs",
+                                   "deep_rounds")},
+           "launches": last["launches"],
+           "same_counts_every_replan": all(
+               p == per[0] for p in per),
+           "profiled_replan": {
+               "trips": trips,
+               "cuda_launches": trips * traced["cudaLaunchKernel_per_trip"],
+               "device_ms": trips * traced["device_ms_per_trip"],
+               "busy_vs_p50": traced["busy"],
+               "launches_per_trip": traced["launches"]}}
+    return res0, out
+
+
 def run_bench(batch: int = 2048, device="cuda", driver: str = "queue",
               total=None, harvest_block: int = 32, trips_per_call: int = 10,
               fuse_stages: bool = True):
     """Solve the flagship on `device`: (ALResult, JSON dict). `driver`
     "queue" streams `total` (default 4 * batch) instances through `batch`
-    lanes; "plain" solves `batch` instances at once. The kernels are built
-    before the clock starts."""
+    lanes; "plain" solves `batch` instances at once; "latency" is
+    `run_latency` (its cold solve's result). The kernels are built before
+    the clock starts."""
+    if driver == "latency":
+        return run_latency(device)
     set_precision()
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        raise ValueError("the benchmark measures on a CUDA device only")
+    dev = _cuda_device(device)
     problem = make_problem()
     build_kernels(problem.dynamics, problem.spec)
     args = (problem.dynamics, problem.player_costs, problem.spec,
@@ -153,7 +250,8 @@ def run_bench(batch: int = 2048, device="cuda", driver: str = "queue",
         solver = batched.make_host_batched_solver(*args,
                                                   fuse_stages=fuse_stages)
     else:
-        raise ValueError(f"driver must be 'queue' or 'plain', got {driver!r}")
+        raise ValueError(
+            f"driver must be 'queue', 'plain' or 'latency', got {driver!r}")
     x0 = torch.tensor(perturbed_x0(problem, n), device=dev)
     before = launches()
     torch.cuda.synchronize(dev)
@@ -182,7 +280,9 @@ def main():
         raise SystemExit("ilqgames_tpu_torch.bench needs a CUDA device")
     env = os.environ.get
     batch = int(env("BENCH_BATCH", "2048"))
-    if env("BENCH_QUEUE", "1") == "1":
+    if env("BENCH_LATENCY", "0") == "1":
+        _, out = run_latency()
+    elif env("BENCH_QUEUE", "1") == "1":
         _, out = run_bench(batch, driver="queue",
                            total=int(env("BENCH_TOTAL", str(4 * batch))),
                            harvest_block=int(env("BENCH_HARVEST", "32")),

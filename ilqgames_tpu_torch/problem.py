@@ -1,7 +1,8 @@
 """A minimal game description (counterpart of ilqgames_tpu/problem.py).
 
-Only the data the batched solver needs: the solve entry points live in
-solver/batched.py, which takes (dynamics, player_costs, spec).
+Only the data the batched solver and the receding-horizon runtime need:
+the solve entry points live in solver/batched.py, which takes
+(dynamics, player_costs, spec).
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import Tuple
 
 import torch
 
-from ilqgames_tpu_torch.costs.player_cost import PlayerCost
+from ilqgames_tpu_torch.costs.player_cost import ALState, PlayerCost
 from ilqgames_tpu_torch.dynamics.base import MultiPlayerDynamics
 from ilqgames_tpu_torch.types import GameSpec, OperatingPoint, Strategy
 
@@ -30,3 +31,9 @@ class Problem:
 
     def initial_strategy(self, device=None) -> Strategy:
         return Strategy.zeros(self.spec, device=device)
+
+    def initial_al_state(self, batch: int, device=None) -> ALState:
+        """Fresh multipliers for `batch` lanes: every lambda 0, mu the
+        default."""
+        return ALState.init(self.player_costs, self.spec, batch,
+                            device=device)

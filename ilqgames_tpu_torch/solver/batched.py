@@ -475,30 +475,30 @@ def _fresh_init(dyn, player_costs, spec, warm_op, warm_strategy, batch_block,
     return init
 
 
-def make_host_batched_solver(dyn, player_costs, spec, params,
-                             warm_op=None, warm_strategy=None,
-                             batch_block: int = 128, fuse_stages=None,
-                             merit_backend: str = "xla"):
-    """Batched solve stepped from the host: fn(x0 [B, xdim]) -> batched
-    ALResult, on x0's device. Each trip advances every unfinished lane by
-    one iLQ iteration; the host loops until every lane is done, reading
-    one all-done flag per trip. `fuse_stages` None means True (K1), as in
-    the JAX package. After a call, `fn.last_stats` holds the run's
-    counters (trips, host syncs, deep-ladder rounds, f32-collapse
-    exits)."""
-    fuse_stages = _resolve_fuse_for(params, fuse_stages, dyn)
-    trip, finalize = _driver_parts(dyn, player_costs, spec, params,
-                                   batch_block, fuse_stages, merit_backend)
-    init = _fresh_init(dyn, player_costs, spec, warm_op, warm_strategy,
-                       batch_block, fuse_stages)
+def _make_driver(trip, finalize, init, trips_per_call, batch_block):
+    """The host-stepped driver shared by the plain and the warm solver
+    (counterpart of the JAX package's `_make_driver`): pad every argument
+    to `batch_block` lanes, `init(*args)` (args[0] is x0), then dispatches
+    of at most `trips_per_call` masked trips until every lane is done.
+    JAX ends a dispatch early on the device once every lane is done; the
+    port reads that flag to the host after each trip, so neither the
+    trips nor the results depend on `trips_per_call`: only the count of
+    dispatches does."""
 
-    def run(x0):
-        stats = new_stats()
-        (x0p,), Bt = _pad_args((x0,), batch_block)
-        fc = init(x0p)
-        while not _host_all(fc.done, stats):
-            fc = trip(x0p, fc, stats)
-            stats["trips"] += 1
+    def run(*args):
+        stats = dict(new_stats(), dispatches=0)
+        args, Bt = _pad_args(args, batch_block)
+        x0p = args[0]
+        fc = init(*args)
+        done = _host_all(fc.done, stats)
+        while not done:
+            stats["dispatches"] += 1
+            for _ in range(trips_per_call):
+                fc = trip(x0p, fc, stats)
+                stats["trips"] += 1
+                done = _host_all(fc.done, stats)
+                if done:
+                    break
         out = finalize(fc)
         stats["collapse_exits"] = int(stats["collapse_exits"])
         run.last_stats = stats
@@ -506,6 +506,50 @@ def make_host_batched_solver(dyn, player_costs, spec, params,
 
     run.last_stats = None
     return run
+
+
+def make_host_batched_solver(dyn, player_costs, spec, params,
+                             warm_op=None, warm_strategy=None,
+                             trips_per_call: int = 25,
+                             batch_block: int = 128, fuse_stages=None,
+                             merit_backend: str = "xla"):
+    """Batched solve stepped from the host: fn(x0 [B, xdim]) -> batched
+    ALResult, on x0's device, every lane started from the same warm start
+    and fresh multipliers. Each trip advances every unfinished lane by one
+    iLQ iteration; a dispatch runs at most `trips_per_call` trips, and the
+    host reads one all-done flag per trip. `fuse_stages` None means True
+    (K1), as in the JAX package. After a call, `fn.last_stats` holds the
+    run's counters (trips, dispatches, host syncs, deep-ladder rounds,
+    f32-collapse exits)."""
+    fuse_stages = _resolve_fuse_for(params, fuse_stages, dyn)
+    trip, finalize = _driver_parts(dyn, player_costs, spec, params,
+                                   batch_block, fuse_stages, merit_backend)
+    init = _fresh_init(dyn, player_costs, spec, warm_op, warm_strategy,
+                       batch_block, fuse_stages)
+    return _make_driver(trip, finalize, init, trips_per_call, batch_block)
+
+
+def make_host_batched_warm_solver(dyn, player_costs, spec, params,
+                                  trips_per_call: int = 25,
+                                  batch_block: int = 128, fuse_stages=None,
+                                  merit_backend: str = "xla"):
+    """Warm-started batched solve (counterpart of the JAX package's
+    make_host_batched_warm_solver): fn(x0 [B, xdim], warm_op,
+    warm_strategy, al_state), all batched, -> ALResult on x0's device.
+    Each lane starts from its own operating point (with its own t0),
+    strategy and multipliers; the AL bookkeeping goes on from the given
+    state. The receding-horizon replanning path
+    (runtime/receding_horizon.simulate_batched). Driver and counters as
+    make_host_batched_solver's."""
+    fuse_stages = _resolve_fuse_for(params, fuse_stages, dyn)
+    trip, finalize = _driver_parts(dyn, player_costs, spec, params,
+                                   batch_block, fuse_stages, merit_backend)
+
+    def init(x0_b, wop_b, wst_b, al_b):
+        return _carry0(dyn, player_costs, spec, x0_b, wop_b, wst_b, al_b,
+                       batch_block, fuse_stages)
+
+    return _make_driver(trip, finalize, init, trips_per_call, batch_block)
 
 
 def _to_device(a, dev) -> torch.Tensor:

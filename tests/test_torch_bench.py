@@ -50,3 +50,9 @@ def test_summarize_counts_overflowed_lanes_as_diverged():
 def test_run_bench_refuses_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         bench.run_bench(4, device="cpu")
+
+
+def test_run_latency_refuses_cpu():
+    """The warm-latency driver never measures on a CPU either."""
+    with pytest.raises(ValueError, match="CUDA"):
+        bench.run_bench(4, device="cpu", driver="latency")

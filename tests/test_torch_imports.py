@@ -17,7 +17,8 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "ilqgames_tpu"))
-print(len(names), bad)
+runtime = sorted(n for n in names if n.startswith("ilqgames_tpu_torch.runtime."))
+print(len(names), ",".join(runtime), bad)
 """
 
 
@@ -25,10 +26,12 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
+    n, runtime, bad = out.stdout.strip().split(" ", 2)
     assert bad == "[]", bad
-    # Every module of the slice, down to the kernel wrappers.
+    # Every module of the port, down to the kernel wrappers, and the
+    # receding-horizon runtime among them.
     assert int(n) >= 20, n
+    assert runtime == "ilqgames_tpu_torch.runtime.receding_horizon", runtime
 
 
 def test_chip_smoke_refuses_without_cuda():

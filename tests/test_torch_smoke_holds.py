@@ -1,0 +1,129 @@
+"""chip_smoke.py's holds of the replanning path's launches: the spy that
+keeps a copy of each kernel's first launch at each shape, the shapes it
+keys them by and the bytes it bounds them with. On the CPU the wrappers
+launch nothing, so a stand-in that counts a launch as the CUDA path does
+takes K4's place."""
+
+import importlib.util
+import inspect
+import types
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ilqgames_tpu_torch.examples.three_player_intersection import \
+    make_problem
+from ilqgames_tpu_torch.ops.cuda import sweep
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _wrappers(cs):
+    return {name: getattr(importlib.import_module(
+        f"ilqgames_tpu_torch.ops.cuda.{mod}"), attr)
+        for name, (mod, attr, *_) in cs.KERNEL_SITES.items()}
+
+
+def _k4_operands(C, B, N=5):
+    problem = make_problem(num_time_steps=N)
+    spec = problem.spec
+    x, Pu = spec.xdim, spec.num_players * spec.umax
+    rng = np.random.RandomState(0)
+    t = lambda *s: torch.tensor(0.1 * rng.standard_normal(s),
+                                dtype=torch.float32)
+    return (problem.dynamics, spec, t(x, B),
+            {"xs": t(N, x, B), "us": t(N, Pu, B), "t0": t(1, B)},
+            {"Ps": t(N, Pu, x, B), "alphas": t(N, Pu, B)}, t(C, B))
+
+
+def test_first_launches_spies_on_every_wrapper_and_restores_it():
+    cs = _chip_smoke()
+    before = _wrappers(cs)
+    assert set(before) == {"K1", "K2", "K3", "K4", "K5", "K6"}
+    with cs._FirstLaunches():
+        during = _wrappers(cs)
+        assert all(during[k] is not before[k] for k in before)
+    assert _wrappers(cs) == before
+
+
+def test_spy_keeps_a_copy_of_the_first_launch_at_each_shape():
+    cs = _chip_smoke()
+
+    def stand_in(dyn, spec, x0m, op_bm, st_bm, scal_cb, emit_us=False):
+        stand_in.launches += 1
+        return sweep.rollout_plain(dyn, spec, x0m, op_bm, st_bm, scal_cb,
+                                   emit_us)
+
+    stand_in.launches = 0
+    spy = cs._FirstLaunches()
+    sig = inspect.signature(sweep.rollout_bm)
+    k4 = spy._spy("K4", stand_in, sig)
+    args = _k4_operands(C=2, B=3)
+    k4(*args)
+    xs, us = k4(*args, emit_us=True)
+    k4(*args[:5], scal_cb=args[5], emit_us=True)
+    assert dict(spy.tally) == {("K4", "C=2, B=3"): 1,
+                               ("K4", "C=2, B=3, emit_us"): 2}
+    assert cs._k4_shape(2, 3, True) == "C=2, B=3, emit_us"
+    kept = spy.seen[("K4", "C=2, B=3, emit_us")]
+    assert kept["emit_us"] is True
+    assert kept["x0m"] is not args[2] and torch.equal(kept["x0m"], args[2])
+    args[2].add_(1.0)                  # the caller's tensor moves on
+    assert not torch.equal(kept["x0m"], args[2])
+    # The kept arguments replay the launch, by parameter name.
+    xs2, us2 = sweep.rollout_plain(**kept)
+    assert torch.equal(xs2, xs) and torch.equal(us2, us)
+    # Bytes: x0m, the operating point without t0, the strategy, the
+    # scalings and the outputs, each once.
+    N, x, Pu, C, B = 5, 16, 6, 2, 3
+    want = 4 * (x * B + N * x * B + N * Pu * B + N * Pu * x * B
+                + N * Pu * B + C * B + N * x * C * B + N * Pu * C * B)
+    assert cs._launch_bytes("K4", kept, [xs, us]) == want
+
+
+def test_spy_keeps_nothing_where_the_wrapper_launched_nothing():
+    """On CPU tensors the real K4 wrapper takes its plain version and
+    adds no launch; the spy then keeps and counts nothing."""
+    cs = _chip_smoke()
+    spy = cs._FirstLaunches()
+    k4 = spy._spy("K4", sweep.rollout_bm, inspect.signature(sweep.rollout_bm))
+    k4(*_k4_operands(C=1, B=2), emit_us=True)
+    assert not spy.tally and not spy.seen
+
+
+def test_a_wrapper_counting_on_its_module_name_counts_on_itself():
+    """The kernel wrappers count on their module's name for themselves
+    (`rollout_bm.launches += 1`); while a spy stands in that name, the
+    count and `by_shape` still land on the wrapper, and the spy sees
+    the launch."""
+    cs = _chip_smoke()
+    module = types.ModuleType("wrapper_module")
+    exec("import collections\n"
+         "def k4(dyn, spec, x0m, op_bm, st_bm, scal_cb, emit_us=False):\n"
+         "    k4.launches += 1\n"
+         "    k4.by_shape[tuple(scal_cb.shape) + (emit_us,)] += 1\n"
+         "    return x0m\n"
+         "k4.launches = 0\n"
+         "k4.by_shape = collections.Counter()\n", module.__dict__)
+    wrapper = module.k4
+    spy = cs._FirstLaunches()
+    module.k4 = spy._spy("K4", wrapper, inspect.signature(wrapper))
+    args = _k4_operands(C=1, B=4)
+    module.k4(*args, emit_us=True)
+    module.k4(*args, emit_us=True)
+    assert wrapper.launches == 2 and module.k4.launches == 2
+    assert dict(wrapper.by_shape) == {(1, 4, True): 2}
+    assert dict(spy.tally) == {("K4", "C=1, B=4, emit_us"): 2}
+    module.k4.launches = 0             # a reset reaches the wrapper too
+    assert wrapper.launches == 0
