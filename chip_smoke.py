@@ -5,7 +5,8 @@
 
 Builds the port's CUDA kernels from csrc/ and drives its paths: the
 flagship three-player intersection solved for perturbed x0 by the batched
-AL + iLQ machine, through kernels K1 (fused stage), K2 (LQ Riccati
+AL + iLQ machine, and the two-player point mass and collision by its
+unconstrained trip, through kernels K1 (fused stage), K2 (LQ Riccati
 sweep), K3 (δx forward pass), K4 (candidate rollout), K5 (rollout with
 in-kernel merit) and K6 (merit consumer). Phases:
 
@@ -65,7 +66,25 @@ in-kernel merit) and K6 (merit consumer). Phases:
    kernels-line entry each with the kernel's launches over the cell;
    (d) a short replanning run (4 lanes, 2 cycles) on the card and on the
    CPU (plain versions): decisions equal, states and the splicer's
-   arrays bitwise equal.
+   arrays bitwise equal;
+8. the unconstrained games (the unconstrained trip and finalize): (a) the
+   libraries of the two-player point mass (x=2, one linear subsystem
+   reading both players' controls) and the two-player collision (x=12, two
+   car_6d), one nvcc each, all at once, and their K2-K6 ptxas reports
+   (failing on a spill, and on a stack frame outside K5); (b) bench_all.py's
+   configs 1 and 2 at full size through `bench.run_config`, launch counters
+   reset just before: pm 1024 (1024 instances drawn with sigma 0.5, 40
+   iterations) and collision 256 (256 instances, sigma 0.1), one JSON line
+   each; (c) their outcome against the JAX package's bands
+   (BENCH_ALL_r05.jsonl rows 1-2: the point mass converged >= 0.99,
+   mean_iters within 10% of 18.1, cost_p50 within 15% of [13.7, 1.4], none
+   diverged; the collision, broken as shipped upstream, diverged_frac >=
+   0.9 and converged in [0.1, 0.35]); (d) each kernel at each shape each
+   cell launched it, on a copy of its first launch's arguments, against
+   its plain version, and K5 and K6 at the cells' linesearch shapes, one
+   kernels-line entry each; (e) three fused trips of 8 lanes of each game
+   on the card against the CPU under each merit backend: decisions equal,
+   every array of the carry bitwise equal.
 
 Every kernel's entry in the kernels line carries its bound: the larger of
 the bytes it must move (each operand read once, each output written once)
@@ -119,6 +138,19 @@ RH_B, RH_FINAL_TIME, RH_REPLANS = 1024, 2.0, 7
 CPU_TRIPS = 4
 # Phase 7d: a budget that keeps the CPU's run under a minute.
 RH_SMALL = dict(max_solver_iters=2, unconstrained_solver_max_iters=2)
+# Phase 8: the JAX package's outcome of bench_all.py's configs 1 and 2
+# (BENCH_ALL_r05.jsonl rows 1-2). The point mass: converged 1.0, mean_iters
+# 18.1, cost_p50 [13.7, 1.4], diverged 0. The collision is broken as
+# shipped upstream (diverged_frac 1.0, converged 0.2188, mean_iters 16.4):
+# it is judged by distribution.
+PM_CONVERGED_MIN = 0.99
+PM_MEAN_ITERS, PM_ITERS_REL = 18.1, 0.10
+PM_COST_P50 = (13.7, 1.4)
+COLL_DIVERGED_MIN = 0.9
+COLL_CONVERGED_BAND = (0.1, 0.35)
+COLL_JAX_MEAN_ITERS = 16.4
+# Phase 8e: trips of each game on the card against the CPU, 8 lanes.
+SMALL_B, SMALL_TRIPS = 8, 3
 
 
 def _fail(msg: str) -> None:
@@ -204,8 +236,9 @@ def _nbytes(*objs) -> int:
 
 
 def _read(op: dict) -> dict:
-    """An operating point's entries that K1 and K4-K6 read: the models and
-    the ported cost atoms are time-invariant, so none of them reads t0."""
+    """An operating point's entries that K4 reads: its models are
+    time-invariant, so it reads no t0 (K1 and K5 read every entry: the
+    atoms see each lane's t0 + k dt)."""
     return {k: v for k, v in op.items() if k != "t0"}
 
 
@@ -372,7 +405,7 @@ def phase6(dyn, spec, dev):
                          TOL["P1"])
     seen.add(("P1", x.numel()))
     p1 = (_time_ms(lambda: probes.fma_chain(spec, x, N), 20),
-          _time_ms(lambda: probes.fma_chain_plain(x, N), 1),
+          _once_ms(lambda: probes.fma_chain_plain(x, N)),
           2 * _nbytes(x), n_ops)
 
     # P2, every rung, on sweep_floor5e.py's operands (C=8, B=128, drawn
@@ -394,8 +427,12 @@ def phase6(dyn, spec, dev):
     for rung, r in probes.RUNGS.items():
         args = (rung, ctx.dyn, ctx.costs, spec, d["x0c"], op, st, scal)
         got = probes.probe_rollout(*args, **kw)
-        want, ops_r = _probe.float_ops(
-            lambda: probes.probe_rollout_plain(*args, **kw))
+        # Operations are counted for the top rung only (its entry's bound).
+        if rung == "emit_xs_us":
+            want, ops_r = _probe.float_ops(
+                lambda: probes.probe_rollout_plain(*args, **kw))
+        else:
+            want = probes.probe_rollout_plain(*args, **kw)
         for key in want:
             err["P2"] = max(err["P2"], _compare(
                 f"P2 {rung} {key}", got[key], want[key], TOL["P2"]))
@@ -405,7 +442,7 @@ def phase6(dyn, spec, dev):
         if rung == "emit_xs_us":
             top, top_ops, top_out = args, ops_r, got
     p2 = (_time_ms(lambda: probes.probe_rollout(*top), 20),
-          _time_ms(lambda: probes.probe_rollout_plain(*top), 1),
+          _once_ms(lambda: probes.probe_rollout_plain(*top)),
           _nbytes(top[4:], top_out), top_ops)
 
     # The ladder's K4 and K5 rows on these bounded operands (no heading
@@ -553,7 +590,7 @@ def _launch_bytes(name, a, outs) -> int:
     """Bytes a launch must move: what the kernel reads of its arguments
     `a` (as phase 2 counts them) and its outputs."""
     if name == "K1":
-        return _nbytes(_read(a["op_bm"]), a["lamS"], a["lamC"], a["mu"], outs)
+        return _nbytes(a["op_bm"], a["lamS"], a["lamC"], a["mu"], outs)
     if name == "K2":
         ops = a["ops"]
         return _nbytes({k: ops[k] for k in ("Qf", "lf")},
@@ -563,11 +600,13 @@ def _launch_bytes(name, a, outs) -> int:
         return _nbytes(a["A"][:-1], a["Bf"][:-1], a["alphas"], a["dx0"],
                        outs)
     if name == "K6":
-        return _nbytes(a["xs_cand"], a["us_cand"], a["lamS"], a["lamC"],
-                       a["mu"], outs)
-    merit = (a["lamS"], a["lamC"], a["mu"]) if name == "K5" else ()
+        return _nbytes(a["xs_cand"], a["us_cand"], a["t0_bm"], a["lamS"],
+                       a["lamC"], a["mu"], outs)
+    if name == "K5":
+        return _nbytes(a["x0m"], a["op_bm"], a["st_bm"], a["scal_cb"],
+                       a["lamS"], a["lamC"], a["mu"], outs)
     return _nbytes(a["x0m"], _read(a["op_bm"]), a["st_bm"], a["scal_cb"],
-                   merit, outs)
+                   outs)
 
 
 def _clone(obj):
@@ -661,7 +700,8 @@ class _FirstLaunches:
 
 def _once_ms(fn):
     """Ms of one call of `fn`, on CUDA events (for a plain version that
-    takes seconds and has just been run once)."""
+    has just been run once: its times run from tens of us to seconds, and
+    repeating the slow ones cost the script its margin)."""
     import torch
 
     start = torch.cuda.Event(enable_timing=True)
@@ -673,11 +713,12 @@ def _once_ms(fn):
     return start.elapsed_time(stop)
 
 
-def _hold_launches(cell, spy, launches):
-    """Every (kernel, shape) that `cell`'s run launched, on the arguments
-    of its first launch there, against its plain version (tolerance TOL),
-    timed both ways; one kernels-line entry each, with the kernel's
-    launches over the cell's run."""
+def _hold_launches(cell, spy, launches, only=None):
+    """Every (kernel, shape) that `cell`'s run launched (of the kernels
+    `only`, if given), on the arguments of its first launch there,
+    against its plain version (tolerance TOL), timed both ways; one
+    kernels-line entry each, with the kernel's launches over the cell's
+    run, or, where `launches` is None, its launches at that shape."""
     import importlib
 
     from ilqgames_tpu_torch.tools._probe import float_ops
@@ -686,6 +727,8 @@ def _hold_launches(cell, spy, launches):
         [[*key, n] for key, n in sorted(spy.tally.items())]), flush=True)
     entries = []
     for (name, shape), a in sorted(spy.seen.items()):
+        if only is not None and name not in only:
+            continue
         mod, attr, plain_attr, source, replaces, label = KERNEL_SITES[name]
         module = importlib.import_module(f"ilqgames_tpu_torch.ops.cuda.{mod}")
         fn, plain = getattr(module, attr), getattr(module, plain_attr)
@@ -698,7 +741,8 @@ def _hold_launches(cell, spy, launches):
             f"{name} {label} ({shape}; {cell})", source, replaces, err,
             _time_ms(lambda: fn(**a), 20), _once_ms(lambda: plain(**a)),
             _launch_bytes(name, a, [g for _, g in got]), n_ops),
-            launches=launches[name]))
+            launches=(spy.tally[(name, shape)] if launches is None
+                      else launches[name])))
     return entries
 
 
@@ -842,6 +886,202 @@ def phase7(problem, dev):
     return kernels
 
 
+def _hold_merits(cell, spy, problem):
+    """K5 and K6 at every shape at which `cell`'s run launched K4 without
+    emitting controls (the linesearch's candidates), on the first such
+    launch's arguments with the game's multipliers (none) and mu of a
+    fresh AL state, against their plain versions: the merit backends
+    "kernel" and "pallas" on the cell's shapes. One kernels-line entry
+    each, with 0 launches: the cell's path (merit backend "xla") does not
+    launch them, and these holds are not counted."""
+    import torch
+
+    from ilqgames_tpu_torch.ops.cuda import sweep
+    from ilqgames_tpu_torch.tools._probe import float_ops
+
+    costs, spec = problem.player_costs, problem.spec
+    entries = []
+    for (name, shape), a in sorted(spy.seen.items()):
+        if name != "K4" or a["emit_us"]:
+            continue
+        B = a["scal_cb"].shape[1]
+        mu = torch.full((1, B), 10.0, device=a["x0m"].device)
+        k5 = dict(dyn=a["dyn"], player_costs=costs, spec=spec,
+                  x0m=a["x0m"], op_bm=a["op_bm"], st_bm=a["st_bm"],
+                  scal_cb=a["scal_cb"], lamS=None, lamC=None, mu=mu)
+        xs_c = sweep.rollout_bm(a["dyn"], spec, a["x0m"], a["op_bm"],
+                                a["st_bm"], a["scal_cb"])
+        k6 = dict(player_costs=costs, spec=spec, xs_cand=xs_c,
+                  us_cand=sweep._us_from_xs(spec, xs_c, a["op_bm"],
+                                            a["st_bm"], a["scal_cb"]),
+                  t0_bm=a["op_bm"]["t0"], lamS=None, lamC=None, mu=mu)
+        got = {}
+        for kname, fn, plain, args in (
+                ("K5", sweep.rollout_merits, sweep.rollout_merits_plain, k5),
+                ("K6", sweep.consumer_merits, sweep.merit_plain, k6)):
+            _, _, _, source, replaces, label = KERNEL_SITES[kname]
+            got[kname] = fn(**args)
+            want, n_ops = float_ops(lambda: plain(**args))
+            err = _compare(f"{kname} merits {shape} ({cell})", got[kname],
+                           want, TOL[kname])
+            entries.append(dict(_entry(
+                f"{kname} {label} ({shape}; {cell}, held only: its xla "
+                "path does not launch it)", source, replaces, err,
+                _time_ms(lambda: fn(**args), 20), _once_ms(lambda: plain(**args)),
+                _launch_bytes(kname, args, [got[kname]]), n_ops),
+                launches=0))
+        if not _same_bits(got["K5"], got["K6"]):
+            _fail(f"{cell}: K5 and K4 + K6 disagree at {shape}")
+    return entries
+
+
+def phase8(dev):
+    """bench_all.py's two unconstrained games at full size through the
+    bench's entry point (`bench.run_config`): their outcome against the
+    JAX package's bands, every (kernel, shape) each cell launched against
+    its plain version (and K5, K6 at its linesearch shapes), and a few
+    trips of each on the card against the CPU under every merit backend,
+    K5 and K6 held at every shape those trips launched them. Returns the
+    kernels-line entries."""
+    import dataclasses
+
+    import torch
+
+    from ilqgames_tpu_torch import bench
+    from ilqgames_tpu_torch.ops.cuda import build, lq, stage, sweep
+    from ilqgames_tpu_torch.solver import batched
+    from ilqgames_tpu_torch.types import tree_leaves, tree_map
+
+    games = {c: bench.CONFIGS[c]["make"]() for c in (1, 2)}
+    names = {1: "pm 1024", 2: "collision 256"}
+
+    # (a) the two games' libraries, one nvcc each, all at once.
+    t0 = time.perf_counter()
+    libs = []
+    for p in games.values():
+        libs += [stage.library(p.spec), lq.library(p.spec),
+                 sweep.library(p.dynamics, p.spec),
+                 sweep.merit_library(p.spec)]
+    build.compile_all(libs)
+    for p in games.values():
+        bench.build_kernels(p.dynamics, p.spec)
+    print(f"# phase 8 build: {time.perf_counter() - t0:.1f} s (concurrent "
+          f"nvcc: {len(libs)} libraries of the two games)", flush=True)
+    for c, p in games.items():
+        for label, lib, kern, stack_ok in (
+                ("K2", lq.library(p.spec), "lq_backward_kernel", False),
+                ("K3", lq.library(p.spec), "lq_forward_kernel", False),
+                ("K4", sweep.library(p.dynamics, p.spec),
+                 "rollout_warp_kernel", False),
+                ("K5", sweep.library(p.dynamics, p.spec),
+                 "rollout_merit_warp_kernel", True),
+                ("K6", sweep.merit_library(p.spec), "merit_kernel", False)):
+            _ptxas(f"{label} ({names[c]})", lib, kern, stack_ok)
+
+    # (b)-(d) each cell, its outcome, and its launches held.
+    kernels, merit_held = [], []
+    for c, p in games.items():
+        cell = names[c]
+        bench.reset_launches()
+        with _FirstLaunches() as spy:
+            res, out = bench.run_config(c, dev)
+        torch.cuda.synchronize()
+        launches = bench.launches()
+        print(json.dumps(out), flush=True)
+        if min(launches[k] for k in ("K1", "K2", "K3", "K4")) <= 0:
+            _fail(f"{cell}: a kernel of the path was not launched: "
+                  f"{launches}")
+        shape = (out["B"], p.spec.num_time_steps, p.spec.xdim)
+        if tuple(res.op.xs.shape) != shape:
+            _fail(f"{cell}: result shape {tuple(res.op.xs.shape)}, want "
+                  f"{shape}")
+        if not bool(torch.isfinite(res.op.xs[res.converged]).all()):
+            _fail(f"{cell}: non-finite trajectory on a converged lane")
+        if c == 1:
+            ok = (out["converged"] >= PM_CONVERGED_MIN
+                  and abs(out["mean_iters"] - PM_MEAN_ITERS)
+                  <= PM_ITERS_REL * PM_MEAN_ITERS
+                  and all(abs(g - r) <= COST_P50_REL * r
+                          for g, r in zip(out["cost_p50"], PM_COST_P50))
+                  and out["diverged_frac"] == 0.0)
+            band = (f"converged >= {PM_CONVERGED_MIN}, mean_iters "
+                    f"{PM_MEAN_ITERS} +- {PM_ITERS_REL:.0%}, cost_p50 "
+                    f"{list(PM_COST_P50)} +- {COST_P50_REL:.0%}, diverged 0")
+        else:
+            lo, hi = COLL_CONVERGED_BAND
+            ok = (out["diverged_frac"] >= COLL_DIVERGED_MIN
+                  and lo <= out["converged"] <= hi)
+            band = (f"diverged_frac >= {COLL_DIVERGED_MIN}, converged in "
+                    f"[{lo}, {hi}]; mean_iters {out['mean_iters']} (JAX "
+                    f"{COLL_JAX_MEAN_ITERS})")
+        if not ok:
+            _fail(f"{cell}: outcome outside the JAX package's band ({band}): "
+                  f"{out}")
+        print(f"# {cell}: outcome within the JAX package's band ({band}); "
+              f"launches counted from 0 over the warm-up and timed solves: "
+              f"{launches}", flush=True)
+        _check_k4_held(cell, spy, sweep.rollout_bm.by_shape)
+        kernels += _hold_launches(cell, spy, launches)
+        merit_held.append((cell, spy, p))
+
+    # (e) trips on the card against the CPU, every merit backend. On the
+    # CPU the three backends are one computation (the plain versions).
+    for c, p in games.items():
+        dyn, costs, spec = p.dynamics, p.player_costs, p.spec
+        params = dataclasses.replace(bench.exec_main_params(),
+                                     **bench.CONFIGS[c]["params"])
+        x0c = torch.tensor(bench.perturbed_x0(p, SMALL_B,
+                                              bench.CONFIGS[c]["sigma"]))
+        fc0 = batched._fresh_init(dyn, costs, spec, None, None, SMALL_B,
+                                  True)(x0c)
+        t0 = time.perf_counter()
+        trip, _ = batched._driver_parts(dyn, costs, spec, params, SMALL_B,
+                                        True, "xla")
+        cpu = [fc0]
+        for _ in range(SMALL_TRIPS):
+            cpu.append(trip(x0c, cpu[-1]))
+        cpu_s = time.perf_counter() - t0
+        for backend, kname in (("xla", "K4"), ("kernel", "K5"),
+                               ("pallas", "K6")):
+            trip, _ = batched._driver_parts(dyn, costs, spec, params,
+                                            SMALL_B, True, backend)
+            fc = tree_map(lambda a: a.to(dev), fc0)
+            bench.reset_launches()
+            with _FirstLaunches() as spy:
+                for i in range(SMALL_TRIPS):
+                    fc = trip(x0c.to(dev), fc)
+                    what = f"{names[c]} card vs CPU, {backend!r}, trip {i}"
+                    _same_decisions(what, fc, cpu[i + 1])
+                    for g, w in zip(tree_leaves(fc),
+                                    tree_leaves(cpu[i + 1])):
+                        g = g.cpu()
+                        same = (_same_bits(g, w) if w.dtype == torch.float32
+                                else torch.equal(g, w))
+                        if not same:
+                            _fail(f"{what}: an array differs")
+            torch.cuda.synchronize()
+            if bench.launches()[kname] <= 0:
+                _fail(f"{names[c]}: merit_backend={backend!r} never "
+                      f"launched {kname}")
+            if backend != "xla":
+                # The merit kernel of this backend at each shape these
+                # trips launched it, with its launches there.
+                kernels += _hold_launches(
+                    f"{names[c]} card vs CPU, {SMALL_B} lanes, {backend!r}",
+                    spy, None, only=(kname,))
+        print(f"# {names[c]} card vs CPU ({SMALL_B} lanes, {SMALL_TRIPS} "
+              f"fused trips, merit backends xla, kernel, pallas): decisions "
+              f"equal, every array bitwise equal; failed "
+              f"{cpu[-1].c.failed.tolist()}, converged "
+              f"{cpu[-1].c.converged.tolist()} ({cpu_s:.1f} s on the CPU)",
+              flush=True)
+
+    # K5 and K6 at the cells' linesearch shapes, held only.
+    for cell, spy, p in merit_held:
+        kernels += _hold_merits(cell, spy, p)
+    return kernels
+
+
 def main():
     import torch
 
@@ -908,7 +1148,7 @@ def main():
     entry("K2 lq_backward (B=1024)", "ilqgames_tpu_torch/csrc/lq.cu",
           "ilqgames_tpu/ops/pallas/lq.py:82", err,
           _time_ms(lambda: lq.lq_backward(spec, ops), 10),
-          _time_ms(lambda: lq.lq_backward_plain(spec, ops), 2),
+          _once_ms(lambda: lq.lq_backward_plain(spec, ops)),
           # Knot N-1 of A, Bf, Rf and rf is never read: it is the
           # terminal condition, Qf and lf only.
           _nbytes({k: ops[k] for k in ("Qf", "lf")},
@@ -930,7 +1170,7 @@ def main():
               f"{k3_ptxas['stack']} B)", flush=True)
         entry(f"K3 lq_forward (B={Bk})", "ilqgames_tpu_torch/csrc/lq.cu",
               "ilqgames_tpu/ops/pallas/lq.py:254", err, ms,
-              _time_ms(lambda: lq.lq_forward_plain(*args), 3),
+              _once_ms(lambda: lq.lq_forward_plain(*args)),
               # knots 0 .. N-2 of A and Bf make dx_1 .. dx_{N-1}
               _nbytes(A[:-1], Bf[:-1], al, dx0, dxs_k), n_ops)
 
@@ -970,7 +1210,7 @@ def main():
               f"{k4_ptxas['stack']} B)", flush=True)
         entry(f"K4 rollout ({shape})", "ilqgames_tpu_torch/csrc/sweep.cu",
               "ilqgames_tpu/ops/pallas/sweep.py:176", err, ms_k4,
-              _time_ms(lambda: sweep.rollout_plain(*args, emit_us=emit), 1),
+              _once_ms(lambda: sweep.rollout_plain(*args, emit_us=emit)),
               _nbytes(args[2], _read(args[3]), args[4:],
                       [g for _, g in got]), n_ops)
 
@@ -989,8 +1229,8 @@ def main():
     entry(f"K1 lin_quad (B={B1})", "ilqgames_tpu_torch/csrc/stage.cu",
           "ilqgames_tpu/ops/pallas/stage.py:65", err,
           _time_ms(lambda: stage.lin_quad(*k1_args), 20),
-          _time_ms(lambda: stage.lin_quad_plain(*k1_args), 3),
-          _nbytes(_read(op1), k1_args[4:], ops_k), n_ops)
+          _once_ms(lambda: stage.lin_quad_plain(*k1_args)),
+          _nbytes(op1, k1_args[4:], ops_k), n_ops)
 
     # K3 at the queue's lanes (B=2048) on K1's operands and K2's alphas
     # there; then K5 and K6 on that LQ strategy.
@@ -1022,8 +1262,8 @@ def main():
         entry(f"K5 rollout+merit (C={C}, B={Bk})",
               "ilqgames_tpu_torch/csrc/sweep.cu",
               "ilqgames_tpu/ops/pallas/sweep.py:176", err, ms_k5,
-              _time_ms(lambda: sweep.rollout_merits_plain(*k5_args), 1),
-              _nbytes(k5_args[3], _read(k5_args[4]), k5_args[5:], m5_k),
+              _once_ms(lambda: sweep.rollout_merits_plain(*k5_args)),
+              _nbytes(k5_args[3], k5_args[4], k5_args[5:], m5_k),
               n_ops)
         xs_c = sweep.rollout_bm(dyn, spec, x1m[:, :Bk].contiguous(), sub(op1),
                                 sub(st1), scal_cb)
@@ -1042,8 +1282,8 @@ def main():
         entry(f"K6 merit consumer (C={C}, B={Bk})",
               "ilqgames_tpu_torch/csrc/merit.cu",
               "ilqgames_tpu/ops/pallas/sweep.py:395", err, ms_k6,
-              _time_ms(lambda: sweep.merit_plain(*k6_args), 3),
-              _nbytes(k6_args[2:4], k6_args[5:], m6_k), n_ops)
+              _once_ms(lambda: sweep.merit_plain(*k6_args)),
+              _nbytes(k6_args[2:], m6_k), n_ops)
         same = _same_bits(m5_k, m6_k)
         print(f"# K5 == K4 + K6 bitwise (C={C}, B={Bk}): {same}", flush=True)
         if not same:
@@ -1154,6 +1394,10 @@ def main():
     # ---- phase 7: the replanning path ----
     kernels += phase7(problem, dev)
     elapsed(7)
+
+    # ---- phase 8: the unconstrained games ----
+    kernels += phase8(dev)
+    elapsed(8)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

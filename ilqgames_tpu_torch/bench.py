@@ -14,11 +14,16 @@ driver instead. Prints ONE JSON line with bench.py's fields plus the
 device, configuration, wall time, the driver's counters and the kernels'
 launch counts. BENCH_LATENCY=1 measures the warm replan latency of one
 instance instead (`run_latency`, the counterpart of bench_all.py's
-`latency_single_solve`). Needs a CUDA device: it never measures on a CPU.
+`latency_single_solve`). BENCH_CONFIG=1 or 2 runs bench_all.py's config 1
+(the two-player point mass, 1024 instances drawn with sigma 0.5, 40
+iterations) or 2 (the two-player collision, 256 instances, sigma 0.1) as
+bench_all.py runs it (`run_config`), and prints its metric and fields.
+Needs a CUDA device: it never measures on a CPU.
 
     python3 -m ilqgames_tpu_torch.bench
     BENCH_QUEUE=0 BENCH_BATCH=1024 python3 -m ilqgames_tpu_torch.bench
     BENCH_LATENCY=1 python3 -m ilqgames_tpu_torch.bench
+    BENCH_CONFIG=1 python3 -m ilqgames_tpu_torch.bench
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ilqgames_tpu_torch.examples import two_player_collision, \
+    two_player_point_mass
 from ilqgames_tpu_torch.examples.three_player_intersection import \
     make_problem
 from ilqgames_tpu_torch.ops.cuda import build, lq, stage, sweep
@@ -63,11 +70,12 @@ def exec_main_params() -> SolverParams:
                         expected_decrease_fraction=0.001)
 
 
-def perturbed_x0(problem, batch: int) -> np.ndarray:
-    """bench.py's x0 draw: [batch, xdim] float32."""
+def perturbed_x0(problem, batch: int, sigma: float = 0.1) -> np.ndarray:
+    """bench.py's and bench_all.py's x0 draw: [batch, xdim] float32,
+    nominal x0 + sigma * N(0, 1) from RandomState(0)."""
     rng = np.random.RandomState(0)
     x0 = np.tile(problem.x0.numpy()[None], (batch, 1))
-    x0 += 0.1 * rng.randn(*x0.shape).astype(np.float32)
+    x0 += sigma * rng.randn(*x0.shape).astype(np.float32)
     return x0
 
 
@@ -275,12 +283,93 @@ def run_bench(batch: int = 2048, device="cuda", driver: str = "queue",
     return res, out
 
 
+# bench_all.py's configs 1 and 2 (bench_all.py:129-170): the game, its
+# metric, the batch, the x0 draw's sigma and the iteration budgets.
+CONFIGS = {
+    1: dict(make=two_player_point_mass.make_problem,
+            metric="two_player_point_mass_solves_per_sec_per_chip",
+            batch=1024, sigma=0.5,
+            params=dict(max_solver_iters=40,
+                        unconstrained_solver_max_iters=40)),
+    2: dict(make=two_player_collision.make_problem,
+            metric="two_player_collision_solves_per_sec_per_chip",
+            batch=256, sigma=0.1, params={}),
+}
+
+
+def config_fields(res, batch: int, elapsed: float) -> dict:
+    """bench_all.py's `_throughput` fields of a batched ALResult: the
+    outcome distribution, and the violations only where they are finite
+    (a game without constraints has none). A lane whose costs overflowed
+    counts as the largest float32, as in `summarize`."""
+    big = np.finfo(np.float32).max
+    raw = res.total_costs.cpu().numpy()
+    costs = np.where(np.isfinite(raw), raw, big)
+    mv = res.max_violation.cpu().numpy()
+    out = dict(
+        B=batch, wall_s=round(elapsed, 3),
+        converged=round(float(res.converged.float().mean()), 4),
+        mean_iters=round(float(res.cumulative_iterations.float().mean()), 1),
+        cost_p50=[round(float(c), 1)
+                  for c in np.percentile(costs, 50, axis=0)],
+        cost_p95=[round(float(c), 1)
+                  for c in np.percentile(costs, 95, axis=0)],
+        diverged_frac=round(float((costs.max(axis=1) > 1e6).mean()), 4),
+        overflowed_lanes=int((~np.isfinite(raw).all(axis=1)).sum()))
+    if np.isfinite(mv).any():
+        out.update(viol_p50=round(float(np.percentile(mv, 50)), 4),
+                   viol_p95=round(float(np.percentile(mv, 95)), 4),
+                   viol_max=round(float(mv.max()), 4))
+    return out
+
+
+def run_config(config: int, device="cuda"):
+    """bench_all.py's config 1 or 2 on `device`, as its `_throughput` runs
+    it: the exec main's parameters (with the config's budgets), the x0
+    draw with the config's sigma, the plain host-stepped driver with lane
+    blocks of 128 and 20 trips per dispatch, fused stages and the merit
+    backend "xla"; one warm-up solve, then the timed one. Returns
+    (ALResult, JSON dict) with bench_all.py's metric and fields."""
+    cfg = CONFIGS[config]
+    set_precision()
+    dev = _cuda_device(device)
+    problem = cfg["make"]()
+    n = cfg["batch"]
+    params = dataclasses.replace(exec_main_params(), **cfg["params"])
+    build_kernels(problem.dynamics, problem.spec)
+    solver = batched.make_host_batched_solver(
+        problem.dynamics, problem.player_costs, problem.spec, params,
+        warm_op=problem.initial_operating_point(),
+        warm_strategy=problem.initial_strategy(), trips_per_call=20,
+        batch_block=128)
+    x0 = torch.tensor(perturbed_x0(problem, n, cfg["sigma"]), device=dev)
+    solver(x0)
+    before = launches()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    res = solver(x0)
+    torch.cuda.synchronize(dev)
+    elapsed = time.perf_counter() - t0
+    stats = solver.last_stats
+    out = {"metric": cfg["metric"], "value": round(n / elapsed, 3),
+           "unit": "solves/s/chip", "vs_baseline": None,
+           **config_fields(res, n, elapsed),
+           "device": torch.cuda.get_device_name(dev), "driver": "plain",
+           "trips_per_call": 20, "batch_block": 128, "fuse_stages": True,
+           **{k: stats[k] for k in ("trips", "dispatches", "host_syncs",
+                                    "deep_rounds", "collapse_exits")},
+           "launches": {k: v - before[k] for k, v in launches().items()}}
+    return res, out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("ilqgames_tpu_torch.bench needs a CUDA device")
     env = os.environ.get
     batch = int(env("BENCH_BATCH", "2048"))
-    if env("BENCH_LATENCY", "0") == "1":
+    if env("BENCH_CONFIG"):
+        _, out = run_config(int(env("BENCH_CONFIG")))
+    elif env("BENCH_LATENCY", "0") == "1":
         _, out = run_latency()
     elif env("BENCH_QUEUE", "1") == "1":
         _, out = run_bench(batch, driver="queue",

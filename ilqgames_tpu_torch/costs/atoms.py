@@ -1,10 +1,19 @@
-"""Cost atoms of the flagship (counterpart of ilqgames_tpu/costs/atoms.py:
-`quadratic` at :39 and `quadratic_polyline2` at :366).
+"""Cost atoms (counterpart of ilqgames_tpu/costs/atoms.py: `quadratic` at
+:39, `proximity` at :213, `quadratic_polyline2` at :366,
+`semiquadratic_polyline2` at :433 and `final_time` at :652).
 
 Gradients and Hessians are the JAX package's sparse pairs, with the
-reference's shipped branch semantics for the polyline cost: a vertex
+reference's shipped branch semantics for the polyline costs: a vertex
 branch (isotropic pull toward the vertex), an interior branch (quadratic
 in the cross-track coordinate), and zero at the polyline's endpoints.
+The proximity cost's quadraticization is the JAX package's autodiff over
+its support, written out: its gradient with autodiff's operations, its
+Hessian analytically (within float32 rounding of autodiff's).
+
+`t` is the knot time each caller passes: relative (k * dt) in total costs
+and the unfused quadraticization, absolute (t0 + k * dt) in the stage
+kernel's plain version and the merits, as in the JAX package; only
+`final_time` reads it.
 """
 
 from __future__ import annotations
@@ -13,16 +22,38 @@ from typing import Optional
 
 import torch
 
-from ilqgames_tpu_torch import geometry
+from ilqgames_tpu_torch import fmath, geometry
 from ilqgames_tpu_torch.costs.base import Cost
+
+_EPS = 1e-12
 
 
 def quadratic(weight: float, dim: Optional[int], nominal: float = 0.0,
               name: str = "quadratic") -> Cost:
-    """0.5*w*(v[dim]-nominal)^2."""
+    """0.5*w*(v[dim]-nominal)^2, or over all dims when dim is None (the
+    control padding dims included: w*I over every dim, as autodiff of the
+    JAX package's evaluate gives)."""
+    device = ("quadratic", {"dim": -1 if dim is None else dim,
+                            "weight": weight, "nominal": nominal})
     if dim is None:
-        raise NotImplementedError(
-            "quadratic over all dimensions (dim=None) is not ported yet")
+        def evaluate_all(t, v):
+            d = v - nominal
+            sq = d * d
+            total = sq[..., 0]
+            for k in range(1, v.shape[-1]):
+                total = total + sq[..., k]
+            return 0.5 * weight * total
+
+        def grad_pairs_all(t, v):
+            return [(k, weight * (v[..., k] - nominal))
+                    for k in range(v.shape[-1])]
+
+        def quad_pairs_all(t, v):
+            return ([((k, k), torch.full_like(v[..., 0], weight))
+                     for k in range(v.shape[-1])], grad_pairs_all(t, v))
+
+        return Cost(name, evaluate_all, grad_pairs_all, quad_pairs_all,
+                    device=device)
 
     def evaluate(t, v):
         d = v[..., dim] - nominal
@@ -35,9 +66,7 @@ def quadratic(weight: float, dim: Optional[int], nominal: float = 0.0,
         return ([((dim, dim), torch.full_like(v[..., 0], weight))],
                 grad_pairs(t, v))
 
-    return Cost(name, evaluate, grad_pairs, quad_pairs,
-                device=("quadratic", {"dim": dim, "weight": weight,
-                                      "nominal": nominal}))
+    return Cost(name, evaluate, grad_pairs, quad_pairs, device=device)
 
 
 def quadratic_polyline2(weight: float, points, xidx: int, yidx: int,
@@ -86,3 +115,159 @@ def quadratic_polyline2(weight: float, points, xidx: int, yidx: int,
     return Cost(name, evaluate, grad_pairs, quad_pairs,
                 device=("polyline", {"points": points, "xidx": xidx,
                                      "yidx": yidx, "weight": weight}))
+
+
+def semiquadratic_polyline2(weight: float, points, xidx: int, yidx: int,
+                            threshold: float, oriented_right: bool,
+                            name: str = "semiquadratic_polyline2") -> Cost:
+    """One-sided lane-boundary cost on the signed distance past a
+    threshold: active where the signed sq distance is beyond the signed
+    sq threshold on the oriented side, zero at the polyline's endpoints."""
+    sst = (1.0 if threshold >= 0 else -1.0) * threshold * threshold
+
+    def active(ssd):
+        return ssd > sst if oriented_right else ssd < sst
+
+    def evaluate(t, v):
+        res = geometry.polyline_closest_point_xy(
+            points, v[..., xidx], v[..., yidx], need_sign=True)
+        ssd = res.signed_sq_distance
+        sd = geometry.sign(ssd) * fmath.sqrt(
+            torch.clamp_min(torch.abs(ssd), _EPS))
+        diff = sd - threshold
+        val = 0.5 * weight * diff * diff
+        return torch.where(res.is_endpoint | ~active(ssd), 0.0, val)
+
+    def _scalars(v):
+        qx, qy = v[..., xidx], v[..., yidx]
+        res = geometry.polyline_closest_point_xy(points, qx, qy,
+                                                 need_sign=True)
+        ssd = res.signed_sq_distance
+        gate = (active(ssd) & ~res.is_endpoint).to(torch.float32)
+
+        dist = fmath.sqrt(torch.clamp_min(torch.abs(ssd), _EPS))
+        scaling = (dist - abs(threshold)) / dist
+        dxv = weight * scaling * (qx - res.cpx)
+        dyv = weight * scaling * (qy - res.cpy)
+
+        ux, uy = res.ux, res.uy
+        use_v = res.is_vertex
+        h0 = torch.where(use_v, weight, weight * uy * uy)
+        h1 = torch.where(use_v, weight, weight * ux * ux)
+        h2 = torch.where(use_v, 0.0, -weight * ux * uy)
+        # The interior branch takes the cross-track form.
+        w_cross = weight * (
+            (qx - res.p1x) * uy - (qy - res.p1y) * ux - threshold)
+        dxi = w_cross * uy
+        dyi = -w_cross * ux
+        dx = torch.where(use_v, dxv, dxi) * gate
+        dy = torch.where(use_v, dyv, dyi) * gate
+        return dx, dy, h0 * gate, h1 * gate, h2 * gate
+
+    def grad_pairs(t, v):
+        dx, dy, _, _, _ = _scalars(v)
+        return [(xidx, dx), (yidx, dy)]
+
+    def quad_pairs(t, v):
+        dx, dy, ddx, ddy, dxdy = _scalars(v)
+        return ([((xidx, xidx), ddx), ((yidx, yidx), ddy),
+                 ((xidx, yidx), dxdy), ((yidx, xidx), dxdy)],
+                [(xidx, dx), (yidx, dy)])
+
+    return Cost(name, evaluate, grad_pairs, quad_pairs,
+                device=("semiquadratic_polyline", {
+                    "points": points, "xidx": xidx, "yidx": yidx,
+                    "weight": weight, "threshold": threshold,
+                    "oriented_right": oriented_right}))
+
+
+def proximity(weight: float, dims1, dims2, threshold: float,
+              name: str = "proximity") -> Cost:
+    """0.5*w*(threshold - ||p1 - p2||)^2 within the threshold, else 0.
+
+    Its merit gradient is the JAX package's `grad_pairs` (live where
+    EPS <= d^2 < threshold^2). Its quadraticization is what the JAX
+    package's autodiff over the support (x1, y1, x2, y2) gives, written
+    out: the gradient 2 * (-2 c gap / (2 s)) * d (c = w / 2; the clamp's
+    derivative 1 above EPS, 1/2 at it, 0 below), the Hessian of the live
+    branch w/s * (threshold n n^T - gap I) on each pair of points, with
+    n = d / s, s the distance and gap = threshold - s. Every division is
+    of two tensors, so that the card and the CPU round it alike."""
+    x1, y1 = dims1
+    x2, y2 = dims2
+    threshold_sq = threshold * threshold
+    c = 0.5 * weight
+
+    def _geom(v):
+        dx = v[..., x1] - v[..., x2]
+        dy = v[..., y1] - v[..., y2]
+        delta_sq = dx * dx + dy * dy
+        dist = fmath.sqrt(torch.clamp_min(delta_sq, _EPS))
+        return dx, dy, delta_sq, dist, threshold - dist
+
+    def evaluate(t, v):
+        _, _, delta_sq, _, gap = _geom(v)
+        return torch.where(delta_sq >= threshold_sq, 0.0,
+                           0.5 * weight * gap * gap)
+
+    def grad_pairs(t, v):
+        dx, dy, delta_sq, dist, gap = _geom(v)
+        live = (delta_sq >= _EPS) & (delta_sq < threshold_sq)
+        ct = torch.where(live, -weight * gap / dist, 0.0)
+        px = ct * dx
+        py = ct * dy
+        return [(x1, px), (y1, py), (x2, -px), (y2, -py)]
+
+    def quad_pairs(t, v):
+        dx, dy, delta_sq, dist, gap = _geom(v)
+        inside = (delta_sq < threshold_sq).to(torch.float32)
+        clamp = torch.where(delta_sq > _EPS, 1.0,
+                            torch.where(delta_sq == _EPS, 0.5, 0.0))
+        cg = c * gap
+        g = -(cg + cg) / (dist + dist) * clamp * inside
+        gx = g * dx + g * dx
+        gy = g * dy + g * dy
+        k = weight * clamp * inside / dist
+        nx = dx / dist
+        ny = dy / dist
+        hxx = k * (threshold * nx * nx - gap)
+        hyy = k * (threshold * ny * ny - gap)
+        hxy = k * (threshold * nx * ny)
+        h = {(0, 0): hxx, (0, 1): hxy, (1, 0): hxy, (1, 1): hyy}
+        support = ((x1, 0, 1.0), (y1, 1, 1.0), (x2, 0, -1.0), (y2, 1, -1.0))
+        hp = [((i, j), h[(a, b)] if si * sj > 0 else -h[(a, b)])
+              for i, a, si in support for j, b, sj in support]
+        return hp, [(x1, gx), (y1, gy), (x2, -gx), (y2, -gy)]
+
+    return Cost(name, evaluate, grad_pairs, quad_pairs,
+                device=("proximity_cost", {"dims": (x1, y1, x2, y2),
+                                           "weight": weight,
+                                           "threshold": threshold}))
+
+
+def final_time(inner: Cost, threshold_time: float,
+               name: str = "final_time") -> Cost:
+    """`inner` gated on t >= threshold_time: each pair's value times the
+    gate (0.0 or 1.0), as the JAX package multiplies it. Its device form
+    is the inner atom's with the gate time (none when the inner atom has
+    no device form or a gate of its own)."""
+    def gate(t):
+        return (t >= threshold_time).to(torch.float32)
+
+    def evaluate(t, v):
+        return torch.where(t >= threshold_time, inner.evaluate(t, v), 0.0)
+
+    def grad_pairs(t, v):
+        g = gate(t)
+        return [(i, s * g) for i, s in inner.gradient_pairs(t, v)]
+
+    def quad_pairs(t, v):
+        g = gate(t)
+        hp, gp = inner.quad_pairs(t, v)
+        return ([(ij, h * g) for ij, h in hp], [(i, s * g) for i, s in gp])
+
+    device = None
+    if inner.device is not None and "gate_time" not in inner.device[1]:
+        kind, prm = inner.device
+        device = (kind, dict(prm, gate_time=threshold_time))
+    return Cost(name, evaluate, grad_pairs, quad_pairs, device=device)

@@ -169,15 +169,18 @@ def _assemble(out, idx, entries, like):
 
 
 def quadraticize(player_costs, spec: GameSpec, op: OperatingPoint,
-                 al: ALState) -> QuadraticCosts:
+                 al: ALState, t=None) -> QuadraticCosts:
     """Full-horizon quadratic approximation of every player's cost at a
     batched operating point (xs [B, N, x], us [B, N, P, u]): Q [B,N,P,x,x],
-    l [B,N,P,x], R [B,N,P,P,u,u], r [B,N,P,P,u]."""
+    l [B,N,P,x], R [B,N,P,P,u,u], r [B,N,P,P,u]. The atoms see the knot
+    times `t` ([N] or [B, N]); by default the relative times k * dt, as
+    the JAX package's unfused quadraticize (player_cost.py:563)."""
     check_structures(player_costs)
     Bt, N, xd = op.xs.shape
     P, um = spec.num_players, spec.umax
     dev = op.xs.device
-    t = spec.horizon_times(dev)
+    if t is None:
+        t = spec.horizon_times(dev)
     x, us = op.xs, op.us
     like = x[..., 0]
     mu = al.mu[:, None]

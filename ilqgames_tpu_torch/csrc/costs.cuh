@@ -2,19 +2,31 @@
 // (stage.cu), the in-kernel merit K5 (sweep.cu) and the merit consumer K6
 // (merit.cu).
 //
-// Device forms of the flagship's atoms and models, each repeating its plain
-// PyTorch version operation by operation (with FMA contraction off):
-//   quadratic            costs/atoms.py:quadratic
+// Device forms of the atoms and models, each repeating its plain PyTorch
+// version operation by operation (with FMA contraction off):
+//   quadratic            costs/atoms.py:quadratic (over all dims: one atom
+//                        per dim in the table, in dim order)
 //   quadratic_polyline2  costs/atoms.py:quadratic_polyline2, with the query of
 //                        geometry.py:polyline_closest_point_xy
+//   semiquadratic_polyline2
+//                        costs/atoms.py:semiquadratic_polyline2, with the
+//                        signed query (need_sign=True)
 //   proximity            costs/constraints.py:proximity, mu_eff_ineq of
 //                        costs/base.py
-//   car_6d, unicycle_4d  the Jacobian entries of dynamics/models.py
+//   proximity (cost)     costs/atoms.py:proximity
+//   final_time           a gate on any of them: t >= tgate multiplies each
+//                        pair's value by 1.0, else by 0.0
+//   car_6d, unicycle_4d, the linear system
+//                        the Jacobian entries of dynamics/models.py and the
+//                        constant ones of dynamics/base.py:linear
 // The problem arrives as a CostTable passed by value (atom kinds, dims,
-// weights, nominals, thresholds, signs, segment offsets; built by
-// ops/cuda/cost_table.py) and a small device array of polyline segments, 7
-// floats each: p1x p1y p2x p2y ux uy length, computed on the host in float32
-// as geometry._static_segments computes them.
+// weights, nominals, thresholds, signs, orientations, gate times, segment
+// offsets; built by ops/cuda/cost_table.py) and a small device array of
+// polyline segments, 7 floats each: p1x p1y p2x p2y ux uy length, computed
+// on the host in float32 as geometry._static_segments computes them, then
+// the signed queries' shortcut segments, 8 floats each
+// (geometry.shortcut_segments). The time t an atom sees is its caller's:
+// K1, K5 and K6 give each lane's t0 + k * dt.
 //
 // Pairs accumulate per key in pair order, the first pair of a key setting it
 // and later ones adding to it, as the plain versions' dict folds do; callers
@@ -38,8 +50,12 @@ constexpr int MAX_SUBSYS = 8;
 constexpr int KIND_QUADRATIC = 0;
 constexpr int KIND_POLYLINE = 1;
 constexpr int KIND_PROXIMITY = 2;
+constexpr int KIND_SEMI_POLYLINE = 3;
+constexpr int KIND_PROXIMITY_COST = 4;
+constexpr int MAX_LIN = 32;
 constexpr int KIND_CAR_6D = 0;      // dynamics/models.py KIND_CAR_6D
 constexpr int KIND_UNICYCLE_4D = 1;  // dynamics/models.py KIND_UNICYCLE_4D
+constexpr int KIND_LINEAR = 2;       // dynamics/models.py KIND_LINEAR
 constexpr float SMALL_NUMBER = 1e-4f;  // types.SMALL_NUMBER
 constexpr float EPS = 1e-12f;          // constraints._EPS
 
@@ -49,20 +65,31 @@ extern "C" {
 
 // The concatenated models of the joint dynamics (ops/cuda/sweep.py
 // _device_table): kind, state offset, control offset (flat, player-major)
-// and inter-axle length of each.
+// and inter-axle length of each. A linear system is one subsystem over the
+// whole state reading every control row;
+// its nlin constant Jacobian entries (lin_u: of Bf, else of A; row, column,
+// value) are the plain linearize's values.
 struct SubsysTable {
   int n;
   int kind[costs::MAX_SUBSYS];
   int xoff[costs::MAX_SUBSYS];
   int uoff[costs::MAX_SUBSYS];
   float length[costs::MAX_SUBSYS];
+  int nlin;
+  int lin_u[costs::MAX_LIN];
+  int lin_row[costs::MAX_LIN];
+  int lin_col[costs::MAX_LIN];
+  float lin_val[costs::MAX_LIN];
 };
 
 // One atom of one player's cost. on < 0: the state; on = j: player j's
-// (padded) control. Quadratic: dim[0], w = weight, aux = nominal. Polyline:
-// dim[0..1] = x, y index, w = weight, seg0/nseg its segments, ends = first
-// and last point. Proximity: dim[0..3] = x1, y1, x2, y2, w = threshold,
-// aux = sign s (+1 keep within, -1 keep out), lam = its row of lamS.
+// (padded) control. Quadratic: dim[0], w = weight, aux = nominal. Polyline: dim[0..1] = x, y index, w = weight, seg0/nseg its
+// segments, ends = first and last point; the semiquadratic one also aux =
+// threshold, aux2 = signed sq threshold, right = oriented right, fix0 = the
+// float offset of its shortcut rows. Proximity constraint: dim[0..3] = x1,
+// y1, x2, y2, w = threshold, aux = sign s (+1 keep within, -1 keep out),
+// lam = its row of lamS. Proximity cost: dim[0..3], w = weight, aux =
+// threshold, aux2 = threshold^2. gated: a final-time gate at tgate.
 struct CostAtom {
   int kind;
   int player;
@@ -74,6 +101,11 @@ struct CostAtom {
   float w;
   float aux;
   float ends[4];
+  int fix0;
+  int right;
+  int gated;
+  float tgate;
+  float aux2;
 };
 
 struct CostTable {
@@ -178,6 +210,170 @@ __device__ __forceinline__ void polyline_scalars(const CostAtom& a,
   out[2] = (c.vertex ? w : h0) * gate;
   out[3] = (c.vertex ? w : h1) * gate;
   out[4] = (c.vertex ? 0.0f : h2) * gate;
+}
+
+// geometry.sign: -1, +1, or x itself at +-0 and NaN.
+__device__ __forceinline__ float sign_of(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
+}
+
+// One candidate of the signed query: segment si of S (row s, shortcut row
+// f), with the interior-vertex side fix.
+__device__ __forceinline__ void segment_signed(const float* s, const float* f,
+                                               int si, int S, float qx,
+                                               float qy, float& cpx,
+                                               float& cpy, float& ssd,
+                                               bool& vertex) {
+  const float rx = qx - s[0], ry = qy - s[1];
+  const float dot = rx * s[4] + ry * s[5];
+  const float cross = rx * s[5] - ry * s[4];
+  const float sq_p1 = rx * rx + ry * ry;
+  const float r2x = qx - s[2], r2y = qy - s[3];
+  const float sq_p2 = r2x * r2x + r2y * r2y;
+  const bool behind = dot < 0.0f;
+  const bool ahead = dot > s[6];
+  cpx = behind ? s[0] : (ahead ? s[2] : s[0] + dot * s[4]);
+  cpy = behind ? s[1] : (ahead ? s[3] : s[1] + dot * s[5]);
+  const float raw = behind ? sq_p1 : (ahead ? sq_p2 : cross * cross);
+  float v = sign_of(cross) * ((cross == 0.0f) ? 0.0f : raw);
+  const bool at_first = !ahead;
+  const float* sc = at_first ? f : f + 4;
+  const bool on_right = ((qx - sc[0]) * sc[3] - sc[2] * (qy - sc[1])) > 0.0f;
+  bool fix = behind || ahead;
+  if (si == 0) fix = fix && !at_first;
+  if (si == S - 1) fix = fix && at_first;
+  if (fix) v = on_right ? fabsf(v) : -fabsf(v);
+  ssd = v;
+  vertex = behind || ahead;
+}
+
+// geometry.polyline_closest_point_xy(need_sign=True): as `closest`, the
+// winner by |signed sq distance|; returns the winner's signed sq distance.
+__device__ __forceinline__ Closest closest_signed(const CostAtom& a,
+                                                  const float* segs,
+                                                  float qx, float qy,
+                                                  float& ssd) {
+  const float* s0 = segs + 7 * a.seg0;
+  const float* f0 = segs + a.fix0;
+  float cpx, cpy, v;
+  bool vertex;
+  float m = 0.0f;
+  for (int s = 0; s < a.nseg; ++s) {
+    segment_signed(s0 + 7 * s, f0 + 8 * s, s, a.nseg, qx, qy, cpx, cpy, v,
+                   vertex);
+    m = (s == 0) ? fabsf(v) : nan_min(m, fabsf(v));
+  }
+  int win = 0;
+  for (int s = 0; s < a.nseg; ++s) {
+    segment_signed(s0 + 7 * s, f0 + 8 * s, s, a.nseg, qx, qy, cpx, cpy, v,
+                   vertex);
+    if (fabsf(v) <= m) { win = s; break; }
+  }
+  const float* w = s0 + 7 * win;
+  Closest c;
+  segment_signed(w, f0 + 8 * win, win, a.nseg, qx, qy, c.cpx, c.cpy, ssd,
+                 c.vertex);
+  c.p1x = w[0];
+  c.p1y = w[1];
+  c.ux = w[4];
+  c.uy = w[5];
+  const float fx = c.cpx - a.ends[0], fy = c.cpy - a.ends[1];
+  const float lx = c.cpx - a.ends[2], ly = c.cpy - a.ends[3];
+  c.endpoint = (fx * fx + fy * fy < SMALL_NUMBER) ||
+               (lx * lx + ly * ly < SMALL_NUMBER);
+  return c;
+}
+
+// atoms.semiquadratic_polyline2's _scalars: (dx, dy, ddx, ddy, dxdy).
+template <typename V>
+__device__ __forceinline__ void semi_scalars(const CostAtom& a,
+                                             const float* segs, const V& v,
+                                             float out[5]) {
+  const float qx = v[a.dim[0]], qy = v[a.dim[1]];
+  float ssd;
+  const Closest c = closest_signed(a, segs, qx, qy, ssd);
+  const bool active = a.right ? ssd > a.aux2 : ssd < a.aux2;
+  const float gate = (active && !c.endpoint) ? 1.0f : 0.0f;
+  const float w = a.w, thr = a.aux;
+  const float dist = fmath::sqrt(clamp_min(fabsf(ssd), EPS));
+  const float scaling = (dist - fabsf(thr)) / dist;
+  const float dxv = w * scaling * (qx - c.cpx);
+  const float dyv = w * scaling * (qy - c.cpy);
+  const float h0 = c.vertex ? w : w * c.uy * c.uy;
+  const float h1 = c.vertex ? w : w * c.ux * c.ux;
+  const float h2 = c.vertex ? 0.0f : -w * c.ux * c.uy;
+  const float w_cross =
+      w * ((qx - c.p1x) * c.uy - (qy - c.p1y) * c.ux - thr);
+  const float dxi = w_cross * c.uy;
+  const float dyi = -w_cross * c.ux;
+  out[0] = (c.vertex ? dxv : dxi) * gate;
+  out[1] = (c.vertex ? dyv : dyi) * gate;
+  out[2] = h0 * gate;
+  out[3] = h1 * gate;
+  out[4] = h2 * gate;
+}
+
+struct ProxCost {
+  float dx, dy, dsq, dist, gap;
+};
+
+template <typename V>
+__device__ __forceinline__ ProxCost prox_cost_geom(const CostAtom& a,
+                                                   const V& v) {
+  ProxCost p;
+  p.dx = v[a.dim[0]] - v[a.dim[2]];
+  p.dy = v[a.dim[1]] - v[a.dim[3]];
+  p.dsq = p.dx * p.dx + p.dy * p.dy;
+  p.dist = fmath::sqrt(clamp_min(p.dsq, EPS));
+  p.gap = a.aux - p.dist;
+  return p;
+}
+
+// atoms.proximity's grad_pairs: (px, py) of
+// [(x1, px), (y1, py), (x2, -px), (y2, -py)].
+template <typename V>
+__device__ __forceinline__ void prox_cost_grad(const CostAtom& a, const V& v,
+                                               float& px, float& py) {
+  const ProxCost p = prox_cost_geom(a, v);
+  const bool live = (p.dsq >= EPS) && (p.dsq < a.aux2);
+  const float ct = live ? -a.w * p.gap / p.dist : 0.0f;
+  px = ct * p.dx;
+  py = ct * p.dy;
+}
+
+// atoms.proximity's quad_pairs: the gradient (gx, gy) of
+// [(x1, gx), (y1, gy), (x2, -gx), (y2, -gy)] and h[2][2] of the 4 x 4
+// Hessian over (x1, y1, x2, y2), h on the diagonal blocks, -h off them.
+template <typename V>
+__device__ __forceinline__ void prox_cost_quad(const CostAtom& a, const V& v,
+                                               float& gx, float& gy,
+                                               float h[2][2]) {
+  const ProxCost p = prox_cost_geom(a, v);
+  const float inside = (p.dsq < a.aux2) ? 1.0f : 0.0f;
+  const float clamp = (p.dsq > EPS) ? 1.0f : ((p.dsq == EPS) ? 0.5f : 0.0f);
+  const float cg = (0.5f * a.w) * p.gap;
+  const float g = -(cg + cg) / (p.dist + p.dist) * clamp * inside;
+  gx = g * p.dx + g * p.dx;
+  gy = g * p.dy + g * p.dy;
+  const float k = a.w * clamp * inside / p.dist;
+  const float nx = p.dx / p.dist, ny = p.dy / p.dist;
+  h[0][0] = k * (a.aux * nx * nx - p.gap);
+  h[1][1] = k * (a.aux * ny * ny - p.gap);
+  h[0][1] = k * (a.aux * nx * ny);
+  h[1][0] = h[0][1];
+}
+
+// An atom's final-time gate at time t: 1.0 or 0.0; ungated atoms are not
+// multiplied at all (gv).
+struct Gate {
+  bool on;
+  float g;
+  __device__ __forceinline__ float operator()(float v) const {
+    return on ? v * g : v;
+  }
+};
+__device__ __forceinline__ Gate gate_of(const CostAtom& a, float t) {
+  return Gate{a.gated != 0, (t >= a.tgate) ? 1.0f : 0.0f};
 }
 
 // base.mu_eff_ineq.
@@ -324,41 +520,50 @@ struct Selected {
   }
 };
 
-// player_cost.stage_gradient_sq_tuple for one player i at one knot:
-// (state_sq, ctrl_sq) from the state v [X] and player i's controls ui [U],
-// accumulated in gs (keys 0 .. X-1) and gu (keys 0 .. U-1). lam(row) gives
-// the multiplier of lamS row `row`.
-template <typename V, typename SAcc, typename C, typename CAcc, typename Lam>
+// player_cost.stage_gradient_sq_tuple for one player i at one knot of time
+// t: (state_sq, ctrl_sq) from the state v [X] and player i's controls ui
+// [U], accumulated in gs (keys 0 .. X-1) and gu (keys 0 .. U-1). lam(row)
+// gives the multiplier of lamS row `row`.
+template <int X, int U, typename V, typename SAcc, typename C, typename CAcc,
+          typename Lam>
 __device__ __forceinline__ void gradient_sq_into(
     const CostTable& tab, const float* segs, int i, const V& v, SAcc& gs,
-    const C& ui, CAcc& gu, Lam lam, float mu, float& state_sq,
+    const C& ui, CAcc& gu, Lam lam, float mu, float t, float& state_sq,
     float& ctrl_sq) {
   gs.reset();
   for (int n = 0; n < tab.n; ++n) {
     const CostAtom& a = tab.atom[n];
     if (a.player != i || a.on >= 0) continue;
+    const Gate gv = gate_of(a, t);
     if (a.kind == KIND_QUADRATIC) {
-      gs.add(a.dim[0], a.w * (v[a.dim[0]] - a.aux));
-    } else if (a.kind == KIND_POLYLINE) {
+      gs.add(a.dim[0], gv(a.w * (v[a.dim[0]] - a.aux)));
+    } else if (a.kind == KIND_POLYLINE || a.kind == KIND_SEMI_POLYLINE) {
       float sc[5];
-      polyline_scalars(a, segs, v, sc);
-      gs.add(a.dim[0], sc[0]);
-      gs.add(a.dim[1], sc[1]);
-    } else if (a.kind == KIND_PROXIMITY) {
+      if (a.kind == KIND_POLYLINE)
+        polyline_scalars(a, segs, v, sc);
+      else
+        semi_scalars(a, segs, v, sc);
+      gs.add(a.dim[0], gv(sc[0]));
+      gs.add(a.dim[1], gv(sc[1]));
+    } else if (a.kind == KIND_PROXIMITY || a.kind == KIND_PROXIMITY_COST) {
       float px, py;
-      prox_grad(a, v, lam(a.lam), mu, px, py);
-      gs.add(a.dim[0], px);
-      gs.add(a.dim[1], py);
-      gs.add(a.dim[2], -px);
-      gs.add(a.dim[3], -py);
+      if (a.kind == KIND_PROXIMITY)
+        prox_grad(a, v, lam(a.lam), mu, px, py);
+      else
+        prox_cost_grad(a, v, px, py);
+      gs.add(a.dim[0], gv(px));
+      gs.add(a.dim[1], gv(py));
+      gs.add(a.dim[2], gv(-px));
+      gs.add(a.dim[3], gv(-py));
     }
   }
   state_sq = gs.sq();
   gu.reset();
   for (int n = 0; n < tab.n; ++n) {
     const CostAtom& a = tab.atom[n];
-    if (a.player != i || a.on != i) continue;
-    if (a.kind == KIND_QUADRATIC) gu.add(a.dim[0], a.w * (ui[a.dim[0]] - a.aux));
+    if (a.player != i || a.on != i || a.kind != KIND_QUADRATIC) continue;
+    const Gate gv = gate_of(a, t);
+    gu.add(a.dim[0], gv(a.w * (ui[a.dim[0]] - a.aux)));
   }
   ctrl_sq = gu.sq();
 }
@@ -368,18 +573,26 @@ __device__ __forceinline__ void gradient_sq_into(
 template <int X, int U, typename Lam>
 __device__ void gradient_sq(const CostTable& tab, const float* segs, int i,
                             const float* v, const float* u, Lam lam, float mu,
-                            float& state_sq, float& ctrl_sq) {
+                            float t, float& state_sq, float& ctrl_sq) {
   GradAcc<X> gs;
   GradAcc<U> gu;
   const float* ui = u + i * U;
-  gradient_sq_into(tab, segs, i, v, gs, ui, gu, lam, mu, state_sq, ctrl_sq);
+  gradient_sq_into<X, U>(tab, segs, i, v, gs, ui, gu, lam, mu, t, state_sq,
+                         ctrl_sq);
 }
 
 // The models' analytic Jacobian entries at state x, in
 // dynamics/models.py's order: add(false, row, col, v) for df/dx and
-// add(true, row, flat control col, v) for df/du.
-template <typename Add>
-__device__ void jacobian(const SubsysTable& tab, const float* x, Add add) {
+// add(true, row, flat control col, v) for df/du. A linear system's entries
+// are already those of A and Bf: set(is_u, row, col, v) stores them.
+template <typename Add, typename Set>
+__device__ void jacobian(const SubsysTable& tab, const float* x, Add add,
+                         Set set) {
+  if (tab.n == 1 && tab.kind[0] == KIND_LINEAR) {
+    for (int e = 0; e < tab.nlin; ++e)
+      set(tab.lin_u[e] != 0, tab.lin_row[e], tab.lin_col[e], tab.lin_val[e]);
+    return;
+  }
   for (int s = 0; s < tab.n; ++s) {
     const int o = tab.xoff[s];
     const int q = tab.uoff[s];

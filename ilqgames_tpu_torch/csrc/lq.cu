@@ -26,9 +26,13 @@
 // every other phase is one warp's work on its own lane, separated by
 // __syncwarp(). Each output element of a phase is one left fold in the
 // plain version's order. The two largest phases, T_i = Z_i F and the value
-// update, run in register tiles (a thread holds four adjacent columns of
-// six rows, read as float4), so that a shared-memory load feeds several
-// folds; the others give each thread whole entries. The LU pivot search is
+// update, run in register tiles (a thread holds CW adjacent columns, four
+// where x is a multiple of four and two where it is even, of MR rows of
+// every player, read as one vector), so that a shared-memory load feeds
+// several folds; the others give each thread whole entries. Where x does
+// not fill a warp's tiles evenly (x = 2, 12), the threads past the tiles
+// and the rows past x compute on row x - 1 and store nothing: no fold adds
+// a padded term. The LU pivot search is
 // a warp reduction (NaN-propagating max, then the first row attaining it
 // by ballot). The eliminations touch only the columns right of the pivot:
 // the entries left of it are never read again. R_i P_j is formed once per
@@ -95,7 +99,7 @@ constexpr int G = LQ_G;         // lanes of a K2 block, one warp each
 constexpr int NTB = 32 * G;     // threads of a K2 block
 constexpr int PPU = P * P * U;  // rows of Rf and rf at one knot
 
-// A lane's floats in shared memory. The arrays read as float4 rows (Z, T,
+// A lane's floats in shared memory. The arrays read as tile vectors (Z, T,
 // F, RP, and Qf of the staged operands) start at multiples of four floats:
 // the carry and the knot's temporaries first, then the staged operands,
 // twice over: the knot's own and the next knot's, in flight. A lane's
@@ -126,30 +130,75 @@ constexpr int LANE_USED = OFF_S + 2 * STAGED;
 constexpr int LANE = LANE_USED + ((4 - LANE_USED) % 32 + 32) % 32;
 constexpr int SMEM_BYTES = G * LANE * (int)sizeof(float);
 
-// The value update's tiles: a thread holds four adjacent columns of
-// MR rows of every player, rows rg, rg + RG, ... of each.
-constexpr int CG = X / 4;   // column groups of four
-constexpr int RG = 32 / CG;  // row groups
-constexpr int MR = X / RG;   // rows of one player per thread
-static_assert(X % 4 == 0 && 32 % CG == 0 && X % RG == 0,
-              "K2's value-update tiles need x a multiple of 4 whose "
-              "quarter divides 32 and is divided by 32 / (x / 4)");
+// The value update's tiles: a thread holds CW adjacent columns of MR rows
+// of every player, rows rg, rg + RG, ... of each. FULL: the tiles cover
+// the warp's 32 threads and x's rows exactly (x = 16, 32), so no thread
+// checks its rows.
+constexpr int CW = X % 4 == 0 ? 4 : (X % 2 == 0 ? 2 : 1);  // tile columns
+constexpr int CG = X / CW;                 // column groups
+constexpr int RG = 32 / CG;                // row groups
+constexpr int MR = (X + RG - 1) / RG;      // rows of one player per thread
+constexpr bool FULL = CG * RG == 32 && X % RG == 0;
+static_assert(CG <= 32, "K2's value-update tiles need x / CW <= 32");
 static_assert(SMEM_BYTES == LQ_SMEM,
               "ops/cuda/lq.py:backward_smem_bytes disagrees with the layout");
 static_assert(SMEM_BYTES <= MAX_SMEM, "a block may use 227 KB of shared memory");
 static_assert(X + 1 <= 32 && W <= 32 && PU <= 32,
               "a warp needs a thread per column and per pivot row");
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// A tile row of CW floats, loaded and stored as one vector.
+template <int W>
+struct VecOf;
+template <>
+struct VecOf<4> { using T = float4; };
+template <>
+struct VecOf<2> { using T = float2; };
+template <>
+struct VecOf<1> { using T = float; };
+using Vec = typename VecOf<CW>::T;
+
+__device__ __forceinline__ Vec ldv(const float* p) {
+  return *reinterpret_cast<const Vec*>(p);
 }
-__device__ __forceinline__ void st4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
+__device__ __forceinline__ void stv(float* p, Vec v) {
+  *reinterpret_cast<Vec*>(p) = v;
 }
+__device__ __forceinline__ float4 splat(float4, float s) {
+  return make_float4(s, s, s, s);
+}
+__device__ __forceinline__ float2 splat(float2, float s) {
+  return make_float2(s, s);
+}
+__device__ __forceinline__ float splat(float, float s) { return s; }
+// Component d of a tile row.
+__device__ __forceinline__ float comp(float4 v, int d) {
+  return d == 0 ? v.x : d == 1 ? v.y : d == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ float comp(float2 v, int d) {
+  return d == 0 ? v.x : v.y;
+}
+__device__ __forceinline__ float comp(float v, int) { return v; }
 // a + s * v, lane by lane, as separate multiplies and adds.
-__device__ __forceinline__ float4 madd4(float4 a, float s, float4 v) {
+__device__ __forceinline__ float4 madd(float4 a, float s, float4 v) {
   return make_float4(a.x + s * v.x, a.y + s * v.y, a.z + s * v.z,
                      a.w + s * v.w);
+}
+__device__ __forceinline__ float2 madd(float2 a, float s, float2 v) {
+  return make_float2(a.x + s * v.x, a.y + s * v.y);
+}
+__device__ __forceinline__ float madd(float a, float s, float v) {
+  return a + s * v;
+}
+// (a + q) + p, lane by lane.
+__device__ __forceinline__ float4 add2(float4 a, float4 q, float4 p) {
+  return make_float4((a.x + q.x) + p.x, (a.y + q.y) + p.y, (a.z + q.z) + p.z,
+                     (a.w + q.w) + p.w);
+}
+__device__ __forceinline__ float2 add2(float2 a, float2 q, float2 p) {
+  return make_float2((a.x + q.x) + p.x, (a.y + q.y) + p.y);
+}
+__device__ __forceinline__ float add2(float a, float q, float p) {
+  return (a + q) + p;
 }
 
 // Stage n floats per lane of the batch-minor array src, from element base,
@@ -236,7 +285,17 @@ __global__ void __launch_bounds__(NTB) lq_backward_kernel(
   float* coef = L + OFF_COEF;
   float* RP = L + OFF_RP;
   constexpr int XA = X + 1;  // row length of Xs
-  const int c0 = 4 * (lt % CG), rg = lt / CG;  // the thread's tile
+  const int c0 = CW * (lt % CG), rg = lt / CG;  // the thread's tile
+  // Row m of the thread's tile, and whether it is one of x's rows that the
+  // thread owns (the others compute on row x - 1 and store nothing).
+  auto row = [&](int m) {
+    if constexpr (FULL) return rg + RG * m;
+    else return min(rg + RG * m, X - 1);
+  };
+  auto owns = [&](int m) {
+    if constexpr (FULL) return true;
+    else return rg < RG && rg + RG * m < X;
+  };
 
   // Terminal condition: the last knot's quadraticization.
   stage<false>(sm, OFF_Z, Qf, (long)(N - 1) * PX * X, PX * X, b0, B, tid);
@@ -390,26 +449,24 @@ __global__ void __launch_bounds__(NTB) lq_backward_kernel(
     // start from -0, the identity of IEEE addition (-0 + p == p for every
     // p), so the first step equals the plain version's bare product.
     {
-      float4 acc[P][MR];
+      Vec acc[P][MR];
 #pragma unroll
       for (int i = 0; i < P; ++i)
 #pragma unroll
-        for (int m = 0; m < MR; ++m)
-          acc[i][m] = make_float4(-0.0f, -0.0f, -0.0f, -0.0f);
+        for (int m = 0; m < MR; ++m) acc[i][m] = splat(Vec{}, -0.0f);
 #pragma unroll 1
-      for (int y0 = 0; y0 < X; y0 += 4) {
-        float4 fy[4];
+      for (int y0 = 0; y0 < X; y0 += CW) {
+        Vec fy[CW];
 #pragma unroll
-        for (int d = 0; d < 4; ++d) fy[d] = ld4(F + (y0 + d) * X + c0);
+        for (int d = 0; d < CW; ++d) fy[d] = ldv(F + (y0 + d) * X + c0);
 #pragma unroll
         for (int i = 0; i < P; ++i) {
 #pragma unroll
           for (int m = 0; m < MR; ++m) {
-            const float4 z = ld4(Z + (i * X + rg + RG * m) * X + y0);
-            const float zy[4] = {z.x, z.y, z.z, z.w};
+            const Vec z = ldv(Z + (i * X + row(m)) * X + y0);
 #pragma unroll
-            for (int d = 0; d < 4; ++d)
-              acc[i][m] = madd4(acc[i][m], zy[d], fy[d]);
+            for (int d = 0; d < CW; ++d)
+              acc[i][m] = madd(acc[i][m], comp(z, d), fy[d]);
           }
         }
       }
@@ -417,7 +474,7 @@ __global__ void __launch_bounds__(NTB) lq_backward_kernel(
       for (int i = 0; i < P; ++i)
 #pragma unroll
         for (int m = 0; m < MR; ++m)
-          st4(T + (i * X + rg + RG * m) * X + c0, acc[i][m]);
+          if (owns(m)) stv(T + (i * X + row(m)) * X + c0, acc[i][m]);
     }
     for (int e = lt; e < PX; e += 32) {
       const float* Zr = Z + e * X;
@@ -457,47 +514,44 @@ __global__ void __launch_bounds__(NTB) lq_backward_kernel(
     // Z in the same tiles: row (i, a) of F^T T_i + Q_i + P^T R_i P, the
     // F column entries and the P rows shared across players.
     {
-      float4 acc[P][MR], prp[P][MR];
+      Vec acc[P][MR], prp[P][MR];
 #pragma unroll
       for (int i = 0; i < P; ++i)
 #pragma unroll
         for (int m = 0; m < MR; ++m) {
-          acc[i][m] = make_float4(-0.0f, -0.0f, -0.0f, -0.0f);
-          prp[i][m] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          acc[i][m] = splat(Vec{}, -0.0f);
+          prp[i][m] = splat(Vec{}, 0.0f);
         }
 #pragma unroll 1
       for (int xx = 0; xx < X; ++xx) {
         float fa[MR];
 #pragma unroll
-        for (int m = 0; m < MR; ++m) fa[m] = F[xx * X + rg + RG * m];
+        for (int m = 0; m < MR; ++m) fa[m] = F[xx * X + row(m)];
 #pragma unroll
         for (int i = 0; i < P; ++i) {
-          const float4 t = ld4(T + (i * X + xx) * X + c0);
+          const Vec t = ldv(T + (i * X + xx) * X + c0);
 #pragma unroll
-          for (int m = 0; m < MR; ++m)
-            acc[i][m] = madd4(acc[i][m], fa[m], t);
+          for (int m = 0; m < MR; ++m) acc[i][m] = madd(acc[i][m], fa[m], t);
         }
       }
 #pragma unroll 1
       for (int ja = 0; ja < PU; ++ja) {
         float pa[MR];
 #pragma unroll
-        for (int m = 0; m < MR; ++m) pa[m] = Xs[ja * XA + rg + RG * m];
+        for (int m = 0; m < MR; ++m) pa[m] = Xs[ja * XA + row(m)];
 #pragma unroll
         for (int i = 0; i < P; ++i) {
-          const float4 rp = ld4(RP + (i * PU + ja) * X + c0);
+          const Vec rp = ldv(RP + (i * PU + ja) * X + c0);
 #pragma unroll
-          for (int m = 0; m < MR; ++m) prp[i][m] = madd4(prp[i][m], pa[m], rp);
+          for (int m = 0; m < MR; ++m) prp[i][m] = madd(prp[i][m], pa[m], rp);
         }
       }
 #pragma unroll
       for (int i = 0; i < P; ++i) {
 #pragma unroll
         for (int m = 0; m < MR; ++m) {
-          const int e = (i * X + rg + RG * m) * X + c0;
-          const float4 q = ld4(Qs + e), a = acc[i][m], p = prp[i][m];
-          st4(Z + e, make_float4((a.x + q.x) + p.x, (a.y + q.y) + p.y,
-                                 (a.z + q.z) + p.z, (a.w + q.w) + p.w));
+          const int e = (i * X + row(m)) * X + c0;
+          if (owns(m)) stv(Z + e, add2(acc[i][m], ldv(Qs + e), prp[i][m]));
         }
       }
     }

@@ -11,8 +11,9 @@
 // (costs.cuh: gradient_sq_into, player_cost.stage_gradient_sq_tuple) summed
 // over players left to right. The result is the raw merit [C, B] (callers
 // apply the 0.5). The fold is merit_plain's and K5's, operation by
-// operation, built without FMA contraction. The atoms ported are
-// time-invariant, so the knot times are not formed.
+// operation, built without FMA contraction. The atoms see each lane's
+// absolute knot time t0[b] + k dt, as in the JAX package's merit consumer
+// (ops/pallas/sweep.py:435).
 //
 // What bounds it on this card: the bytes are few (the trajectories once,
 // (X + PU) floats per knot and chain: ~9 MB at C=1, B=2048, ~3 us at 3.35
@@ -66,9 +67,10 @@ static_assert(WARP % LANES == 0, "a warp holds whole knots of the chains");
 
 __global__ void __launch_bounds__(MAX_WARPS * WARP)
     merit_kernel(const float* __restrict__ xs, const float* __restrict__ us,
+                 const float* __restrict__ t0,
                  const float* __restrict__ lamS, int nS,
                  const float* __restrict__ mu, const float* __restrict__ segs,
-                 float* __restrict__ merit_out, int N, int C, int B,
+                 float* __restrict__ merit_out, int N, int C, int B, float dt,
                  const __grid_constant__ CostTable cost) {
   extern __shared__ float smem[];
   const int nw = blockDim.x / WARP;
@@ -91,15 +93,16 @@ __global__ void __launch_bounds__(MAX_WARPS * WARP)
     for (int a = 0; a < PU; ++a) u[a] = us[((long)k * PU + a) * CB + idx];
     auto lam = [&](int row) { return lamS[((long)k * nS + row) * B + b]; };
     const float mu_b = mu[b];
+    const float t = t0[b] + (float)k * dt;
     costs::ColumnGradAcc<X> gs{grad};
     costs::SelectGradAcc<U> gu;
     float st = 0.0f, ct = 0.0f;
 #pragma unroll
     for (int i = 0; i < P; ++i) {
       float s_sq, r_sq;
-      costs::gradient_sq_into(cost, segs, i, costs::Column{state}, gs,
-                              costs::Selected<U>{u + i * U}, gu, lam, mu_b,
-                              s_sq, r_sq);
+      costs::gradient_sq_into<X, U>(cost, segs, i, costs::Column{state}, gs,
+                                    costs::Selected<U>{u + i * U}, gu, lam,
+                                    mu_b, t, s_sq, r_sq);
       st = (i == 0) ? s_sq : st + s_sq;
       ct = (i == 0) ? r_sq : ct + r_sq;
     }
@@ -124,14 +127,14 @@ __global__ void __launch_bounds__(MAX_WARPS * WARP)
 
 extern "C" {
 
-// xs [N,X,C,B], us [N,PU,C,B], lamS [N,nS,B] (null when nS = 0), mu [B],
-// segs [*, 7] -> raw merits merit_out [C,B]. The block's shared memory
-// grows with N (the opt-in is to the most a block may use); a launch that
-// does not fit returns its error.
-int merit_consumer(const float* xs, const float* us, const float* lamS,
-                   int nS, const float* mu, const float* segs,
-                   float* merit_out, int N, int C, int B, CostTable cost,
-                   void* stream) {
+// xs [N,X,C,B], us [N,PU,C,B], t0 [B], lamS [N,nS,B] (null when nS = 0),
+// mu [B], segs (cost_table.py) -> raw merits merit_out [C,B]. The block's
+// shared memory grows with N (the opt-in is to the most a block may use);
+// a launch that does not fit returns its error.
+int merit_consumer(const float* xs, const float* us, const float* t0,
+                   const float* lamS, int nS, const float* mu,
+                   const float* segs, float* merit_out, int N, int C, int B,
+                   float dt, CostTable cost, void* stream) {
   static unsigned opted = 0;
   const long total = (long)C * B;
   if (total == 0 || N == 0) return 0;
@@ -145,8 +148,8 @@ int merit_consumer(const float* xs, const float* us, const float* lamS,
   const size_t bytes = (2 * (size_t)nw * X * WARP + 2 * (size_t)N * LANES) *
                        sizeof(float);
   merit_kernel<<<(int)((total + LANES - 1) / LANES), nw * WARP, bytes,
-                 (cudaStream_t)stream>>>(xs, us, lamS, nS, mu, segs,
-                                         merit_out, N, C, B, cost);
+                 (cudaStream_t)stream>>>(xs, us, t0, lamS, nS, mu, segs,
+                                         merit_out, N, C, B, dt, cost);
   return (int)cudaGetLastError();
 }
 

@@ -201,7 +201,8 @@ __global__ void probe_rollout_kernel(
           };
           for (int i = 0; i < P; ++i) {
             float s, r;
-            costs::gradient_sq<X, U>(cost, segs, i, x, u, lam, mu_b, s, r);
+            costs::gradient_sq<X, U>(cost, segs, i, x, u, lam, mu_b,
+                                     t0[b] + (float)k * dt, s, r);
             if (GATE) s = s * gate[((long)k * P + i) * Bl + b];
             state = (i == 0) ? s : state + s;
             ctrl = (i == 0) ? r : ctrl + r;

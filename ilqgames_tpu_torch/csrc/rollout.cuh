@@ -13,9 +13,13 @@
 // K4's and K5's warp design (sweep.cu) integrates each subsystem in its own
 // warp: `sub_ode`, `sub_integrate` and `control_rows` below are `ode`,
 // `integrate` and `control_law` restricted to one subsystem's state rows
-// and its player's control rows. The joint field is block-diagonal and
-// every RK4 and control-row operation is elementwise or a per-row fold, so
-// the restriction computes the same operations in the same order.
+// and the control rows it reads (its player's, or every player's for a
+// linear system). The joint field is block-diagonal and every RK4 and
+// control-row operation is elementwise or a per-row fold, so the
+// restriction computes the same operations in the same order. A linear
+// system's field (dynamics/base.py:linear) is its compile-time terms, a
+// type Lin with static constexpr n, row[], src[] (a state index, or X plus a
+// control row) and coef[], folded per row in term order.
 
 #pragma once
 
@@ -27,6 +31,7 @@ namespace {
 namespace rollout {
 
 using costs::KIND_CAR_6D;
+using costs::KIND_LINEAR;
 using costs::KIND_UNICYCLE_4D;
 
 // The flagship's models are time-invariant: `t` is accepted for the
@@ -93,18 +98,58 @@ __device__ __forceinline__ void control_law(
   }
 }
 
-// State dimension of a model kind.
+// State dimension of a model kind (a linear system's is the whole state).
 template <int KIND>
 constexpr int kind_dim = KIND == KIND_CAR_6D ? 6 : 4;
 
-// `ode` for one subsystem of kind KIND: x [kind_dim] its state, u its
-// player's controls. Time-invariant, so it takes no t.
-template <int KIND>
+// The term list of a game with no linear system.
+struct NoLin {
+  static constexpr int n = 0;
+  static constexpr int row[1] = {0};
+  static constexpr int src[1] = {0};
+  static constexpr float coef[1] = {0.0f};
+};
+
+// Whether term e of Lin is the first of its row.
+template <typename Lin>
+__host__ __device__ constexpr bool first_in_row(int e) {
+  for (int j = 0; j < e; ++j)
+    if (Lin::row[j] == Lin::row[e]) return false;
+  return true;
+}
+
+// A linear system's rows, its terms unrolled at compile time: each row
+// folds its terms left to right, the first setting it; a coefficient of 1
+// takes the value bare.
+template <int X, typename Lin, int E = 0>
+__device__ __forceinline__ void linear_terms(const float* x, const float* u,
+                                             float* dx) {
+  if constexpr (E < Lin::n) {
+    constexpr int r = Lin::row[E], q = Lin::src[E];
+    constexpr float c = Lin::coef[E];
+    float v;
+    if constexpr (q < X) v = x[q]; else v = u[q - X];
+    float term;
+    if constexpr (c == 1.0f) term = v; else term = c * v;
+    if constexpr (first_in_row<Lin>(E)) dx[r] = term; else dx[r] = dx[r] + term;
+    linear_terms<X, Lin, E + 1>(x, u, dx);
+  }
+}
+
+// `ode` for one subsystem of kind KIND with D states: x [D] its state, u
+// the control rows it reads. Time-invariant, so it takes no t.
+template <int KIND, int D, int X, typename Lin>
 __device__ __forceinline__ void sub_ode(float length, const float* x,
                                         const float* u, float* dx) {
-  static_assert(KIND == KIND_CAR_6D || KIND == KIND_UNICYCLE_4D,
-                "no device ODE for this model kind");
-  if constexpr (KIND == KIND_CAR_6D) {
+  static_assert(
+      KIND == KIND_CAR_6D || KIND == KIND_UNICYCLE_4D || KIND == KIND_LINEAR,
+      "no device ODE for this model kind");
+  if constexpr (KIND == KIND_LINEAR) {
+    // A row without terms is 0; the others fold their terms.
+#pragma unroll
+    for (int r = 0; r < D; ++r) dx[r] = 0.0f;
+    linear_terms<X, Lin>(x, u, dx);
+  } else if constexpr (KIND == KIND_CAR_6D) {
     dx[0] = x[4] * fmath::cos(x[2]);
     dx[1] = x[4] * fmath::sin(x[2]);
     dx[2] = (x[4] / length) * fmath::tan(x[3]);
@@ -119,20 +164,19 @@ __device__ __forceinline__ void sub_ode(float length, const float* x,
   }
 }
 
-// `integrate` for one subsystem: RK4 with 2 substeps of h on its state.
-template <int KIND>
+// `integrate` for one subsystem: RK4 with 2 substeps of h on its D states.
+template <int KIND, int D = kind_dim<KIND>, int X = 0, typename Lin = NoLin>
 __device__ __forceinline__ void sub_integrate(float length, float h, float* x,
                                               const float* u) {
-  constexpr int D = kind_dim<KIND>;
   float k1[D], k2[D], k3[D], k4[D], tmp[D];
   for (int sub = 0; sub < 2; ++sub) {
-    sub_ode<KIND>(length, x, u, k1);
+    sub_ode<KIND, D, X, Lin>(length, x, u, k1);
     for (int r = 0; r < D; ++r) { k1[r] = h * k1[r]; tmp[r] = x[r] + 0.5f * k1[r]; }
-    sub_ode<KIND>(length, tmp, u, k2);
+    sub_ode<KIND, D, X, Lin>(length, tmp, u, k2);
     for (int r = 0; r < D; ++r) { k2[r] = h * k2[r]; tmp[r] = x[r] + 0.5f * k2[r]; }
-    sub_ode<KIND>(length, tmp, u, k3);
+    sub_ode<KIND, D, X, Lin>(length, tmp, u, k3);
     for (int r = 0; r < D; ++r) { k3[r] = h * k3[r]; tmp[r] = x[r] + k3[r]; }
-    sub_ode<KIND>(length, tmp, u, k4);
+    sub_ode<KIND, D, X, Lin>(length, tmp, u, k4);
     for (int r = 0; r < D; ++r) {
       k4[r] = h * k4[r];
       x[r] = x[r] + (k1[r] + 2.0f * (k2[r] + k3[r]) + k4[r]) / 6.0f;
@@ -140,8 +184,8 @@ __device__ __forceinline__ void sub_integrate(float length, float h, float* x,
   }
 }
 
-// `control_law` for the U control rows Q .. Q+U-1 of PU (one player's) at
-// knot k, from the whole state x [X]: u [U].
+// `control_law` for the U control rows Q .. Q+U-1 of PU (one player's, or
+// all of them) at knot k, from the whole state x [X]: u [U].
 template <int X, int PU, int Q, int U>
 __device__ __forceinline__ void control_rows(
     const float* __restrict__ xs, const float* __restrict__ us,

@@ -3,9 +3,10 @@
 // Replaces the Pallas kernel ilqgames_tpu/ops/pallas/stage.py:_make_kernel
 // (launched by _lin_quad_parts through lin_quad_pallas). For every knot k
 // and lane b it computes, from the operating point, the AL multipliers and
-// mu:
+// mu, at the lane's time t = t0[b] + k * dt (ops/pallas/stage.py:141):
 //   A = I + dt * Jx and Bf = dt * Ju from the models' analytic Jacobians
-//   (dynamics/base.py:linearize), and
+//   (dynamics/base.py:linearize), or a linear system's constant entries,
+//   and
 //   each player's Q, l, R and r from the sparse pairs of its atoms: state
 //   costs, state constraints with their AL terms, the state
 //   regularization diagonal; per control player, control costs and the
@@ -68,8 +69,17 @@ __device__ __forceinline__ void put(float* out, long B, Seen<E>& seen, int e,
   *p = seen.test_set(e) ? *p + v : v;
 }
 
+// out[e * B] = v: an entry whose value is already final.
+template <int E>
+__device__ __forceinline__ void set(float* out, long B, Seen<E>& seen, int e,
+                                    float v) {
+  out[e * B] = v;
+  seen.test_set(e);
+}
+
 __global__ void stage_kernel(const float* __restrict__ xs,
                              const float* __restrict__ us,
+                             const float* __restrict__ t0,
                              const float* __restrict__ lamS, int nS,
                              const float* __restrict__ mu,
                              const float* __restrict__ segs, float* A,
@@ -87,6 +97,7 @@ __global__ void stage_kernel(const float* __restrict__ xs,
   for (int r = 0; r < X; ++r) x[r] = xs[(k * X + r) * Bl + b];
   for (int a = 0; a < PU; ++a) u[a] = us[(k * PU + a) * Bl + b];
   const float mu_b = mu[b];
+  const float t = t0[b] + (float)k * dt;
   auto lam = [&](int row) { return lamS[(k * nS + row) * Bl + b]; };
 
   float* Ak = A + k * X * X * Bl + b;
@@ -109,12 +120,20 @@ __global__ void stage_kernel(const float* __restrict__ xs,
     sa.reset();
     sb.reset();
     for (int d = 0; d < X; ++d) sa.test_set(d * (X + 1));
-    costs::jacobian(dyn, x, [&](bool is_u, int r, int c, float v) {
-      if (is_u)
-        put(Bk, Bl, sb, r * PU + c, dt * v);
-      else
-        put(Ak, Bl, sa, r * X + c, dt * v);
-    });
+    costs::jacobian(
+        dyn, x,
+        [&](bool is_u, int r, int c, float v) {
+          if (is_u)
+            put(Bk, Bl, sb, r * PU + c, dt * v);
+          else
+            put(Ak, Bl, sa, r * X + c, dt * v);
+        },
+        [&](bool is_u, int r, int c, float v) {
+          if (is_u)
+            set(Bk, Bl, sb, r * PU + c, v);
+          else
+            set(Ak, Bl, sa, r * X + c, v);
+        });
   }
 
   // ---- quadraticize ----
@@ -130,20 +149,41 @@ __global__ void stage_kernel(const float* __restrict__ xs,
     for (int n = 0; n < tab.n; ++n) {
       const CostAtom& a = tab.atom[n];
       if (a.player != i || a.on >= 0) continue;
+      const costs::Gate gv = costs::gate_of(a, t);
       if (a.kind == costs::KIND_QUADRATIC) {
         const int d = a.dim[0];
-        hq(d, d, a.w);
-        gq(d, a.w * (x[d] - a.aux));
-      } else if (a.kind == costs::KIND_POLYLINE) {
+        hq(d, d, gv(a.w));
+        gq(d, gv(a.w * (x[d] - a.aux)));
+      } else if (a.kind == costs::KIND_POLYLINE ||
+                 a.kind == costs::KIND_SEMI_POLYLINE) {
         float sc[5];
-        costs::polyline_scalars(a, segs, x, sc);
+        if (a.kind == costs::KIND_POLYLINE)
+          costs::polyline_scalars(a, segs, x, sc);
+        else
+          costs::semi_scalars(a, segs, x, sc);
         const int xi = a.dim[0], yi = a.dim[1];
-        hq(xi, xi, sc[2]);
-        hq(yi, yi, sc[3]);
-        hq(xi, yi, sc[4]);
-        hq(yi, xi, sc[4]);
-        gq(xi, sc[0]);
-        gq(yi, sc[1]);
+        hq(xi, xi, gv(sc[2]));
+        hq(yi, yi, gv(sc[3]));
+        hq(xi, yi, gv(sc[4]));
+        hq(yi, xi, gv(sc[4]));
+        gq(xi, gv(sc[0]));
+        gq(yi, gv(sc[1]));
+      } else if (a.kind == costs::KIND_PROXIMITY_COST) {
+        float gx, gy, h[2][2];
+        costs::prox_cost_quad(a, x, gx, gy, h);
+        // Rows and columns over (x1, y1, x2, y2): h on the blocks of one
+        // point, -h across.
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float v = h[r % 2][c % 2];
+            hq(a.dim[r], a.dim[c], gv((r < 2) == (c < 2) ? v : -v));
+          }
+        gq(a.dim[0], gv(gx));
+        gq(a.dim[1], gv(gy));
+        gq(a.dim[2], gv(-gx));
+        gq(a.dim[3], gv(-gy));
       } else if (a.kind == costs::KIND_PROXIMITY) {
         float px, py, hxx, hyy, hxy;
         costs::prox_quad(a, x, lam(a.lam), mu_b, px, py, hxx, hyy, hxy);
@@ -185,9 +225,10 @@ __global__ void stage_kernel(const float* __restrict__ xs,
         const CostAtom& a = tab.atom[n];
         if (a.player != i || a.on != j || a.kind != costs::KIND_QUADRATIC)
           continue;
+        const costs::Gate gv = costs::gate_of(a, t);
         const int d = a.dim[0];
-        put(Rij, Bl, sR, d * U + d, a.w);
-        put(rij, Bl, sr, d, a.w * (u[j * U + d] - a.aux));
+        put(Rij, Bl, sR, d * U + d, gv(a.w));
+        put(rij, Bl, sr, d, gv(a.w * (u[j * U + d] - a.aux)));
       }
       if (tab.ctrl_reg[i] != 0.0f)
         for (int c = 0; c < U; ++c)
@@ -203,17 +244,18 @@ constexpr int BLOCK = 128;
 
 extern "C" {
 
-// xs [N,X,B], us [N,PU,B], lamS [N,nS,B] (null when nS = 0), mu [B],
-// segs [*, 7] -> A, Bf, Qf, lf, Rf, rf (see the header).
-int stage_lin_quad(const float* xs, const float* us, const float* lamS,
-                   int nS, const float* mu, const float* segs, float* A,
-                   float* Bf, float* Qf, float* lf, float* Rf, float* rf,
-                   int N, int B, float dt, SubsysTable dyn, CostTable tab,
-                   void* stream) {
+// xs [N,X,B], us [N,PU,B], t0 [B], lamS [N,nS,B] (null when nS = 0),
+// mu [B], segs (cost_table.py) -> A, Bf, Qf, lf, Rf, rf (see the header).
+int stage_lin_quad(const float* xs, const float* us, const float* t0,
+                   const float* lamS, int nS, const float* mu,
+                   const float* segs, float* A, float* Bf, float* Qf,
+                   float* lf, float* Rf, float* rf, int N, int B, float dt,
+                   SubsysTable dyn, CostTable tab, void* stream) {
   const long total = (long)N * B;
   const int grid = (int)((total + BLOCK - 1) / BLOCK);
   stage_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      xs, us, lamS, nS, mu, segs, A, Bf, Qf, lf, Rf, rf, N, B, dt, dyn, tab);
+      xs, us, t0, lamS, nS, mu, segs, A, Bf, Qf, lf, Rf, rf, N, B, dt, dyn,
+      tab);
   return (int)cudaGetLastError();
 }
 

@@ -19,12 +19,14 @@
 // merits [C, B]. Its fold is K6's and merit_plain's.
 //
 // Dynamics: car_6d and unicycle_4d (ilqgames_tpu/dynamics/models.py:80-175)
-// through the device functions of rollout.cuh, chosen per subsystem. The
-// library is built for one game's layout of subsystems (kind, state offset,
-// control offset, inter-axle length each), given as defines by
+// and the constant-linear system of the two-player point mass
+// (ilqgames_tpu/examples/two_player_point_mass.py:31-35) through the device
+// functions of rollout.cuh, chosen per subsystem. The library is built for
+// one game's layout of subsystems (kind, state offset, control offset,
+// inter-axle length each, and a linear system's terms), given as defines by
 // ops/cuda/sweep.py:library: K4 and K5 read it as compile-time constants
-// (Sub<S> below). The run-time SubsysTable they are handed is only checked
-// against it.
+// (Sub<S> and LinTerms below). The run-time SubsysTable they are handed is
+// only checked against it.
 // sin, cos and tan are the port's own float32 routines (fmath.cuh), which
 // round exactly as ilqgames_tpu_torch/fmath.py does in PyTorch on the CPU
 // and on the card: CUDA's sinf and the CPU's sin differ in the last bit,
@@ -48,14 +50,15 @@
 // calls of each joint ODE evaluation) plus the barrier.
 //
 // K5 (rollout_merit_warp_kernel) is K4's design, with the merit split over
-// the same warps. Player i's terms need the whole state x_k and only
-// player i's controls u_k, which warp s computes when s is player i's
-// subsystem (the library refuses a game where a player's controls are not
-// one subsystem's rows). So within knot k each warp, after its control
-// rows, computes its player's (state_sq, ctrl_sq) and writes them to a
-// double-buffered [2][P][2][32] shared array; after the knot's barrier warp
-// 0 folds the players' terms left to right and adds them to the merit it
-// keeps in a register. x_k is read from the shared state, which knot k + 1
+// the same warps. Player i's terms need the whole state x_k, player i's
+// controls u_k and the knot's time t0[b] + k dt, and warp s computes the
+// controls of the players whose rows its subsystem reads (one player for a
+// model, every player for a linear system; the library refuses a game
+// where a player's rows are not within exactly one subsystem's). So within
+// knot k each warp, after its control rows, computes its players'
+// (state_sq, ctrl_sq) and writes them to a double-buffered [2][P][2][32]
+// shared array; after the knot's barrier warp 0 folds the players' terms
+// left to right and adds them to the merit it keeps in a register. x_k is read from the shared state, which knot k + 1
 // overwrites, so each knot's terms are computed within it. The CostTable's
 // indices are run-time values: the state is read from shared memory and
 // the state gradient accumulated in a per-warp [X][32] shared array, so
@@ -95,14 +98,37 @@ static_assert(NSUB >= 1 && NSUB <= costs::MAX_SUBSYS &&
                   sizeof(SUB_LENGTH) == NSUB * sizeof(float),
               "one SW_ITEM per subsystem in each layout define");
 
-// Subsystem S's entries, as compile-time constants.
+// A linear system's terms (SW_NLIN, SW_LIN_ROW, SW_LIN_SRC, SW_LIN_COEF:
+// one SW_ITEM per term), or none.
+#ifdef SW_NLIN
+#define SW_ITEM(v) v,
+struct LinTerms {
+  static constexpr int n = SW_NLIN;
+  static constexpr int row[] = {SW_LIN_ROW};
+  static constexpr int src[] = {SW_LIN_SRC};
+  static constexpr float coef[] = {SW_LIN_COEF};
+};
+#undef SW_ITEM
+static_assert(sizeof(LinTerms::row) == SW_NLIN * sizeof(int) &&
+                  sizeof(LinTerms::src) == SW_NLIN * sizeof(int) &&
+                  sizeof(LinTerms::coef) == SW_NLIN * sizeof(float),
+              "one SW_ITEM per term in each linear define");
+#else
+using LinTerms = rollout::NoLin;
+#endif
+
+// Subsystem S's entries, as compile-time constants: its state rows, and
+// the control rows it computes and reads (its player's; every player's for
+// a linear system).
 template <int S>
 struct Sub {
   static constexpr int kind = SUB_KIND[S];
   static constexpr int xoff = SUB_XOFF[S];
   static constexpr int uoff = SUB_UOFF[S];
   static constexpr float length = SUB_LENGTH[S];
-  static constexpr int dim = rollout::kind_dim<kind>;
+  static constexpr bool linear = kind == costs::KIND_LINEAR;
+  static constexpr int dim = linear ? X : rollout::kind_dim<kind>;
+  static constexpr int urows = linear ? PU : U;
 };
 
 // f(Sub<s>{}) for a subsystem index s known at run time: a chain of
@@ -147,37 +173,38 @@ __global__ void __launch_bounds__(WARP * NSUB) rollout_warp_kernel(
     for (int r = 0; r < X; ++r) x[r] = state[cur][r][lane];
     on_sub(w, [&](auto q) {
       using S = decltype(q);
-      constexpr int O = S::xoff, Q = S::uoff, D = S::dim;
-      float u[U];
-      rollout::control_rows<X, PU, Q, U>(xs, us, Ps, al, k, b, Bl, sc,
-                                         umask_bits, x, u);
+      constexpr int O = S::xoff, Q = S::uoff, D = S::dim, UR = S::urows;
+      float u[UR];
+      rollout::control_rows<X, PU, Q, UR>(xs, us, Ps, al, k, b, Bl, sc,
+                                          umask_bits, x, u);
       if (live) {
         for (int j = 0; j < D; ++j)
           xs_out[(((long)k * X + O + j) * Cl + c) * Bl + b] = x[O + j];
         if (us_out)
-          for (int a = 0; a < U; ++a)
+          for (int a = 0; a < UR; ++a)
             us_out[(((long)k * PU + Q + a) * Cl + c) * Bl + b] = u[a];
       }
       float xo[D];
       for (int j = 0; j < D; ++j) xo[j] = x[O + j];
-      rollout::sub_integrate<S::kind>(S::length, h, xo, u);
+      rollout::sub_integrate<S::kind, D, X, LinTerms>(S::length, h, xo, u);
       for (int j = 0; j < D; ++j) state[cur ^ 1][O + j][lane] = xo[j];
     });
     __syncthreads();
   }
 }
 
-// K5: K4's warps, each also computing the merit terms of the player whose
-// controls it owns, from the knot's state in shared memory. Warp 0 folds
-// the players' terms of a knot after the knot's barrier.
+// K5: K4's warps, each also computing the merit terms of the players whose
+// controls it computes, from the knot's state in shared memory, at the
+// lane's time t0[b] + k dt. Warp 0 folds the players' terms of a knot
+// after the knot's barrier.
 __global__ void __launch_bounds__(WARP * NSUB) rollout_merit_warp_kernel(
     const float* __restrict__ x0, const float* __restrict__ xs,
     const float* __restrict__ us, const float* __restrict__ Ps,
-    const float* __restrict__ al, const float* __restrict__ scal,
-    const float* __restrict__ lamS, int nS, const float* __restrict__ mu,
-    const float* __restrict__ segs, float* __restrict__ merit_out, int N,
-    int C, int B, float h, int umask_bits,
-    const __grid_constant__ CostTable cost) {
+    const float* __restrict__ al, const float* __restrict__ t0,
+    const float* __restrict__ scal, const float* __restrict__ lamS, int nS,
+    const float* __restrict__ mu, const float* __restrict__ segs,
+    float* __restrict__ merit_out, int N, int C, int B, float dt, float h,
+    int umask_bits, const __grid_constant__ CostTable cost) {
   __shared__ float state[2][X][WARP];
   __shared__ float grad[NSUB][X][WARP];    // each warp's state gradient
   __shared__ float terms[2][P][2][WARP];   // (state_sq, ctrl_sq) per player
@@ -191,6 +218,7 @@ __global__ void __launch_bounds__(WARP * NSUB) rollout_merit_warp_kernel(
   const long Bl = B;
   const float sc = scal[idx];
   const float mu_b = mu[b];
+  const float t0_b = t0[b];
   on_sub(w, [&](auto q) {
     using S = decltype(q);
     for (int j = 0; j < S::dim; ++j)
@@ -215,22 +243,27 @@ __global__ void __launch_bounds__(WARP * NSUB) rollout_merit_warp_kernel(
     for (int r = 0; r < X; ++r) x[r] = state[cur][r][lane];
     on_sub(w, [&](auto q) {
       using S = decltype(q);
-      constexpr int O = S::xoff, Q = S::uoff, D = S::dim, I = Q / U;
-      float u[U];
-      rollout::control_rows<X, PU, Q, U>(xs, us, Ps, al, k, b, Bl, sc,
-                                         umask_bits, x, u);
+      constexpr int O = S::xoff, Q = S::uoff, D = S::dim, UR = S::urows;
+      float u[UR];
+      rollout::control_rows<X, PU, Q, UR>(xs, us, Ps, al, k, b, Bl, sc,
+                                          umask_bits, x, u);
       auto lam = [&](int row) { return lamS[((long)k * nS + row) * Bl + b]; };
-      costs::ColumnGradAcc<X> gs{&grad[w][0][lane]};
-      costs::SelectGradAcc<U> gu;
-      float s_sq, r_sq;
-      costs::gradient_sq_into(cost, segs, I, costs::Column{&state[cur][0][lane]},
-                              gs, costs::Selected<U>{u}, gu, lam, mu_b, s_sq,
-                              r_sq);
-      terms[cur][I][0][lane] = s_sq;
-      terms[cur][I][1][lane] = r_sq;
+      const float t = t0_b + (float)k * dt;
+#pragma unroll
+      for (int ii = 0; ii < UR / U; ++ii) {
+        const int I = Q / U + ii;
+        costs::ColumnGradAcc<X> gs{&grad[w][0][lane]};
+        costs::SelectGradAcc<U> gu;
+        float s_sq, r_sq;
+        costs::gradient_sq_into<X, U>(
+            cost, segs, I, costs::Column{&state[cur][0][lane]}, gs,
+            costs::Selected<U>{u + ii * U}, gu, lam, mu_b, t, s_sq, r_sq);
+        terms[cur][I][0][lane] = s_sq;
+        terms[cur][I][1][lane] = r_sq;
+      }
       float xo[D];
       for (int j = 0; j < D; ++j) xo[j] = x[O + j];
-      rollout::sub_integrate<S::kind>(S::length, h, xo, u);
+      rollout::sub_integrate<S::kind, D, X, LinTerms>(S::length, h, xo, u);
       for (int j = 0; j < D; ++j) state[cur ^ 1][O + j][lane] = xo[j];
     });
     __syncthreads();
@@ -277,7 +310,7 @@ int sweep_rollout(const float* x0, const float* xs, const float* us,
 
 // K5: as sweep_rollout, plus lamS [N,nS,B] (null when nS = 0), mu [B] and
 // the cost table -> raw merits merit_out [C,B]; emits no trajectory. The
-// models and the ported atoms are time-invariant, so K5 reads no t0.
+// atoms see each lane's time t0[b] + k dt (final_time reads it).
 int sweep_rollout_merit(const float* x0, const float* xs, const float* us,
                         const float* Ps, const float* al, const float* t0,
                         const float* scal, const float* lamS, int nS,
@@ -289,8 +322,8 @@ int sweep_rollout_merit(const float* x0, const float* xs, const float* us,
   if (total == 0) return 0;
   const int grid = (int)((total + WARP - 1) / WARP);
   rollout_merit_warp_kernel<<<grid, WARP * NSUB, 0, (cudaStream_t)stream>>>(
-      x0, xs, us, Ps, al, scal, lamS, nS, mu, segs, merit_out, N, C, B, h,
-      umask_bits, cost);
+      x0, xs, us, Ps, al, t0, scal, lamS, nS, mu, segs, merit_out, N, C, B,
+      dt, h, umask_bits, cost);
   return (int)cudaGetLastError();
 }
 

@@ -50,6 +50,9 @@ class MultiPlayerDynamics:
     ode_jac: Optional[Callable] = None
     # The concatenated subsystems, for the rollout kernel's device table.
     models: Tuple[SinglePlayerModel, ...] = ()
+    # A constant-linear system's terms (`linear`), from which its ode,
+    # ode_jac and device form are all built.
+    linear_rows: Optional[Tuple[Tuple[tuple, ...], ...]] = None
 
     @property
     def num_players(self) -> int:
@@ -105,6 +108,45 @@ def concatenate(name: str,
                                models=tuple(models))
 
 
+def linear(name: str, xdims: Sequence[int], udims: Sequence[int],
+           rows) -> MultiPlayerDynamics:
+    """A constant-linear multi-player system xdot = A x + sum_i B_i u_i,
+    from one description of its terms: `rows[r]` is state row r's terms in
+    order, each ("x", col, coef) or ("u", (player, col), coef). Its ode
+    folds a row's terms left to right (a coefficient of 1.0 takes the
+    value bare), its ode_jac lists the coefficients row by row, and the
+    kernels' device form (ops/cuda/sweep.py) reads the same terms; any
+    player's controls may drive any state row."""
+    rows = tuple(tuple(r) for r in rows)
+    if len(rows) != sum(xdims):
+        raise ValueError(f"{len(rows)} rows of terms for {sum(xdims)} states")
+
+    def term(src, idx, coef, x, us):
+        v = x[..., idx] if src == "x" else us[..., idx[0], idx[1]]
+        return v if coef == 1.0 else coef * v
+
+    def ode(t, x, us):
+        out = []
+        for terms in rows:
+            acc = None
+            for src, idx, coef in terms:
+                v = term(src, idx, coef, x, us)
+                acc = v if acc is None else acc + v
+            out.append(torch.zeros_like(x[..., 0]) if acc is None else acc)
+        return torch.stack(out, dim=-1)
+
+    def ode_jac(t, x, us):
+        jx = [((r, idx), coef) for r, terms in enumerate(rows)
+              for src, idx, coef in terms if src == "x"]
+        ju = [((r,) + tuple(idx), coef) for r, terms in enumerate(rows)
+              for src, idx, coef in terms if src == "u"]
+        return jx, ju
+
+    return MultiPlayerDynamics(name=name, xdims=tuple(xdims),
+                               udims=tuple(udims), ode=ode, ode_jac=ode_jac,
+                               linear_rows=rows)
+
+
 def integrate(dyn: MultiPlayerDynamics, t, dt: float, x: torch.Tensor,
               us: torch.Tensor, num_substeps: int = 2) -> torch.Tensor:
     """One zero-order-hold control step: RK4 with `num_substeps`."""
@@ -150,6 +192,29 @@ def rollout(dyn: MultiPlayerDynamics, spec: GameSpec, x0: torch.Tensor,
                           t0=last_op.t0)
 
 
+def _discrete_entries(dt: float, xd: int, jx, ju):
+    """A = I + dt * Jx as {(row, col): value} and Bs = dt * Ju as
+    {(player, row, col): value}, folded in entry order."""
+    a_acc = {(d, d): 1.0 for d in range(xd)}
+    for ij, v in jx:
+        a_acc[ij] = a_acc[ij] + dt * v if ij in a_acc else dt * v
+    b_acc = {}
+    for (r, p, c), v in ju:
+        key = (p, r, c)
+        b_acc[key] = b_acc[key] + dt * v if key in b_acc else dt * v
+    return a_acc, b_acc
+
+
+def constant_linearization(dyn: MultiPlayerDynamics, spec: GameSpec):
+    """A linear system's discrete Jacobian entries, Python floats exactly
+    as `linearize` folds them before storing them in float32:
+    ({(row, col): A value}, {(player, row, col): Bs value})."""
+    if dyn.linear_rows is None:
+        raise ValueError(f"dynamics {dyn.name!r} are not a linear system")
+    return _discrete_entries(spec.dt, spec.xdim,
+                             *dyn.ode_jac(None, None, None))
+
+
 def linearize(dyn: MultiPlayerDynamics, spec: GameSpec,
               op: OperatingPoint) -> LinearDynamics:
     """A[b, k] = I + dt * df/dx, Bs[b, k, i] = dt * df/du_i at every knot
@@ -163,14 +228,7 @@ def linearize(dyn: MultiPlayerDynamics, spec: GameSpec,
     P, um, dt = spec.num_players, spec.umax, spec.dt
     t = op.t0[:, None] + torch.arange(N, dtype=torch.float32,
                                       device=op.xs.device) * dt
-    jx, ju = dyn.ode_jac(t, op.xs, op.us)
-    a_acc = {(d, d): 1.0 for d in range(xd)}
-    for ij, v in jx:
-        a_acc[ij] = a_acc[ij] + dt * v if ij in a_acc else dt * v
-    b_acc = {}
-    for (r, p, c), v in ju:
-        key = (p, r, c)
-        b_acc[key] = b_acc[key] + dt * v if key in b_acc else dt * v
+    a_acc, b_acc = _discrete_entries(dt, xd, *dyn.ode_jac(t, op.xs, op.us))
     A = op.xs.new_zeros((Bt, N, xd, xd))
     for (r, c), v in a_acc.items():
         A[:, :, r, c] = v

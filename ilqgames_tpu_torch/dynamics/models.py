@@ -17,9 +17,11 @@ import torch
 from ilqgames_tpu_torch import fmath
 from ilqgames_tpu_torch.dynamics.base import SinglePlayerModel, true_div
 
-# Model kinds of the rollout kernel's device ODE table (csrc/sweep.cu).
+# Model kinds of the rollout kernel's device ODE table (csrc/sweep.cu);
+# KIND_LINEAR is dynamics/base.linear's system.
 KIND_CAR_6D = 0
 KIND_UNICYCLE_4D = 1
+KIND_LINEAR = 2
 
 
 def unicycle_4d() -> SinglePlayerModel:

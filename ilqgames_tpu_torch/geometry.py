@@ -1,9 +1,11 @@
 """Polyline closest-point query (counterpart of ilqgames_tpu/geometry.py).
 
-Only the sign-free query (`need_sign=False`) that the flagship's lane
-cost consumes is ported. Queries are elementwise over tensors of any
-shape; the polyline is a static (M, 2) array whose segment constants are
-Python floats, computed in float32 as the JAX package computes them.
+Queries are elementwise over tensors of any shape; the polyline is a
+static (M, 2) array whose segment constants are Python floats, computed
+in float32 as the JAX package computes them. The sign-free query
+(`need_sign=False`) returns |signed sq distance|; the signed one adds the
+side of the segment (right positive) and the interior-vertex side fix
+through the shortcut segment, as the JAX query does.
 
 The winner is the first segment with the smallest |sq distance| (the
 reference's strict-< scan), and an exactly collinear off-end candidate
@@ -52,17 +54,38 @@ def _static_segments(points):
     return pts, segs
 
 
+def shortcut_segments(points):
+    """Per segment s, the constants of the interior-vertex side fix: the
+    shortcut (x0, y0, ux, uy) used when the closest point is the segment's
+    first point, spanning points s-1 and s+1, and the one used otherwise,
+    spanning points s and s+2 (indices clamped), as the JAX query computes
+    them."""
+    pts = np.asarray(points, np.float32)
+    S = pts.shape[0] - 1
+
+    def sc(pa, pb):
+        d = pb - pa
+        ln = max(float(np.sqrt(d @ d)), _EPS)
+        return float(pa[0]), float(pa[1]), float(d[0] / ln), float(d[1] / ln)
+
+    return [sc(pts[max(s - 1, 0)], pts[min(s + 1, S)])
+            + sc(pts[s], pts[min(s + 2, S)]) for s in range(S)]
+
+
+def sign(x: torch.Tensor) -> torch.Tensor:
+    """jnp.sign: -1, +1, or x itself at +-0 and NaN."""
+    return torch.where(x > 0.0, 1.0, torch.where(x < 0.0, -1.0, x))
+
+
 def polyline_closest_point_xy(points, qx: torch.Tensor, qy: torch.Tensor,
                               need_sign: bool = False) -> ClosestPointXY:
     """Closest point on the polyline to (qx, qy), elementwise."""
-    if need_sign:
-        raise NotImplementedError(
-            "polyline_closest_point_xy(need_sign=True) is not ported yet")
     pts, segs = _static_segments(points)
     S = len(segs)
+    fixes = shortcut_segments(points) if need_sign else None
 
     cand = []
-    for p1, p2, (ux, uy), length in segs:
+    for s, (p1, p2, (ux, uy), length) in enumerate(segs):
         rx, ry = qx - p1[0], qy - p1[1]
         dot = rx * ux + ry * uy
         cross = rx * uy - ux * ry
@@ -79,16 +102,36 @@ def polyline_closest_point_xy(points, qx: torch.Tensor, qy: torch.Tensor,
         abs_raw = torch.where(behind, sq_p1,
                               torch.where(ahead, sq_p2, cross * cross))
         abs_ssd = torch.where(cross == 0.0, 0.0, abs_raw)
-        cand.append((cpx, cpy, abs_ssd, behind | ahead, p1, (ux, uy)))
+        ssd = abs_ssd
+        if need_sign:
+            ssd = sign(cross) * abs_ssd
+            # The side of the shortcut segment decides the sign at an
+            # interior vertex of the polyline.
+            at_first = ~ahead
+            ax0, ay0, aux, auy, bx0, by0, bux, buy = fixes[s]
+            scx0 = torch.where(at_first, ax0, bx0)
+            scy0 = torch.where(at_first, ay0, by0)
+            scux = torch.where(at_first, aux, bux)
+            scuy = torch.where(at_first, auy, buy)
+            on_right = ((qx - scx0) * scuy - scux * (qy - scy0)) > 0.0
+            fix = behind | ahead
+            if s == 0:
+                fix = fix & ~at_first
+            if s == S - 1:
+                fix = fix & at_first
+            ssd = torch.where(fix, torch.where(on_right, torch.abs(ssd),
+                                               -torch.abs(ssd)), ssd)
+        cand.append((cpx, cpy, ssd, behind | ahead, p1, (ux, uy)))
 
     # First-occurrence winner as exclusive masks.
-    m = cand[0][2]
-    for c in cand[1:]:
-        m = torch.minimum(m, c[2])
+    absd = [torch.abs(c[2]) for c in cand]
+    m = absd[0]
+    for a in absd[1:]:
+        m = torch.minimum(m, a)
     sel = []
     taken = torch.zeros_like(m, dtype=torch.bool)
-    for c in cand:
-        hit = (c[2] <= m) & ~taken
+    for a in absd:
+        hit = (a <= m) & ~taken
         sel.append(hit)
         taken = taken | hit
 

@@ -83,16 +83,17 @@ def forward_smem_bytes(spec: GameSpec) -> int:
 
 def library(spec: GameSpec):
     """(source name, defines) of csrc/lq.cu for this game's dims."""
-    x, quarter = spec.xdim, spec.xdim // 4
+    x = spec.xdim
     fwd = forward_smem_bytes(spec)
     if fwd > SMEM_LIMIT or x * FWD_G > 1024:
         raise ValueError(f"K3 needs {x * FWD_G} threads and {fwd} B of "
                          f"shared memory per block at {FWD_G} lanes, above "
                          f"1024 or {SMEM_LIMIT} B")
-    if x % 4 or 32 % quarter or x % (32 // quarter):
-        raise ValueError(f"K2's value-update tiles take x a multiple of 4 "
-                         f"whose quarter divides 32 and is divided by 32 / "
-                         f"(x / 4); x = {x}")
+    Pu = spec.num_players * spec.umax
+    if Pu + x + 1 > 32:
+        raise ValueError(f"K2 gives each column of the augmented system "
+                         f"[S | B^T Z A | B^T zeta + r] a thread of one "
+                         f"warp: Pu + x + 1 = {Pu + x + 1} > 32")
     smem = backward_smem_bytes(spec)
     if smem > SMEM_LIMIT:
         raise ValueError(f"K2 needs {smem} B of shared memory per block at "

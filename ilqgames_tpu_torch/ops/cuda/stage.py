@@ -36,7 +36,7 @@ def load_kernels(spec: GameSpec) -> ctypes.CDLL:
     """Build (once per shape) and load csrc/stage.cu for this game's dims."""
     lib = build.load(*library(spec))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.stage_lin_quad.argtypes = ([P, P, P, I, P, P] + [P] * 6
+    lib.stage_lin_quad.argtypes = ([P, P, P, P, I, P, P] + [P] * 6
                                    + [I, I, F, _SubsysTable, CostTable, P])
     lib.stage_lin_quad.restype = I
     return lib
@@ -63,7 +63,9 @@ def lin_quad_plain(dyn, player_costs, spec: GameSpec, op_bm: dict, lamS,
     """Plain PyTorch K1: the batched `dyn_base.linearize` and
     `pcost.quadraticize` at the batch-minor operating point op_bm
     {"xs" [N,x,B], "us" [N,Pu,B], "t0" [1,B]} with multipliers lamS
-    [N,nS,B] (or None) and mu [1,B], as the LQ operand dict."""
+    [N,nS,B] (or None) and mu [1,B], as the LQ operand dict. The atoms
+    see each lane's absolute knot times t0 + k * dt, as in the JAX
+    package's stage kernel (ops/pallas/stage.py:141)."""
     if lamC is not None:
         raise NotImplementedError("control constraints are not ported yet")
     N, P, u = spec.num_time_steps, spec.num_players, spec.umax
@@ -72,8 +74,10 @@ def lin_quad_plain(dyn, player_costs, spec: GameSpec, op_bm: dict, lamS,
                         us=mb(op_bm["us"], B).reshape(B, N, P, u),
                         t0=op_bm["t0"][0])
     al = _al_state(player_costs, spec, lamS, mu, B)
+    t = op.t0[:, None] + torch.arange(N, dtype=torch.float32,
+                                      device=op.xs.device) * spec.dt
     return lq.lq_operands(spec, dyn_base.linearize(dyn, spec, op),
-                          pcost.quadraticize(player_costs, spec, op, al))
+                          pcost.quadraticize(player_costs, spec, op, al, t))
 
 
 def lin_quad(dyn, player_costs, spec: GameSpec, op_bm: dict, lamS, lamC,
@@ -101,6 +105,7 @@ def lin_quad(dyn, player_costs, spec: GameSpec, op_bm: dict, lamS, lamC,
     nS = 0 if lamS is None else lamS.shape[1]
     rc = lib.stage_lin_quad(
         op_bm["xs"].data_ptr(), op_bm["us"].data_ptr(),
+        op_bm["t0"].data_ptr(),
         None if lamS is None else lamS.data_ptr(), nS, mu.data_ptr(),
         segs.data_ptr(), *(out[k].data_ptr() for k in
                            ("A", "Bf", "Qf", "lf", "Rf", "rf")),

@@ -8,8 +8,11 @@ CUDA tensors and takes its plain PyTorch version on CPU tensors; any
 other device raises. Each keeps a launch count. csrc/sweep.cu is built
 per game: its layout of subsystems is compile-time (`library`). K4 and K5
 run one warp per subsystem over 32 chains; K5's warp s also computes the
-merit terms of the player whose controls it owns (checked by `library`),
-and one warp folds the players' terms after each knot's barrier.
+merit terms of the players whose control rows it computes (each player's
+in exactly one warp, checked by `library`: one each for the flagship's
+cars and pedestrian, both players in the point mass's one linear
+subsystem), and one warp folds the players' terms after each knot's
+barrier.
 
 The sweep's `merit_backend` picks how a candidate's merit is computed,
 as the JAX package's does:
@@ -36,11 +39,13 @@ from ilqgames_tpu_torch.costs import player_cost as pcost
 from ilqgames_tpu_torch.dynamics import base as dyn_base
 from ilqgames_tpu_torch.ops.cuda import build
 from ilqgames_tpu_torch.ops.cuda.cost_table import CostTable, cost_table
+from ilqgames_tpu_torch.dynamics.models import KIND_LINEAR
 from ilqgames_tpu_torch.ops.cuda.layout import bm, mb, pad_batch
 from ilqgames_tpu_torch.types import GameSpec, OperatingPoint, Strategy, \
     const_tensor
 
 _MAX_SUBSYS = 8
+_MAX_LIN = 32
 MERIT_BACKENDS = ("xla", "kernel", "pallas")
 
 
@@ -49,12 +54,39 @@ class _SubsysTable(ctypes.Structure):
                 ("kind", ctypes.c_int * _MAX_SUBSYS),
                 ("xoff", ctypes.c_int * _MAX_SUBSYS),
                 ("uoff", ctypes.c_int * _MAX_SUBSYS),
-                ("length", ctypes.c_float * _MAX_SUBSYS)]
+                ("length", ctypes.c_float * _MAX_SUBSYS),
+                ("nlin", ctypes.c_int),
+                ("lin_u", ctypes.c_int * _MAX_LIN),
+                ("lin_row", ctypes.c_int * _MAX_LIN),
+                ("lin_col", ctypes.c_int * _MAX_LIN),
+                ("lin_val", ctypes.c_float * _MAX_LIN)]
+
+
+def _linear_table(dyn, spec: GameSpec) -> _SubsysTable:
+    """A linear system as one subsystem over the whole state that reads
+    every control row, with its constant discrete Jacobian entries."""
+    a_acc, b_acc = dyn_base.constant_linearization(dyn, spec)
+    entries = ([(0, r, c, v) for (r, c), v in a_acc.items()]
+               + [(1, r, p * spec.umax + c, v)
+                  for (p, r, c), v in b_acc.items()])
+    if len(entries) > _MAX_LIN:
+        raise NotImplementedError(
+            f"dynamics {dyn.name!r}: more than {_MAX_LIN} Jacobian entries")
+    tab = _SubsysTable()
+    tab.n = 1
+    tab.kind[0] = KIND_LINEAR
+    tab.nlin = len(entries)
+    for e, (is_u, r, c, v) in enumerate(entries):
+        tab.lin_u[e], tab.lin_row[e], tab.lin_col[e] = is_u, r, c
+        tab.lin_val[e] = v
+    return tab
 
 
 def _device_table(dyn, spec: GameSpec) -> _SubsysTable:
     """The rollout kernel's per-subsystem ODE table; raises for a model
     with no device ODE."""
+    if dyn.linear_rows is not None:
+        return _linear_table(dyn, spec)
     if not dyn.models or len(dyn.models) > _MAX_SUBSYS:
         raise NotImplementedError(
             f"dynamics {dyn.name!r}: the rollout kernel needs 1-"
@@ -74,9 +106,22 @@ def _device_table(dyn, spec: GameSpec) -> _SubsysTable:
     return tab
 
 
+def _control_rows(tab: _SubsysTable, s: int, spec: GameSpec):
+    """The flat control rows [lo, hi) that subsystem s reads: every
+    player's for a linear system, else its own player's."""
+    if tab.kind[s] == KIND_LINEAR:
+        return tab.uoff[s], tab.uoff[s] + spec.num_players * spec.umax
+    return tab.uoff[s], tab.uoff[s] + spec.umax
+
+
 def _umask_flat(spec: GameSpec):
     return tuple(1.0 if a < d else 0.0 for d in spec.udims
                  for a in range(spec.umax))
+
+
+def _hexf(v: float) -> str:
+    """An exact float32 hex literal of v (rounded to float32 first)."""
+    return f"{float(ctypes.c_float(v).value).hex()}f"
 
 
 def library(dyn, spec: GameSpec):
@@ -85,29 +130,50 @@ def library(dyn, spec: GameSpec):
     model with no device ODE raises): the count SW_NSUB and, per field, a
     list of SW_ITEM(v), one per subsystem (nvcc splits a define's value at
     commas): kinds, state offsets, control offsets, and inter-axle lengths
-    as exact float32 hex literals. K5's warp s computes the merit terms of
-    player SW_SUB_UOFF[s] / umax, so a game where a player's controls are
-    not exactly one subsystem's rows is refused here."""
+    as exact float32 hex literals. A linear system adds its terms, in row
+    order: SW_NLIN, and per term its row, its source (a state index, or X
+    plus a flat control row) and its coefficient.
+
+    Warp s computes the control rows from SW_SUB_UOFF[s] on (its player's
+    for a model, every player's for a linear system) and, in K5, the merit
+    terms of the players whose rows those are; a game where a player's
+    rows are not within exactly one subsystem's is refused here."""
     tab = _device_table(dyn, spec)
-    n, u = tab.n, spec.umax
+    n, u, pu = tab.n, spec.umax, spec.num_players * spec.umax
+    rows = [_control_rows(tab, s, spec) for s in range(n)]
+    for s in range(n):
+        lo, hi = rows[s]
+        if lo % u or hi % u or hi > pu:
+            raise ValueError(
+                f"K4 and K5 run one warp per subsystem on its players' "
+                f"control rows; the game has {n} subsystems for "
+                f"{spec.num_players} players, and subsystem {s}'s rows "
+                f"{lo}-{hi - 1} are not whole players' among the {pu}")
     for i in range(spec.num_players):
-        owners = sum(tab.uoff[s] == i * u for s in range(n))
+        owners = sum(rows[s][0] <= i * u and i * u + u <= rows[s][1]
+                     for s in range(n))
         if owners != 1:
             raise ValueError(
                 f"K5 computes player {i}'s merit terms in the warp of the "
-                f"subsystem that owns its controls (rows {i * u}-"
+                f"subsystem whose control rows hold its own ({i * u}-"
                 f"{i * u + u - 1}); {owners} of the game's {n} subsystems "
                 "do, and it needs exactly one")
-    if n != spec.num_players:
-        raise ValueError(
-            f"K4 and K5 run one warp per subsystem on its player's controls; "
-            f"the game has {n} subsystems for {spec.num_players} players")
     items = lambda vals: "".join(f"SW_ITEM({v})" for v in vals)
-    return "sweep", {
+    defines = {
         "SW_X": spec.xdim, "SW_PU": spec.num_players * spec.umax,
         "SW_U": spec.umax, "SW_NSUB": n, "SW_SUB_KIND": items(tab.kind[:n]),
         "SW_SUB_XOFF": items(tab.xoff[:n]), "SW_SUB_UOFF": items(tab.uoff[:n]),
-        "SW_SUB_LENGTH": items(f"{v.hex()}f" for v in tab.length[:n])}
+        "SW_SUB_LENGTH": items(_hexf(v) for v in tab.length[:n])}
+    if dyn.linear_rows is not None:
+        terms = [(r, idx if src == "x" else
+                  spec.xdim + idx[0] * u + idx[1], coef)
+                 for r, row in enumerate(dyn.linear_rows)
+                 for src, idx, coef in row]
+        defines.update(
+            SW_NLIN=len(terms), SW_LIN_ROW=items(t[0] for t in terms),
+            SW_LIN_SRC=items(t[1] for t in terms),
+            SW_LIN_COEF=items(_hexf(t[2]) for t in terms))
+    return "sweep", defines
 
 
 def merit_library(spec: GameSpec):
@@ -136,8 +202,8 @@ def load_merit_kernel(spec: GameSpec) -> ctypes.CDLL:
     """Build (once per shape) and load csrc/merit.cu (K6)."""
     lib = build.load(*merit_library(spec))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.merit_consumer.argtypes = ([P] * 3 + [I] + [P] * 3 + [I] * 3
-                                   + [CostTable, P])
+    lib.merit_consumer.argtypes = ([P] * 4 + [I] + [P] * 3 + [I] * 3
+                                   + [ctypes.c_float, CostTable, P])
     lib.merit_consumer.restype = I
     return lib
 
@@ -376,10 +442,10 @@ def consumer_merits(player_costs, spec: GameSpec, xs_cand, us_cand, t0_bm,
     lib = load_merit_kernel(spec)
     merits = torch.empty((C, B), dtype=torch.float32, device=dev)
     rc = lib.merit_consumer(
-        xs_cand.data_ptr(), us_cand.data_ptr(),
+        xs_cand.data_ptr(), us_cand.data_ptr(), t0_bm.data_ptr(),
         None if lamS is None else lamS.data_ptr(),
         0 if lamS is None else lamS.shape[1], mu.data_ptr(), segs.data_ptr(),
-        merits.data_ptr(), N, C, B, costs,
+        merits.data_ptr(), N, C, B, spec.dt, costs,
         build.stream(dev))
     build.check(rc, "merit_consumer")
     consumer_merits.launches += 1

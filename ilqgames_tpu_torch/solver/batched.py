@@ -18,8 +18,10 @@ the port reads one flag to the host per round: the deep-ladder round
 condition, the any-lane reinit condition and the all-done condition of
 the driver. `run.last_stats["host_syncs"]` counts those reads.
 
-Only the feedback-Nash, constrained, SUM-structure configuration of the
-flagship is ported; the others raise.
+A constrained game's trip is the flat AL machine's; an unconstrained
+game's is a bare iLQ iteration with the full budget, as in the JAX
+package. Only feedback Nash and the SUM cost structure are ported; open
+loop and the extremal structures raise.
 """
 
 from __future__ import annotations
@@ -116,10 +118,6 @@ def _check_supported(player_costs, params: SolverParams):
     pcost.check_structures(player_costs)
     if params.open_loop:
         raise NotImplementedError("open-loop Nash is not ported yet")
-    if not pcost.is_constrained(player_costs):
-        raise NotImplementedError(
-            "unconstrained problems are not ported yet (the flat AL machine "
-            "runs constrained problems only)")
 
 
 def iteration_step_batched(dyn, player_costs, spec, params, x0, al_state, c,
@@ -399,6 +397,22 @@ def _trip_batched(dyn, player_costs, spec, params, x0, fc, *, batch_block,
     )
 
 
+def _trip_unconstrained(dyn, player_costs, spec, params, x0, fc, *,
+                        batch_block, stats=None, fuse_stages=False,
+                        merit_backend="xla"):
+    """One trip of an unconstrained game: a bare iLQ iteration with the
+    full budget (counterpart of the JAX package's unconstrained trip,
+    batched.py:689-709)."""
+    c2 = iteration_step_batched(
+        dyn, player_costs, spec, params, x0, fc.al, fc.c, active=~fc.done,
+        batch_block=batch_block, stats=stats, fuse_stages=fuse_stages,
+        merit_backend=merit_backend)
+    cum = fc.cum_iters + 1
+    done_now = c2.converged | c2.failed | (cum >= params.max_solver_iters)
+    return fc.replace(c=c2, cum_iters=cum, success=fc.success & ~c2.failed,
+                      done=fc.done | done_now)
+
+
 def _carry0(dyn, player_costs, spec, x0_b, wop_b, wst_b, al_b, batch_block,
             fuse_stages=False):
     Bt = x0_b.shape[0]
@@ -433,24 +447,32 @@ def _pad_args(args, m):
 def _driver_parts(dyn, player_costs, spec, params, batch_block,
                   fuse_stages=False, merit_backend="xla"):
     """(trip, finalize): the masked trip and the result assembly shared by
-    the host-stepped drivers."""
+    the host-stepped drivers. The trip is the AL machine's for a
+    constrained game and a bare iLQ iteration otherwise, as in the JAX
+    package's `_driver_parts`; a game without constraints has max
+    violation -inf and converges when its last iteration did without
+    failing."""
     _check_supported(player_costs, params)
+    constrained = pcost.is_constrained(player_costs)
+    one_trip = _trip_batched if constrained else _trip_unconstrained
 
     def trip(x0_b, fc, stats=None):
-        fc2 = _trip_batched(dyn, player_costs, spec, params, x0_b, fc,
-                            batch_block=batch_block, stats=stats,
-                            fuse_stages=fuse_stages,
-                            merit_backend=merit_backend)
+        fc2 = one_trip(dyn, player_costs, spec, params, x0_b, fc,
+                       batch_block=batch_block, stats=stats,
+                       fuse_stages=fuse_stages, merit_backend=merit_backend)
         return _bwhere(fc.done, fc, fc2)
 
     def finalize(fc):
         fv = max_constraint_violation(player_costs, spec, fc.c.op)
         totals, _ = pcost.total_costs(player_costs, spec, fc.c.op)
+        if constrained:
+            conv = fc.success & (fv <= params.constraint_error_tolerance)
+        else:
+            conv = fc.c.converged & ~fc.c.failed
         return ALResult(
             op=fc.c.op, strategy=fc.c.strategy, total_costs=totals,
-            converged=fc.success & (fv <= params.constraint_error_tolerance),
-            max_violation=fv, cumulative_iterations=fc.cum_iters,
-            al_state=fc.al)
+            converged=conv, max_violation=fv,
+            cumulative_iterations=fc.cum_iters, al_state=fc.al)
 
     return trip, finalize
 

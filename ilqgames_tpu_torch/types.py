@@ -137,11 +137,18 @@ class LQSolution(_Replace):
     delta_xs: torch.Tensor
 
 
-@functools.lru_cache(maxsize=None)
 def const_tensor(values: tuple, device: torch.device) -> torch.Tensor:
     """A small constant tensor (index columns, masks) on `device`, made
     once per device: every copy from host memory to the card waits for
-    the card to drain its queue. Callers must not write to it."""
+    the card to drain its queue. Callers must not write to it. The cache
+    keys on the values' types too: (0,) and (0.0,) are equal tuples, but
+    one makes an index tensor and the other a float one."""
+    return _const_tensor(values, tuple(map(type, values)), device)
+
+
+@functools.lru_cache(maxsize=None)
+def _const_tensor(values: tuple, types: tuple,
+                  device: torch.device) -> torch.Tensor:
     return torch.tensor(values, device=device)
 
 

@@ -1,0 +1,71 @@
+"""The port's bench on bench_all.py's configs 1 and 2 without a card: the
+x0 draw with the config's sigma equals bench_all.py's `_perturbed_x0` bit
+for bit (run in its own process: importing bench_all.py configures the
+JAX package's compilation cache), the fields of a batch, and the refusal
+to measure on a CPU."""
+
+import os
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from ilqgames_tpu_torch import bench
+
+REPO = Path(__file__).resolve().parents[1]
+
+_DRAW = """
+import sys
+import numpy as np
+import bench_all
+from ilqgames_tpu.examples import two_player_collision, two_player_point_mass
+for make, b, sigma in ((two_player_point_mass.make_problem, 1024, 0.5),
+                       (two_player_collision.make_problem, 256, 0.1)):
+    x0 = np.asarray(bench_all._perturbed_x0(make(), b, sigma))
+    sys.stdout.write(x0.astype(np.float32).tobytes().hex() + "\\n")
+"""
+
+
+def test_config_draws_are_bench_all_draws():
+    out = subprocess.run([sys.executable, "-c", _DRAW], cwd=REPO,
+                         capture_output=True, text=True, timeout=600,
+                         env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = out.stdout.strip().splitlines()[-2:]
+    for c, line in zip((1, 2), lines):
+        cfg = bench.CONFIGS[c]
+        problem = cfg["make"]()
+        got = bench.perturbed_x0(problem, cfg["batch"], cfg["sigma"])
+        want = np.frombuffer(bytes.fromhex(line), np.float32).reshape(
+            got.shape)
+        np.testing.assert_array_equal(got, want)
+    # The default sigma is bench.py's.
+    np.testing.assert_array_equal(
+        bench.perturbed_x0(bench.CONFIGS[2]["make"](), 4),
+        bench.perturbed_x0(bench.CONFIGS[2]["make"](), 4, 0.1))
+
+
+def test_config_fields_show_violations_only_when_finite():
+    """bench_all.py's fields: no viol_* for a game without constraints;
+    overflowed costs count as diverged and sort last."""
+    costs = np.full((4, 2), 10.0, np.float32)
+    costs[3] = np.inf
+    res = types.SimpleNamespace(
+        total_costs=torch.tensor(costs),
+        max_violation=torch.full((4,), -float("inf")),
+        converged=torch.tensor([True, True, False, False]),
+        cumulative_iterations=torch.tensor([2, 4, 40, 40]))
+    out = bench.config_fields(res, 4, 0.5)
+    assert out["converged"] == 0.5 and out["mean_iters"] == 21.5
+    assert out["diverged_frac"] == 0.25 and out["overflowed_lanes"] == 1
+    assert out["cost_p50"] == [10.0, 10.0]
+    assert not any(k.startswith("viol") for k in out)
+
+
+def test_run_config_refuses_cpu():
+    with pytest.raises(ValueError, match="CUDA"):
+        bench.run_config(1, device="cpu")

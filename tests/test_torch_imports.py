@@ -52,3 +52,24 @@ def test_kernel_wrappers_share_one_stream_helper():
         src = (cuda / f"{name}.py").read_text()
         assert "current_stream" not in src, name
         assert "build.stream(dev)" in src, name
+
+
+def test_unconstrained_games_import_no_jax():
+    """The two unconstrained games, the linear dynamics, the new atoms and
+    the bench's configs are among the port's modules and pull in no JAX."""
+    script = (
+        "import sys\n"
+        "from ilqgames_tpu_torch.examples import two_player_collision, "
+        "two_player_point_mass\n"
+        "from ilqgames_tpu_torch.costs.atoms import final_time, proximity, "
+        "semiquadratic_polyline2\n"
+        "from ilqgames_tpu_torch.dynamics.base import linear\n"
+        "from ilqgames_tpu_torch import bench\n"
+        "assert sorted(bench.CONFIGS) == [1, 2]\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
