@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from csrc/ and drives its paths: the
 flagship three-player intersection solved for perturbed x0 by the batched
 AL + iLQ machine, and the two-player point mass and collision by its
-unconstrained trip, through kernels K1 (fused stage), K2 (LQ Riccati
+unconstrained trip (and the three-player flat intersection with unfused
+stages), through kernels K1 (fused stage), K2 (LQ Riccati
 sweep), K3 (δx forward pass), K4 (candidate rollout), K5 (rollout with
 in-kernel merit) and K6 (merit consumer). Phases:
 
@@ -37,9 +38,10 @@ in-kernel merit) and K6 (merit consumer). Phases:
    (C, B, emit_us);
 6. the probes (ilqgames_tpu_torch/tools/, the counterparts of the JAX
    package's TPU probes under tools/): the probe kernels P1 (dependent
-   multiply-add chain), P2 (every instantiated rung of the probe rollout)
-   and P3 (x * 2 + 1, also at 1, 3, 5 and 32771 elements) against their
-   plain versions, the registers and stack frame of each rung and of K2-K6
+   multiply-add chain), P2 (every instantiated rung of the probe rollout:
+   the top rung at N=100, the fifteen below it on the first 20 knots of
+   the same operands) and P3 (x * 2 + 1, also at 1, 3, 5 and 32771
+   elements) against their plain versions, the registers and stack frame of each rung and of K2-K6
    from ptxas; K4 and K5 beside the rungs prod_static (one
    thread per chain on a compile-time layout) and emit_xs_us (one thread
    per chain on the run-time table, K4's design before one warp per
@@ -84,7 +86,23 @@ in-kernel merit) and K6 (merit consumer). Phases:
    its plain version, and K5 and K6 at the cells' linesearch shapes, one
    kernels-line entry each; (e) three fused trips of 8 lanes of each game
    on the card against the CPU under each merit backend: decisions equal,
-   every array of the carry bitwise equal.
+   every array of the carry bitwise equal;
+9. the three-player flat intersection (bench_all.py's config 4: two flat
+   cars and a flat unicycle, x=16 in feedback-linearized coordinates, one
+   linear subsystem per player; the norm atoms, one of them dense only),
+   solved with unfused stages as the JAX package solves it: (a) its K4,
+   K5 and K6 libraries (K5's and K6's with the norm atoms), one nvcc each,
+   all at once, and their ptxas reports; (b) flat 256 (256 instances,
+   sigma 0.1, exec main parameters) through `bench.run_config(4)`, launch
+   counters reset just before, one JSON line; (c) its outcome against the
+   JAX package's row (BENCH_ALL_r05.jsonl row 4: converged and
+   diverged_frac within 0.08 of 0.4062 and 0.3867, mean_iters within 10%
+   of 59.2, cost_p50 within 15% of [14667.5, 4553.1, 1141.9]), and K1
+   never launched; (d) each kernel at each shape the cell launched it
+   against its plain version, and K5 and K6 at its linesearch shapes;
+   (e) three unfused trips of 8 lanes on the card against the CPU under
+   each merit backend: decisions equal, every array of the carry (the
+   carried quadraticization too) bitwise equal.
 
 Every kernel's entry in the kernels line carries its bound: the larger of
 the bytes it must move (each operand read once, each output written once)
@@ -95,7 +113,8 @@ operands by running the kernel's plain version, which repeats them in
 order, under tools/_probe.float_ops: adds, multiplies, divides, roots,
 min/max and roundings, one per output element.
 
-Each phase prints the time since the build began when it ends. Prints
+Each phase prints, when it ends, the time since the build began and its
+own duration. Prints
 the kernels' JSON line and the card line, then, last,
 {"ok": true, "device": {...}}. Exits nonzero, with no result line, when
 there is no CUDA device or any phase fails.
@@ -136,6 +155,9 @@ RH_B, RH_FINAL_TIME, RH_REPLANS = 1024, 2.0, 7
 # Phase 3: trips on the card against trips on the CPU (the CPU's plain
 # versions take most of the phase's time).
 CPU_TRIPS = 4
+# Phase 6: the knots on which P2's fifteen lower rungs are held (the top
+# rung at all N).
+P2_DEPTH = 20
 # Phase 7d: a budget that keeps the CPU's run under a minute.
 RH_SMALL = dict(max_solver_iters=2, unconstrained_solver_max_iters=2)
 # Phase 8: the JAX package's outcome of bench_all.py's configs 1 and 2
@@ -149,7 +171,14 @@ PM_COST_P50 = (13.7, 1.4)
 COLL_DIVERGED_MIN = 0.9
 COLL_CONVERGED_BAND = (0.1, 0.35)
 COLL_JAX_MEAN_ITERS = 16.4
-# Phase 8e: trips of each game on the card against the CPU, 8 lanes.
+# Phase 9: the JAX package's outcome of bench_all.py's config 4, the flat
+# intersection at 256 instances, unfused (BENCH_ALL_r05.jsonl row 4): lanes
+# drift at Armijo knife edges, so the fractions are held within 0.08 (about
+# 20 of the 256 lanes), mean_iters within 10%, cost_p50 within 15%.
+FLAT_CONVERGED, FLAT_DIVERGED, FLAT_FRAC_TOL = 0.4062, 0.3867, 0.08
+FLAT_MEAN_ITERS, FLAT_ITERS_REL = 59.2, 0.10
+FLAT_COST_P50 = (14667.5, 4553.1, 1141.9)
+# Phases 8e and 9e: trips of each game on the card against the CPU, 8 lanes.
 SMALL_B, SMALL_TRIPS = 8, 3
 
 
@@ -382,6 +411,7 @@ def phase6(dyn, spec, dev):
     shapes, the rungs' ptxas reports, every distinct launch of the probe
     registry against its plain version, then every probe module from
     zeroed launch counters. Returns the kernels-line entries of P1-P3."""
+    import dataclasses
     import importlib
 
     import numpy as np
@@ -412,7 +442,10 @@ def phase6(dyn, spec, dev):
     # lamS) with the full cost table and kernel_floor's fixed controls; a
     # gate in [0.5, 1.5), scal per (candidate, lane) and t0 per lane from
     # RandomState(1), so that a rung that reads a wrong entry of them
-    # disagrees.
+    # disagrees. The top rung, whose time and bound the kernels line
+    # reports, is held at all N knots; the fifteen below it on the first
+    # P2_DEPTH knots of the same operands (each plain rollout of N knots
+    # takes seconds).
     d = sweep_floor._draws(ctx, "5e")
     C, B = d["scal"].shape
     ufix = ctx.tensors(("floor", C, B), lambda: _probe.floor_draws(
@@ -424,23 +457,32 @@ def phase6(dyn, spec, dev):
     op = {"xs": d["xs"], "us": d["us"], "t0": f32(rng.rand(1, B))}
     st = {"Ps": d["Ps"], "alphas": d["al"]}
     kw = dict(ufix=ufix, gate=gate, lamS=d["lamS"], mu=d["mu"])
+    cut = lambda a: None if a is None else a[:P2_DEPTH].contiguous()
+    spec_cut = dataclasses.replace(spec, num_time_steps=P2_DEPTH)
+    op_cut = {"xs": cut(op["xs"]), "us": cut(op["us"]), "t0": op["t0"]}
+    st_cut = {k: cut(v) for k, v in st.items()}
+    kw_cut = dict(kw, gate=cut(gate), lamS=cut(d["lamS"]))
     for rung, r in probes.RUNGS.items():
-        args = (rung, ctx.dyn, ctx.costs, spec, d["x0c"], op, st, scal)
-        got = probes.probe_rollout(*args, **kw)
+        is_top = rung == "emit_xs_us"
+        args = ((rung, ctx.dyn, ctx.costs, spec, d["x0c"], op, st, scal)
+                if is_top else (rung, ctx.dyn, ctx.costs, spec_cut,
+                                d["x0c"], op_cut, st_cut, scal))
+        kw_r = kw if is_top else kw_cut
+        got = probes.probe_rollout(*args, **kw_r)
         # Operations are counted for the top rung only (its entry's bound).
-        if rung == "emit_xs_us":
+        if is_top:
             want, ops_r = _probe.float_ops(
-                lambda: probes.probe_rollout_plain(*args, **kw))
+                lambda: probes.probe_rollout_plain(*args, **kw_r))
         else:
-            want = probes.probe_rollout_plain(*args, **kw)
+            want = probes.probe_rollout_plain(*args, **kw_r)
         for key in want:
             err["P2"] = max(err["P2"], _compare(
                 f"P2 {rung} {key}", got[key], want[key], TOL["P2"]))
         seen.add(("P2", rung, "full" if r.merit == "table" else None, C, B))
-        if rung == "prod_static":
-            static = args
-        if rung == "emit_xs_us":
+        if is_top:
             top, top_ops, top_out = args, ops_r, got
+    static = ("prod_static", ctx.dyn, ctx.costs, spec, d["x0c"], op, st,
+              scal)
     p2 = (_time_ms(lambda: probes.probe_rollout(*top), 20),
           _once_ms(lambda: probes.probe_rollout_plain(*top)),
           _nbytes(top[4:], top_out), top_ops)
@@ -935,6 +977,71 @@ def _hold_merits(cell, spy, problem):
     return entries
 
 
+def _trips_card_vs_cpu(name, p, config, fuse, dev):
+    """SMALL_TRIPS trips of SMALL_B lanes of bench config `config`'s game
+    (stages fused or not) on the card against the CPU under each merit
+    backend: decisions equal, every array of the carry bitwise equal. On
+    the CPU the three backends are one computation (the plain versions).
+    Returns the kernels-line entries of K5 and K6 at each shape these
+    trips launched them, with their launches there."""
+    import dataclasses
+
+    import torch
+
+    from ilqgames_tpu_torch import bench
+    from ilqgames_tpu_torch.solver import batched
+    from ilqgames_tpu_torch.types import tree_leaves, tree_map
+
+    dyn, costs, spec = p.dynamics, p.player_costs, p.spec
+    cfg = bench.CONFIGS[config]
+    params = dataclasses.replace(bench.exec_main_params(), **cfg["params"])
+    x0c = torch.tensor(bench.perturbed_x0(p, SMALL_B, cfg["sigma"]))
+    fc0 = batched._fresh_init(dyn, costs, spec, None, None, SMALL_B,
+                              fuse)(x0c)
+    t0 = time.perf_counter()
+    trip, _ = batched._driver_parts(dyn, costs, spec, params, SMALL_B, fuse,
+                                    "xla")
+    cpu = [fc0]
+    for _ in range(SMALL_TRIPS):
+        cpu.append(trip(x0c, cpu[-1]))
+    cpu_s = time.perf_counter() - t0
+    kernels = []
+    for backend, kname in (("xla", "K4"), ("kernel", "K5"),
+                           ("pallas", "K6")):
+        trip, _ = batched._driver_parts(dyn, costs, spec, params, SMALL_B,
+                                        fuse, backend)
+        fc = tree_map(lambda a: a.to(dev), fc0)
+        bench.reset_launches()
+        with _FirstLaunches() as spy:
+            for i in range(SMALL_TRIPS):
+                fc = trip(x0c.to(dev), fc)
+                what = f"{name} card vs CPU, {backend!r}, trip {i}"
+                _same_decisions(what, fc, cpu[i + 1])
+                for g, w in zip(tree_leaves(fc), tree_leaves(cpu[i + 1])):
+                    g = g.cpu()
+                    same = (_same_bits(g, w) if w.dtype == torch.float32
+                            else torch.equal(g, w))
+                    if not same:
+                        _fail(f"{what}: an array differs")
+        torch.cuda.synchronize()
+        if bench.launches()[kname] <= 0:
+            _fail(f"{name}: merit_backend={backend!r} never launched "
+                  f"{kname}")
+        if backend != "xla":
+            # The merit kernel of this backend at each shape these trips
+            # launched it, with its launches there.
+            kernels += _hold_launches(
+                f"{name} card vs CPU, {SMALL_B} lanes, {backend!r}", spy,
+                None, only=(kname,))
+    stages = "fused" if fuse else "unfused"
+    print(f"# {name} card vs CPU ({SMALL_B} lanes, {SMALL_TRIPS} {stages} "
+          f"trips, merit backends xla, kernel, pallas): decisions equal, "
+          f"every array bitwise equal; failed {cpu[-1].c.failed.tolist()}, "
+          f"converged {cpu[-1].c.converged.tolist()} ({cpu_s:.1f} s on the "
+          "CPU)", flush=True)
+    return kernels
+
+
 def phase8(dev):
     """bench_all.py's two unconstrained games at full size through the
     bench's entry point (`bench.run_config`): their outcome against the
@@ -943,14 +1050,10 @@ def phase8(dev):
     trips of each on the card against the CPU under every merit backend,
     K5 and K6 held at every shape those trips launched them. Returns the
     kernels-line entries."""
-    import dataclasses
-
     import torch
 
     from ilqgames_tpu_torch import bench
     from ilqgames_tpu_torch.ops.cuda import build, lq, stage, sweep
-    from ilqgames_tpu_torch.solver import batched
-    from ilqgames_tpu_torch.types import tree_leaves, tree_map
 
     games = {c: bench.CONFIGS[c]["make"]() for c in (1, 2)}
     names = {1: "pm 1024", 2: "collision 256"}
@@ -1024,61 +1127,87 @@ def phase8(dev):
         kernels += _hold_launches(cell, spy, launches)
         merit_held.append((cell, spy, p))
 
-    # (e) trips on the card against the CPU, every merit backend. On the
-    # CPU the three backends are one computation (the plain versions).
+    # (e) trips on the card against the CPU, every merit backend.
     for c, p in games.items():
-        dyn, costs, spec = p.dynamics, p.player_costs, p.spec
-        params = dataclasses.replace(bench.exec_main_params(),
-                                     **bench.CONFIGS[c]["params"])
-        x0c = torch.tensor(bench.perturbed_x0(p, SMALL_B,
-                                              bench.CONFIGS[c]["sigma"]))
-        fc0 = batched._fresh_init(dyn, costs, spec, None, None, SMALL_B,
-                                  True)(x0c)
-        t0 = time.perf_counter()
-        trip, _ = batched._driver_parts(dyn, costs, spec, params, SMALL_B,
-                                        True, "xla")
-        cpu = [fc0]
-        for _ in range(SMALL_TRIPS):
-            cpu.append(trip(x0c, cpu[-1]))
-        cpu_s = time.perf_counter() - t0
-        for backend, kname in (("xla", "K4"), ("kernel", "K5"),
-                               ("pallas", "K6")):
-            trip, _ = batched._driver_parts(dyn, costs, spec, params,
-                                            SMALL_B, True, backend)
-            fc = tree_map(lambda a: a.to(dev), fc0)
-            bench.reset_launches()
-            with _FirstLaunches() as spy:
-                for i in range(SMALL_TRIPS):
-                    fc = trip(x0c.to(dev), fc)
-                    what = f"{names[c]} card vs CPU, {backend!r}, trip {i}"
-                    _same_decisions(what, fc, cpu[i + 1])
-                    for g, w in zip(tree_leaves(fc),
-                                    tree_leaves(cpu[i + 1])):
-                        g = g.cpu()
-                        same = (_same_bits(g, w) if w.dtype == torch.float32
-                                else torch.equal(g, w))
-                        if not same:
-                            _fail(f"{what}: an array differs")
-            torch.cuda.synchronize()
-            if bench.launches()[kname] <= 0:
-                _fail(f"{names[c]}: merit_backend={backend!r} never "
-                      f"launched {kname}")
-            if backend != "xla":
-                # The merit kernel of this backend at each shape these
-                # trips launched it, with its launches there.
-                kernels += _hold_launches(
-                    f"{names[c]} card vs CPU, {SMALL_B} lanes, {backend!r}",
-                    spy, None, only=(kname,))
-        print(f"# {names[c]} card vs CPU ({SMALL_B} lanes, {SMALL_TRIPS} "
-              f"fused trips, merit backends xla, kernel, pallas): decisions "
-              f"equal, every array bitwise equal; failed "
-              f"{cpu[-1].c.failed.tolist()}, converged "
-              f"{cpu[-1].c.converged.tolist()} ({cpu_s:.1f} s on the CPU)",
-              flush=True)
+        kernels += _trips_card_vs_cpu(names[c], p, c, True, dev)
 
     # K5 and K6 at the cells' linesearch shapes, held only.
     for cell, spy, p in merit_held:
         kernels += _hold_merits(cell, spy, p)
+    return kernels
+
+
+def phase9(dev):
+    """bench_all.py's config 4, the three-player flat intersection, at full
+    size through `bench.run_config` (unfused stages, as the JAX package
+    runs it): its outcome against the JAX package's bands, K1 never
+    launched, every (kernel, shape) the cell launched against its plain
+    version (and K5, K6 at its linesearch shapes), and three unfused trips
+    of 8 lanes on the card against the CPU under every merit backend.
+    Returns the kernels-line entries."""
+    import torch
+
+    from ilqgames_tpu_torch import bench
+    from ilqgames_tpu_torch.ops.cuda import build, sweep
+
+    cell = "flat 256"
+    p = bench.CONFIGS[4]["make"]()
+    dyn, spec = p.dynamics, p.spec
+
+    # (a) its libraries: K4's, and K5's and K6's with the norm atoms (its
+    # K1-K3 are the flagship's, built in phase 1).
+    t0 = time.perf_counter()
+    libs = [sweep.library(dyn, spec), sweep.library(dyn, spec, True),
+            sweep.merit_library(spec, True)]
+    build.compile_all(libs)
+    bench.build_kernels(dyn, spec, p.player_costs)
+    print(f"# phase 9 build: {time.perf_counter() - t0:.1f} s (concurrent "
+          f"nvcc: {len(libs)} libraries)", flush=True)
+    for label, lib, kern, stack_ok in (
+            ("K4", libs[0], "rollout_warp_kernel", False),
+            ("K5", libs[1], "rollout_merit_warp_kernel", True),
+            ("K6", libs[2], "merit_kernel", False)):
+        _ptxas(f"{label} ({cell})", lib, kern, stack_ok)
+
+    # (b)-(d) the cell, its outcome, and its launches held.
+    bench.reset_launches()
+    with _FirstLaunches() as spy:
+        res, out = bench.run_config(4, dev)
+    torch.cuda.synchronize()
+    launches = bench.launches()
+    print(json.dumps(out), flush=True)
+    if min(launches[k] for k in ("K2", "K3", "K4")) <= 0:
+        _fail(f"{cell}: a kernel of the path was not launched: {launches}")
+    if launches["K1"] != 0 or out["fuse_stages"]:
+        _fail(f"{cell}: the unfused path launched K1: {launches}")
+    shape = (out["B"], spec.num_time_steps, spec.xdim)
+    if tuple(res.op.xs.shape) != shape:
+        _fail(f"{cell}: result shape {tuple(res.op.xs.shape)}, want {shape}")
+    if not bool(torch.isfinite(res.op.xs[res.converged]).all()):
+        _fail(f"{cell}: non-finite trajectory on a converged lane")
+    band = (f"converged {FLAT_CONVERGED} +- {FLAT_FRAC_TOL}, diverged_frac "
+            f"{FLAT_DIVERGED} +- {FLAT_FRAC_TOL}, mean_iters {FLAT_MEAN_ITERS}"
+            f" +- {FLAT_ITERS_REL:.0%}, cost_p50 {list(FLAT_COST_P50)} +- "
+            f"{COST_P50_REL:.0%}")
+    ok = (abs(out["converged"] - FLAT_CONVERGED) <= FLAT_FRAC_TOL
+          and abs(out["diverged_frac"] - FLAT_DIVERGED) <= FLAT_FRAC_TOL
+          and abs(out["mean_iters"] - FLAT_MEAN_ITERS)
+          <= FLAT_ITERS_REL * FLAT_MEAN_ITERS
+          and all(abs(g - r) <= COST_P50_REL * r
+                  for g, r in zip(out["cost_p50"], FLAT_COST_P50)))
+    if not ok:
+        _fail(f"{cell}: outcome outside the JAX package's band ({band}): "
+              f"{out}")
+    print(f"# {cell}: outcome within the JAX package's band ({band}); "
+          f"launches counted from 0 over the warm-up and timed solves: "
+          f"{launches}", flush=True)
+    _check_k4_held(cell, spy, sweep.rollout_bm.by_shape)
+    kernels = _hold_launches(cell, spy, launches)
+
+    # (e) unfused trips on the card against the CPU, every merit backend.
+    kernels += _trips_card_vs_cpu(cell, p, 4, False, dev)
+    # K5 and K6 at the cell's linesearch shapes, held only.
+    kernels += _hold_merits(cell, spy, p)
     return kernels
 
 
@@ -1106,9 +1235,13 @@ def main():
     print(f"# card: {card}", flush=True)
 
     t_start = time.perf_counter()
-    elapsed = lambda n: print(f"# phase {n} ended at "
-                              f"{time.perf_counter() - t_start:.1f} s",
-                              flush=True)
+    ends = [t_start]
+
+    def elapsed(n):
+        """Print when phase n ended and how long it took."""
+        ends.append(time.perf_counter())
+        print(f"# phase {n} ended at {ends[-1] - t_start:.1f} s, took "
+              f"{ends[-1] - ends[-2]:.1f} s", flush=True)
 
     # ---- phase 1: build ----
     problem = make_problem()
@@ -1122,6 +1255,7 @@ def main():
     probes.load_kernels(spec)
     print(f"# build: {time.perf_counter() - t0:.1f} s (concurrent nvcc: "
           f"csrc/stage.cu, lq.cu, sweep.cu, merit.cu, probes.cu)", flush=True)
+    elapsed(1)
 
     # ---- phase 2: each kernel against its plain version ----
     B = 1024
@@ -1398,6 +1532,10 @@ def main():
     # ---- phase 8: the unconstrained games ----
     kernels += phase8(dev)
     elapsed(8)
+
+    # ---- phase 9: the flat intersection, unfused ----
+    kernels += phase9(dev)
+    elapsed(9)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

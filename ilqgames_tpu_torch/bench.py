@@ -14,16 +14,19 @@ driver instead. Prints ONE JSON line with bench.py's fields plus the
 device, configuration, wall time, the driver's counters and the kernels'
 launch counts. BENCH_LATENCY=1 measures the warm replan latency of one
 instance instead (`run_latency`, the counterpart of bench_all.py's
-`latency_single_solve`). BENCH_CONFIG=1 or 2 runs bench_all.py's config 1
-(the two-player point mass, 1024 instances drawn with sigma 0.5, 40
-iterations) or 2 (the two-player collision, 256 instances, sigma 0.1) as
-bench_all.py runs it (`run_config`), and prints its metric and fields.
+`latency_single_solve`). BENCH_CONFIG=1, 2 or 4 runs bench_all.py's
+config 1 (the two-player point mass, 1024 instances drawn with sigma 0.5,
+40 iterations), 2 (the two-player collision, 256 instances, sigma 0.1) or
+4 (the three-player flat intersection, 256 instances, sigma 0.1, unfused
+stages) as bench_all.py runs it (`run_config`), and prints its metric and
+fields.
 Needs a CUDA device: it never measures on a CPU.
 
     python3 -m ilqgames_tpu_torch.bench
     BENCH_QUEUE=0 BENCH_BATCH=1024 python3 -m ilqgames_tpu_torch.bench
     BENCH_LATENCY=1 python3 -m ilqgames_tpu_torch.bench
     BENCH_CONFIG=1 python3 -m ilqgames_tpu_torch.bench
+    BENCH_CONFIG=4 python3 -m ilqgames_tpu_torch.bench
 """
 
 from __future__ import annotations
@@ -37,11 +40,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ilqgames_tpu_torch.examples import two_player_collision, \
-    two_player_point_mass
+from ilqgames_tpu_torch.examples import three_player_flat_intersection, \
+    two_player_collision, two_player_point_mass
 from ilqgames_tpu_torch.examples.three_player_intersection import \
     make_problem
 from ilqgames_tpu_torch.ops.cuda import build, lq, stage, sweep
+from ilqgames_tpu_torch.ops.cuda.cost_table import has_norms
 from ilqgames_tpu_torch.solver import batched
 from ilqgames_tpu_torch.solver.params import SolverParams
 
@@ -134,15 +138,20 @@ def reset_launches() -> None:
     sweep.rollout_bm.by_shape.clear()
 
 
-def build_kernels(dyn, spec) -> None:
+def build_kernels(dyn, spec, player_costs=()) -> None:
     """Build every kernel of the port for this game (one concurrent nvcc
-    per source) and load them."""
+    per source) and load them; a game whose costs hold a norm atom gets
+    its merit kernels K5 and K6 with those atoms."""
+    norms = has_norms(player_costs)
+    sweeps = [False, True] if norms else [False]
     build.compile_all([stage.library(spec), lq.library(spec),
-                       sweep.library(dyn, spec), sweep.merit_library(spec)])
-    for load in (stage.load_kernels, lq.load_kernels,
-                 sweep.load_merit_kernel):
+                       sweep.merit_library(spec, norms)]
+                      + [sweep.library(dyn, spec, n) for n in sweeps])
+    for load in (stage.load_kernels, lq.load_kernels):
         load(spec)
-    sweep.load_kernels(dyn, spec)
+    sweep.load_merit_kernel(spec, norms)
+    for n in sweeps:
+        sweep.load_kernels(dyn, spec, n)
 
 
 def _cuda_device(device) -> torch.device:
@@ -283,17 +292,25 @@ def run_bench(batch: int = 2048, device="cuda", driver: str = "queue",
     return res, out
 
 
-# bench_all.py's configs 1 and 2 (bench_all.py:129-170): the game, its
-# metric, the batch, the x0 draw's sigma and the iteration budgets.
+# bench_all.py's configs 1, 2 and 4 (bench_all.py:129-170, 200-215): the
+# game, its metric, the batch, the x0 draw's sigma, the iteration budgets
+# and whether the stages are fused.
 CONFIGS = {
     1: dict(make=two_player_point_mass.make_problem,
             metric="two_player_point_mass_solves_per_sec_per_chip",
             batch=1024, sigma=0.5,
             params=dict(max_solver_iters=40,
-                        unconstrained_solver_max_iters=40)),
+                        unconstrained_solver_max_iters=40),
+            fuse_stages=True),
     2: dict(make=two_player_collision.make_problem,
             metric="two_player_collision_solves_per_sec_per_chip",
-            batch=256, sigma=0.1, params={}),
+            batch=256, sigma=0.1, params={}, fuse_stages=True),
+    # Unfused, as BENCH_ALL_r05.jsonl row 4 was taken
+    # (tools/bench_queue_r5i.sh:27, ILQ_FUSE_STAGES=0): the JAX package's
+    # fused stage refuses the game's dense MinV/MaxV atoms.
+    4: dict(make=three_player_flat_intersection.make_problem,
+            metric="three_player_flat_intersection_solves_per_sec_per_chip",
+            batch=256, sigma=0.1, params={}, fuse_stages=False),
 }
 
 
@@ -324,24 +341,25 @@ def config_fields(res, batch: int, elapsed: float) -> dict:
 
 
 def run_config(config: int, device="cuda"):
-    """bench_all.py's config 1 or 2 on `device`, as its `_throughput` runs
-    it: the exec main's parameters (with the config's budgets), the x0
-    draw with the config's sigma, the plain host-stepped driver with lane
-    blocks of 128 and 20 trips per dispatch, fused stages and the merit
-    backend "xla"; one warm-up solve, then the timed one. Returns
-    (ALResult, JSON dict) with bench_all.py's metric and fields."""
+    """bench_all.py's config 1, 2 or 4 on `device`, as its `_throughput`
+    runs it: the exec main's parameters (with the config's budgets), the
+    x0 draw with the config's sigma, the plain host-stepped driver with
+    lane blocks of 128 and 20 trips per dispatch, the config's stages
+    (fused but for config 4) and the merit backend "xla"; one warm-up
+    solve, then the timed one. Returns (ALResult, JSON dict) with
+    bench_all.py's metric and fields."""
     cfg = CONFIGS[config]
     set_precision()
     dev = _cuda_device(device)
     problem = cfg["make"]()
     n = cfg["batch"]
     params = dataclasses.replace(exec_main_params(), **cfg["params"])
-    build_kernels(problem.dynamics, problem.spec)
+    build_kernels(problem.dynamics, problem.spec, problem.player_costs)
     solver = batched.make_host_batched_solver(
         problem.dynamics, problem.player_costs, problem.spec, params,
         warm_op=problem.initial_operating_point(),
         warm_strategy=problem.initial_strategy(), trips_per_call=20,
-        batch_block=128)
+        batch_block=128, fuse_stages=cfg["fuse_stages"])
     x0 = torch.tensor(perturbed_x0(problem, n, cfg["sigma"]), device=dev)
     solver(x0)
     before = launches()
@@ -355,7 +373,8 @@ def run_config(config: int, device="cuda"):
            "unit": "solves/s/chip", "vs_baseline": None,
            **config_fields(res, n, elapsed),
            "device": torch.cuda.get_device_name(dev), "driver": "plain",
-           "trips_per_call": 20, "batch_block": 128, "fuse_stages": True,
+           "trips_per_call": 20, "batch_block": 128,
+           "fuse_stages": cfg["fuse_stages"],
            **{k: stats[k] for k in ("trips", "dispatches", "host_syncs",
                                     "deep_rounds", "collapse_exits")},
            "launches": {k: v - before[k] for k, v in launches().items()}}

@@ -1,6 +1,7 @@
 """Cost atoms (counterpart of ilqgames_tpu/costs/atoms.py: `quadratic` at
-:39, `proximity` at :213, `quadratic_polyline2` at :366,
-`semiquadratic_polyline2` at :433 and `final_time` at :652).
+:39, `quadratic_norm` at :103, `semiquadratic_norm` at :120, `proximity`
+at :213, `quadratic_polyline2` at :366, `semiquadratic_polyline2` at :433
+and `final_time` at :652).
 
 Gradients and Hessians are the JAX package's sparse pairs, with the
 reference's shipped branch semantics for the polyline costs: a vertex
@@ -67,6 +68,109 @@ def quadratic(weight: float, dim: Optional[int], nominal: float = 0.0,
                 grad_pairs(t, v))
 
     return Cost(name, evaluate, grad_pairs, quad_pairs, device=device)
+
+
+def _norm_quad(weight: float, dim1: int, dim2: int, nominal: float, v):
+    """What the JAX package's autodiff of 0.5*w*(||(v[d1], v[d2])|| -
+    nominal)^2 (norm clamped at EPS, `_safe_hypot`) gives, written out:
+    its gradient with autodiff's operations, (g1, g2), and its Hessian
+    over (d1, d2) in closed form, (h11, h22, h12). With s the squared
+    norm, n the norm, d = n - nominal and G the clamp's derivative (1
+    above EPS, 1/2 at it, 0 below): the gradient is 2 ct a with
+    ct = (w d (0.5 / n)) G, the Hessian w G d / n I + w G^2 nominal / n^3
+    (a, b) (a, b)^T. Every division is of two tensors."""
+    a, b = v[..., dim1], v[..., dim2]
+    s = a * a + b * b
+    n = fmath.sqrt(torch.clamp_min(s, _EPS))
+    d = n - nominal
+    clamp = torch.where(s > _EPS, 1.0, torch.where(s == _EPS, 0.5, 0.0))
+    half = 0.5 * weight
+    ct = ((half * (d + d)) * (torch.full_like(n, 0.5) / n)) * clamp
+    k1 = weight * clamp * d / n
+    k2 = weight * clamp * clamp * nominal / (n * n * n)
+    g = (ct * a + ct * a, ct * b + ct * b)
+    return g, (k1 + k2 * a * a, k1 + k2 * b * b, k2 * a * b)
+
+
+def quadratic_norm(weight: float, dim1: int, dim2: int, nominal: float,
+                   name: str = "quadratic_norm") -> Cost:
+    """0.5*w*(||(v[d1], v[d2])|| - nominal)^2. Its gradient pairs are the
+    JAX package's closed form (w (n - nominal) / n) (a, b); its
+    quadraticization is what the JAX package's autodiff over the support
+    (d1, d2) gives (`_norm_quad`)."""
+
+    def norm(v):
+        a, b = v[..., dim1], v[..., dim2]
+        return fmath.sqrt(torch.clamp_min(a * a + b * b, _EPS))
+
+    def evaluate(t, v):
+        diff = norm(v) - nominal
+        return 0.5 * weight * diff * diff
+
+    def grad_pairs(t, v):
+        n = norm(v)
+        ct = weight * (n - nominal) / n
+        return [(dim1, ct * v[..., dim1]), (dim2, ct * v[..., dim2])]
+
+    def quad_pairs(t, v):
+        (g1, g2), (h11, h22, h12) = _norm_quad(weight, dim1, dim2, nominal,
+                                               v)
+        return ([((dim1, dim1), h11), ((dim1, dim2), h12),
+                 ((dim2, dim1), h12), ((dim2, dim2), h22)],
+                [(dim1, g1), (dim2, g2)])
+
+    return Cost(name, evaluate, grad_pairs, quad_pairs,
+                device=("quadratic_norm", {"dims": (dim1, dim2),
+                                           "weight": weight,
+                                           "nominal": nominal}))
+
+
+def semiquadratic_norm(weight: float, dim1: int, dim2: int,
+                       threshold: float, oriented_right: bool,
+                       name: str = "semiquadratic_norm") -> Cost:
+    """One-sided quadratic_norm about `threshold`. Dense only, as in the
+    JAX package (no pairs): its `quad_fn` is autodiff's over all of v,
+    non-zero at d1 and d2 only, and switches on at >= (oriented right) or
+    <= of the norm, where `evaluate` switches on > or < of norm -
+    threshold (the reference's shipped quadraticize, ties included)."""
+
+    def evaluate(t, v):
+        a, b = v[..., dim1], v[..., dim2]
+        diff = fmath.sqrt(torch.clamp_min(a * a + b * b, _EPS)) - threshold
+        active = (diff > 0.0) if oriented_right else (diff < 0.0)
+        return torch.where(active, 0.5 * weight * diff * diff, 0.0)
+
+    def active(v):
+        a, b = v[..., dim1], v[..., dim2]
+        n = fmath.sqrt(torch.clamp_min(a * a + b * b, _EPS))
+        return (n >= threshold) if oriented_right else (n <= threshold)
+
+    def dense(v, g, h=None):
+        """[..., d] (and [..., d, d]) zeros but at d1 and d2, gated."""
+        on = active(v)
+        grad = torch.zeros_like(v)
+        grad[..., dim1] = torch.where(on, g[0], 0.0)
+        grad[..., dim2] = torch.where(on, g[1], 0.0)
+        if h is None:
+            return grad
+        hess = v.new_zeros(v.shape + (v.shape[-1],))
+        for (i, j), e in (((dim1, dim1), h[0]), ((dim1, dim2), h[2]),
+                          ((dim2, dim1), h[2]), ((dim2, dim2), h[1])):
+            hess[..., i, j] = torch.where(on, e, 0.0)
+        return hess, grad
+
+    def grad_fn(t, v):
+        g, _ = _norm_quad(weight, dim1, dim2, threshold, v)
+        return dense(v, g)
+
+    def quad_fn(t, v):
+        return dense(v, *_norm_quad(weight, dim1, dim2, threshold, v))
+
+    return Cost(name, evaluate, quad_fn=quad_fn, grad_fn=grad_fn,
+                device=("semiquadratic_norm", {
+                    "dims": (dim1, dim2), "weight": weight,
+                    "threshold": threshold,
+                    "oriented_right": oriented_right}))
 
 
 def quadratic_polyline2(weight: float, points, xidx: int, yidx: int,

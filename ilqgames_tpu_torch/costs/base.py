@@ -1,8 +1,10 @@
 """Cost and constraint primitives (counterpart of ilqgames_tpu/costs/base.py).
 
-The port keeps only the sparse forms the JAX package's kernels use: a
-cost gives its gradient and quadraticization as (index, value) pairs, a
-constraint gives those of its augmented-Lagrangian term
+A cost gives its gradient and quadraticization as sparse (index, value)
+pairs, the form the kernels use, or, where the JAX package has only a
+dense `quad_fn`, as a dense Hessian and gradient over every index of its
+input (the JAX package's rules, costs/base.py:97-165: such a cost has no
+pairs). A constraint gives the pairs of its augmented-Lagrangian term
 lambda*g + mu_eff*g^2/2. Values are tensors over any batch shape (the
 solver evaluates every lane and knot at once); inputs `v` carry the
 state or control index on their last axis.
@@ -18,28 +20,88 @@ import torch
 from ilqgames_tpu_torch.types import SMALL_NUMBER
 
 
+def _fold(pairs) -> dict:
+    """Pairs accumulated per key in pair order: the first of a key sets
+    it, later ones add to it."""
+    acc = {}
+    for key, v in pairs:
+        acc[key] = acc[key] + v if key in acc else v
+    return acc
+
+
+def assemble_vector(d: int, pairs, like) -> torch.Tensor:
+    """[..., d] from (index, value) pairs folded per index in pair order;
+    the other entries +0 (the JAX package's assemble_vector)."""
+    acc = _fold(pairs)
+    zero = torch.zeros_like(like)
+    return torch.stack([torch.broadcast_to(acc.get(i, zero), like.shape)
+                        for i in range(d)], dim=-1)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Cost:
     """A scalar stage cost on one input vector (a state x or one player's u).
 
     evaluate: (t_rel, v) -> value.
-    grad_pairs_fn: (t, v) -> [(dim, value)].
-    quad_pairs_fn: (t, v) -> ([((i, j), value)], [(dim, value)]).
+    grad_pairs_fn: (t, v) -> [(dim, value)], or None.
+    quad_pairs_fn: (t, v) -> ([((i, j), value)], [(dim, value)]), or None.
     device: the atom's form in the stage and merit kernels
     (csrc/costs.cuh), (kind, {parameter: value}); None when it has none.
+    quad_fn: (t, v) -> (hess [..., d, d], grad [..., d]), the dense form
+    over all d = v.shape[-1] indices, or None.
+    grad_fn: (t, v) -> grad [..., d], quad_fn's gradient alone (so that
+    the merit path builds no Hessian), or None.
     """
 
     name: str
     evaluate: Callable
-    grad_pairs_fn: Callable
-    quad_pairs_fn: Callable
+    grad_pairs_fn: Optional[Callable] = None
+    quad_pairs_fn: Optional[Callable] = None
     device: Optional[tuple] = None
+    quad_fn: Optional[Callable] = None
+    grad_fn: Optional[Callable] = None
+
+    @property
+    def has_pairs(self) -> bool:
+        """Whether the cost has a sparse quadraticization (none when it
+        has a dense `quad_fn`, as in the JAX package)."""
+        return self.quad_fn is None and self.quad_pairs_fn is not None
 
     def gradient_pairs(self, t, v):
+        """The sparse gradient, or None when the cost has only a dense
+        form."""
+        if self.grad_pairs_fn is None:
+            return None
         return list(self.grad_pairs_fn(t, v))
 
     def quad_pairs(self, t, v):
+        """The sparse quadraticization, or None when the cost has a dense
+        `quad_fn` (or no pairs)."""
+        if not self.has_pairs:
+            return None
         return self.quad_pairs_fn(t, v)
+
+    def gradient(self, t, v):
+        """The dense gradient [..., d]: the pairs assembled, else the
+        dense form's."""
+        pairs = self.gradient_pairs(t, v)
+        if pairs is not None:
+            return assemble_vector(v.shape[-1], pairs, v[..., 0])
+        if self.grad_fn is not None:
+            return self.grad_fn(t, v)
+        return self.quad_fn(t, v)[1]
+
+    def quadraticize(self, t, v):
+        """The dense (hess [..., d, d], grad [..., d]): `quad_fn`'s, else
+        the pairs assembled."""
+        if self.quad_fn is not None:
+            return self.quad_fn(t, v)
+        hp, gp = self.quad_pairs_fn(t, v)
+        d = v.shape[-1]
+        hess = v.new_zeros(v.shape + (d,))
+        for (i, j), h in _fold(hp).items():
+            hess[..., i, j] = h
+        return hess, assemble_vector(d, gp, v[..., 0])
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -6,6 +6,11 @@ any leading batch axes, and the per-(index) values of the sparse pairs
 are tensors of that batch shape. Pairs accumulate in the JAX package's
 order (state costs, then constraints, then the extremal gate, then the
 regularization; player_cost.py:278-386), which sets which sums match.
+Atoms with only a dense form (`Cost.quad_fn`) are summed among
+themselves in atom order and that sum is added to the assembled pairs,
+before the regularization (player_cost.py:300-325); a player with such
+an atom squares and sums every entry of its gradient in the merit
+(player_cost.py:212-215).
 
 Only the SUM structure is ported; MAX and MIN raise.
 """
@@ -17,7 +22,7 @@ from typing import Tuple
 
 import torch
 
-from ilqgames_tpu_torch.costs.base import Constraint, Cost
+from ilqgames_tpu_torch.costs.base import Constraint, Cost, assemble_vector
 from ilqgames_tpu_torch.solver.ilq import _fixed_order_sum
 from ilqgames_tpu_torch.types import (DEFAULT_MU, GameSpec, OperatingPoint,
                                       QuadraticCosts, _Replace, const_tensor)
@@ -113,16 +118,75 @@ def _lam(lams, ci):
     return lams[..., ci]
 
 
+def _player_gradient_terms(pc, i, t, x, us, lam_state, lam_ctrl, mu):
+    """Player i's gradient terms: (state pairs, dense state sum or None,
+    own-control pairs, dense own-control sum or None), in the JAX
+    package's order (player_cost.py:125-188). A dense sum folds the atoms'
+    dense gradients in atom order."""
+    def add(dense, g):
+        return g if dense is None else dense + g
+
+    pairs, dense = [], None
+    for c in pc.state_costs:
+        pp = c.gradient_pairs(t, x)
+        if pp is None:
+            dense = add(dense, c.gradient(t, x))
+        else:
+            pairs.extend(pp)
+    for ci, con in enumerate(pc.state_constraints):
+        pairs.extend(con.gradient_al_pairs(t, x, _lam(lam_state[i], ci), mu))
+    ui = us[..., i, :]
+    upairs, udense = [], None
+    for jj, c in pc.control_costs:
+        if jj == i:
+            pp = c.gradient_pairs(t, ui)
+            if pp is None:
+                udense = add(udense, c.gradient(t, ui))
+            else:
+                upairs.extend(pp)
+    for ci, (jj, con) in enumerate(pc.control_constraints):
+        if jj == i:
+            upairs.extend(con.gradient_al_pairs(
+                t, ui, _lam(lam_ctrl[i], ci), mu))
+    return pairs, dense, upairs, udense
+
+
+def stage_gradients(player_costs, spec: GameSpec, lam_state, lam_ctrl, mu,
+                    t, x, us):
+    """Every player's dense stage gradients (l [..., P, xd], r_own
+    [..., P, um]): the assembled pairs plus the dense sum (JAX
+    stage_gradients_core, player_cost.py:125-188). Arguments as
+    `stage_gradient_sq_tuple`'s."""
+    ls, rs = [], []
+    for i, pc in enumerate(player_costs):
+        pairs, dense, upairs, udense = _player_gradient_terms(
+            pc, i, t, x, us, lam_state, lam_ctrl, mu)
+        g = assemble_vector(spec.xdim, pairs, x[..., 0])
+        ls.append(g if dense is None else g + dense)
+        ui = us[..., i, :]
+        gu = assemble_vector(spec.umax, upairs, ui[..., 0])
+        rs.append(gu if udense is None else gu + udense)
+    return torch.stack(ls, dim=-2), torch.stack(rs, dim=-2)
+
+
 def stage_gradient_sq_tuple(player_costs, spec: GameSpec, lam_state,
                             lam_ctrl, mu, t, x, us):
     """Per-player squared stage-gradient sums (state_sqs, ctrl_sqs), tuples
-    of P tensors: the merit increments, computed from sparse pairs. Per-dim
-    accumulation follows pair order; dims are squared and summed in
-    ascending order.
+    of P tensors: the merit increments (JAX player_cost.py:191-266). From
+    sparse pairs alone, per-dim accumulation follows pair order and the
+    touched dims are squared and summed in ascending order; a player with
+    a dense atom squares every entry of the assembled gradient plus the
+    dense sum and sums them left to right over all dims.
 
     lam_state / lam_ctrl: per-player multipliers with the constraint index
     on the last axis; x [..., xd], us [..., P, um]."""
-    def sq_of(pairs, like):
+    def sq_of(pairs, dense, d, like):
+        if dense is not None:
+            vec = assemble_vector(d, pairs, like) + dense
+            s = torch.zeros_like(like)
+            for i_ in range(d):
+                s = s + vec[..., i_] * vec[..., i_]
+            return s
         acc = {}
         for i_, v in pairs:
             acc[i_] = acc[i_] + v if i_ in acc else v
@@ -134,25 +198,29 @@ def stage_gradient_sq_tuple(player_costs, spec: GameSpec, lam_state,
     state_sqs = []
     ctrl_sqs = []
     for i, pc in enumerate(player_costs):
-        pairs = []
-        for c in pc.state_costs:
-            pairs.extend(c.gradient_pairs(t, x))
-        for ci, con in enumerate(pc.state_constraints):
-            pairs.extend(con.gradient_al_pairs(
-                t, x, _lam(lam_state[i], ci), mu))
-        state_sqs.append(sq_of(pairs, x[..., 0]))
-
-        ui = us[..., i, :]
-        upairs = []
-        for jj, c in pc.control_costs:
-            if jj == i:
-                upairs.extend(c.gradient_pairs(t, ui))
-        for ci, (jj, con) in enumerate(pc.control_constraints):
-            if jj == i:
-                upairs.extend(con.gradient_al_pairs(
-                    t, ui, _lam(lam_ctrl[i], ci), mu))
-        ctrl_sqs.append(sq_of(upairs, ui[..., 0]))
+        pairs, dense, upairs, udense = _player_gradient_terms(
+            pc, i, t, x, us, lam_state, lam_ctrl, mu)
+        state_sqs.append(sq_of(pairs, dense, spec.xdim, x[..., 0]))
+        ctrl_sqs.append(sq_of(upairs, udense, spec.umax, us[..., i, 0]))
     return tuple(state_sqs), tuple(ctrl_sqs)
+
+
+def check_sparse(player_costs) -> None:
+    """The stage kernel K1 assembles every player's terms from sparse
+    pairs: raise the JAX package's ValueError (player_cost.py:440-445) for
+    an atom that has only a dense form."""
+    for pc in player_costs:
+        for c in pc.state_costs:
+            if not c.has_pairs:
+                raise ValueError(
+                    f"stage_quadraticize_entries: state cost {c.name!r} "
+                    "has no sparse quad_pairs (required for the fused "
+                    "Pallas stage kernel; use fuse_stages=False)")
+        for _, c in pc.control_costs:
+            if not c.has_pairs:
+                raise ValueError(
+                    f"stage_quadraticize_entries: control cost {c.name!r} "
+                    "has no sparse quad_pairs")
 
 
 def _assemble(out, idx, entries, like):
@@ -190,45 +258,64 @@ def quadraticize(player_costs, spec: GameSpec, op: OperatingPoint,
         for key, v in pairs:
             dacc[key] = dacc[key] + v if key in dacc else v
 
+    def atom_terms(costs, v):
+        """The atoms' pairs folded per key, and their dense parts
+        summed in atom order (None without any)."""
+        hacc, gacc, hd, gd = {}, {}, None, None
+        for c in costs:
+            qp = c.quad_pairs(t, v)
+            if qp is None:
+                h, g = c.quadraticize(t, v)
+                hd, gd = (h, g) if hd is None else (hd + h, gd + g)
+            else:
+                acc_into(hacc, qp[0])
+                acc_into(gacc, qp[1])
+        return hacc, gacc, hd, gd
+
+    def store(H, g, idx, hacc, gacc, hd, gd, reg):
+        """Assemble the pairs into H[..., *idx, :, :] and g; then add the
+        dense sum and, after it, the regularization `reg` (a diagonal of
+        floats, or None). Without dense parts the regularization folds
+        into the pairs, as before them."""
+        if reg is not None and hd is None:
+            acc_into(hacc, (((d, d), torch.full_like(like, rv))
+                            for d, rv in enumerate(reg)))
+        _assemble(H, idx, hacc, like)
+        _assemble(g, idx, {(k,): v for k, v in gacc.items()}, like)
+        if hd is not None:
+            sel = (slice(None), slice(None)) + idx
+            H[sel] = H[sel] + hd
+            g[sel] = g[sel] + gd
+            if reg is not None:
+                for d, rv in enumerate(reg):
+                    H[sel + (d, d)] = H[sel + (d, d)] + rv
+
     Q = x.new_zeros((Bt, N, P, xd, xd))
     l = x.new_zeros((Bt, N, P, xd))
     R = x.new_zeros((Bt, N, P, P, um, um))
     r = x.new_zeros((Bt, N, P, P, um))
     for i, pc in enumerate(player_costs):
-        hacc, gacc = {}, {}
-        for c in pc.state_costs:
-            hp, gp = c.quad_pairs(t, x)
-            acc_into(hacc, hp)
-            acc_into(gacc, gp)
+        hacc, gacc, hd, gd = atom_terms(pc.state_costs, x)
         for ci, con in enumerate(pc.state_constraints):
             hp, gp = con.quad_al_pairs(t, x, al.state_lambdas[i][:, ci], mu)
             acc_into(hacc, hp)
             acc_into(gacc, gp)
-        if pc.state_regularization != 0.0:
-            reg = torch.full_like(like, pc.state_regularization)
-            acc_into(hacc, (((d, d), reg) for d in range(xd)))
-        _assemble(Q, (i,), hacc, like)
-        _assemble(l, (i,), {(k,): v for k, v in gacc.items()}, like)
+        reg = ([pc.state_regularization] * xd
+               if pc.state_regularization != 0.0 else None)
+        store(Q, l, (i,), hacc, gacc, hd, gd, reg)
 
         for j in pc.control_players():
             uj = us[..., j, :]
-            hacc, gacc = {}, {}
-            for jj, c in pc.control_costs:
-                if jj == j:
-                    hp, gp = c.quad_pairs(t, uj)
-                    acc_into(hacc, hp)
-                    acc_into(gacc, gp)
+            hacc, gacc, hd, gd = atom_terms(
+                [c for jj, c in pc.control_costs if jj == j], uj)
             for ci, (jj, con) in enumerate(pc.control_constraints):
                 if jj == j:
                     hp, gp = con.quad_al_pairs(
                         t, uj, al.control_lambdas[i][:, ci], mu)
                     acc_into(hacc, hp)
                     acc_into(gacc, gp)
-            if pc.control_regularization != 0.0:
-                acc_into(hacc, (
-                    ((a, a), torch.full_like(
-                        like, pc.control_regularization * u_mask[j][a]))
-                    for a in range(um)))
-            _assemble(R, (i, j), hacc, like)
-            _assemble(r, (i, j), {(k,): v for k, v in gacc.items()}, like)
+            reg = ([pc.control_regularization * u_mask[j][a]
+                    for a in range(um)]
+                   if pc.control_regularization != 0.0 else None)
+            store(R, r, (i, j), hacc, gacc, hd, gd, reg)
     return QuadraticCosts(Q=Q, l=l, R=R, r=r)

@@ -16,9 +16,16 @@
 //   proximity (cost)     costs/atoms.py:proximity
 //   final_time           a gate on any of them: t >= tgate multiplies each
 //                        pair's value by 1.0, else by 0.0
+//   quadratic_norm       costs/atoms.py:quadratic_norm's gradient pairs
+//   semiquadratic_norm   costs/atoms.py:semiquadratic_norm's dense gradient
+//                        (autodiff's operations, gated on >= or <= of the
+//                        norm), into a player's dense accumulator
 //   car_6d, unicycle_4d, the linear system
 //                        the Jacobian entries of dynamics/models.py and the
 //                        constant ones of dynamics/base.py:linear
+// The two norm atoms are the merit's only (K5, K6): they are compiled in
+// where the library is built with CT_NORMS=1 (ops/cuda/sweep.py), and K1
+// has neither (its caller refuses them).
 // The problem arrives as a CostTable passed by value (atom kinds, dims,
 // weights, nominals, thresholds, signs, orientations, gate times, segment
 // offsets; built by ops/cuda/cost_table.py) and a small device array of
@@ -30,7 +37,11 @@
 //
 // Pairs accumulate per key in pair order, the first pair of a key setting it
 // and later ones adding to it, as the plain versions' dict folds do; callers
-// keep a per-key "seen" bit for that.
+// keep a per-key "seen" bit for that. A player with a dense atom
+// (semiquadratic_norm) accumulates the dense gradients apart, in atom
+// order, and its merit term squares every entry of the pairs' sum plus the
+// dense sum, folded left to right over all X dims
+// (player_cost.stage_gradient_sq_tuple's dense branch).
 //
 // The atoms read the state through `v[d]` for any V that has it: a thread's
 // own array (K1, the probes), or a Column of a [X][32] shared-memory array
@@ -42,6 +53,10 @@
 
 #include "fmath.cuh"
 
+#ifndef CT_NORMS
+#define CT_NORMS 0
+#endif
+
 namespace costs {
 
 constexpr int MAX_ATOMS = 32;
@@ -52,6 +67,8 @@ constexpr int KIND_POLYLINE = 1;
 constexpr int KIND_PROXIMITY = 2;
 constexpr int KIND_SEMI_POLYLINE = 3;
 constexpr int KIND_PROXIMITY_COST = 4;
+constexpr int KIND_QUADRATIC_NORM = 5;
+constexpr int KIND_SEMI_NORM = 6;
 constexpr int MAX_LIN = 32;
 constexpr int KIND_CAR_6D = 0;      // dynamics/models.py KIND_CAR_6D
 constexpr int KIND_UNICYCLE_4D = 1;  // dynamics/models.py KIND_UNICYCLE_4D
@@ -89,7 +106,9 @@ struct SubsysTable {
 // float offset of its shortcut rows. Proximity constraint: dim[0..3] = x1,
 // y1, x2, y2, w = threshold, aux = sign s (+1 keep within, -1 keep out),
 // lam = its row of lamS. Proximity cost: dim[0..3], w = weight, aux =
-// threshold, aux2 = threshold^2. gated: a final-time gate at tgate.
+// threshold, aux2 = threshold^2. Quadratic norm: dim[0..1], w = weight,
+// aux = nominal. Semiquadratic norm: dim[0..1], w = weight, aux =
+// threshold, right = oriented right. gated: a final-time gate at tgate.
 struct CostAtom {
   int kind;
   int player;
@@ -434,6 +453,38 @@ __device__ __forceinline__ void prox_quad(const CostAtom& a, const V& v,
   hxy = (mu_eff * gx * gy - lam_t * s * (nx * ny) * inv) * p.live;
 }
 
+// atoms.quadratic_norm's grad_pairs: (g1, g2) of [(d1, g1), (d2, g2)].
+template <typename V>
+__device__ __forceinline__ void norm_grad(const CostAtom& a, const V& v,
+                                          float& g1, float& g2) {
+  const float x = v[a.dim[0]], y = v[a.dim[1]];
+  const float n = fmath::sqrt(clamp_min(x * x + y * y, EPS));
+  const float ct = a.w * (n - a.aux) / n;
+  g1 = ct * x;
+  g2 = ct * y;
+}
+
+// atoms.semiquadratic_norm's dense gradient at (d1, d2): autodiff's
+// operations (atoms._norm_quad), zero where the norm is not at or beyond
+// the threshold on its side.
+template <typename V>
+__device__ __forceinline__ void semi_norm_grad(const CostAtom& a, const V& v,
+                                               float& g1, float& g2) {
+  const float x = v[a.dim[0]], y = v[a.dim[1]];
+  const float s = x * x + y * y;
+  const float n = fmath::sqrt(clamp_min(s, EPS));
+  const float d = n - a.aux;
+  const float clamp = (s > EPS) ? 1.0f : ((s == EPS) ? 0.5f : 0.0f);
+  const float ct = (((0.5f * a.w) * (d + d)) * (0.5f / n)) * clamp;
+  const bool on = a.right ? n >= a.aux : n <= a.aux;
+  g1 = on ? ct * x + ct * x : 0.0f;
+  g2 = on ? ct * y + ct * y : 0.0f;
+}
+
+// The dense accumulator of a library built without the norm atoms, which
+// never reads it.
+struct NoAcc {};
+
 // Sparse accumulation into a thread's own dense vector: the first pair of
 // a key sets it, later ones add.
 template <int D>
@@ -497,6 +548,10 @@ struct ColumnGradAcc {
       if ((seen >> d) & 1u) s = s + g[32 * d] * g[32 * d];
     return s;
   }
+  // key d's value, 0 where no pair set it.
+  __device__ __forceinline__ float at(int d) const {
+    return ((seen >> d) & 1u) ? g[32 * d] : 0.0f;
+  }
 };
 
 // A thread's column of a [rows][32] shared array, read as v[d].
@@ -522,15 +577,19 @@ struct Selected {
 
 // player_cost.stage_gradient_sq_tuple for one player i at one knot of time
 // t: (state_sq, ctrl_sq) from the state v [X] and player i's controls ui
-// [U], accumulated in gs (keys 0 .. X-1) and gu (keys 0 .. U-1). lam(row)
-// gives the multiplier of lamS row `row`.
-template <int X, int U, typename V, typename SAcc, typename C, typename CAcc,
-          typename Lam>
+// [U], accumulated in gs (keys 0 .. X-1; the dense atoms' in gd) and gu
+// (keys 0 .. U-1). lam(row) gives the multiplier of lamS row `row`.
+template <int X, int U, typename V, typename SAcc, typename DAcc, typename C,
+          typename CAcc, typename Lam>
 __device__ __forceinline__ void gradient_sq_into(
     const CostTable& tab, const float* segs, int i, const V& v, SAcc& gs,
-    const C& ui, CAcc& gu, Lam lam, float mu, float t, float& state_sq,
-    float& ctrl_sq) {
+    DAcc& gd, const C& ui, CAcc& gu, Lam lam, float mu, float t,
+    float& state_sq, float& ctrl_sq) {
   gs.reset();
+#if CT_NORMS
+  gd.reset();
+  bool dense = false;
+#endif
   for (int n = 0; n < tab.n; ++n) {
     const CostAtom& a = tab.atom[n];
     if (a.player != i || a.on >= 0) continue;
@@ -556,8 +615,35 @@ __device__ __forceinline__ void gradient_sq_into(
       gs.add(a.dim[2], gv(-px));
       gs.add(a.dim[3], gv(-py));
     }
+#if CT_NORMS
+    else if (a.kind == KIND_QUADRATIC_NORM) {
+      float g1, g2;
+      norm_grad(a, v, g1, g2);
+      gs.add(a.dim[0], gv(g1));
+      gs.add(a.dim[1], gv(g2));
+    } else if (a.kind == KIND_SEMI_NORM) {
+      float g1, g2;
+      semi_norm_grad(a, v, g1, g2);
+      gd.add(a.dim[0], gv(g1));
+      gd.add(a.dim[1], gv(g2));
+      dense = true;
+    }
+#endif
   }
+#if CT_NORMS
+  if (dense) {
+    float s = 0.0f;
+    for (int d = 0; d < X; ++d) {
+      const float e = gs.at(d) + gd.at(d);
+      s = s + e * e;
+    }
+    state_sq = s;
+  } else {
+    state_sq = gs.sq();
+  }
+#else
   state_sq = gs.sq();
+#endif
   gu.reset();
   for (int n = 0; n < tab.n; ++n) {
     const CostAtom& a = tab.atom[n];
@@ -568,6 +654,7 @@ __device__ __forceinline__ void gradient_sq_into(
   ctrl_sq = gu.sq();
 }
 
+#if !CT_NORMS
 // gradient_sq_into on a thread's own state v [X] and padded controls
 // u [P * U], accumulated in its own arrays.
 template <int X, int U, typename Lam>
@@ -575,11 +662,13 @@ __device__ void gradient_sq(const CostTable& tab, const float* segs, int i,
                             const float* v, const float* u, Lam lam, float mu,
                             float t, float& state_sq, float& ctrl_sq) {
   GradAcc<X> gs;
+  NoAcc gd;
   GradAcc<U> gu;
   const float* ui = u + i * U;
-  gradient_sq_into<X, U>(tab, segs, i, v, gs, ui, gu, lam, mu, t, state_sq,
-                         ctrl_sq);
+  gradient_sq_into<X, U>(tab, segs, i, v, gs, gd, ui, gu, lam, mu, t,
+                         state_sq, ctrl_sq);
 }
+#endif  // the register form has no dense accumulator: no norm atoms
 
 // The models' analytic Jacobian entries at state x, in
 // dynamics/models.py's order: add(false, row, col, v) for df/dx and

@@ -30,7 +30,8 @@
 // 32 threads are 32 / LANES knots of those chains, so each row of xs and
 // us is read in LANES-float runs. A thread stages its knot's state in its
 // own column of its warp's [X][32] shared array and accumulates the state
-// gradient in another (costs::Column, ColumnGradAcc), its controls in
+// gradient in another (costs::Column, ColumnGradAcc; built with CT_NORMS, a
+// third column takes the dense atoms' gradient), its controls in
 // registers read by selects (Selected, SelectGradAcc), so no register
 // array is indexed at run time and nothing goes on the stack. It writes
 // its knot's (state, ctrl) pair, summed over the players left to right, to
@@ -63,6 +64,9 @@ constexpr int PU = P * U;
 constexpr int WARP = 32;
 constexpr int LANES = 8;       // chains per block
 constexpr int MAX_WARPS = 32;  // warps per block at most
+// [X][32] shared columns per warp: the state and the state gradient, and
+// the dense atoms' gradient where the library has them.
+constexpr int COLUMNS = CT_NORMS ? 3 : 2;
 static_assert(WARP % LANES == 0, "a warp holds whole knots of the chains");
 
 __global__ void __launch_bounds__(MAX_WARPS * WARP)
@@ -78,7 +82,10 @@ __global__ void __launch_bounds__(MAX_WARPS * WARP)
   const int lane = threadIdx.x % WARP;
   float* state = smem + w * X * WARP + lane;         // [nw][X][32]
   float* grad = smem + (nw + w) * X * WARP + lane;   // [nw][X][32]
-  float* terms = smem + 2 * nw * X * WARP;           // [N][2][LANES]
+#if CT_NORMS
+  float* dgrad = smem + (2 * nw + w) * X * WARP + lane;  // [nw][X][32]
+#endif
+  float* terms = smem + COLUMNS * nw * X * WARP;     // [N][2][LANES]
   const long CB = (long)C * B;
   for (int it = threadIdx.x; it < LANES * N; it += blockDim.x) {
     const int j = it % LANES;
@@ -95,14 +102,19 @@ __global__ void __launch_bounds__(MAX_WARPS * WARP)
     const float mu_b = mu[b];
     const float t = t0[b] + (float)k * dt;
     costs::ColumnGradAcc<X> gs{grad};
+#if CT_NORMS
+    costs::ColumnGradAcc<X> gd{dgrad};
+#else
+    costs::NoAcc gd;
+#endif
     costs::SelectGradAcc<U> gu;
     float st = 0.0f, ct = 0.0f;
 #pragma unroll
     for (int i = 0; i < P; ++i) {
       float s_sq, r_sq;
       costs::gradient_sq_into<X, U>(cost, segs, i, costs::Column{state}, gs,
-                                    costs::Selected<U>{u + i * U}, gu, lam,
-                                    mu_b, t, s_sq, r_sq);
+                                    gd, costs::Selected<U>{u + i * U}, gu,
+                                    lam, mu_b, t, s_sq, r_sq);
       st = (i == 0) ? s_sq : st + s_sq;
       ct = (i == 0) ? r_sq : ct + r_sq;
     }
@@ -145,8 +157,9 @@ int merit_consumer(const float* xs, const float* us, const float* t0,
   const int needed = (LANES * N + WARP - 1) / WARP;
   const int passes = (needed + MAX_WARPS - 1) / MAX_WARPS;
   const int nw = (needed + passes - 1) / passes;
-  const size_t bytes = (2 * (size_t)nw * X * WARP + 2 * (size_t)N * LANES) *
-                       sizeof(float);
+  const size_t bytes =
+      (COLUMNS * (size_t)nw * X * WARP + 2 * (size_t)N * LANES) *
+      sizeof(float);
   merit_kernel<<<(int)((total + LANES - 1) / LANES), nw * WARP, bytes,
                  (cudaStream_t)stream>>>(xs, us, t0, lamS, nS, mu, segs,
                                          merit_out, N, C, B, dt, cost);

@@ -14,12 +14,17 @@
 // warp: `sub_ode`, `sub_integrate` and `control_rows` below are `ode`,
 // `integrate` and `control_law` restricted to one subsystem's state rows
 // and the control rows it reads (its player's, or every player's for a
-// linear system). The joint field is block-diagonal and every RK4 and
-// control-row operation is elementwise or a per-row fold, so the
-// restriction computes the same operations in the same order. A linear
+// linear system in one subsystem). The joint field is block-diagonal and
+// every RK4 and control-row operation is elementwise or a per-row fold, so
+// the restriction computes the same operations in the same order. A linear
 // system's field (dynamics/base.py:linear) is its compile-time terms, a
-// type Lin with static constexpr n, row[], src[] (a state index, or X plus a
-// control row) and coef[], folded per row in term order.
+// type Lin with static constexpr n, row[], src[] (a state index, or X plus
+// a control row), coef[] and zero_start, folded per row in term order. It
+// runs as one subsystem over the whole state that reads every control row,
+// or (a flat system) as one subsystem per player over its own rows, reading
+// its own states and controls: a subsystem at state offset O with D rows
+// and control offset Q takes the terms of rows O .. O+D-1, with their state
+// sources less O and control rows less Q.
 
 #pragma once
 
@@ -98,7 +103,7 @@ __device__ __forceinline__ void control_law(
   }
 }
 
-// State dimension of a model kind (a linear system's is the whole state).
+// State dimension of a model kind.
 template <int KIND>
 constexpr int kind_dim = KIND == KIND_CAR_6D ? 6 : 4;
 
@@ -108,6 +113,7 @@ struct NoLin {
   static constexpr int row[1] = {0};
   static constexpr int src[1] = {0};
   static constexpr float coef[1] = {0.0f};
+  static constexpr bool zero_start = false;
 };
 
 // Whether term e of Lin is the first of its row.
@@ -118,37 +124,50 @@ __host__ __device__ constexpr bool first_in_row(int e) {
   return true;
 }
 
-// A linear system's rows, its terms unrolled at compile time: each row
-// folds its terms left to right, the first setting it; a coefficient of 1
-// takes the value bare.
-template <int X, typename Lin, int E = 0>
+// The rows O .. O+D-1 of a linear system, its terms unrolled at compile
+// time (x: those rows' states, u: control rows Q on). Each row folds its
+// terms left to right: the first setting it and a coefficient of 1 taking
+// the value bare; or, with Lin::zero_start, from the row's x * 0 (set by
+// the caller) with every coefficient multiplied.
+template <int X, int O, int D, int Q, typename Lin, int E = 0>
 __device__ __forceinline__ void linear_terms(const float* x, const float* u,
                                              float* dx) {
   if constexpr (E < Lin::n) {
-    constexpr int r = Lin::row[E], q = Lin::src[E];
-    constexpr float c = Lin::coef[E];
-    float v;
-    if constexpr (q < X) v = x[q]; else v = u[q - X];
-    float term;
-    if constexpr (c == 1.0f) term = v; else term = c * v;
-    if constexpr (first_in_row<Lin>(E)) dx[r] = term; else dx[r] = dx[r] + term;
-    linear_terms<X, Lin, E + 1>(x, u, dx);
+    constexpr int row = Lin::row[E], q = Lin::src[E];
+    if constexpr (row >= O && row < O + D) {
+      constexpr int r = row - O;
+      constexpr float c = Lin::coef[E];
+      float v;
+      if constexpr (q < X) v = x[q - O]; else v = u[q - X - Q];
+      if constexpr (Lin::zero_start) {
+        dx[r] = dx[r] + c * v;
+      } else {
+        float term;
+        if constexpr (c == 1.0f) term = v; else term = c * v;
+        if constexpr (first_in_row<Lin>(E)) dx[r] = term;
+        else dx[r] = dx[r] + term;
+      }
+    }
+    linear_terms<X, O, D, Q, Lin, E + 1>(x, u, dx);
   }
 }
 
-// `ode` for one subsystem of kind KIND with D states: x [D] its state, u
-// the control rows it reads. Time-invariant, so it takes no t.
-template <int KIND, int D, int X, typename Lin>
+// `ode` for one subsystem of kind KIND with D states from state offset O,
+// reading control rows from Q: x [D] its state, u the control rows it
+// reads. Time-invariant, so it takes no t.
+template <int KIND, int D, int X, typename Lin, int O = 0, int Q = 0>
 __device__ __forceinline__ void sub_ode(float length, const float* x,
                                         const float* u, float* dx) {
   static_assert(
       KIND == KIND_CAR_6D || KIND == KIND_UNICYCLE_4D || KIND == KIND_LINEAR,
       "no device ODE for this model kind");
   if constexpr (KIND == KIND_LINEAR) {
-    // A row without terms is 0; the others fold their terms.
+    // A row without terms is 0 (x * 0 with zero_start); the others fold
+    // their terms.
 #pragma unroll
-    for (int r = 0; r < D; ++r) dx[r] = 0.0f;
-    linear_terms<X, Lin>(x, u, dx);
+    for (int r = 0; r < D; ++r)
+      dx[r] = Lin::zero_start ? x[r] * 0.0f : 0.0f;
+    linear_terms<X, O, D, Q, Lin>(x, u, dx);
   } else if constexpr (KIND == KIND_CAR_6D) {
     dx[0] = x[4] * fmath::cos(x[2]);
     dx[1] = x[4] * fmath::sin(x[2]);
@@ -165,18 +184,19 @@ __device__ __forceinline__ void sub_ode(float length, const float* x,
 }
 
 // `integrate` for one subsystem: RK4 with 2 substeps of h on its D states.
-template <int KIND, int D = kind_dim<KIND>, int X = 0, typename Lin = NoLin>
+template <int KIND, int D = kind_dim<KIND>, int X = 0, typename Lin = NoLin,
+          int O = 0, int Q = 0>
 __device__ __forceinline__ void sub_integrate(float length, float h, float* x,
                                               const float* u) {
   float k1[D], k2[D], k3[D], k4[D], tmp[D];
   for (int sub = 0; sub < 2; ++sub) {
-    sub_ode<KIND, D, X, Lin>(length, x, u, k1);
+    sub_ode<KIND, D, X, Lin, O, Q>(length, x, u, k1);
     for (int r = 0; r < D; ++r) { k1[r] = h * k1[r]; tmp[r] = x[r] + 0.5f * k1[r]; }
-    sub_ode<KIND, D, X, Lin>(length, tmp, u, k2);
+    sub_ode<KIND, D, X, Lin, O, Q>(length, tmp, u, k2);
     for (int r = 0; r < D; ++r) { k2[r] = h * k2[r]; tmp[r] = x[r] + 0.5f * k2[r]; }
-    sub_ode<KIND, D, X, Lin>(length, tmp, u, k3);
+    sub_ode<KIND, D, X, Lin, O, Q>(length, tmp, u, k3);
     for (int r = 0; r < D; ++r) { k3[r] = h * k3[r]; tmp[r] = x[r] + k3[r]; }
-    sub_ode<KIND, D, X, Lin>(length, tmp, u, k4);
+    sub_ode<KIND, D, X, Lin, O, Q>(length, tmp, u, k4);
     for (int r = 0; r < D; ++r) {
       k4[r] = h * k4[r];
       x[r] = x[r] + (k1[r] + 2.0f * (k2[r] + k3[r]) + k4[r]) / 6.0f;

@@ -19,11 +19,14 @@
 // merits [C, B]. Its fold is K6's and merit_plain's.
 //
 // Dynamics: car_6d and unicycle_4d (ilqgames_tpu/dynamics/models.py:80-175)
-// and the constant-linear system of the two-player point mass
-// (ilqgames_tpu/examples/two_player_point_mass.py:31-35) through the device
-// functions of rollout.cuh, chosen per subsystem. The library is built for
-// one game's layout of subsystems (kind, state offset, control offset,
-// inter-axle length each, and a linear system's terms), given as defines by
+// and the constant-linear systems of the two-player point mass
+// (ilqgames_tpu/examples/two_player_point_mass.py:31-35; one subsystem that
+// both players drive) and of the flat systems
+// (ilqgames_tpu/dynamics/flat.py:177-237; one subsystem per player) through
+// the device functions of rollout.cuh, chosen per subsystem. The library is
+// built for one game's layout of subsystems (kind, state offset, control
+// offset, inter-axle length, rows and control rows each, and a linear
+// system's terms), given as defines by
 // ops/cuda/sweep.py:library: K4 and K5 read it as compile-time constants
 // (Sub<S> and LinTerms below). The run-time SubsysTable they are handed is
 // only checked against it.
@@ -53,7 +56,8 @@
 // the same warps. Player i's terms need the whole state x_k, player i's
 // controls u_k and the knot's time t0[b] + k dt, and warp s computes the
 // controls of the players whose rows its subsystem reads (one player for a
-// model, every player for a linear system; the library refuses a game
+// model or a flat system's block, every player for a linear system in one
+// subsystem; the library refuses a game
 // where a player's rows are not within exactly one subsystem's). So within
 // knot k each warp, after its control rows, computes its players'
 // (state_sq, ctrl_sq) and writes them to a double-buffered [2][P][2][32]
@@ -90,16 +94,20 @@ constexpr int SUB_KIND[] = {SW_SUB_KIND};
 constexpr int SUB_XOFF[] = {SW_SUB_XOFF};
 constexpr int SUB_UOFF[] = {SW_SUB_UOFF};
 constexpr float SUB_LENGTH[] = {SW_SUB_LENGTH};
+constexpr int SUB_DIM[] = {SW_SUB_DIM};
+constexpr int SUB_UROWS[] = {SW_SUB_UROWS};
 #undef SW_ITEM
 static_assert(NSUB >= 1 && NSUB <= costs::MAX_SUBSYS &&
                   sizeof(SUB_KIND) == NSUB * sizeof(int) &&
                   sizeof(SUB_XOFF) == NSUB * sizeof(int) &&
                   sizeof(SUB_UOFF) == NSUB * sizeof(int) &&
-                  sizeof(SUB_LENGTH) == NSUB * sizeof(float),
+                  sizeof(SUB_LENGTH) == NSUB * sizeof(float) &&
+                  sizeof(SUB_DIM) == NSUB * sizeof(int) &&
+                  sizeof(SUB_UROWS) == NSUB * sizeof(int),
               "one SW_ITEM per subsystem in each layout define");
 
 // A linear system's terms (SW_NLIN, SW_LIN_ROW, SW_LIN_SRC, SW_LIN_COEF:
-// one SW_ITEM per term), or none.
+// one SW_ITEM per term; SW_LIN_ZERO: its rows fold from x * 0), or none.
 #ifdef SW_NLIN
 #define SW_ITEM(v) v,
 struct LinTerms {
@@ -107,6 +115,7 @@ struct LinTerms {
   static constexpr int row[] = {SW_LIN_ROW};
   static constexpr int src[] = {SW_LIN_SRC};
   static constexpr float coef[] = {SW_LIN_COEF};
+  static constexpr bool zero_start = SW_LIN_ZERO;
 };
 #undef SW_ITEM
 static_assert(sizeof(LinTerms::row) == SW_NLIN * sizeof(int) &&
@@ -119,16 +128,17 @@ using LinTerms = rollout::NoLin;
 
 // Subsystem S's entries, as compile-time constants: its state rows, and
 // the control rows it computes and reads (its player's; every player's for
-// a linear system).
+// a linear system in one subsystem).
 template <int S>
 struct Sub {
   static constexpr int kind = SUB_KIND[S];
   static constexpr int xoff = SUB_XOFF[S];
   static constexpr int uoff = SUB_UOFF[S];
   static constexpr float length = SUB_LENGTH[S];
-  static constexpr bool linear = kind == costs::KIND_LINEAR;
-  static constexpr int dim = linear ? X : rollout::kind_dim<kind>;
-  static constexpr int urows = linear ? PU : U;
+  static constexpr int dim = SUB_DIM[S];
+  static constexpr int urows = SUB_UROWS[S];
+  static_assert(kind == costs::KIND_LINEAR || dim == rollout::kind_dim<kind>,
+                "a model's rows are its kind's");
 };
 
 // f(Sub<s>{}) for a subsystem index s known at run time: a chain of
@@ -186,7 +196,8 @@ __global__ void __launch_bounds__(WARP * NSUB) rollout_warp_kernel(
       }
       float xo[D];
       for (int j = 0; j < D; ++j) xo[j] = x[O + j];
-      rollout::sub_integrate<S::kind, D, X, LinTerms>(S::length, h, xo, u);
+      rollout::sub_integrate<S::kind, D, X, LinTerms, O, Q>(S::length, h, xo,
+                                                          u);
       for (int j = 0; j < D; ++j) state[cur ^ 1][O + j][lane] = xo[j];
     });
     __syncthreads();
@@ -207,6 +218,9 @@ __global__ void __launch_bounds__(WARP * NSUB) rollout_merit_warp_kernel(
     int umask_bits, const __grid_constant__ CostTable cost) {
   __shared__ float state[2][X][WARP];
   __shared__ float grad[NSUB][X][WARP];    // each warp's state gradient
+#if CT_NORMS
+  __shared__ float dgrad[NSUB][X][WARP];   // and its dense atoms'
+#endif
   __shared__ float terms[2][P][2][WARP];   // (state_sq, ctrl_sq) per player
   const int lane = threadIdx.x % WARP;
   const int w = threadIdx.x / WARP;
@@ -253,17 +267,23 @@ __global__ void __launch_bounds__(WARP * NSUB) rollout_merit_warp_kernel(
       for (int ii = 0; ii < UR / U; ++ii) {
         const int I = Q / U + ii;
         costs::ColumnGradAcc<X> gs{&grad[w][0][lane]};
+#if CT_NORMS
+        costs::ColumnGradAcc<X> gd{&dgrad[w][0][lane]};
+#else
+        costs::NoAcc gd;
+#endif
         costs::SelectGradAcc<U> gu;
         float s_sq, r_sq;
         costs::gradient_sq_into<X, U>(
-            cost, segs, I, costs::Column{&state[cur][0][lane]}, gs,
+            cost, segs, I, costs::Column{&state[cur][0][lane]}, gs, gd,
             costs::Selected<U>{u + ii * U}, gu, lam, mu_b, t, s_sq, r_sq);
         terms[cur][I][0][lane] = s_sq;
         terms[cur][I][1][lane] = r_sq;
       }
       float xo[D];
       for (int j = 0; j < D; ++j) xo[j] = x[O + j];
-      rollout::sub_integrate<S::kind, D, X, LinTerms>(S::length, h, xo, u);
+      rollout::sub_integrate<S::kind, D, X, LinTerms, O, Q>(S::length, h, xo,
+                                                          u);
       for (int j = 0; j < D; ++j) state[cur ^ 1][O + j][lane] = xo[j];
     });
     __syncthreads();

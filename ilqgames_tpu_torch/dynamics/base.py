@@ -51,8 +51,17 @@ class MultiPlayerDynamics:
     # The concatenated subsystems, for the rollout kernel's device table.
     models: Tuple[SinglePlayerModel, ...] = ()
     # A constant-linear system's terms (`linear`), from which its ode,
-    # ode_jac and device form are all built.
+    # ode_jac and device form are all built; its ode's fold (each row
+    # from x[r] * 0.0, every coefficient multiplied: the JAX package's
+    # flat systems), and whether the kernels run it as one linear
+    # subsystem per player.
     linear_rows: Optional[Tuple[Tuple[tuple, ...], ...]] = None
+    linear_zero_start: bool = False
+    linear_per_player: bool = False
+    # A flat system's coordinate maps (dynamics/flat.py).
+    to_linear_state: Optional[Callable] = None
+    from_linear_state: Optional[Callable] = None
+    linear_state_singular: Optional[Callable] = None
 
     @property
     def num_players(self) -> int:
@@ -109,26 +118,43 @@ def concatenate(name: str,
 
 
 def linear(name: str, xdims: Sequence[int], udims: Sequence[int],
-           rows) -> MultiPlayerDynamics:
+           rows, zero_start: bool = False,
+           per_player: bool = False) -> MultiPlayerDynamics:
     """A constant-linear multi-player system xdot = A x + sum_i B_i u_i,
     from one description of its terms: `rows[r]` is state row r's terms in
     order, each ("x", col, coef) or ("u", (player, col), coef). Its ode
-    folds a row's terms left to right (a coefficient of 1.0 takes the
-    value bare), its ode_jac lists the coefficients row by row, and the
-    kernels' device form (ops/cuda/sweep.py) reads the same terms; any
-    player's controls may drive any state row."""
+    folds a row's terms left to right: from the first term, a coefficient
+    of 1.0 taking the value bare; or, with `zero_start`, from x[r] * 0.0
+    with every coefficient multiplied (the JAX package's flat systems,
+    dynamics/flat.py:221-230, whose rows stay NaN where x[r] is inf or
+    NaN). Its ode_jac lists the coefficients row by row, and the kernels'
+    device form (ops/cuda/sweep.py) reads the same terms: one subsystem
+    over the whole state that reads every player's controls, or, with
+    `per_player`, one per player over its own states, which may then read
+    only that player's states and controls."""
     rows = tuple(tuple(r) for r in rows)
     if len(rows) != sum(xdims):
         raise ValueError(f"{len(rows)} rows of terms for {sum(xdims)} states")
+    if per_player:
+        off = 0
+        for p, d in enumerate(xdims):
+            for r in range(off, off + d):
+                for src, idx, _ in rows[r]:
+                    if not (off <= idx < off + d if src == "x"
+                            else idx[0] == p):
+                        raise ValueError(
+                            f"row {r} of player {p}'s block reads "
+                            f"{src} {idx}, outside the block")
+            off += d
 
     def term(src, idx, coef, x, us):
         v = x[..., idx] if src == "x" else us[..., idx[0], idx[1]]
-        return v if coef == 1.0 else coef * v
+        return v if coef == 1.0 and not zero_start else coef * v
 
     def ode(t, x, us):
         out = []
-        for terms in rows:
-            acc = None
+        for r, terms in enumerate(rows):
+            acc = x[..., r] * 0.0 if zero_start else None
             for src, idx, coef in terms:
                 v = term(src, idx, coef, x, us)
                 acc = v if acc is None else acc + v
@@ -144,7 +170,9 @@ def linear(name: str, xdims: Sequence[int], udims: Sequence[int],
 
     return MultiPlayerDynamics(name=name, xdims=tuple(xdims),
                                udims=tuple(udims), ode=ode, ode_jac=ode_jac,
-                               linear_rows=rows)
+                               linear_rows=rows,
+                               linear_zero_start=zero_start,
+                               linear_per_player=per_player)
 
 
 def integrate(dyn: MultiPlayerDynamics, t, dt: float, x: torch.Tensor,

@@ -6,7 +6,9 @@ segments (and, for the signed query, their shortcut segments) as a small
 device tensor.
 
 An atom or constraint with no device form raises NotImplementedError, so
-a kernel is never launched on a problem it cannot compute.
+a kernel is never launched on a problem it cannot compute. The two norm
+atoms have device forms in the merit kernels K5 and K6 only, in libraries
+built with CT_NORMS=1 (`has_norms`); the stage kernel K1 refuses them.
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ from ilqgames_tpu_torch.types import GameSpec, const_tensor
 MAX_ATOMS = 32
 MAX_PLAYERS = 8
 KIND = {"quadratic": 0, "polyline": 1, "proximity": 2,
-        "semiquadratic_polyline": 3, "proximity_cost": 4}
+        "semiquadratic_polyline": 3, "proximity_cost": 4,
+        "quadratic_norm": 5, "semiquadratic_norm": 6}
+NORM_KINDS = ("quadratic_norm", "semiquadratic_norm")
 
 
 class CostAtom(ctypes.Structure):
@@ -130,6 +134,13 @@ def _build(player_costs, spec: GameSpec):
             a.dim[:] = list(prm["dims"])
             a.w, a.aux = prm["weight"], prm["threshold"]
             a.aux2 = prm["threshold"] * prm["threshold"]
+        elif kind == "quadratic_norm":
+            a.dim[0], a.dim[1] = prm["dims"]
+            a.w, a.aux = prm["weight"], prm["nominal"]
+        elif kind == "semiquadratic_norm":
+            a.dim[0], a.dim[1] = prm["dims"]
+            a.w, a.aux = prm["weight"], prm["threshold"]
+            a.right = int(prm["oriented_right"])
     tab.n = len(atoms)
     # The shortcut rows follow the segment rows.
     for n in range(tab.n):
@@ -138,6 +149,13 @@ def _build(player_costs, spec: GameSpec):
     flat = tuple(v for row in segs for v in row) + tuple(
         v for row in fixes for v in row)
     return tab, flat or (0.0,)
+
+
+def has_norms(player_costs) -> bool:
+    """Whether a game's table holds a norm atom: its merit kernels are then
+    built with CT_NORMS=1."""
+    return any(c.device is not None and c.device[0] in NORM_KINDS
+               for pc in player_costs for c in pc.state_costs)
 
 
 def cost_table(player_costs, spec: GameSpec, device):

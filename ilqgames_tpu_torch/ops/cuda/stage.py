@@ -18,7 +18,8 @@ import torch
 from ilqgames_tpu_torch.costs import player_cost as pcost
 from ilqgames_tpu_torch.dynamics import base as dyn_base
 from ilqgames_tpu_torch.ops.cuda import build, lq
-from ilqgames_tpu_torch.ops.cuda.cost_table import CostTable, cost_table
+from ilqgames_tpu_torch.ops.cuda.cost_table import CostTable, cost_table, \
+    has_norms
 from ilqgames_tpu_torch.ops.cuda.layout import mb
 from ilqgames_tpu_torch.ops.cuda.sweep import _device_table, _SubsysTable, \
     merit_operands
@@ -65,7 +66,10 @@ def lin_quad_plain(dyn, player_costs, spec: GameSpec, op_bm: dict, lamS,
     {"xs" [N,x,B], "us" [N,Pu,B], "t0" [1,B]} with multipliers lamS
     [N,nS,B] (or None) and mu [1,B], as the LQ operand dict. The atoms
     see each lane's absolute knot times t0 + k * dt, as in the JAX
-    package's stage kernel (ops/pallas/stage.py:141)."""
+    package's stage kernel (ops/pallas/stage.py:141). A game with an atom
+    that has only a dense form raises the JAX package's ValueError, as its
+    fused stage does."""
+    pcost.check_sparse(player_costs)
     if lamC is not None:
         raise NotImplementedError("control constraints are not ported yet")
     N, P, u = spec.num_time_steps, spec.num_players, spec.umax
@@ -83,7 +87,10 @@ def lin_quad_plain(dyn, player_costs, spec: GameSpec, op_bm: dict, lamS,
 def lin_quad(dyn, player_costs, spec: GameSpec, op_bm: dict, lamS, lamC,
              mu) -> dict:
     """K1 on batch-minor operands (see `lin_quad_plain`). CUDA tensors
-    launch csrc/stage.cu; CPU tensors take `lin_quad_plain`."""
+    launch csrc/stage.cu; CPU tensors take `lin_quad_plain`. A game with an
+    atom that has only a dense form raises the JAX package's ValueError on
+    both; the norm atoms have no device form in K1."""
+    pcost.check_sparse(player_costs)
     N, x = spec.num_time_steps, spec.xdim
     Pu = spec.num_players * spec.umax
     B = op_bm["xs"].shape[-1]
@@ -97,6 +104,9 @@ def lin_quad(dyn, player_costs, spec: GameSpec, op_bm: dict, lamS, lamC,
     if dyn.ode_jac is None:
         raise NotImplementedError(
             f"dynamics {dyn.name!r} have no analytic Jacobian")
+    if has_norms(player_costs):
+        raise NotImplementedError(
+            "the stage kernel has no device form of the norm atoms")
     tab = _device_table(dyn, spec)
     costs, segs = cost_table(player_costs, spec, dev)
     lib = load_kernels(spec)

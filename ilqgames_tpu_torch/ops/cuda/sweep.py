@@ -10,9 +10,9 @@ per game: its layout of subsystems is compile-time (`library`). K4 and K5
 run one warp per subsystem over 32 chains; K5's warp s also computes the
 merit terms of the players whose control rows it computes (each player's
 in exactly one warp, checked by `library`: one each for the flagship's
-cars and pedestrian, both players in the point mass's one linear
-subsystem), and one warp folds the players' terms after each knot's
-barrier.
+cars and pedestrian and for the flat intersection's three linear blocks,
+both players in the point mass's one linear subsystem), and one warp
+folds the players' terms after each knot's barrier.
 
 The sweep's `merit_backend` picks how a candidate's merit is computed,
 as the JAX package's does:
@@ -38,7 +38,8 @@ import torch
 from ilqgames_tpu_torch.costs import player_cost as pcost
 from ilqgames_tpu_torch.dynamics import base as dyn_base
 from ilqgames_tpu_torch.ops.cuda import build
-from ilqgames_tpu_torch.ops.cuda.cost_table import CostTable, cost_table
+from ilqgames_tpu_torch.ops.cuda.cost_table import CostTable, cost_table, \
+    has_norms
 from ilqgames_tpu_torch.dynamics.models import KIND_LINEAR
 from ilqgames_tpu_torch.ops.cuda.layout import bm, mb, pad_batch
 from ilqgames_tpu_torch.types import GameSpec, OperatingPoint, Strategy, \
@@ -64,7 +65,9 @@ class _SubsysTable(ctypes.Structure):
 
 def _linear_table(dyn, spec: GameSpec) -> _SubsysTable:
     """A linear system as one subsystem over the whole state that reads
-    every control row, with its constant discrete Jacobian entries."""
+    every control row, or (`linear_per_player`, a flat system) as one
+    subsystem per player over its own rows, with the system's constant
+    discrete Jacobian entries."""
     a_acc, b_acc = dyn_base.constant_linearization(dyn, spec)
     entries = ([(0, r, c, v) for (r, c), v in a_acc.items()]
                + [(1, r, p * spec.umax + c, v)
@@ -73,8 +76,19 @@ def _linear_table(dyn, spec: GameSpec) -> _SubsysTable:
         raise NotImplementedError(
             f"dynamics {dyn.name!r}: more than {_MAX_LIN} Jacobian entries")
     tab = _SubsysTable()
-    tab.n = 1
-    tab.kind[0] = KIND_LINEAR
+    if dyn.linear_per_player:
+        if 0 in spec.xdims or len(spec.xdims) > _MAX_SUBSYS:
+            raise NotImplementedError(
+                f"dynamics {dyn.name!r}: one linear subsystem per player "
+                f"needs 1-{_MAX_SUBSYS} players, each with states")
+        tab.n = len(spec.xdims)
+        for i in range(tab.n):
+            tab.kind[i] = KIND_LINEAR
+            tab.xoff[i] = sum(spec.xdims[:i])
+            tab.uoff[i] = i * spec.umax
+    else:
+        tab.n = 1
+        tab.kind[0] = KIND_LINEAR
     tab.nlin = len(entries)
     for e, (is_u, r, c, v) in enumerate(entries):
         tab.lin_u[e], tab.lin_row[e], tab.lin_col[e] = is_u, r, c
@@ -108,10 +122,19 @@ def _device_table(dyn, spec: GameSpec) -> _SubsysTable:
 
 def _control_rows(tab: _SubsysTable, s: int, spec: GameSpec):
     """The flat control rows [lo, hi) that subsystem s reads: every
-    player's for a linear system, else its own player's."""
-    if tab.kind[s] == KIND_LINEAR:
+    player's for a linear system in one subsystem, else its own
+    player's."""
+    if tab.kind[s] == KIND_LINEAR and tab.n == 1:
         return tab.uoff[s], tab.uoff[s] + spec.num_players * spec.umax
     return tab.uoff[s], tab.uoff[s] + spec.umax
+
+
+def _rows(tab: _SubsysTable, s: int, spec: GameSpec) -> int:
+    """The count of state rows of subsystem s: the whole state for a
+    linear system in one subsystem, else its player's."""
+    if tab.kind[s] == KIND_LINEAR and tab.n == 1:
+        return spec.xdim
+    return spec.xdims[s]
 
 
 def _umask_flat(spec: GameSpec):
@@ -124,20 +147,24 @@ def _hexf(v: float) -> str:
     return f"{float(ctypes.c_float(v).value).hex()}f"
 
 
-def library(dyn, spec: GameSpec):
+def library(dyn, spec: GameSpec, norms: bool = False):
     """(source name, defines) of csrc/sweep.cu (K4, K5) for this game: its
     dims, and its layout of subsystems from `_device_table`'s data (so a
     model with no device ODE raises): the count SW_NSUB and, per field, a
     list of SW_ITEM(v), one per subsystem (nvcc splits a define's value at
-    commas): kinds, state offsets, control offsets, and inter-axle lengths
-    as exact float32 hex literals. A linear system adds its terms, in row
-    order: SW_NLIN, and per term its row, its source (a state index, or X
-    plus a flat control row) and its coefficient.
+    commas): kinds, state offsets, control offsets, inter-axle lengths
+    as exact float32 hex literals, counts of state rows and of control
+    rows. A linear system adds its terms, in row order: SW_NLIN, and per
+    term its row, its source (a state index, or X plus a flat control row)
+    and its coefficient, and SW_LIN_ZERO, whether its rows fold from
+    x * 0. With `norms` (a game whose costs hold a norm atom), K5 is built
+    with those atoms (CT_NORMS=1).
 
     Warp s computes the control rows from SW_SUB_UOFF[s] on (its player's
-    for a model, every player's for a linear system) and, in K5, the merit
-    terms of the players whose rows those are; a game where a player's
-    rows are not within exactly one subsystem's is refused here."""
+    for a model or a flat system's block, every player's for a linear
+    system in one subsystem) and, in K5, the merit terms of the players
+    whose rows those are; a game where a player's rows are not within
+    exactly one subsystem's is refused here."""
     tab = _device_table(dyn, spec)
     n, u, pu = tab.n, spec.umax, spec.num_players * spec.umax
     rows = [_control_rows(tab, s, spec) for s in range(n)]
@@ -163,7 +190,9 @@ def library(dyn, spec: GameSpec):
         "SW_X": spec.xdim, "SW_PU": spec.num_players * spec.umax,
         "SW_U": spec.umax, "SW_NSUB": n, "SW_SUB_KIND": items(tab.kind[:n]),
         "SW_SUB_XOFF": items(tab.xoff[:n]), "SW_SUB_UOFF": items(tab.uoff[:n]),
-        "SW_SUB_LENGTH": items(_hexf(v) for v in tab.length[:n])}
+        "SW_SUB_LENGTH": items(_hexf(v) for v in tab.length[:n]),
+        "SW_SUB_DIM": items(_rows(tab, s, spec) for s in range(n)),
+        "SW_SUB_UROWS": items(hi - lo for lo, hi in rows)}
     if dyn.linear_rows is not None:
         terms = [(r, idx if src == "x" else
                   spec.xdim + idx[0] * u + idx[1], coef)
@@ -172,20 +201,27 @@ def library(dyn, spec: GameSpec):
         defines.update(
             SW_NLIN=len(terms), SW_LIN_ROW=items(t[0] for t in terms),
             SW_LIN_SRC=items(t[1] for t in terms),
-            SW_LIN_COEF=items(_hexf(t[2]) for t in terms))
+            SW_LIN_COEF=items(_hexf(t[2]) for t in terms),
+            SW_LIN_ZERO=int(dyn.linear_zero_start))
+    if norms:
+        defines["CT_NORMS"] = 1
     return "sweep", defines
 
 
-def merit_library(spec: GameSpec):
-    """(source name, defines) of csrc/merit.cu (K6)."""
-    return "merit", {"MR_X": spec.xdim, "MR_P": spec.num_players,
-                     "MR_U": spec.umax}
+def merit_library(spec: GameSpec, norms: bool = False):
+    """(source name, defines) of csrc/merit.cu (K6); with `norms`, built
+    with the norm atoms (CT_NORMS=1)."""
+    defines = {"MR_X": spec.xdim, "MR_P": spec.num_players,
+               "MR_U": spec.umax}
+    if norms:
+        defines["CT_NORMS"] = 1
+    return "merit", defines
 
 
 @functools.lru_cache(maxsize=None)
-def load_kernels(dyn, spec: GameSpec) -> ctypes.CDLL:
+def load_kernels(dyn, spec: GameSpec, norms: bool = False) -> ctypes.CDLL:
     """Build (once per game) and load csrc/sweep.cu (K4, K5)."""
-    lib = build.load(*library(dyn, spec))
+    lib = build.load(*library(dyn, spec, norms))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sweep_rollout.argtypes = ([P] * 9 + [I] * 3 + [F, F, I, _SubsysTable,
                                                        P])
@@ -198,9 +234,9 @@ def load_kernels(dyn, spec: GameSpec) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def load_merit_kernel(spec: GameSpec) -> ctypes.CDLL:
+def load_merit_kernel(spec: GameSpec, norms: bool = False) -> ctypes.CDLL:
     """Build (once per shape) and load csrc/merit.cu (K6)."""
-    lib = build.load(*merit_library(spec))
+    lib = build.load(*merit_library(spec, norms))
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.merit_consumer.argtypes = ([P] * 4 + [I] + [P] * 3 + [I] * 3
                                    + [ctypes.c_float, CostTable, P])
@@ -313,7 +349,7 @@ def rollout_merits(dyn, player_costs, spec: GameSpec, x0m, op_bm: dict,
         raise NotImplementedError("control constraints are not ported yet")
     tab = _device_table(dyn, spec)
     costs, segs = cost_table(player_costs, spec, dev)
-    lib = load_kernels(dyn, spec)
+    lib = load_kernels(dyn, spec, has_norms(player_costs))
     merits = torch.empty((C, B), dtype=torch.float32, device=dev)
     umask = sum(1 << af for af, m in enumerate(_umask_flat(spec)) if m)
     rc = lib.sweep_rollout_merit(
@@ -439,7 +475,7 @@ def consumer_merits(player_costs, spec: GameSpec, xs_cand, us_cand, t0_bm,
     if lamC is not None:
         raise NotImplementedError("control constraints are not ported yet")
     costs, segs = cost_table(player_costs, spec, dev)
-    lib = load_merit_kernel(spec)
+    lib = load_merit_kernel(spec, has_norms(player_costs))
     merits = torch.empty((C, B), dtype=torch.float32, device=dev)
     rc = lib.merit_consumer(
         xs_cand.data_ptr(), us_cand.data_ptr(), t0_bm.data_ptr(),

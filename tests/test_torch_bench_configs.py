@@ -1,4 +1,4 @@
-"""The port's bench on bench_all.py's configs 1 and 2 without a card: the
+"""The port's bench on bench_all.py's configs 1, 2 and 4 without a card: the
 x0 draw with the config's sigma equals bench_all.py's `_perturbed_x0` bit
 for bit (run in its own process: importing bench_all.py configures the
 JAX package's compilation cache), the fields of a batch, and the refusal
@@ -22,9 +22,12 @@ _DRAW = """
 import sys
 import numpy as np
 import bench_all
-from ilqgames_tpu.examples import two_player_collision, two_player_point_mass
+from ilqgames_tpu.examples import three_player_flat_intersection, \
+    two_player_collision, two_player_point_mass
 for make, b, sigma in ((two_player_point_mass.make_problem, 1024, 0.5),
-                       (two_player_collision.make_problem, 256, 0.1)):
+                       (two_player_collision.make_problem, 256, 0.1),
+                       (three_player_flat_intersection.make_problem, 256,
+                        0.1)):
     x0 = np.asarray(bench_all._perturbed_x0(make(), b, sigma))
     sys.stdout.write(x0.astype(np.float32).tobytes().hex() + "\\n")
 """
@@ -35,8 +38,8 @@ def test_config_draws_are_bench_all_draws():
                          capture_output=True, text=True, timeout=600,
                          env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert out.returncode == 0, out.stderr[-2000:]
-    lines = out.stdout.strip().splitlines()[-2:]
-    for c, line in zip((1, 2), lines):
+    lines = out.stdout.strip().splitlines()[-3:]
+    for c, line in zip((1, 2, 4), lines):
         cfg = bench.CONFIGS[c]
         problem = cfg["make"]()
         got = bench.perturbed_x0(problem, cfg["batch"], cfg["sigma"])
@@ -69,3 +72,24 @@ def test_config_fields_show_violations_only_when_finite():
 def test_run_config_refuses_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         bench.run_config(1, device="cpu")
+
+
+def test_config4_mirrors_bench_all_and_its_r05_run():
+    """CONFIGS[4] is bench_all.py's config4_flat_intersection (256
+    instances, sigma 0.1, the exec main's parameters, its metric) with the
+    unfused stages of the BENCH_ALL_r05 run (tools/bench_queue_r5i.sh:27,
+    ILQ_FUSE_STAGES=0)."""
+    src = (REPO / "bench_all.py").read_text()
+    fn = src[src.index("def config4_flat_intersection"):
+             src.index("def config5_receding_horizon_1k")]
+    assert 'BENCH_BATCH_FLAT", "256"' in fn
+    assert "sigma=0.1" in fn and "params = _exec_params()" in fn
+    script = (REPO / "tools" / "bench_queue_r5i.sh").read_text()
+    assert ("BENCH_CONFIGS=4 ILQ_FUSE_STAGES=0 BENCH_BATCH_FLAT=256"
+            in script)
+    cfg = bench.CONFIGS[4]
+    assert f'metric="{cfg["metric"]}"' in fn
+    assert (cfg["batch"], cfg["sigma"], cfg["params"], cfg["fuse_stages"]) \
+        == (256, 0.1, {}, False)
+    assert cfg["make"]().name == "three_player_flat_intersection"
+    assert bench.CONFIGS[1]["fuse_stages"] and bench.CONFIGS[2]["fuse_stages"]

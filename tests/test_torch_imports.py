@@ -65,7 +65,29 @@ def test_unconstrained_games_import_no_jax():
         "semiquadratic_polyline2\n"
         "from ilqgames_tpu_torch.dynamics.base import linear\n"
         "from ilqgames_tpu_torch import bench\n"
-        "assert sorted(bench.CONFIGS) == [1, 2]\n"
+        "assert sorted(bench.CONFIGS) == [1, 2, 4]\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_flat_game_imports_no_jax():
+    """The flat dynamics, the norm atoms, the flat intersection and its
+    bench config pull in no JAX."""
+    script = (
+        "import sys\n"
+        "from ilqgames_tpu_torch.dynamics import flat\n"
+        "from ilqgames_tpu_torch.costs.atoms import quadratic_norm, "
+        "semiquadratic_norm\n"
+        "from ilqgames_tpu_torch.examples import "
+        "three_player_flat_intersection\n"
+        "from ilqgames_tpu_torch import bench\n"
+        "assert bench.CONFIGS[4]['make'] is "
+        "three_player_flat_intersection.make_problem\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
         "print(bad)\n")
