@@ -102,7 +102,31 @@ in-kernel merit) and K6 (merit consumer). Phases:
    against its plain version, and K5 and K6 at its linesearch shapes;
    (e) three unfused trips of 8 lanes on the card against the CPU under
    each merit backend: decisions equal, every array of the carry (the
-   carried quadraticization too) bitwise equal.
+   carried quadraticization too) bitwise equal;
+10. receding-horizon reachability (bench_all.py's config 5: three car_5d
+   players, x=15, each the maximum over time of its worse pairwise
+   signed-distance margin, under box constraints on its controls; fused
+   stages, as the JAX package's default): (a) its libraries (K1, K5 and
+   K6 with CT_REACH=1: the signed-distance and extremal atoms, the
+   control constraints and the extremal gates), one nvcc each, all at
+   once, and their ptxas reports (failing on a spill, and on a stack frame
+   outside K1 and K5); (b) reachability 1000 x 7 through
+   `bench.run_config(5)` (1000 agents drawn with sigma 0.25, replanned
+   every 0.25 s over 2 s, max_solver_iters 20, after an 8-lane, one-cycle
+   load), launch counters reset just before, one JSON line, failing
+   unless every lane replanned 7 times to t = 1.75, states are finite on
+   every lane the cold solve did not leave diverged, and K1-K4 launched;
+   (c) each kernel at each shape the cell launched it against its plain
+   version, and K5 and K6 at its linesearch shapes; (d) three trips of 8
+   lanes on the card against the CPU, fused under each merit backend and
+   unfused under "xla": decisions equal, every array of the carry
+   (extreme_ks included) bitwise equal; (e) a 4-lane, 2-cycle replanning
+   run on the card against the CPU, as 7d.
+
+The holds of phases 7-10 run K2, K4 and K5 (and their plain versions) on
+the first HOLD_DEPTH (20) knots of each launch's arguments, but for each
+game's first K4 and K5 shape, held at the cell's depth (the flagship's
+K4 and K5 at N=100 in phase 2).
 
 Every kernel's entry in the kernels line carries its bound: the larger of
 the bytes it must move (each operand read once, each output written once)
@@ -180,6 +204,15 @@ FLAT_MEAN_ITERS, FLAT_ITERS_REL = 59.2, 0.10
 FLAT_COST_P50 = (14667.5, 4553.1, 1141.9)
 # Phases 8e and 9e: trips of each game on the card against the CPU, 8 lanes.
 SMALL_B, SMALL_TRIPS = 8, 3
+# Phases 7-10: the knots on which the holds of the cells' K2, K4 and K5
+# launches run (a kernel and its plain version on the first HOLD_DEPTH
+# knots of the same arguments: the plain versions on the card take seconds
+# a call at N=100). Each game's K4 and K5 are also held once at full depth
+# (the flagship's in phase 2, the others' at their cell's first shape).
+HOLD_DEPTH = 20
+PREFIX_KERNELS = ("K2", "K4", "K5")
+# Phase 10: bench_all.py's config 5, receding-horizon reachability.
+RH5_REPLANS, RH5_T_END = 7, 1.75
 
 
 def _fail(msg: str) -> None:
@@ -632,7 +665,8 @@ def _launch_bytes(name, a, outs) -> int:
     """Bytes a launch must move: what the kernel reads of its arguments
     `a` (as phase 2 counts them) and its outputs."""
     if name == "K1":
-        return _nbytes(a["op_bm"], a["lamS"], a["lamC"], a["mu"], outs)
+        return _nbytes(a["op_bm"], a["lamS"], a["lamC"], a["mu"], a["gate"],
+                       outs)
     if name == "K2":
         ops = a["ops"]
         return _nbytes({k: ops[k] for k in ("Qf", "lf")},
@@ -643,10 +677,10 @@ def _launch_bytes(name, a, outs) -> int:
                        outs)
     if name == "K6":
         return _nbytes(a["xs_cand"], a["us_cand"], a["t0_bm"], a["lamS"],
-                       a["lamC"], a["mu"], outs)
+                       a["lamC"], a["mu"], a["gate"], outs)
     if name == "K5":
         return _nbytes(a["x0m"], a["op_bm"], a["st_bm"], a["scal_cb"],
-                       a["lamS"], a["lamC"], a["mu"], outs)
+                       a["lamS"], a["lamC"], a["mu"], a["gate"], outs)
     return _nbytes(a["x0m"], _read(a["op_bm"]), a["st_bm"], a["scal_cb"],
                    outs)
 
@@ -755,12 +789,38 @@ def _once_ms(fn):
     return start.elapsed_time(stop)
 
 
-def _hold_launches(cell, spy, launches, only=None):
+def _prefix(a: dict, depth: int) -> dict:
+    """A launch's arguments `a` on their first `depth` knots: the spec's
+    horizon cut to `depth`, and every knot-major tensor (first axis the
+    horizon, in dicts too) cut to its first `depth` rows."""
+    import dataclasses
+
+    import torch
+
+    N = a["spec"].num_time_steps
+
+    def cut(v):
+        if isinstance(v, dict):
+            return {k: cut(x) for k, x in v.items()}
+        if isinstance(v, torch.Tensor) and v.ndim >= 2 and v.shape[0] == N:
+            return v[:depth].contiguous()
+        return v
+
+    out = {k: cut(v) for k, v in a.items() if k not in ("x0m", "scal_cb")}
+    out.update({k: a[k] for k in ("x0m", "scal_cb") if k in a})
+    out["spec"] = dataclasses.replace(a["spec"], num_time_steps=depth)
+    return out
+
+
+def _hold_launches(cell, spy, launches, only=None, full=("K4",)):
     """Every (kernel, shape) that `cell`'s run launched (of the kernels
     `only`, if given), on the arguments of its first launch there,
     against its plain version (tolerance TOL), timed both ways; one
     kernels-line entry each, with the kernel's launches over the cell's
-    run, or, where `launches` is None, its launches at that shape."""
+    run, or, where `launches` is None, its launches at that shape. K2,
+    K4 and K5 run on the first HOLD_DEPTH knots of those arguments, but
+    for the first shape of each kernel in `full`, held at the cell's
+    depth."""
     import importlib
 
     from ilqgames_tpu_torch.tools._probe import float_ops
@@ -768,19 +828,27 @@ def _hold_launches(cell, spy, launches, only=None):
     print(f"# {cell}: launches by (kernel, shape) " + json.dumps(
         [[*key, n] for key, n in sorted(spy.tally.items())]), flush=True)
     entries = []
+    at_full = set()
     for (name, shape), a in sorted(spy.seen.items()):
         if only is not None and name not in only:
             continue
+        depth = ""
+        if name in full and name not in at_full:
+            at_full.add(name)
+        elif name in PREFIX_KERNELS:
+            a = _prefix(a, HOLD_DEPTH)
+            depth = f", first {HOLD_DEPTH} knots"
         mod, attr, plain_attr, source, replaces, label = KERNEL_SITES[name]
         module = importlib.import_module(f"ilqgames_tpu_torch.ops.cuda.{mod}")
         fn, plain = getattr(module, attr), getattr(module, plain_attr)
         got = _outputs(fn(**a))
         want, n_ops = float_ops(lambda: plain(**a))
         names = OUTPUT_NAMES.get(name, [k for k, _ in got])
-        err = max(_compare(f"{name} {nm} {shape} ({cell})", g, w, TOL[name])
+        err = max(_compare(f"{name} {nm} {shape}{depth} ({cell})", g, w,
+                           TOL[name])
                   for nm, (_, g), (_, w) in zip(names, got, _outputs(want)))
         entries.append(dict(_entry(
-            f"{name} {label} ({shape}; {cell})", source, replaces, err,
+            f"{name} {label} ({shape}{depth}; {cell})", source, replaces, err,
             _time_ms(lambda: fn(**a), 20), _once_ms(lambda: plain(**a)),
             _launch_bytes(name, a, [g for _, g in got]), n_ops),
             launches=(spy.tally[(name, shape)] if launches is None
@@ -823,7 +891,7 @@ def phase7(problem, dev):
     launches = bench.launches()
     _check_k4_held("latency", spy, sweep.rollout_bm.by_shape)
     print(json.dumps(lat), flush=True)
-    kernels = _hold_launches("latency", spy, launches)
+    kernels = _hold_launches("latency", spy, launches, full=())
     ref = np.loadtxt(os.path.join(os.path.dirname(os.path.abspath(
         __file__)), GOLDEN))
     xs = res0.op.xs[0].cpu().numpy()
@@ -891,11 +959,26 @@ def phase7(problem, dev):
     print(f"# receding horizon: {int(calm.sum())} of {RH_B} lanes not "
           "diverged by the cold solve, all finite; launches counted from 0 "
           "over the run", flush=True)
-    kernels += _hold_launches("receding horizon", spy, launches)
+    kernels += _hold_launches("receding horizon", spy, launches, full=())
 
     # (d) the card against the CPU, 4 lanes, 2 cycles.
+    _replanning_card_vs_cpu("replanning", problem, 0.1, dev)
+    return kernels
+
+
+def _replanning_card_vs_cpu(name, problem, sigma, dev):
+    """A short replanning run (4 lanes of bench's draw with `sigma`, 2
+    cycles, budgets RH_SMALL) on the card and on the CPU: decisions
+    equal, states and the splicer's arrays bitwise equal."""
+    import dataclasses
+
+    import torch
+
+    from ilqgames_tpu_torch import bench
+    from ilqgames_tpu_torch.runtime import receding_horizon as rh
+
     small = dataclasses.replace(bench.exec_main_params(), **RH_SMALL)
-    x0c = torch.tensor(bench.perturbed_x0(problem, 4))
+    x0c = torch.tensor(bench.perturbed_x0(problem, 4, sigma))
     t0 = time.perf_counter()
     runs = {}
     for where, x in (("CPU", x0c), ("card", x0c.to(dev))):
@@ -912,78 +995,113 @@ def phase7(problem, dev):
             "splicer length": sp.length},
             [c["trips"] for c in st["cycles"]])
     (cpu, cpu_trips), (card, card_trips) = runs["CPU"], runs["card"]
-    for name, c in cpu.items():
-        g = card[name].cpu()
+    for what, c in cpu.items():
+        g = card[what].cpu()
         if not (_same_bits(g, c) if c.dtype == torch.float32
                 else torch.equal(g, c)):
-            _fail(f"replanning card vs CPU: {name} differs")
+            _fail(f"{name} card vs CPU: {what} differs")
     if card_trips != cpu_trips:
-        _fail(f"replanning card vs CPU: trips per cycle {card_trips} vs "
+        _fail(f"{name} card vs CPU: trips per cycle {card_trips} vs "
               f"{cpu_trips}")
-    print(f"# replanning card vs CPU (4 lanes, 2 cycles, {RH_SMALL}): "
+    print(f"# {name} card vs CPU (4 lanes, 2 cycles, {RH_SMALL}): "
           f"decisions equal, every array bitwise equal; trips per cycle "
           f"{cpu_trips}, cold converged {cpu['cold converged'].tolist()}, "
           f"converged {cpu['converged'].tolist()} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    return kernels
+
+
+def _merit_state(problem, op_bm):
+    """The merit kernels' multipliers, mu and extremal gate (batch-minor,
+    `sweep._prep_al`) at the batch-minor operating point op_bm: those of
+    one AL update from a fresh state (lamS and lamC None where the game
+    has no such constraints) and the gate of its extreme knots (None for
+    a game of SUM players)."""
+    from ilqgames_tpu_torch.costs import player_cost as pcost
+    from ilqgames_tpu_torch.ops.cuda import sweep
+    from ilqgames_tpu_torch.ops.cuda.layout import mb
+    from ilqgames_tpu_torch.solver.al import constraint_violations
+    from ilqgames_tpu_torch.types import OperatingPoint
+
+    costs, spec = problem.player_costs, problem.spec
+    N, P, u = spec.num_time_steps, spec.num_players, spec.umax
+    B = op_bm["xs"].shape[-1]
+    op = OperatingPoint(xs=mb(op_bm["xs"], B),
+                        us=mb(op_bm["us"], B).reshape(B, N, P, u),
+                        t0=op_bm["t0"][0])
+    al0 = pcost.ALState.init(costs, spec, B, device=op.xs.device)
+    al1, _ = constraint_violations(costs, spec, op, al0)
+    gate = (None if pcost.all_sum(costs) else pcost.extreme_gate(
+        costs, spec, pcost.total_costs(costs, spec, op)[1]))
+    return sweep._prep_al(spec, al1, gate, 1)
 
 
 def _hold_merits(cell, spy, problem):
     """K5 and K6 at every shape at which `cell`'s run launched K4 without
     emitting controls (the linesearch's candidates), on the first such
-    launch's arguments with the game's multipliers (none) and mu of a
-    fresh AL state, against their plain versions: the merit backends
-    "kernel" and "pallas" on the cell's shapes. One kernels-line entry
-    each, with 0 launches: the cell's path (merit backend "xla") does not
-    launch them, and these holds are not counted."""
-    import torch
-
+    launch's arguments with the multipliers, mu and extremal gate of
+    `_merit_state` there, against their plain versions: the merit backends
+    "kernel" and "pallas" on the cell's shapes; K5 at the cell's depth at
+    the first shape and on the first HOLD_DEPTH knots at the others (K6
+    at the cell's depth, and at K5's for K5 == K4 + K6). One kernels-line
+    entry each, with 0 launches: the cell's path (merit backend "xla")
+    does not launch them, and these holds are not counted."""
     from ilqgames_tpu_torch.ops.cuda import sweep
     from ilqgames_tpu_torch.tools._probe import float_ops
 
     costs, spec = problem.player_costs, problem.spec
     entries = []
+    first = True
     for (name, shape), a in sorted(spy.seen.items()):
         if name != "K4" or a["emit_us"]:
             continue
-        B = a["scal_cb"].shape[1]
-        mu = torch.full((1, B), 10.0, device=a["x0m"].device)
+        lamS, lamC, mu, gate = _merit_state(problem, a["op_bm"])
         k5 = dict(dyn=a["dyn"], player_costs=costs, spec=spec,
                   x0m=a["x0m"], op_bm=a["op_bm"], st_bm=a["st_bm"],
-                  scal_cb=a["scal_cb"], lamS=None, lamC=None, mu=mu)
+                  scal_cb=a["scal_cb"], lamS=lamS, lamC=lamC, mu=mu,
+                  gate=gate)
         xs_c = sweep.rollout_bm(a["dyn"], spec, a["x0m"], a["op_bm"],
                                 a["st_bm"], a["scal_cb"])
         k6 = dict(player_costs=costs, spec=spec, xs_cand=xs_c,
                   us_cand=sweep._us_from_xs(spec, xs_c, a["op_bm"],
                                             a["st_bm"], a["scal_cb"]),
-                  t0_bm=a["op_bm"]["t0"], lamS=None, lamC=None, mu=mu)
+                  t0_bm=a["op_bm"]["t0"], lamS=lamS, lamC=lamC, mu=mu,
+                  gate=gate)
+        depth = ""
+        if not first:
+            k5 = _prefix(k5, HOLD_DEPTH)
+            depth = f", first {HOLD_DEPTH} knots"
+        first = False
         got = {}
-        for kname, fn, plain, args in (
-                ("K5", sweep.rollout_merits, sweep.rollout_merits_plain, k5),
-                ("K6", sweep.consumer_merits, sweep.merit_plain, k6)):
+        for kname, fn, plain, args, dep in (
+                ("K5", sweep.rollout_merits, sweep.rollout_merits_plain, k5,
+                 depth),
+                ("K6", sweep.consumer_merits, sweep.merit_plain, k6, "")):
             _, _, _, source, replaces, label = KERNEL_SITES[kname]
             got[kname] = fn(**args)
             want, n_ops = float_ops(lambda: plain(**args))
-            err = _compare(f"{kname} merits {shape} ({cell})", got[kname],
-                           want, TOL[kname])
+            err = _compare(f"{kname} merits {shape}{dep} ({cell})",
+                           got[kname], want, TOL[kname])
             entries.append(dict(_entry(
-                f"{kname} {label} ({shape}; {cell}, held only: its xla "
+                f"{kname} {label} ({shape}{dep}; {cell}, held only: its xla "
                 "path does not launch it)", source, replaces, err,
                 _time_ms(lambda: fn(**args), 20), _once_ms(lambda: plain(**args)),
                 _launch_bytes(kname, args, [got[kname]]), n_ops),
                 launches=0))
-        if not _same_bits(got["K5"], got["K6"]):
-            _fail(f"{cell}: K5 and K4 + K6 disagree at {shape}")
+        k6_at = got["K6"] if not depth else sweep.consumer_merits(
+            **_prefix(k6, HOLD_DEPTH))
+        if not _same_bits(got["K5"], k6_at):
+            _fail(f"{cell}: K5 and K4 + K6 disagree at {shape}{depth}")
     return entries
 
 
-def _trips_card_vs_cpu(name, p, config, fuse, dev):
+def _trips_card_vs_cpu(name, p, config, fuse, dev,
+                       backends=("xla", "kernel", "pallas")):
     """SMALL_TRIPS trips of SMALL_B lanes of bench config `config`'s game
     (stages fused or not) on the card against the CPU under each merit
-    backend: decisions equal, every array of the carry bitwise equal. On
-    the CPU the three backends are one computation (the plain versions).
-    Returns the kernels-line entries of K5 and K6 at each shape these
-    trips launched them, with their launches there."""
+    backend of `backends`: decisions equal, every array of the carry
+    bitwise equal. On the CPU the three backends are one computation (the
+    plain versions). Returns the kernels-line entries of K5 and K6 at each
+    shape these trips launched them, with their launches there."""
     import dataclasses
 
     import torch
@@ -1008,6 +1126,8 @@ def _trips_card_vs_cpu(name, p, config, fuse, dev):
     kernels = []
     for backend, kname in (("xla", "K4"), ("kernel", "K5"),
                            ("pallas", "K6")):
+        if backend not in backends:
+            continue
         trip, _ = batched._driver_parts(dyn, costs, spec, params, SMALL_B,
                                         fuse, backend)
         fc = tree_map(lambda a: a.to(dev), fc0)
@@ -1035,7 +1155,7 @@ def _trips_card_vs_cpu(name, p, config, fuse, dev):
                 None, only=(kname,))
     stages = "fused" if fuse else "unfused"
     print(f"# {name} card vs CPU ({SMALL_B} lanes, {SMALL_TRIPS} {stages} "
-          f"trips, merit backends xla, kernel, pallas): decisions equal, "
+          f"trips, merit backends {', '.join(backends)}): decisions equal, "
           f"every array bitwise equal; failed {cpu[-1].c.failed.tolist()}, "
           f"converged {cpu[-1].c.converged.tolist()} ({cpu_s:.1f} s on the "
           "CPU)", flush=True)
@@ -1211,7 +1331,97 @@ def phase9(dev):
     return kernels
 
 
+def phase10(dev):
+    """bench_all.py's config 5, receding-horizon reachability (three car_5d
+    players, MAX structures over extremal signed-distance atoms, control
+    constraints), at full size through `bench.run_config(5)`: its libraries
+    and their ptxas reports, the cell's replans and outcome, every
+    (kernel, shape) it launched held against its plain version (and K5,
+    K6 at its linesearch shapes), three trips of 8 lanes on the card
+    against the CPU (fused under each merit backend, unfused under "xla")
+    and a short replanning run on the card against the CPU. Returns the
+    kernels-line entries."""
+    import torch
+
+    from ilqgames_tpu_torch import bench
+    from ilqgames_tpu_torch.ops.cuda import build, sweep
+    from ilqgames_tpu_torch.runtime import receding_horizon as rh
+
+    cell = "reachability 1000 x 7"
+    cfg = bench.CONFIGS[5]
+    p = cfg["make"]()
+    dyn, spec, costs = p.dynamics, p.spec, p.player_costs
+
+    # (a) its libraries (K1, K5 and K6 with CT_REACH), one nvcc each.
+    t0 = time.perf_counter()
+    libs = bench.kernel_libraries(dyn, spec, costs)
+    build.compile_all(libs)
+    bench.build_kernels(dyn, spec, costs)
+    print(f"# phase 10 build: {time.perf_counter() - t0:.1f} s (concurrent "
+          f"nvcc: {len(libs)} libraries)", flush=True)
+    stage_lib, lq_lib, merit_lib = libs[:3]
+    k4_lib, k5_lib = libs[3], libs[-1]
+    for label, lib, kern, stack_ok in (
+            ("K1", stage_lib, "stage_kernel", True),
+            ("K2", lq_lib, "lq_backward_kernel", False),
+            ("K3", lq_lib, "lq_forward_kernel", False),
+            ("K4", k4_lib, "rollout_warp_kernel", False),
+            ("K5", k5_lib, "rollout_merit_warp_kernel", True),
+            ("K6", merit_lib, "merit_kernel", False)):
+        _ptxas(f"{label} ({cell})", lib, kern, stack_ok)
+
+    # (b) the cell at full size, launch counters reset just before.
+    bench.reset_launches()
+    with _FirstLaunches() as spy:
+        (states, times, state), out = bench.run_config(5, dev)
+    torch.cuda.synchronize()
+    launches = bench.launches()
+    print(json.dumps(out), flush=True)
+    st = rh.simulate_batched.last_stats
+    n = out["B"]
+    if out["cycles"] != RH5_REPLANS or not bool(
+            (state.num_replans == RH5_REPLANS).all()):
+        _fail(f"{cell}: {out['cycles']} cycles, num_replans "
+              f"{state.num_replans.unique().tolist()}, want {RH5_REPLANS}")
+    if not (bool((state.t == RH5_T_END).all())
+            and float(times[-1]) == RH5_T_END):
+        _fail(f"{cell}: t {state.t.unique().tolist()}, times "
+              f"{times.tolist()}, want {RH5_T_END}")
+    if tuple(states.shape) != (RH5_REPLANS + 1, n, spec.xdim):
+        _fail(f"{cell}: states shape {tuple(states.shape)}")
+    calm = torch.isfinite(st["first"].total_costs).all(1) & (
+        st["first"].total_costs.abs() <= 1e6).all(1)
+    bad = calm & ~torch.isfinite(states).all(-1).all(0)
+    if bool(bad.any()):
+        _fail(f"{cell}: non-finite states on lanes "
+              f"{bad.nonzero().flatten().tolist()[:16]} that the cold solve "
+              "did not leave diverged")
+    if min(launches[k] for k in ("K1", "K2", "K3", "K4")) <= 0:
+        _fail(f"{cell}: a kernel of the path was not launched: {launches}")
+    print(f"# {cell}: {int(calm.sum())} of {n} lanes not diverged by the "
+          f"cold solve, all finite; {RH5_REPLANS} replans on every lane; "
+          f"launches counted from 0 over the 8-lane load and the timed run: "
+          f"{launches}", flush=True)
+    _check_k4_held(cell, spy, sweep.rollout_bm.by_shape)
+
+    # (c) every (kernel, shape) of the cell, and K5, K6 at its linesearch
+    # shapes.
+    kernels = _hold_launches(cell, spy, launches)
+    kernels += _hold_merits(cell, spy, p)
+
+    # (d) trips on the card against the CPU: fused under every merit
+    # backend, unfused under "xla".
+    kernels += _trips_card_vs_cpu("reachability", p, 5, True, dev)
+    kernels += _trips_card_vs_cpu("reachability", p, 5, False, dev,
+                                  backends=("xla",))
+
+    # (e) a short replanning run, the card against the CPU.
+    _replanning_card_vs_cpu("reachability replanning", p, cfg["sigma"], dev)
+    return kernels
+
+
 def main():
+    t_main = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1354,7 +1564,7 @@ def main():
     al1, _ = constraint_violations(costs, spec, c1.c.op, c1.al)
     al1 = al1.replace(mu=al1.mu * params.geometric_mu_scaling)
     op1, x1m = sweep._prep_op(spec, x1, c1.c.op, 1)
-    lamS, lamC, mu1 = sweep._prep_al(spec, al1, 1)
+    lamS, lamC, mu1, _ = sweep._prep_al(spec, al1, None, 1)
     k1_args = (dyn, costs, spec, op1, lamS, lamC, mu1)
     ops_k = stage.lin_quad(*k1_args)
     ops_p, n_ops = float_ops(lambda: stage.lin_quad_plain(*k1_args))
@@ -1537,6 +1747,11 @@ def main():
     kernels += phase9(dev)
     elapsed(9)
 
+    # ---- phase 10: receding-horizon reachability ----
+    kernels += phase10(dev)
+    elapsed(10)
+
+    print(f"# total: {time.perf_counter() - t_main:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

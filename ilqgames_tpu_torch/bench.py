@@ -14,12 +14,14 @@ driver instead. Prints ONE JSON line with bench.py's fields plus the
 device, configuration, wall time, the driver's counters and the kernels'
 launch counts. BENCH_LATENCY=1 measures the warm replan latency of one
 instance instead (`run_latency`, the counterpart of bench_all.py's
-`latency_single_solve`). BENCH_CONFIG=1, 2 or 4 runs bench_all.py's
+`latency_single_solve`). BENCH_CONFIG=1, 2, 4 or 5 runs bench_all.py's
 config 1 (the two-player point mass, 1024 instances drawn with sigma 0.5,
-40 iterations), 2 (the two-player collision, 256 instances, sigma 0.1) or
+40 iterations), 2 (the two-player collision, 256 instances, sigma 0.1),
 4 (the three-player flat intersection, 256 instances, sigma 0.1, unfused
-stages) as bench_all.py runs it (`run_config`), and prints its metric and
-fields.
+stages) or 5 (receding-horizon reachability: 1000 agents of the
+three-player collision-avoidance game drawn with sigma 0.25, replanning
+every 0.25 s over 2 s) as bench_all.py runs it (`run_config`), and prints
+its metric and fields.
 Needs a CUDA device: it never measures on a CPU.
 
     python3 -m ilqgames_tpu_torch.bench
@@ -27,6 +29,7 @@ Needs a CUDA device: it never measures on a CPU.
     BENCH_LATENCY=1 python3 -m ilqgames_tpu_torch.bench
     BENCH_CONFIG=1 python3 -m ilqgames_tpu_torch.bench
     BENCH_CONFIG=4 python3 -m ilqgames_tpu_torch.bench
+    BENCH_CONFIG=5 python3 -m ilqgames_tpu_torch.bench
 """
 
 from __future__ import annotations
@@ -40,13 +43,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ilqgames_tpu_torch.examples import three_player_flat_intersection, \
-    two_player_collision, two_player_point_mass
+from ilqgames_tpu_torch.examples import reachability, \
+    three_player_flat_intersection, two_player_collision, \
+    two_player_point_mass
 from ilqgames_tpu_torch.examples.three_player_intersection import \
     make_problem
 from ilqgames_tpu_torch.ops.cuda import build, lq, stage, sweep
-from ilqgames_tpu_torch.ops.cuda.cost_table import has_norms
+from ilqgames_tpu_torch.ops.cuda.cost_table import has_norms, has_reach
 from ilqgames_tpu_torch.solver import batched
+from ilqgames_tpu_torch.runtime import receding_horizon
 from ilqgames_tpu_torch.solver.params import SolverParams
 
 _BASELINE = Path(__file__).resolve().parents[1] / "baselines" / "measured.json"
@@ -138,20 +143,29 @@ def reset_launches() -> None:
     sweep.rollout_bm.by_shape.clear()
 
 
+def kernel_libraries(dyn, spec, player_costs=()) -> list:
+    """The (source, defines) of every kernel library of the port for this
+    game: a game whose costs hold a norm atom gets its merit kernels K5
+    and K6 with those atoms, a game with the reachability features
+    (`cost_table.has_reach`) its K1, K5 and K6 with those; K4 takes
+    neither."""
+    norms, reach = has_norms(player_costs), has_reach(player_costs)
+    sweeps = sorted({(False, False), (norms, reach)})
+    return ([stage.library(spec, reach), lq.library(spec),
+             sweep.merit_library(spec, norms, reach)]
+            + [sweep.library(dyn, spec, n, r) for n, r in sweeps])
+
+
 def build_kernels(dyn, spec, player_costs=()) -> None:
-    """Build every kernel of the port for this game (one concurrent nvcc
-    per source) and load them; a game whose costs hold a norm atom gets
-    its merit kernels K5 and K6 with those atoms."""
-    norms = has_norms(player_costs)
-    sweeps = [False, True] if norms else [False]
-    build.compile_all([stage.library(spec), lq.library(spec),
-                       sweep.merit_library(spec, norms)]
-                      + [sweep.library(dyn, spec, n) for n in sweeps])
-    for load in (stage.load_kernels, lq.load_kernels):
-        load(spec)
-    sweep.load_merit_kernel(spec, norms)
-    for n in sweeps:
-        sweep.load_kernels(dyn, spec, n)
+    """Build every kernel library of the game (`kernel_libraries`; one
+    concurrent nvcc per source) and load them."""
+    norms, reach = has_norms(player_costs), has_reach(player_costs)
+    build.compile_all(kernel_libraries(dyn, spec, player_costs))
+    stage.load_kernels(spec, reach)
+    lq.load_kernels(spec)
+    sweep.load_merit_kernel(spec, norms, reach)
+    for n, r in sorted({(False, False), (norms, reach)}):
+        sweep.load_kernels(dyn, spec, n, r)
 
 
 def _cuda_device(device) -> torch.device:
@@ -311,7 +325,20 @@ CONFIGS = {
     4: dict(make=three_player_flat_intersection.make_problem,
             metric="three_player_flat_intersection_solves_per_sec_per_chip",
             batch=256, sigma=0.1, params={}, fuse_stages=False),
+    # Receding horizon (bench_all.py:218-262): 1000 agents replan every
+    # 0.25 s over 2 s with the JAX package's default, fused stages.
+    5: dict(make=reachability.make_problem,
+            metric="receding_horizon_reachability_replans_per_sec_per_chip",
+            batch=1000, sigma=0.25,
+            params=dict(max_solver_iters=20,
+                        unconstrained_solver_max_iters=10),
+            fuse_stages=True, final_time=2.0, replan_interval=0.25,
+            planner_time=0.25),
 }
+# The reference's replan contract that bench_all.py's config 5 divides by:
+# one replan per instance within 0.25 s, 4 replans/s/instance on one core
+# (src/receding_horizon_simulator.cpp:119).
+REPLANS_BASELINE = 4.0
 
 
 def config_fields(res, batch: int, elapsed: float) -> dict:
@@ -340,15 +367,76 @@ def config_fields(res, batch: int, elapsed: float) -> dict:
     return out
 
 
+def run_receding(config: int, device="cuda"):
+    """bench_all.py's config 5 (`config5_receding_horizon_1k`) on `device`:
+    the config's agents from the x0 draw with its sigma, the exec main's
+    parameters with its budgets, `receding_horizon.simulate_batched` over
+    its final time, replanning every replan interval with its planner
+    time, lane blocks of 128, the config's stages and the merit backend
+    "xla". The kernels are built first, and an 8-lane, one-cycle run loads
+    every library before the clock starts; then one timed run (bench_all.py
+    times a second call after a compiling first one). Returns ((states,
+    times, SimState), JSON dict): bench_all.py's metric and fields, the
+    replans over the whole run's wall time (its cold solve included),
+    `vs_baseline` against the reference's 4 replans/s/instance, and per
+    cycle the converged fraction, trips and deep-ladder rounds."""
+    cfg = CONFIGS[config]
+    set_precision()
+    dev = _cuda_device(device)
+    problem = cfg["make"]()
+    params = dataclasses.replace(exec_main_params(), **cfg["params"])
+    build_kernels(problem.dynamics, problem.spec, problem.player_costs)
+    run = lambda x0, final_time: receding_horizon.simulate_batched(
+        problem, params, x0, final_time=final_time,
+        replan_interval=cfg["replan_interval"],
+        planner_time=cfg["planner_time"], batch_block=128,
+        fuse_stages=cfg["fuse_stages"])
+    n = cfg["batch"]
+    x0 = torch.tensor(perturbed_x0(problem, n, cfg["sigma"]), device=dev)
+    run(x0[:8], 2 * cfg["replan_interval"])
+    before = launches()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    states, times, state = run(x0, cfg["final_time"])
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    st = receding_horizon.simulate_batched.last_stats
+    cycles = len(times) - 1
+    rate = n * cycles / wall
+    out = {"metric": cfg["metric"], "value": round(rate, 3),
+           "unit": "replans/s/chip",
+           "vs_baseline": round(rate / REPLANS_BASELINE, 3),
+           "B": n, "cycles": cycles, "wall_s": round(wall, 3),
+           "cold_s": round(st["cold_s"], 3),
+           "device": torch.cuda.get_device_name(dev),
+           "driver": "receding_horizon", "batch_block": 128,
+           "fuse_stages": cfg["fuse_stages"],
+           "final_time": cfg["final_time"],
+           "replan_interval": cfg["replan_interval"],
+           "cold_trips": st["cold"]["trips"],
+           "cold_converged": round(float(
+               st["first"].converged.float().mean()), 4),
+           "converged_per_cycle": [round(float(
+               c["converged"].float().mean()), 4) for c in st["cycles"]],
+           "trips_per_cycle": [c["trips"] for c in st["cycles"]],
+           "deep_rounds_per_cycle": [c["deep_rounds"] for c in st["cycles"]],
+           "host_syncs_per_cycle": [c["host_syncs"] for c in st["cycles"]],
+           "launches": {k: v - before[k] for k, v in launches().items()}}
+    return (states, times, state), out
+
+
 def run_config(config: int, device="cuda"):
-    """bench_all.py's config 1, 2 or 4 on `device`, as its `_throughput`
-    runs it: the exec main's parameters (with the config's budgets), the
-    x0 draw with the config's sigma, the plain host-stepped driver with
-    lane blocks of 128 and 20 trips per dispatch, the config's stages
-    (fused but for config 4) and the merit backend "xla"; one warm-up
-    solve, then the timed one. Returns (ALResult, JSON dict) with
+    """bench_all.py's config 1, 2, 4 or 5 on `device`. Config 5, receding
+    horizon, is `run_receding`'s. The others as bench_all.py's
+    `_throughput` runs them: the exec main's parameters (with the config's
+    budgets), the x0 draw with the config's sigma, the plain host-stepped
+    driver with lane blocks of 128 and 20 trips per dispatch, the config's
+    stages (fused but for config 4) and the merit backend "xla"; one
+    warm-up solve, then the timed one. Returns (ALResult, JSON dict) with
     bench_all.py's metric and fields."""
     cfg = CONFIGS[config]
+    if "final_time" in cfg:
+        return run_receding(config, device)
     set_precision()
     dev = _cuda_device(device)
     problem = cfg["make"]()

@@ -1,7 +1,8 @@
 """Cost atoms (counterpart of ilqgames_tpu/costs/atoms.py: `quadratic` at
-:39, `quadratic_norm` at :103, `semiquadratic_norm` at :120, `proximity`
-at :213, `quadratic_polyline2` at :366, `semiquadratic_polyline2` at :433
-and `final_time` at :652).
+:39, `quadratic_norm` at :103, `semiquadratic_norm` at :120,
+`signed_distance` at :178, `proximity` at :213, `quadratic_polyline2` at
+:366, `semiquadratic_polyline2` at :433, `final_time` at :652 and
+`extreme_value` at :685).
 
 Gradients and Hessians are the JAX package's sparse pairs, with the
 reference's shipped branch semantics for the polyline costs: a vertex
@@ -9,7 +10,11 @@ branch (isotropic pull toward the vertex), an interior branch (quadratic
 in the cross-track coordinate), and zero at the polyline's endpoints.
 The proximity cost's quadraticization is the JAX package's autodiff over
 its support, written out: its gradient with autodiff's operations, its
-Hessian analytically (within float32 rounding of autodiff's).
+Hessian analytically (within float32 rounding of autodiff's). The signed
+distance's is the operations of autodiff's forward-over-reverse Hessian
+as XLA compiles them, within a few ulps of the JAX package's (XLA
+simplifies each program on its own, so no written form is bitwise
+equal to every one of them).
 
 `t` is the knot time each caller passes: relative (k * dt) in total costs
 and the unfused quadraticization, absolute (t0 + k * dt) in the stage
@@ -24,7 +29,7 @@ from typing import Optional
 import torch
 
 from ilqgames_tpu_torch import fmath, geometry
-from ilqgames_tpu_torch.costs.base import Cost
+from ilqgames_tpu_torch.costs.base import Cost, extreme_index
 
 _EPS = 1e-12
 
@@ -283,6 +288,118 @@ def semiquadratic_polyline2(weight: float, points, xidx: int, yidx: int,
                     "points": points, "xidx": xidx, "yidx": yidx,
                     "weight": weight, "threshold": threshold,
                     "oriented_right": oriented_right}))
+
+
+def signed_distance(dims1, dims2, nominal: float = 0.0,
+                    less_is_positive: bool = True,
+                    name: str = "signed_distance") -> Cost:
+    """s * (nominal - ||p1 - p2||), s = +1 (less is positive) or -1; the
+    norm clamped at EPS and no weight, as shipped.
+
+    Its merit gradient is the JAX package's `grad_pairs`: autodiff's
+    rounding, zero where the clamp is active or tied (`live` is
+    ssq > EPS). Its quadraticization is the JAX package's autodiff over
+    the support (x1, y1, x2, y2), which takes the clamp's derivative as
+    1 above EPS, 1/2 at it and 0 below (w): with D, E the differences,
+    m the clamped squared norm, q = 0.5 / sqrt(m) and c = (q * -s) * w,
+    the gradient is 2 c (D, E) and the Hessian's block on one point
+    2 (c [Z == col] + Z t(col)) for row Z in (D, E), with
+    t(col) = ((-((2 col w) q)) (0.5 / m)) (w * -s), as XLA compiles the
+    forward-over-reverse pass; -block across the points. Every division
+    is of two tensors."""
+    s = 1.0 if less_is_positive else -1.0
+    x1, y1 = dims1
+    x2, y2 = dims2
+
+    def _diff(v):
+        dx = v[..., x1] - v[..., x2]
+        dy = v[..., y1] - v[..., y2]
+        return dx, dy, dx * dx + dy * dy
+
+    def evaluate(t, v):
+        _, _, ssq = _diff(v)
+        return s * (nominal - fmath.sqrt(torch.clamp_min(ssq, _EPS)))
+
+    def grad_pairs(t, v):
+        dx, dy, ssq = _diff(v)
+        d = fmath.sqrt(torch.clamp_min(ssq, _EPS))
+        live = (ssq > _EPS).to(torch.float32)
+        ct = torch.full_like(d, -s * 0.5) / d * live
+        px = ct * dx
+        py = ct * dy
+        gx = px + px
+        gy = py + py
+        return [(x1, gx), (y1, gy), (x2, -gx), (y2, -gy)]
+
+    def quad_pairs(t, v):
+        dx, dy, ssq = _diff(v)
+        m = torch.clamp_min(ssq, _EPS)
+        w = torch.where(ssq > _EPS, 1.0, torch.where(ssq == _EPS, 0.5, 0.0))
+        q = torch.full_like(m, 0.5) / fmath.sqrt(m)
+        half_inv = 0.5 * (torch.ones_like(m) / m)
+        c = (q * -s) * w
+        ws = w * -s
+
+        def tc(z):
+            return (-(((z + z) * w) * q) * half_inv) * ws
+
+        tx, ty = tc(dx), tc(dy)
+        a = c + dx * tx
+        b = c + dy * ty
+        h = {(0, 0): a + a, (1, 1): b + b, (0, 1): dx * ty + dx * ty,
+             (1, 0): dy * tx + dy * tx}
+        support = ((x1, 0, 1.0), (y1, 1, 1.0), (x2, 0, -1.0), (y2, 1, -1.0))
+        hp = [((i, j), h[(ra, cb)] if si * sj > 0 else -h[(ra, cb)])
+              for i, ra, si in support for j, cb, sj in support]
+        gx = dx * c + dx * c
+        gy = dy * c + dy * c
+        return hp, [(x1, gx), (y1, gy), (x2, -gx), (y2, -gy)]
+
+    return Cost(name, evaluate, grad_pairs, quad_pairs,
+                device=("signed_distance", {"dims": (x1, y1, x2, y2),
+                                            "nominal": nominal, "sign": s}))
+
+
+def extreme_value(costs, is_min: bool, name: str = "extreme_value") -> Cost:
+    """The min or max over member costs: its value is the active member's
+    (first wins, a NaN member wins, `extreme_index`), and its gradient and
+    Hessian pairs are every member's pairs, in member order, each
+    multiplied by the member's one-hot gate (1.0 when active, else 0.0:
+    a multiply, so a member's NaN stays NaN). Its device form lists its
+    members' forms."""
+    costs = tuple(costs)
+
+    def active(t, v):
+        vals = torch.stack([c.evaluate(t, v) for c in costs], -1)
+        return vals, extreme_index(vals, is_min)
+
+    def gates(t, v):
+        _, idx = active(t, v)
+        return [(idx == ci).to(torch.float32) for ci in range(len(costs))]
+
+    def evaluate(t, v):
+        vals, idx = active(t, v)
+        return vals.gather(-1, idx[..., None])[..., 0]
+
+    def grad_pairs(t, v):
+        g = gates(t, v)
+        return [(dim, p * g[ci]) for ci, c in enumerate(costs)
+                for dim, p in c.gradient_pairs(t, v)]
+
+    def quad_pairs(t, v):
+        g = gates(t, v)
+        hp, gp = [], []
+        for ci, c in enumerate(costs):
+            chp, cgp = c.quad_pairs(t, v)
+            hp += [(ij, h * g[ci]) for ij, h in chp]
+            gp += [(dim, p * g[ci]) for dim, p in cgp]
+        return hp, gp
+
+    device = None
+    if all(c.device is not None for c in costs):
+        device = ("extreme", {"members": tuple(c.device for c in costs),
+                              "is_min": is_min})
+    return Cost(name, evaluate, grad_pairs, quad_pairs, device=device)
 
 
 def proximity(weight: float, dims1, dims2, threshold: float,

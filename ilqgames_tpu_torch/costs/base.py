@@ -130,6 +130,16 @@ def increment_lambda(constraint: Constraint, lam, mu, g_val):
     return torch.clamp_min(new_lam, 0.0)
 
 
+def extreme_index(vals, is_min: bool):
+    """The index of the extreme of `vals` along the last axis, as
+    jnp.argmax / jnp.argmin choose it: the first extreme, and the first
+    NaN where there is one. Only int8 argmax's first-maximum rule is
+    relied upon, on every device."""
+    m = vals.amin(-1, keepdim=True) if is_min else vals.amax(-1, keepdim=True)
+    hit = (vals == m) | (torch.isnan(vals) & torch.isnan(m))
+    return hit.to(torch.int8).argmax(-1)
+
+
 def mu_eff_ineq(gval, lam, mu):
     """Inequality effective mu: off for satisfied, inactive constraints."""
     inactive = (gval <= SMALL_NUMBER) & (torch.abs(lam) <= SMALL_NUMBER)

@@ -1,6 +1,6 @@
-"""Constraints of the flagship (counterpart of
-ilqgames_tpu/costs/constraints.py: `_mu_eff_ineq` at :24 and `proximity`
-at :103)."""
+"""Constraints (counterpart of ilqgames_tpu/costs/constraints.py:
+`_mu_eff_ineq` at :24, `single_dimension` at :33 and `proximity` at
+:103)."""
 
 from __future__ import annotations
 
@@ -12,6 +12,32 @@ from ilqgames_tpu_torch import fmath
 from ilqgames_tpu_torch.costs.base import Constraint, mu_eff_ineq
 
 _EPS = 1e-12
+
+
+def single_dimension(dim: int, threshold: float, keep_below: bool,
+                     name: str = "single_dimension") -> Constraint:
+    """g = v[dim] - threshold (keep below) or threshold - v[dim]. Its AL
+    gradient is ct = lam + mu_eff * g at dim (negated when keeping
+    above), its Hessian mu_eff at (dim, dim)."""
+
+    def g(t, v):
+        return v[..., dim] - threshold if keep_below else threshold - v[..., dim]
+
+    def al_grad_pairs(t, v, lam, mu):
+        gval = g(t, v)
+        ct = lam + mu_eff_ineq(gval, lam, mu) * gval
+        return [(dim, ct if keep_below else -ct)]
+
+    def al_quad_pairs(t, v, lam, mu):
+        gval = g(t, v)
+        mu_eff = mu_eff_ineq(gval, lam, mu)
+        ct = lam + mu_eff * gval
+        return [((dim, dim), mu_eff)], [(dim, ct if keep_below else -ct)]
+
+    return Constraint(name, g, False, al_grad_pairs, al_quad_pairs,
+                      device=("single_dimension", {
+                          "dim": dim, "threshold": threshold,
+                          "keep_below": keep_below}))
 
 
 def proximity(dims1: Tuple[int, int], dims2: Tuple[int, int],

@@ -12,7 +12,13 @@ before the regularization (player_cost.py:300-325); a player with such
 an atom squares and sums every entry of its gradient in the merit
 (player_cost.py:212-215).
 
-Only the SUM structure is ported; MAX and MIN raise.
+A player's cost is summed over the knots (STRUCTURE_SUM) or is its
+largest or smallest stage cost (STRUCTURE_MAX, STRUCTURE_MIN; the
+reference's reachability games): `total_costs` then also returns that
+knot, and the state terms of the player's quadraticization and merit
+count only there, through a one-hot gate over the knots (`extreme_gate`)
+that multiplies them before the regularization; control terms are never
+gated (player_cost.py:279-330, 526-545).
 """
 
 from __future__ import annotations
@@ -22,12 +28,15 @@ from typing import Tuple
 
 import torch
 
-from ilqgames_tpu_torch.costs.base import Constraint, Cost, assemble_vector
+from ilqgames_tpu_torch.costs.base import Constraint, Cost, \
+    assemble_vector, extreme_index
 from ilqgames_tpu_torch.solver.ilq import _fixed_order_sum
 from ilqgames_tpu_torch.types import (DEFAULT_MU, GameSpec, OperatingPoint,
                                       QuadraticCosts, _Replace, const_tensor)
 
 STRUCTURE_SUM = "sum"
+STRUCTURE_MAX = "max"
+STRUCTURE_MIN = "min"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -93,25 +102,46 @@ def is_constrained(player_costs) -> bool:
     return any(pc.is_constrained for pc in player_costs)
 
 
-def check_structures(player_costs) -> None:
-    for i, pc in enumerate(player_costs):
-        if pc.structure != STRUCTURE_SUM:
-            raise NotImplementedError(
-                f"player {i}: cost structure {pc.structure!r} is not ported "
-                "yet (only 'sum')")
+def all_sum(player_costs) -> bool:
+    """Whether every player's structure is SUM: then extreme_ks is
+    identically 0 and no gate is made (the JAX package's `_all_sum`)."""
+    return all(pc.structure == STRUCTURE_SUM for pc in player_costs)
 
 
 def total_costs(player_costs, spec: GameSpec, op: OperatingPoint):
     """Per-player total costs of a batched operating point: (totals [B, P],
-    extreme_ks [B, P] int32, all zero under the SUM structure). The sum
-    over knots is a fixed-order fold: torch.sum's order depends on the
-    device and on the batch size, and a lane's total must not."""
-    check_structures(player_costs)
+    extreme_ks [B, P] int32). A SUM player's total is a fixed-order fold
+    over the knots (torch.sum's order depends on the device and on the
+    batch size, and a lane's total must not) and its extreme_ks 0; a MAX
+    (MIN) player's is its largest (smallest) stage cost, NaN if any is,
+    and extreme_ks that knot, the first (or first NaN) as jnp.argmax
+    (argmin) picks it."""
     ts = spec.horizon_times(op.xs.device)
-    totals = torch.stack([_fixed_order_sum(pc.evaluate_stage(ts, op.xs, op.us))
-                          for pc in player_costs], dim=-1)
-    return totals, torch.zeros(totals.shape, dtype=torch.int32,
-                               device=totals.device)
+    totals, ks = [], []
+    for pc in player_costs:
+        vals = pc.evaluate_stage(ts, op.xs, op.us)          # [B, N]
+        if pc.structure == STRUCTURE_SUM:
+            totals.append(_fixed_order_sum(vals))
+            ks.append(torch.zeros(vals.shape[:-1], dtype=torch.int32,
+                                  device=vals.device))
+        else:
+            is_min = pc.structure == STRUCTURE_MIN
+            totals.append(vals.amin(-1) if is_min else vals.amax(-1))
+            ks.append(extreme_index(vals, is_min).to(torch.int32))
+    return torch.stack(totals, dim=-1), torch.stack(ks, dim=-1)
+
+
+def extreme_gate(player_costs, spec: GameSpec, extreme_ks):
+    """[B, N, P] state-term gates: 1 for SUM players, one-hot at the
+    extreme knot extreme_ks [B, P] for MAX and MIN players (the JAX
+    package's `_extreme_gate_b`)."""
+    N = spec.num_time_steps
+    ks = torch.arange(N, device=extreme_ks.device)
+    cols = [torch.ones((extreme_ks.shape[0], N), device=extreme_ks.device)
+            if pc.structure == STRUCTURE_SUM else
+            (ks[None, :] == extreme_ks[:, i, None]).to(torch.float32)
+            for i, pc in enumerate(player_costs)]
+    return torch.stack(cols, dim=-1)
 
 
 def _lam(lams, ci):
@@ -237,13 +267,14 @@ def _assemble(out, idx, entries, like):
 
 
 def quadraticize(player_costs, spec: GameSpec, op: OperatingPoint,
-                 al: ALState, t=None) -> QuadraticCosts:
+                 al: ALState, t=None, gate=None) -> QuadraticCosts:
     """Full-horizon quadratic approximation of every player's cost at a
     batched operating point (xs [B, N, x], us [B, N, P, u]): Q [B,N,P,x,x],
     l [B,N,P,x], R [B,N,P,P,u,u], r [B,N,P,P,u]. The atoms see the knot
     times `t` ([N] or [B, N]); by default the relative times k * dt, as
-    the JAX package's unfused quadraticize (player_cost.py:563)."""
-    check_structures(player_costs)
+    the JAX package's unfused quadraticize (player_cost.py:563). `gate`
+    ([B, N, P], `extreme_gate`) multiplies the state terms of the MAX and
+    MIN players, before the regularization."""
     Bt, N, xd = op.xs.shape
     P, um = spec.num_players, spec.umax
     dev = op.xs.device
@@ -272,23 +303,28 @@ def quadraticize(player_costs, spec: GameSpec, op: OperatingPoint,
                 acc_into(gacc, qp[1])
         return hacc, gacc, hd, gd
 
-    def store(H, g, idx, hacc, gacc, hd, gd, reg):
+    def store(H, g, idx, hacc, gacc, hd, gd, reg, gate_i=None):
         """Assemble the pairs into H[..., *idx, :, :] and g; then add the
-        dense sum and, after it, the regularization `reg` (a diagonal of
-        floats, or None). Without dense parts the regularization folds
+        dense sum, multiply by the gate `gate_i` ([B, N] or None) and,
+        after it, add the regularization `reg` (a diagonal of floats, or
+        None). Without dense parts or a gate the regularization folds
         into the pairs, as before them."""
-        if reg is not None and hd is None:
+        if reg is not None and hd is None and gate_i is None:
             acc_into(hacc, (((d, d), torch.full_like(like, rv))
                             for d, rv in enumerate(reg)))
+            reg = None
         _assemble(H, idx, hacc, like)
         _assemble(g, idx, {(k,): v for k, v in gacc.items()}, like)
+        sel = (slice(None), slice(None)) + idx
         if hd is not None:
-            sel = (slice(None), slice(None)) + idx
             H[sel] = H[sel] + hd
             g[sel] = g[sel] + gd
-            if reg is not None:
-                for d, rv in enumerate(reg):
-                    H[sel + (d, d)] = H[sel + (d, d)] + rv
+        if gate_i is not None:
+            H[sel] = H[sel] * gate_i[..., None, None]
+            g[sel] = g[sel] * gate_i[..., None]
+        if reg is not None:
+            for d, rv in enumerate(reg):
+                H[sel + (d, d)] = H[sel + (d, d)] + rv
 
     Q = x.new_zeros((Bt, N, P, xd, xd))
     l = x.new_zeros((Bt, N, P, xd))
@@ -302,7 +338,9 @@ def quadraticize(player_costs, spec: GameSpec, op: OperatingPoint,
             acc_into(gacc, gp)
         reg = ([pc.state_regularization] * xd
                if pc.state_regularization != 0.0 else None)
-        store(Q, l, (i,), hacc, gacc, hd, gd, reg)
+        gated = gate is not None and pc.structure != STRUCTURE_SUM
+        store(Q, l, (i,), hacc, gacc, hd, gd, reg,
+              gate[..., i] if gated else None)
 
         for j in pc.control_players():
             uj = us[..., j, :]

@@ -20,18 +20,31 @@
 //   semiquadratic_norm   costs/atoms.py:semiquadratic_norm's dense gradient
 //                        (autodiff's operations, gated on >= or <= of the
 //                        norm), into a player's dense accumulator
-//   car_6d, unicycle_4d, the linear system
+//   signed_distance      costs/atoms.py:signed_distance
+//   extreme_value        costs/atoms.py:extreme_value over signed-distance
+//                        members: a header atom, then its members, each
+//                        multiplied by its one-hot gate ((-p) * g is
+//                        -(p * g): a pair's negation after the gate)
+//   single_dimension     costs/constraints.py:single_dimension, a control
+//                        constraint's AL terms
+//   car_6d, unicycle_4d, car_5d, the linear system
 //                        the Jacobian entries of dynamics/models.py and the
 //                        constant ones of dynamics/base.py:linear
 // The two norm atoms are the merit's only (K5, K6): they are compiled in
 // where the library is built with CT_NORMS=1 (ops/cuda/sweep.py), and K1
-// has neither (its caller refuses them).
-// The problem arrives as a CostTable passed by value (atom kinds, dims,
-// weights, nominals, thresholds, signs, orientations, gate times, segment
-// offsets; built by ops/cuda/cost_table.py) and a small device array of
-// polyline segments, 7 floats each: p1x p1y p2x p2y ux uy length, computed
-// on the host in float32 as geometry._static_segments computes them, then
-// the signed queries' shortcut segments, 8 floats each
+// has neither (its caller refuses them). The reachability games' atoms,
+// control constraints and car_5d's Jacobian are compiled in where the
+// library is built with CT_REACH=1 (cost_table.has_reach), so that the
+// other games' kernels are the same code.
+// The problem arrives as a CostTable (atom kinds, dims, weights, nominals,
+// thresholds, signs, orientations, gate times, segment offsets, extremal
+// groups, each player's structure; built by ops/cuda/cost_table.py), in the
+// constant memory of K1's and K6's libraries (set by their `*_set_*`
+// functions before a launch of another problem) and by value as a kernel
+// parameter of K5 and the probe P2, and a small device array
+// of polyline segments, 7 floats each: p1x p1y p2x p2y ux uy length,
+// computed on the host in float32 as geometry._static_segments computes
+// them, then the signed queries' shortcut segments, 8 floats each
 // (geometry.shortcut_segments). The time t an atom sees is its caller's:
 // K1, K5 and K6 give each lane's t0 + k * dt.
 //
@@ -56,6 +69,9 @@
 #ifndef CT_NORMS
 #define CT_NORMS 0
 #endif
+#ifndef CT_REACH
+#define CT_REACH 0
+#endif
 
 namespace costs {
 
@@ -69,10 +85,14 @@ constexpr int KIND_SEMI_POLYLINE = 3;
 constexpr int KIND_PROXIMITY_COST = 4;
 constexpr int KIND_QUADRATIC_NORM = 5;
 constexpr int KIND_SEMI_NORM = 6;
+constexpr int KIND_SIGNED_DIST = 7;
+constexpr int KIND_EXTREME = 8;
+constexpr int KIND_SINGLE_DIM = 9;
 constexpr int MAX_LIN = 32;
 constexpr int KIND_CAR_6D = 0;      // dynamics/models.py KIND_CAR_6D
 constexpr int KIND_UNICYCLE_4D = 1;  // dynamics/models.py KIND_UNICYCLE_4D
 constexpr int KIND_LINEAR = 2;       // dynamics/models.py KIND_LINEAR
+constexpr int KIND_CAR_5D = 3;       // dynamics/models.py KIND_CAR_5D
 constexpr float SMALL_NUMBER = 1e-4f;  // types.SMALL_NUMBER
 constexpr float EPS = 1e-12f;          // constraints._EPS
 
@@ -108,7 +128,12 @@ struct SubsysTable {
 // lam = its row of lamS. Proximity cost: dim[0..3], w = weight, aux =
 // threshold, aux2 = threshold^2. Quadratic norm: dim[0..1], w = weight,
 // aux = nominal. Semiquadratic norm: dim[0..1], w = weight, aux =
-// threshold, right = oriented right. gated: a final-time gate at tgate.
+// threshold, right = oriented right. Signed distance: dim[0..3], w = sign
+// s, aux = nominal. Extremal group header: group = its member count, right
+// = 1 for the minimum; its members follow it, with group = -1. Single-
+// dimension control constraint: on = j, dim[0], w = threshold, aux = +1
+// (keep below) or -1 (keep above), lam = its row of lamC. gated: a
+// final-time gate at tgate.
 struct CostAtom {
   int kind;
   int player;
@@ -125,6 +150,7 @@ struct CostAtom {
   int gated;
   float tgate;
   float aux2;
+  int group;
 };
 
 struct CostTable {
@@ -134,6 +160,7 @@ struct CostTable {
   float ctrl_reg[costs::MAX_PLAYERS];
   int ctrl_players[costs::MAX_PLAYERS];  // bit j: player i has terms in u_j
   int udims[costs::MAX_PLAYERS];
+  int extremal[costs::MAX_PLAYERS];  // a MAX or MIN player: gated state
 };
 
 }  // extern "C"
@@ -481,6 +508,99 @@ __device__ __forceinline__ void semi_norm_grad(const CostAtom& a, const V& v,
   g2 = on ? ct * y + ct * y : 0.0f;
 }
 
+#if CT_REACH
+struct SignedDist {
+  float dx, dy, ssq;
+};
+
+template <typename V>
+__device__ __forceinline__ SignedDist sd_diff(const CostAtom& a, const V& v) {
+  SignedDist p;
+  p.dx = v[a.dim[0]] - v[a.dim[2]];
+  p.dy = v[a.dim[1]] - v[a.dim[3]];
+  p.ssq = p.dx * p.dx + p.dy * p.dy;
+  return p;
+}
+
+// atoms.signed_distance's evaluate: s * (nominal - ||p1 - p2||).
+template <typename V>
+__device__ __forceinline__ float sd_value(const CostAtom& a, const V& v) {
+  const SignedDist p = sd_diff(a, v);
+  return a.w * (a.aux - fmath::sqrt(clamp_min(p.ssq, EPS)));
+}
+
+// atoms.signed_distance's grad_pairs: (gx, gy) of
+// [(x1, gx), (y1, gy), (x2, -gx), (y2, -gy)].
+template <typename V>
+__device__ __forceinline__ void sd_grad(const CostAtom& a, const V& v,
+                                        float& gx, float& gy) {
+  const SignedDist p = sd_diff(a, v);
+  const float d = fmath::sqrt(clamp_min(p.ssq, EPS));
+  const float live = (p.ssq > EPS) ? 1.0f : 0.0f;
+  const float ct = ((-a.w * 0.5f) / d) * live;
+  const float px = ct * p.dx, py = ct * p.dy;
+  gx = px + px;
+  gy = py + py;
+}
+
+// atoms.signed_distance's quad_pairs: the gradient (gx, gy) as above and
+// h[2][2] of the 4 x 4 Hessian over (x1, y1, x2, y2), h on the blocks of
+// one point, -h across.
+template <typename V>
+__device__ __forceinline__ void sd_quad(const CostAtom& a, const V& v,
+                                        float& gx, float& gy,
+                                        float h[2][2]) {
+  const SignedDist p = sd_diff(a, v);
+  const float m = clamp_min(p.ssq, EPS);
+  const float w = (p.ssq > EPS) ? 1.0f : ((p.ssq == EPS) ? 0.5f : 0.0f);
+  const float q = 0.5f / fmath::sqrt(m);
+  const float half_inv = 0.5f * (1.0f / m);
+  const float ns = -a.w;
+  const float c = (q * ns) * w;
+  const float ws = w * ns;
+  const float tx = (-(((p.dx + p.dx) * w) * q) * half_inv) * ws;
+  const float ty = (-(((p.dy + p.dy) * w) * q) * half_inv) * ws;
+  const float ha = c + p.dx * tx, hb = c + p.dy * ty;
+  h[0][0] = ha + ha;
+  h[1][1] = hb + hb;
+  h[0][1] = p.dx * ty + p.dx * ty;
+  h[1][0] = p.dy * tx + p.dy * tx;
+  gx = p.dx * c + p.dx * c;
+  gy = p.dy * c + p.dy * c;
+}
+
+// The active member of the extremal group whose header is atom `hdr`: the
+// first largest (smallest, right = 1) member value, or the first NaN
+// (base.extreme_index).
+template <typename V>
+__device__ __forceinline__ int extreme_active(const CostTable& tab, int hdr,
+                                              const V& v) {
+  const CostAtom& a = tab.atom[hdr];
+  int best = 0;
+  float bv = sd_value(tab.atom[hdr + 1], v);
+  for (int c = 1; c < a.group; ++c) {
+    const float x = sd_value(tab.atom[hdr + 1 + c], v);
+    const bool take = (x != x) ? (bv == bv) : (a.right ? x < bv : x > bv);
+    if (take) {
+      best = c;
+      bv = x;
+    }
+  }
+  return best;
+}
+
+// constraints.single_dimension's AL gradient at its dim for the value x
+// there: lam + mu_eff * g, negated when keeping above; mu_eff its Hessian.
+__device__ __forceinline__ float single_dim_ct(const CostAtom& a, float x,
+                                               float lam, float mu,
+                                               float& mu_eff) {
+  const float g = (a.aux > 0.0f) ? x - a.w : a.w - x;
+  mu_eff = mu_eff_ineq(g, lam, mu);
+  const float ct = lam + mu_eff * g;
+  return (a.aux > 0.0f) ? ct : -ct;
+}
+#endif  // CT_REACH
+
 // The dense accumulator of a library built without the norm atoms, which
 // never reads it.
 struct NoAcc {};
@@ -578,21 +698,35 @@ struct Selected {
 // player_cost.stage_gradient_sq_tuple for one player i at one knot of time
 // t: (state_sq, ctrl_sq) from the state v [X] and player i's controls ui
 // [U], accumulated in gs (keys 0 .. X-1; the dense atoms' in gd) and gu
-// (keys 0 .. U-1). lam(row) gives the multiplier of lamS row `row`.
+// (keys 0 .. U-1). lam(row) gives the multiplier of lamS row `row`, lamc(row)
+// that of lamC row `row` (read only with CT_REACH). The extremal gate of the
+// knot is the caller's.
 template <int X, int U, typename V, typename SAcc, typename DAcc, typename C,
-          typename CAcc, typename Lam>
+          typename CAcc, typename Lam, typename LamC>
 __device__ __forceinline__ void gradient_sq_into(
     const CostTable& tab, const float* segs, int i, const V& v, SAcc& gs,
-    DAcc& gd, const C& ui, CAcc& gu, Lam lam, float mu, float t,
+    DAcc& gd, const C& ui, CAcc& gu, Lam lam, LamC lamc, float mu, float t,
     float& state_sq, float& ctrl_sq) {
   gs.reset();
 #if CT_NORMS
   gd.reset();
   bool dense = false;
 #endif
+#if CT_REACH
+  // The current extremal group's active member, and the next member's
+  // index: a header starts a group, its members follow it.
+  int active = 0, member = 0;
+#endif
   for (int n = 0; n < tab.n; ++n) {
     const CostAtom& a = tab.atom[n];
     if (a.player != i || a.on >= 0) continue;
+#if CT_REACH
+    if (a.kind == KIND_EXTREME) {
+      active = extreme_active(tab, n, v);
+      member = 0;
+      continue;
+    }
+#endif
     const Gate gv = gate_of(a, t);
     if (a.kind == KIND_QUADRATIC) {
       gs.add(a.dim[0], gv(a.w * (v[a.dim[0]] - a.aux)));
@@ -629,6 +763,21 @@ __device__ __forceinline__ void gradient_sq_into(
       dense = true;
     }
 #endif
+#if CT_REACH
+    else if (a.kind == KIND_SIGNED_DIST) {
+      float gx, gy;
+      sd_grad(a, v, gx, gy);
+      if (a.group < 0) {  // a member: times its one-hot gate
+        const float g = (member++ == active) ? 1.0f : 0.0f;
+        gx = gx * g;
+        gy = gy * g;
+      }
+      gs.add(a.dim[0], gv(gx));
+      gs.add(a.dim[1], gv(gy));
+      gs.add(a.dim[2], gv(-gx));
+      gs.add(a.dim[3], gv(-gy));
+    }
+#endif
   }
 #if CT_NORMS
   if (dense) {
@@ -647,7 +796,18 @@ __device__ __forceinline__ void gradient_sq_into(
   gu.reset();
   for (int n = 0; n < tab.n; ++n) {
     const CostAtom& a = tab.atom[n];
+#if CT_REACH
+    if (a.player != i || a.on != i) continue;
+    if (a.kind == KIND_SINGLE_DIM) {
+      float mu_eff;
+      gu.add(a.dim[0], single_dim_ct(a, ui[a.dim[0]], lamc(a.lam), mu,
+                                     mu_eff));
+      continue;
+    }
+    if (a.kind != KIND_QUADRATIC) continue;
+#else
     if (a.player != i || a.on != i || a.kind != KIND_QUADRATIC) continue;
+#endif
     const Gate gv = gate_of(a, t);
     gu.add(a.dim[0], gv(a.w * (ui[a.dim[0]] - a.aux)));
   }
@@ -665,8 +825,8 @@ __device__ void gradient_sq(const CostTable& tab, const float* segs, int i,
   NoAcc gd;
   GradAcc<U> gu;
   const float* ui = u + i * U;
-  gradient_sq_into<X, U>(tab, segs, i, v, gs, gd, ui, gu, lam, mu, t,
-                         state_sq, ctrl_sq);
+  gradient_sq_into<X, U>(tab, segs, i, v, gs, gd, ui, gu, lam,
+                         [](int) { return 0.0f; }, mu, t, state_sq, ctrl_sq);
 }
 #endif  // the register form has no dense accumulator: no norm atoms
 
@@ -708,6 +868,22 @@ __device__ void jacobian(const SubsysTable& tab, const float* x, Add add,
       add(true, o + 2, q + 0, 1.0f);
       add(true, o + 3, q + 1, 1.0f);
     }
+#if CT_REACH
+    else if (tab.kind[s] == KIND_CAR_5D) {
+      const float L = tab.length[s];
+      const float sn = fmath::sin(x[o + 2]), cs = fmath::cos(x[o + 2]);
+      const float cos_phi = fmath::cos(x[o + 3]);
+      const float sec2 = 1.0f / (cos_phi * cos_phi);
+      add(false, o + 0, o + 2, -x[o + 4] * sn);
+      add(false, o + 0, o + 4, cs);
+      add(false, o + 1, o + 2, x[o + 4] * cs);
+      add(false, o + 1, o + 4, sn);
+      add(false, o + 2, o + 3, (x[o + 4] / L) * sec2);
+      add(false, o + 2, o + 4, fmath::tan(x[o + 3]) / L);
+      add(true, o + 3, q + 0, 1.0f);
+      add(true, o + 4, q + 1, 1.0f);
+    }
+#endif
   }
 }
 

@@ -261,7 +261,15 @@ __device__ __forceinline__ void store_knot(const float* sm,
   }
 }
 
-__global__ void __launch_bounds__(NTB) lq_backward_kernel(
+// At an odd x (one tile column a thread) ptxas held K2 to 128 registers and
+// spilled (x = 15) unless told that one block per SM is enough; the even
+// x's keep their build.
+#if LQ_X % 2
+#define K2_BOUNDS __launch_bounds__(NTB, 1)
+#else
+#define K2_BOUNDS __launch_bounds__(NTB)
+#endif
+__global__ void K2_BOUNDS lq_backward_kernel(
     const float* __restrict__ A, const float* __restrict__ Bf,
     const float* __restrict__ Qf, const float* __restrict__ lf,
     const float* __restrict__ Rf, const float* __restrict__ rf,

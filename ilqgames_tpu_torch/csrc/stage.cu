@@ -14,8 +14,17 @@
 //   (costs/player_cost.py:quadraticize),
 // and writes them straight into the LQ kernel's batch-minor operand dict:
 // A [N,X,X,B], Bf [N,X,PU,B], Qf [N,P*X,X,B], lf [N,P*X,B],
-// Rf [N,P*P*U,U,B], rf [N,P*P*U,B]. Only the SUM cost structure is ported,
-// so the extremal gates are all ones and are not read.
+// Rf [N,P*P*U,U,B], rf [N,P*P*U,B]. Built with CT_REACH (the reachability
+// games, costs.cuh), it also takes the signed-distance atoms and their
+// extremal groups, the control constraints' AL terms (R gets mu_eff at
+// (dim, dim) and r the gradient, after the control costs, in the order of
+// al_quad_pairs) with their multipliers lamC, and the extremal gate
+// gate [N,P,B], which multiplies a MAX or MIN player's state terms before
+// the regularization (player_cost.quadraticize).
+//
+// The game's SubsysTable and CostTable live in this library's constant
+// memory (stage_set_tables), where every thread of a warp reads the same
+// entry, as the parameter bank served them before.
 //
 // Design: one thread per (knot, lane), lanes fastest, so every load and
 // store of the batch-minor layout is coalesced across a warp. A thread
@@ -41,6 +50,9 @@
 #endif
 
 namespace {
+
+__constant__ SubsysTable c_dyn;
+__constant__ CostTable c_tab;
 
 constexpr int X = ST_X;
 constexpr int P = ST_P;
@@ -81,12 +93,14 @@ __global__ void stage_kernel(const float* __restrict__ xs,
                              const float* __restrict__ us,
                              const float* __restrict__ t0,
                              const float* __restrict__ lamS, int nS,
+                             const float* __restrict__ lamC, int nC,
+                             const float* __restrict__ gate,
                              const float* __restrict__ mu,
                              const float* __restrict__ segs, float* A,
                              float* Bf, float* Qf, float* lf, float* Rf,
-                             float* rf, int N, int B, float dt,
-                             const __grid_constant__ SubsysTable dyn,
-                             const __grid_constant__ CostTable tab) {
+                             float* rf, int N, int B, float dt) {
+  const SubsysTable& dyn = c_dyn;
+  const CostTable& tab = c_tab;
   const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long)N * B) return;
   const long k = idx / B;
@@ -99,6 +113,9 @@ __global__ void stage_kernel(const float* __restrict__ xs,
   const float mu_b = mu[b];
   const float t = t0[b] + (float)k * dt;
   auto lam = [&](int row) { return lamS[(k * nS + row) * Bl + b]; };
+#if CT_REACH
+  auto lamc = [&](int row) { return lamC[(k * nC + row) * Bl + b]; };
+#endif
 
   float* Ak = A + k * X * X * Bl + b;
   float* Bk = Bf + k * X * PU * Bl + b;
@@ -146,9 +163,19 @@ __global__ void stage_kernel(const float* __restrict__ xs,
     sl.reset();
     auto hq = [&](int r, int c, float v) { put(Qi, Bl, sq, r * X + c, v); };
     auto gq = [&](int r, float v) { put(li, Bl, sl, r, v); };
+#if CT_REACH
+    int active = 0, member = 0;  // as in costs::gradient_sq_into
+#endif
     for (int n = 0; n < tab.n; ++n) {
       const CostAtom& a = tab.atom[n];
       if (a.player != i || a.on >= 0) continue;
+#if CT_REACH
+      if (a.kind == costs::KIND_EXTREME) {
+        active = costs::extreme_active(tab, n, x);
+        member = 0;
+        continue;
+      }
+#endif
       const costs::Gate gv = costs::gate_of(a, t);
       if (a.kind == costs::KIND_QUADRATIC) {
         const int d = a.dim[0];
@@ -209,7 +236,44 @@ __global__ void stage_kernel(const float* __restrict__ xs,
         gq(x2, -px);
         gq(y2, -py);
       }
+#if CT_REACH
+      else if (a.kind == costs::KIND_SIGNED_DIST) {
+        float gx, gy, h[2][2];
+        costs::sd_quad(a, x, gx, gy, h);
+        if (a.group < 0) {  // a member: times its one-hot gate
+          const float g = (member++ == active) ? 1.0f : 0.0f;
+          gx = gx * g;
+          gy = gy * g;
+          h[0][0] = h[0][0] * g;
+          h[0][1] = h[0][1] * g;
+          h[1][0] = h[1][0] * g;
+          h[1][1] = h[1][1] * g;
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float v = h[r % 2][c % 2];
+            hq(a.dim[r], a.dim[c], gv((r < 2) == (c < 2) ? v : -v));
+          }
+        gq(a.dim[0], gv(gx));
+        gq(a.dim[1], gv(gy));
+        gq(a.dim[2], gv(-gx));
+        gq(a.dim[3], gv(-gy));
+      }
+#endif
     }
+#if CT_REACH
+    // A MAX or MIN player's state terms count at its extreme knot only:
+    // each entry set so far times the gate, before the regularization.
+    if (gate != nullptr && tab.extremal[i]) {
+      const float g = gate[(k * P + i) * Bl + b];
+      for (int e = 0; e < X * X; ++e)
+        if ((sq.w[e >> 5] >> (e & 31)) & 1u) Qi[e * Bl] = Qi[e * Bl] * g;
+      for (int e = 0; e < X; ++e)
+        if ((sl.w[e >> 5] >> (e & 31)) & 1u) li[e * Bl] = li[e * Bl] * g;
+    }
+#endif
     if (tab.state_reg[i] != 0.0f)
       for (int d = 0; d < X; ++d) hq(d, d, tab.state_reg[i]);
 
@@ -223,8 +287,22 @@ __global__ void stage_kernel(const float* __restrict__ xs,
       sr.reset();
       for (int n = 0; n < tab.n; ++n) {
         const CostAtom& a = tab.atom[n];
+#if CT_REACH
+        if (a.player != i || a.on != j) continue;
+        if (a.kind == costs::KIND_SINGLE_DIM) {
+          const int d = a.dim[0];
+          float mu_eff;
+          const float g = costs::single_dim_ct(a, u[j * U + d], lamc(a.lam),
+                                               mu_b, mu_eff);
+          put(Rij, Bl, sR, d * U + d, mu_eff);
+          put(rij, Bl, sr, d, g);
+          continue;
+        }
+        if (a.kind != costs::KIND_QUADRATIC) continue;
+#else
         if (a.player != i || a.on != j || a.kind != costs::KIND_QUADRATIC)
           continue;
+#endif
         const costs::Gate gv = costs::gate_of(a, t);
         const int d = a.dim[0];
         put(Rij, Bl, sR, d * U + d, gv(a.w));
@@ -245,18 +323,35 @@ constexpr int BLOCK = 128;
 extern "C" {
 
 // xs [N,X,B], us [N,PU,B], t0 [B], lamS [N,nS,B] (null when nS = 0),
-// mu [B], segs (cost_table.py) -> A, Bf, Qf, lf, Rf, rf (see the header).
+// lamC [N,nC,B] (null when nC = 0), gate [N,P,B] (null: no MAX or MIN
+// player; both read only with CT_REACH), mu [B], segs, and the device
+// tables of stage_set_tables -> A, Bf, Qf, lf, Rf, rf (see the header).
 int stage_lin_quad(const float* xs, const float* us, const float* t0,
-                   const float* lamS, int nS, const float* mu,
-                   const float* segs, float* A, float* Bf, float* Qf,
-                   float* lf, float* Rf, float* rf, int N, int B, float dt,
-                   SubsysTable dyn, CostTable tab, void* stream) {
+                   const float* lamS, int nS, const float* lamC, int nC,
+                   const float* gate, const float* mu, const float* segs,
+                   float* A, float* Bf, float* Qf, float* lf, float* Rf,
+                   float* rf, int N, int B, float dt, void* stream) {
   const long total = (long)N * B;
+  if (total == 0) return 0;
   const int grid = (int)((total + BLOCK - 1) / BLOCK);
   stage_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      xs, us, t0, lamS, nS, mu, segs, A, Bf, Qf, lf, Rf, rf, N, B, dt, dyn,
-      tab);
+      xs, us, t0, lamS, nS, lamC, nC, gate, mu, segs, A, Bf, Qf, lf, Rf, rf,
+      N, B, dt);
   return (int)cudaGetLastError();
+}
+
+// Copy the game's tables into this library's constant memory, in stream
+// order (kernels launched before still read the previous game's).
+int stage_set_tables(const SubsysTable* dyn, const CostTable* tab,
+                     void* stream) {
+  cudaError_t err = cudaMemcpyToSymbolAsync(
+      c_dyn, dyn, sizeof(SubsysTable), 0, cudaMemcpyHostToDevice,
+      (cudaStream_t)stream);
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbolAsync(c_tab, tab, sizeof(CostTable), 0,
+                                  cudaMemcpyHostToDevice,
+                                  (cudaStream_t)stream);
+  return (int)err;
 }
 
 }  // extern "C"

@@ -18,7 +18,8 @@
 // right and then over the knots in ascending k; it emits only the raw
 // merits [C, B]. Its fold is K6's and merit_plain's.
 //
-// Dynamics: car_6d and unicycle_4d (ilqgames_tpu/dynamics/models.py:80-175)
+// Dynamics: car_6d, unicycle_4d and car_5d
+// (ilqgames_tpu/dynamics/models.py:80-175)
 // and the constant-linear systems of the two-player point mass
 // (ilqgames_tpu/examples/two_player_point_mass.py:31-35; one subsystem that
 // both players drive) and of the flat systems
@@ -69,7 +70,15 @@
 // that no register array is indexed at run time (which would put it on the
 // stack). The chain per knot is then the slowest warp's RK4 plus its own
 // player's terms, where one thread per chain would run all three players'
-// terms after the joint RK4.
+// terms after the joint RK4. The CostTable is a kernel parameter: in
+// constant or shared memory ptxas spilled K5. Built with CT_REACH (the
+// reachability games), K5 also reads the control constraints'
+// multipliers lamC [N, nC, B] and, when the game has a MAX or MIN player,
+// the extremal gate [N, P, B], which multiplies each player's squared state
+// gradient at each knot before the players' fold (ops/cuda/sweep.py:
+// merit_plain); it computes a knot's terms after the knot's integration
+// (from the knot's state, which the integration does not overwrite), so
+// that the state rows are not live beside them.
 
 #include <cuda_runtime.h>
 
@@ -141,6 +150,16 @@ struct Sub {
                 "a model's rows are its kind's");
 };
 
+// K4's and K5's launch bounds: a block of one warp per subsystem; with
+// SW_MIN_BLOCKS (ops/cuda/sweep.py:library, a layout with a car_5d), also
+// the least blocks per SM, which lifts ptxas's register target: without it
+// ptxas held the reachability game's K4 to 56 registers and spilled.
+#ifdef SW_MIN_BLOCKS
+#define SW_BOUNDS __launch_bounds__(WARP * NSUB, SW_MIN_BLOCKS)
+#else
+#define SW_BOUNDS __launch_bounds__(WARP * NSUB)
+#endif
+
 // f(Sub<s>{}) for a subsystem index s known at run time: a chain of
 // branches, uniform across a warp in K4 (s is the warp's index).
 template <int S = 0, typename F>
@@ -154,7 +173,7 @@ __device__ __forceinline__ auto on_sub(int s, F f) {
 // K4: warp s of a block integrates subsystem s of the block's 32 chains.
 // Tail threads (chain index >= C * B) compute on the last chain and store
 // nothing to device memory, so every thread reaches every barrier.
-__global__ void __launch_bounds__(WARP * NSUB) rollout_warp_kernel(
+__global__ void SW_BOUNDS rollout_warp_kernel(
     const float* __restrict__ x0, const float* __restrict__ xs,
     const float* __restrict__ us, const float* __restrict__ Ps,
     const float* __restrict__ al, const float* __restrict__ scal,
@@ -208,11 +227,12 @@ __global__ void __launch_bounds__(WARP * NSUB) rollout_warp_kernel(
 // controls it computes, from the knot's state in shared memory, at the
 // lane's time t0[b] + k dt. Warp 0 folds the players' terms of a knot
 // after the knot's barrier.
-__global__ void __launch_bounds__(WARP * NSUB) rollout_merit_warp_kernel(
+__global__ void SW_BOUNDS rollout_merit_warp_kernel(
     const float* __restrict__ x0, const float* __restrict__ xs,
     const float* __restrict__ us, const float* __restrict__ Ps,
     const float* __restrict__ al, const float* __restrict__ t0,
     const float* __restrict__ scal, const float* __restrict__ lamS, int nS,
+    const float* __restrict__ lamC, int nC, const float* __restrict__ gate,
     const float* __restrict__ mu, const float* __restrict__ segs,
     float* __restrict__ merit_out, int N, int C, int B, float dt, float h,
     int umask_bits, const __grid_constant__ CostTable cost) {
@@ -262,7 +282,9 @@ __global__ void __launch_bounds__(WARP * NSUB) rollout_merit_warp_kernel(
       rollout::control_rows<X, PU, Q, UR>(xs, us, Ps, al, k, b, Bl, sc,
                                           umask_bits, x, u);
       auto lam = [&](int row) { return lamS[((long)k * nS + row) * Bl + b]; };
+      auto lamc = [&](int row) { return lamC[((long)k * nC + row) * Bl + b]; };
       const float t = t0_b + (float)k * dt;
+      auto knot_terms = [&]() {
 #pragma unroll
       for (int ii = 0; ii < UR / U; ++ii) {
         const int I = Q / U + ii;
@@ -276,15 +298,26 @@ __global__ void __launch_bounds__(WARP * NSUB) rollout_merit_warp_kernel(
         float s_sq, r_sq;
         costs::gradient_sq_into<X, U>(
             cost, segs, I, costs::Column{&state[cur][0][lane]}, gs, gd,
-            costs::Selected<U>{u + ii * U}, gu, lam, mu_b, t, s_sq, r_sq);
+            costs::Selected<U>{u + ii * U}, gu, lam, lamc, mu_b, t, s_sq,
+            r_sq);
+#if CT_REACH
+        if (gate != nullptr) s_sq = s_sq * gate[((long)k * P + I) * Bl + b];
+#endif
         terms[cur][I][0][lane] = s_sq;
         terms[cur][I][1][lane] = r_sq;
       }
+      };
+#if !CT_REACH
+      knot_terms();
+#endif
       float xo[D];
       for (int j = 0; j < D; ++j) xo[j] = x[O + j];
       rollout::sub_integrate<S::kind, D, X, LinTerms, O, Q>(S::length, h, xo,
                                                           u);
       for (int j = 0; j < D; ++j) state[cur ^ 1][O + j][lane] = xo[j];
+#if CT_REACH
+      knot_terms();
+#endif
     });
     __syncthreads();
   }
@@ -328,12 +361,15 @@ int sweep_rollout(const float* x0, const float* xs, const float* us,
   return (int)cudaGetLastError();
 }
 
-// K5: as sweep_rollout, plus lamS [N,nS,B] (null when nS = 0), mu [B] and
-// the cost table -> raw merits merit_out [C,B]; emits no trajectory. The
-// atoms see each lane's time t0[b] + k dt (final_time reads it).
+// K5: as sweep_rollout, plus lamS [N,nS,B] (null when nS = 0), lamC
+// [N,nC,B] (null when nC = 0) and gate [N,P,B] (null: no MAX or MIN player;
+// both read only with CT_REACH), mu [B] and the cost table -> raw merits
+// merit_out [C,B]; emits no trajectory. The atoms see each lane's time
+// t0[b] + k dt (final_time reads it).
 int sweep_rollout_merit(const float* x0, const float* xs, const float* us,
                         const float* Ps, const float* al, const float* t0,
                         const float* scal, const float* lamS, int nS,
+                        const float* lamC, int nC, const float* gate,
                         const float* mu, const float* segs, float* merit_out,
                         int N, int C, int B, float dt, float h, int umask_bits,
                         SubsysTable tab, CostTable cost, void* stream) {
@@ -342,8 +378,8 @@ int sweep_rollout_merit(const float* x0, const float* xs, const float* us,
   if (total == 0) return 0;
   const int grid = (int)((total + WARP - 1) / WARP);
   rollout_merit_warp_kernel<<<grid, WARP * NSUB, 0, (cudaStream_t)stream>>>(
-      x0, xs, us, Ps, al, t0, scal, lamS, nS, mu, segs, merit_out, N, C, B,
-      dt, h, umask_bits, cost);
+      x0, xs, us, Ps, al, t0, scal, lamS, nS, lamC, nC, gate, mu, segs,
+      merit_out, N, C, B, dt, h, umask_bits, cost);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,5 @@
-"""Dynamics models of the flagship (counterpart of
-ilqgames_tpu/dynamics/models.py: `unicycle_4d` at :80 and `car_6d` at
-:146).
+"""Dynamics models (counterpart of ilqgames_tpu/dynamics/models.py:
+`unicycle_4d` at :80, `car_5d` at :117 and `car_6d` at :146).
 
 Each model has a continuous vector field `ode(t, x, u)` over tensors
 whose last axis is the state (or control) index, and analytic sparse
@@ -22,6 +21,7 @@ from ilqgames_tpu_torch.dynamics.base import SinglePlayerModel, true_div
 KIND_CAR_6D = 0
 KIND_UNICYCLE_4D = 1
 KIND_LINEAR = 2
+KIND_CAR_5D = 3
 
 
 def unicycle_4d() -> SinglePlayerModel:
@@ -40,6 +40,30 @@ def unicycle_4d() -> SinglePlayerModel:
 
     return SinglePlayerModel("unicycle_4d", 4, 2, ode, position_dims=(0, 1),
                              jac=jac, kind=KIND_UNICYCLE_4D)
+
+
+def car_5d(inter_axle_distance: float) -> SinglePlayerModel:
+    """Bicycle [px py theta phi v] / [omega a]."""
+    L = inter_axle_distance
+
+    def ode(t, x, u):
+        return torch.stack([x[..., 4] * fmath.cos(x[..., 2]),
+                            x[..., 4] * fmath.sin(x[..., 2]),
+                            true_div(x[..., 4], L) * fmath.tan(x[..., 3]),
+                            u[..., 0], u[..., 1]], dim=-1)
+
+    def jac(t, x, u):
+        s, c = fmath.sin(x[..., 2]), fmath.cos(x[..., 2])
+        cos_phi = fmath.cos(x[..., 3])
+        sec2 = 1.0 / (cos_phi * cos_phi)
+        return ([((0, 2), -x[..., 4] * s), ((0, 4), c),
+                 ((1, 2), x[..., 4] * c), ((1, 4), s),
+                 ((2, 3), true_div(x[..., 4], L) * sec2),
+                 ((2, 4), true_div(fmath.tan(x[..., 3]), L))],
+                [((3, 0), 1.0), ((4, 1), 1.0)])
+
+    return SinglePlayerModel("car_5d", 5, 2, ode, position_dims=(0, 1),
+                             jac=jac, kind=KIND_CAR_5D, length=L)
 
 
 def car_6d(inter_axle_distance: float) -> SinglePlayerModel:

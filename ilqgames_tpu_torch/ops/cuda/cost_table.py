@@ -1,14 +1,27 @@
 """The problem description that the stage kernel K1 and the merit kernels
 K5 and K6 read (csrc/costs.cuh): every player's atoms, with their kinds,
-dims, weights, nominals, thresholds, signs, orientations, gate times and
-polyline segments, as a ctypes struct passed by value, and the polyline
-segments (and, for the signed query, their shortcut segments) as a small
-device tensor.
+dims, weights, nominals, thresholds, signs, orientations, gate times,
+polyline segments and extremal groups, its control constraints and its
+cost structure, as a ctypes struct (`cost_table`), and the polyline
+segments (and, for the signed query, their shortcut segments) as a
+small device tensor. K1 and K6 hold the struct in their libraries'
+constant memory, copied there before a launch on another problem
+(`set_tables`); K5 and the probe P2 take it by value as a kernel
+parameter (in constant or shared memory, ptxas spilled K5).
 
 An atom or constraint with no device form raises NotImplementedError, so
 a kernel is never launched on a problem it cannot compute. The two norm
 atoms have device forms in the merit kernels K5 and K6 only, in libraries
 built with CT_NORMS=1 (`has_norms`); the stage kernel K1 refuses them.
+The reachability games' features (`has_reach`: the signed-distance atom,
+an extremal group of atoms, a control constraint, a MAX or MIN player)
+are compiled into K1, K5 and K6 only with CT_REACH=1, so that the other
+games' kernels are the same code.
+
+An extremal group (atoms.extreme_value) is a header atom (kind
+"extreme", `group` its member count, `right` 1 for the minimum) followed
+by its members (`group` -1), each of which the kernels multiply by its
+one-hot gate.
 """
 
 from __future__ import annotations
@@ -26,8 +39,10 @@ MAX_ATOMS = 32
 MAX_PLAYERS = 8
 KIND = {"quadratic": 0, "polyline": 1, "proximity": 2,
         "semiquadratic_polyline": 3, "proximity_cost": 4,
-        "quadratic_norm": 5, "semiquadratic_norm": 6}
+        "quadratic_norm": 5, "semiquadratic_norm": 6,
+        "signed_distance": 7, "extreme": 8, "single_dimension": 9}
 NORM_KINDS = ("quadratic_norm", "semiquadratic_norm")
+REACH_KINDS = ("signed_distance", "extreme")
 
 
 class CostAtom(ctypes.Structure):
@@ -38,7 +53,7 @@ class CostAtom(ctypes.Structure):
                 ("aux", ctypes.c_float), ("ends", ctypes.c_float * 4),
                 ("fix0", ctypes.c_int), ("right", ctypes.c_int),
                 ("gated", ctypes.c_int), ("tgate", ctypes.c_float),
-                ("aux2", ctypes.c_float)]
+                ("aux2", ctypes.c_float), ("group", ctypes.c_int)]
 
 
 class CostTable(ctypes.Structure):
@@ -46,7 +61,8 @@ class CostTable(ctypes.Structure):
                 ("state_reg", ctypes.c_float * MAX_PLAYERS),
                 ("ctrl_reg", ctypes.c_float * MAX_PLAYERS),
                 ("ctrl_players", ctypes.c_int * MAX_PLAYERS),
-                ("udims", ctypes.c_int * MAX_PLAYERS)]
+                ("udims", ctypes.c_int * MAX_PLAYERS),
+                ("extremal", ctypes.c_int * MAX_PLAYERS)]
 
 
 def _device_form(atom):
@@ -63,26 +79,32 @@ def _build(player_costs, spec: GameSpec):
     floats, p1x p1y p2x p2y ux uy length, as geometry computes them, then
     for each signed query its shortcut rows of 8 floats
     (geometry.shortcut_segments), at float offset `fix0`."""
-    pcost.check_structures(player_costs)
     if len(player_costs) > MAX_PLAYERS:
         raise NotImplementedError(f"more than {MAX_PLAYERS} players")
     tab = CostTable()
     segs = []
     atoms = []
-    lam_row = 0
+    lam_row = ctrl_row = 0
     def per_dim(form, n):
         """A quadratic over all n dims as n one-dim quadratics, in dim
-        order: the same pairs in the same order."""
+        order: the same pairs in the same order; an extremal group as its
+        header and its members."""
         kind, prm = form
+        if kind == "extreme":
+            members = prm["members"]
+            if "gate_time" in prm or any(
+                    m[0] != "signed_distance" or "gate_time" in m[1]
+                    for m in members):
+                raise NotImplementedError(
+                    "an extremal group's device form takes ungated "
+                    "signed-distance members only")
+            return [(kind, dict(prm, group=len(members)))] + [
+                (m[0], dict(m[1], group=-1)) for m in members]
         if kind != "quadratic" or prm["dim"] >= 0:
             return [form]
         return [(kind, dict(prm, dim=d)) for d in range(n)]
 
     for i, pc in enumerate(player_costs):
-        if pc.control_constraints:
-            raise NotImplementedError(
-                f"player {i}: control constraints have no device form in "
-                "the stage and merit kernels")
         for c in pc.state_costs:
             atoms += [(i, -1, f, None)
                       for f in per_dim(_device_form(c), spec.xdim)]
@@ -95,9 +117,17 @@ def _build(player_costs, spec: GameSpec):
                     f"{c.name!r}: only quadratic control costs have a "
                     "device form")
             atoms += [(i, j, f, None) for f in per_dim(c.device, spec.umax)]
+        for j, con in pc.control_constraints:
+            if _device_form(con)[0] != "single_dimension":
+                raise NotImplementedError(
+                    f"{con.name!r}: only single-dimension control "
+                    "constraints have a device form")
+            atoms.append((i, j, con.device, ctrl_row))
+            ctrl_row += 1
         tab.state_reg[i] = pc.state_regularization
         tab.ctrl_reg[i] = pc.control_regularization
         tab.ctrl_players[i] = sum(1 << j for j in pc.control_players())
+        tab.extremal[i] = int(pc.structure != pcost.STRUCTURE_SUM)
     for i, d in enumerate(spec.udims):
         tab.udims[i] = d
     if len(atoms) > MAX_ATOMS:
@@ -111,6 +141,7 @@ def _build(player_costs, spec: GameSpec):
         a.kind, a.player, a.on = KIND[kind], i, on
         if "gate_time" in prm:
             a.gated, a.tgate = 1, prm["gate_time"]
+        a.group = prm.get("group", 0)
         if kind == "quadratic":
             a.dim[0], a.w, a.aux = prm["dim"], prm["weight"], prm["nominal"]
         elif kind in ("polyline", "semiquadratic_polyline"):
@@ -141,6 +172,14 @@ def _build(player_costs, spec: GameSpec):
             a.dim[0], a.dim[1] = prm["dims"]
             a.w, a.aux = prm["weight"], prm["threshold"]
             a.right = int(prm["oriented_right"])
+        elif kind == "signed_distance":
+            a.dim[:] = list(prm["dims"])
+            a.w, a.aux = prm["sign"], prm["nominal"]
+        elif kind == "extreme":
+            a.right = int(prm["is_min"])
+        elif kind == "single_dimension":
+            a.dim[0], a.w, a.lam = prm["dim"], prm["threshold"], lam
+            a.aux = 1.0 if prm["keep_below"] else -1.0
     tab.n = len(atoms)
     # The shortcut rows follow the segment rows.
     for n in range(tab.n):
@@ -149,6 +188,17 @@ def _build(player_costs, spec: GameSpec):
     flat = tuple(v for row in segs for v in row) + tuple(
         v for row in fixes for v in row)
     return tab, flat or (0.0,)
+
+
+def has_reach(player_costs) -> bool:
+    """Whether a game needs the reachability games' features in its
+    kernels (a signed-distance atom or an extremal group, a control
+    constraint, or a MAX or MIN player): they are then built with
+    CT_REACH=1."""
+    return any(pc.structure != pcost.STRUCTURE_SUM or pc.control_constraints
+               or any(c.device is not None and c.device[0] in REACH_KINDS
+                      for c in pc.state_costs)
+               for pc in player_costs)
 
 
 def has_norms(player_costs) -> bool:
@@ -163,3 +213,22 @@ def cost_table(player_costs, spec: GameSpec, device):
     tab, flat = _build(tuple(player_costs), spec)
     segs = const_tensor(flat, torch.device(device))
     return tab, segs
+
+
+def set_tables(lib, setter: str, structs, stream: int, device) -> None:
+    """Make kernel library `lib`'s constant tables hold `structs` (ctypes
+    structs cached per problem, so that their identity names them) on
+    `device`, through the library's C function `setter`, on `stream`: a
+    copy in stream order, made only when the library holds another
+    problem's tables there."""
+    key = tuple(id(s) for s in structs)
+    resident = getattr(lib, "_resident_tables", None)
+    if resident is None:
+        resident = lib._resident_tables = {}
+    if resident.get(device.index) == key:
+        return
+    rc = getattr(lib, setter)(*(ctypes.addressof(s) for s in structs),
+                              stream)
+    if rc != 0:
+        raise RuntimeError(f"{setter}: CUDA error {rc}")
+    resident[device.index] = key

@@ -237,7 +237,11 @@ def _check(rung_name, dyn, player_costs, spec, x0c, op_bm, st_bm, scal_cb,
     if r.gate:
         named.append(("gate", gate, (N, P, B)))
     if r.merit == "table":
-        pcost.check_structures(player_costs)
+        if not pcost.all_sum(player_costs) or any(
+                pc.control_constraints for pc in player_costs):
+            raise NotImplementedError(
+                "P2's table merit takes SUM players without control "
+                "constraints (the flagship's)")
         nS = _n_constraints(player_costs)
         if (lamS is None) != (nS == 0) or (
                 lamS is not None and lamS.shape[1] != nS):

@@ -22,9 +22,11 @@ as the JAX package's does:
   (control terms always, state terms for k > 0) in plain PyTorch;
 - "pallas": the same emission, folded by K6;
 - "kernel": K5 rolls out and folds in one kernel, emitting only merits.
-The three compute the same operations in the same order. Only the SUM
-cost structure is ported, so every extremal gate is 1 and is not
-materialized.
+The three compute the same operations in the same order. Each player's
+squared state gradient is multiplied by its extremal gate at each knot
+(`gate` [N, P, B]: 1 for a SUM player, one-hot at the extreme knot for a
+MAX or MIN one) when the game has a MAX or MIN player; a game of SUM
+players has no gate (None), and nothing is multiplied.
 """
 
 from __future__ import annotations
@@ -39,8 +41,9 @@ from ilqgames_tpu_torch.costs import player_cost as pcost
 from ilqgames_tpu_torch.dynamics import base as dyn_base
 from ilqgames_tpu_torch.ops.cuda import build
 from ilqgames_tpu_torch.ops.cuda.cost_table import CostTable, cost_table, \
-    has_norms
-from ilqgames_tpu_torch.dynamics.models import KIND_LINEAR
+    has_norms, has_reach, set_tables
+from ilqgames_tpu_torch.dynamics.models import KIND_CAR_5D, KIND_CAR_6D, \
+    KIND_LINEAR, KIND_UNICYCLE_4D
 from ilqgames_tpu_torch.ops.cuda.layout import bm, mb, pad_batch
 from ilqgames_tpu_torch.types import GameSpec, OperatingPoint, Strategy, \
     const_tensor
@@ -147,7 +150,7 @@ def _hexf(v: float) -> str:
     return f"{float(ctypes.c_float(v).value).hex()}f"
 
 
-def library(dyn, spec: GameSpec, norms: bool = False):
+def library(dyn, spec: GameSpec, norms: bool = False, reach: bool = False):
     """(source name, defines) of csrc/sweep.cu (K4, K5) for this game: its
     dims, and its layout of subsystems from `_device_table`'s data (so a
     model with no device ODE raises): the count SW_NSUB and, per field, a
@@ -157,8 +160,12 @@ def library(dyn, spec: GameSpec, norms: bool = False):
     rows. A linear system adds its terms, in row order: SW_NLIN, and per
     term its row, its source (a state index, or X plus a flat control row)
     and its coefficient, and SW_LIN_ZERO, whether its rows fold from
-    x * 0. With `norms` (a game whose costs hold a norm atom), K5 is built
-    with those atoms (CT_NORMS=1).
+    x * 0. A layout with a car_5d adds SW_MIN_BLOCKS=1 (K4's and K5's
+    launch bounds ask for one block per SM at the least: ptxas's default
+    register target spilled them). With `norms` (a game whose costs hold
+    a norm atom), K5 is built with those atoms (CT_NORMS=1); with `reach`
+    (`cost_table.has_reach`), with the reachability games' atoms, control
+    constraints and extremal gates (CT_REACH=1).
 
     Warp s computes the control rows from SW_SUB_UOFF[s] on (its player's
     for a model or a flat system's block, every player's for a linear
@@ -186,6 +193,9 @@ def library(dyn, spec: GameSpec, norms: bool = False):
                 f"{i * u + u - 1}); {owners} of the game's {n} subsystems "
                 "do, and it needs exactly one")
     items = lambda vals: "".join(f"SW_ITEM({v})" for v in vals)
+    kinds = set(tab.kind[:n])
+    if not kinds <= {KIND_CAR_6D, KIND_UNICYCLE_4D, KIND_LINEAR, KIND_CAR_5D}:
+        raise NotImplementedError(f"model kinds {sorted(kinds)}")
     defines = {
         "SW_X": spec.xdim, "SW_PU": spec.num_players * spec.umax,
         "SW_U": spec.umax, "SW_NSUB": n, "SW_SUB_KIND": items(tab.kind[:n]),
@@ -203,50 +213,83 @@ def library(dyn, spec: GameSpec, norms: bool = False):
             SW_LIN_SRC=items(t[1] for t in terms),
             SW_LIN_COEF=items(_hexf(t[2]) for t in terms),
             SW_LIN_ZERO=int(dyn.linear_zero_start))
+    if KIND_CAR_5D in kinds:
+        # ptxas's default register target spilled the car_5d warps' K4.
+        defines["SW_MIN_BLOCKS"] = 1
     if norms:
         defines["CT_NORMS"] = 1
+    if reach:
+        defines["CT_REACH"] = 1
     return "sweep", defines
 
 
-def merit_library(spec: GameSpec, norms: bool = False):
+def merit_library(spec: GameSpec, norms: bool = False, reach: bool = False):
     """(source name, defines) of csrc/merit.cu (K6); with `norms`, built
-    with the norm atoms (CT_NORMS=1)."""
+    with the norm atoms (CT_NORMS=1), with `reach`, with the reachability
+    games' features (CT_REACH=1)."""
     defines = {"MR_X": spec.xdim, "MR_P": spec.num_players,
                "MR_U": spec.umax}
     if norms:
         defines["CT_NORMS"] = 1
+    if reach:
+        defines["CT_REACH"] = 1
     return "merit", defines
 
 
 @functools.lru_cache(maxsize=None)
-def load_kernels(dyn, spec: GameSpec, norms: bool = False) -> ctypes.CDLL:
+def load_kernels(dyn, spec: GameSpec, norms: bool = False,
+                 reach: bool = False) -> ctypes.CDLL:
     """Build (once per game) and load csrc/sweep.cu (K4, K5)."""
-    lib = build.load(*library(dyn, spec, norms))
+    lib = build.load(*library(dyn, spec, norms, reach))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sweep_rollout.argtypes = ([P] * 9 + [I] * 3 + [F, F, I, _SubsysTable,
                                                        P])
     lib.sweep_rollout.restype = I
-    lib.sweep_rollout_merit.argtypes = ([P] * 8 + [I] + [P] * 3 + [I] * 3
-                                        + [F, F, I, _SubsysTable, CostTable,
-                                           P])
+    lib.sweep_rollout_merit.argtypes = ([P] * 8 + [I, P, I] + [P] * 4
+                                        + [I] * 3 + [F, F, I, _SubsysTable,
+                                                     CostTable, P])
     lib.sweep_rollout_merit.restype = I
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def load_merit_kernel(spec: GameSpec, norms: bool = False) -> ctypes.CDLL:
+def load_merit_kernel(spec: GameSpec, norms: bool = False,
+                      reach: bool = False) -> ctypes.CDLL:
     """Build (once per shape) and load csrc/merit.cu (K6)."""
-    lib = build.load(*merit_library(spec, norms))
+    lib = build.load(*merit_library(spec, norms, reach))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.merit_consumer.argtypes = ([P] * 4 + [I] + [P] * 3 + [I] * 3
-                                   + [ctypes.c_float, CostTable, P])
+    lib.merit_consumer.argtypes = ([P] * 4 + [I, P, I] + [P] * 4 + [I] * 3
+                                   + [ctypes.c_float, P])
     lib.merit_consumer.restype = I
+    lib.merit_set_cost_table.argtypes = [P, P]
+    lib.merit_set_cost_table.restype = I
     return lib
 
 
-def merit_operands(lamS, N: int, B: int) -> list:
-    """The multiplier operand of a kernel, for build.check_operands."""
-    return [] if lamS is None else [("lamS", lamS, (N, lamS.shape[1], B))]
+def merit_operands(lamS, N: int, B: int, lamC=None, gate=None,
+                   P: int = 0) -> list:
+    """The multiplier and gate operands of a kernel, for
+    build.check_operands."""
+    out = [] if lamS is None else [("lamS", lamS, (N, lamS.shape[1], B))]
+    if lamC is not None:
+        out.append(("lamC", lamC, (N, lamC.shape[1], B)))
+    if gate is not None:
+        out.append(("gate", gate, (N, P, B)))
+    return out
+
+
+def _reach_operands(player_costs, lamC, gate):
+    """The library flag and the (lamC, nC, gate) arguments of a merit or
+    stage kernel: a game without the reachability features has neither
+    operand."""
+    reach = has_reach(player_costs)
+    if not reach and (lamC is not None or gate is not None):
+        raise ValueError("control multipliers or an extremal gate for a "
+                         "game without control constraints or extremal "
+                         "players")
+    return reach, (None if lamC is None else lamC.data_ptr(),
+                   0 if lamC is None else lamC.shape[1],
+                   None if gate is None else gate.data_ptr())
 
 
 def rollout_plain(dyn, spec: GameSpec, x0m, op_bm: dict, st_bm: dict,
@@ -318,38 +361,39 @@ rollout_bm.by_shape = collections.Counter()
 
 
 def rollout_merits_plain(dyn, player_costs, spec: GameSpec, x0m, op_bm: dict,
-                         st_bm: dict, scal_cb, lamS, lamC, mu):
+                         st_bm: dict, scal_cb, lamS, lamC, mu, gate=None):
     """Plain PyTorch K5: K4's rollout, the rebuilt controls and
     `merit_plain`'s fold: raw merits [C, B]."""
     xs = rollout_plain(dyn, spec, x0m, op_bm, st_bm, scal_cb)
     us = _us_from_xs(spec, xs, op_bm, st_bm, scal_cb)
     return merit_plain(player_costs, spec, xs, us, op_bm["t0"], lamS, lamC,
-                       mu)
+                       mu, gate)
 
 
 def rollout_merits(dyn, player_costs, spec: GameSpec, x0m, op_bm: dict,
-                   st_bm: dict, scal_cb, lamS, lamC, mu):
+                   st_bm: dict, scal_cb, lamS, lamC, mu, gate=None):
     """K5: raw merits [C, B] of the candidates' rollouts (operands as
-    `rollout_plain`'s, plus the batch-minor multipliers of `_prep_al`).
-    CUDA tensors launch csrc/sweep.cu's rollout with in-kernel merit (one
-    warp per subsystem); CPU tensors take `rollout_merits_plain`."""
+    `rollout_plain`'s, plus the batch-minor multipliers and gate of
+    `_prep_al`). CUDA tensors launch csrc/sweep.cu's rollout with
+    in-kernel merit (one warp per subsystem); CPU tensors take
+    `rollout_merits_plain`."""
     N, x = spec.num_time_steps, spec.xdim
-    Pu = spec.num_players * spec.umax
+    P = spec.num_players
+    Pu = P * spec.umax
     C, B = scal_cb.shape
     dev = build.check_operands([
         ("x0m", x0m, (x, B)), ("xs", op_bm["xs"], (N, x, B)),
         ("us", op_bm["us"], (N, Pu, B)), ("t0", op_bm["t0"], (1, B)),
         ("Ps", st_bm["Ps"], (N, Pu, x, B)),
         ("alphas", st_bm["alphas"], (N, Pu, B)), ("scal", scal_cb, (C, B)),
-        ("mu", mu, (1, B))] + merit_operands(lamS, N, B))
+        ("mu", mu, (1, B))] + merit_operands(lamS, N, B, lamC, gate, P))
     if dev.type == "cpu":
         return rollout_merits_plain(dyn, player_costs, spec, x0m, op_bm,
-                                    st_bm, scal_cb, lamS, lamC, mu)
-    if lamC is not None:
-        raise NotImplementedError("control constraints are not ported yet")
+                                    st_bm, scal_cb, lamS, lamC, mu, gate)
+    reach, (lamc_p, nC, gate_p) = _reach_operands(player_costs, lamC, gate)
     tab = _device_table(dyn, spec)
     costs, segs = cost_table(player_costs, spec, dev)
-    lib = load_kernels(dyn, spec, has_norms(player_costs))
+    lib = load_kernels(dyn, spec, has_norms(player_costs), reach)
     merits = torch.empty((C, B), dtype=torch.float32, device=dev)
     umask = sum(1 << af for af, m in enumerate(_umask_flat(spec)) if m)
     rc = lib.sweep_rollout_merit(
@@ -357,9 +401,9 @@ def rollout_merits(dyn, player_costs, spec: GameSpec, x0m, op_bm: dict,
         st_bm["Ps"].data_ptr(), st_bm["alphas"].data_ptr(),
         op_bm["t0"].data_ptr(), scal_cb.data_ptr(),
         None if lamS is None else lamS.data_ptr(),
-        0 if lamS is None else lamS.shape[1], mu.data_ptr(), segs.data_ptr(),
-        merits.data_ptr(), N, C, B, spec.dt, spec.dt / 2, umask, tab, costs,
-        build.stream(dev))
+        0 if lamS is None else lamS.shape[1], lamc_p, nC, gate_p,
+        mu.data_ptr(), segs.data_ptr(), merits.data_ptr(), N, C, B, spec.dt,
+        spec.dt / 2, umask, tab, costs, build.stream(dev))
     build.check(rc, "sweep_rollout_merit")
     rollout_merits.launches += 1
     return merits
@@ -392,9 +436,10 @@ def _prep_common(spec: GameSpec, x0, last_op: OperatingPoint,
     return op, st, x0m
 
 
-def _prep_al(spec: GameSpec, al_state: pcost.ALState, Bb: int):
-    """Batched ALState -> padded batch-minor merit operands
-    (lamS [N, nS, B] or None, lamC [N, nC, B] or None, mu [1, B])."""
+def _prep_al(spec: GameSpec, al_state: pcost.ALState, gate, Bb: int):
+    """Batched ALState and extremal gate [Bt, N, P] (or None) -> padded
+    batch-minor merit operands (lamS [N, nS, B] or None, lamC [N, nC, B]
+    or None, mu [1, B], gate [N, P, B] or None)."""
     def lam(lams):
         cat = torch.cat(lams, dim=1)                  # [Bt, n, N]
         if cat.shape[1] == 0:
@@ -402,7 +447,8 @@ def _prep_al(spec: GameSpec, al_state: pcost.ALState, Bb: int):
         return pad_batch(bm(cat).permute(1, 0, 2), Bb).contiguous()
 
     return (lam(al_state.state_lambdas), lam(al_state.control_lambdas),
-            pad_batch(bm(al_state.mu[:, None]), Bb))
+            pad_batch(bm(al_state.mu[:, None]), Bb),
+            None if gate is None else pad_batch(bm(gate), Bb).contiguous())
 
 
 def _us_from_xs(spec: GameSpec, xs_cand, op_bm: dict, st_bm: dict, scal_cb):
@@ -421,10 +467,11 @@ def _us_from_xs(spec: GameSpec, xs_cand, op_bm: dict, st_bm: dict, scal_cb):
 
 
 def merit_plain(player_costs, spec: GameSpec, xs_cand, us_cand, t0_bm,
-                lamS, lamC, mu):
+                lamS, lamC, mu, gate=None):
     """Raw merits [C, B] of emitted candidate trajectories (xs [N,x,C,B],
     us [N,Pu,C,B]): per-knot squared stage gradients, control terms always
-    and state terms for k > 0, folded over the knots in ascending order.
+    and state terms for k > 0 (each player's times its gate [N, P, B],
+    where there is one), folded over the knots in ascending order.
     Callers apply the 0.5 factor. The plain version of K5 and K6."""
     N, P, u = spec.num_time_steps, spec.num_players, spec.umax
     _, _, C, B = xs_cand.shape
@@ -445,6 +492,8 @@ def merit_plain(player_costs, spec: GameSpec, xs_cand, us_cand, t0_bm,
         player_costs, spec, per_player(lamS, n_sc), per_player(lamC, n_cc),
         mu[0], ts[:, None, :], xs_cand.permute(0, 2, 3, 1),
         us_cand.reshape(N, P, u, C, B).permute(0, 3, 4, 1, 2))
+    if gate is not None:
+        s_cb = tuple(s_cb[p_] * gate[:, None, p_] for p_ in range(P))
     state_term = s_cb[0]
     for p_ in range(1, P):
         state_term = state_term + s_cb[p_]
@@ -458,31 +507,33 @@ def merit_plain(player_costs, spec: GameSpec, xs_cand, us_cand, t0_bm,
 
 
 def consumer_merits(player_costs, spec: GameSpec, xs_cand, us_cand, t0_bm,
-                    lamS, lamC, mu):
+                    lamS, lamC, mu, gate=None):
     """K6: raw merits [C, B] of emitted candidate trajectories (operands
     as `merit_plain`'s). CUDA tensors launch csrc/merit.cu; CPU tensors
     take `merit_plain`."""
     N, x = spec.num_time_steps, spec.xdim
-    Pu = spec.num_players * spec.umax
+    P = spec.num_players
+    Pu = P * spec.umax
     _, _, C, B = xs_cand.shape
     dev = build.check_operands([
         ("xs", xs_cand, (N, x, C, B)), ("us", us_cand, (N, Pu, C, B)),
         ("t0", t0_bm, (1, B)), ("mu", mu, (1, B))]
-        + merit_operands(lamS, N, B))
+        + merit_operands(lamS, N, B, lamC, gate, P))
     if dev.type == "cpu":
         return merit_plain(player_costs, spec, xs_cand, us_cand, t0_bm, lamS,
-                           lamC, mu)
-    if lamC is not None:
-        raise NotImplementedError("control constraints are not ported yet")
+                           lamC, mu, gate)
+    reach, (lamc_p, nC, gate_p) = _reach_operands(player_costs, lamC, gate)
     costs, segs = cost_table(player_costs, spec, dev)
-    lib = load_merit_kernel(spec, has_norms(player_costs))
+    lib = load_merit_kernel(spec, has_norms(player_costs), reach)
+    stream = build.stream(dev)
+    set_tables(lib, "merit_set_cost_table", (costs,), stream, dev)
     merits = torch.empty((C, B), dtype=torch.float32, device=dev)
     rc = lib.merit_consumer(
         xs_cand.data_ptr(), us_cand.data_ptr(), t0_bm.data_ptr(),
         None if lamS is None else lamS.data_ptr(),
-        0 if lamS is None else lamS.shape[1], mu.data_ptr(), segs.data_ptr(),
-        merits.data_ptr(), N, C, B, spec.dt, costs,
-        build.stream(dev))
+        0 if lamS is None else lamS.shape[1], lamc_p, nC, gate_p,
+        mu.data_ptr(), segs.data_ptr(), merits.data_ptr(), N, C, B, spec.dt,
+        stream)
     build.check(rc, "merit_consumer")
     consumer_merits.launches += 1
     return merits
@@ -512,19 +563,19 @@ def rollout(dyn, spec: GameSpec, x0, last_op: OperatingPoint,
 
 def sweep_merits_bm(dyn, player_costs, spec: GameSpec, x0m, op_bm: dict,
                     st_bm: dict, scal_cb, lamS, lamC, mu,
-                    merit_backend: str = "xla"):
+                    merit_backend: str = "xla", gate=None):
     """Merits [C, B] (0.5 * the folded squared stage gradients) of the
     candidates scal_cb [C, B] on batch-minor operands, through the chosen
     `merit_backend` (see the module docstring)."""
     if merit_backend == "kernel":
         merits = rollout_merits(dyn, player_costs, spec, x0m, op_bm, st_bm,
-                                scal_cb, lamS, lamC, mu)
+                                scal_cb, lamS, lamC, mu, gate)
     elif merit_backend in ("xla", "pallas"):
         xs_cand = rollout_bm(dyn, spec, x0m, op_bm, st_bm, scal_cb)
         us_cand = _us_from_xs(spec, xs_cand, op_bm, st_bm, scal_cb)
         fold = consumer_merits if merit_backend == "pallas" else merit_plain
         merits = fold(player_costs, spec, xs_cand, us_cand, op_bm["t0"],
-                      lamS, lamC, mu)
+                      lamS, lamC, mu, gate)
     else:
         raise ValueError(f"merit_backend must be one of {MERIT_BACKENDS}, "
                          f"got {merit_backend!r}")
@@ -533,19 +584,19 @@ def sweep_merits_bm(dyn, player_costs, spec: GameSpec, x0m, op_bm: dict,
 
 def sweep_merits(dyn, player_costs, spec: GameSpec, x0, last_op, strategy,
                  scalings, al_state, batch_block: int = 128,
-                 merit_backend: str = "xla"):
+                 merit_backend: str = "xla", gate=None):
     """Merit of every candidate stepsize: [Bt, C] (0.5 * the folded
-    squared stage gradients along each candidate's rollout). `scalings`
-    is [C] (shared) or [Bt, C] (per lane)."""
-    pcost.check_structures(player_costs)
+    squared stage gradients along each candidate's rollout, the state
+    terms times the extremal gate [Bt, N, P] where there is one).
+    `scalings` is [C] (shared) or [Bt, C] (per lane)."""
     Bt = x0.shape[0]
     op, st, x0m = _prep_common(spec, x0, last_op, strategy, batch_block)
     B = x0m.shape[-1]
-    lamS, lamC, mu = _prep_al(spec, al_state, batch_block)
+    lamS, lamC, mu, gate_bm = _prep_al(spec, al_state, gate, batch_block)
     if scalings.ndim == 2:
         scal_cb = pad_batch(scalings.T, batch_block).contiguous()
     else:
         scal_cb = scalings[:, None].expand(-1, B).contiguous()
     merits = sweep_merits_bm(dyn, player_costs, spec, x0m, op, st, scal_cb,
-                             lamS, lamC, mu, merit_backend)
+                             lamS, lamC, mu, merit_backend, gate_bm)
     return mb(merits, Bt)

@@ -308,7 +308,8 @@ class SimState(_Replace):
 def simulate_batched(problem, params, x0_batch, final_time: float = 10.0,
                      replan_interval: float = 0.25,
                      planner_time: float = 0.25, batch_block: int = 128,
-                     trips_per_call: int = 25, merit_backend: str = "xla"):
+                     trips_per_call: int = 25, merit_backend: str = "xla",
+                     fuse_stages=None):
     """Batched receding-horizon simulation (counterpart of the JAX
     package's simulate_batched with backend "pallas"): B independent
     agents, x0_batch [B, x], replan in lockstep on the batched machine.
@@ -319,7 +320,8 @@ def simulate_batched(problem, params, x0_batch, final_time: float = 10.0,
     `replan_interval` along the plan, sets up a problem `planner_time`
     ahead, re-solves it warm-started (every lane starts from the initial
     multipliers, as the JAX package does) and splices the solution in on
-    the lanes where it converged.
+    the lanes where it converged. Both solvers take `fuse_stages` (None:
+    fused, the JAX package's default).
 
     Returns (states [n_cycles + 1, B, x], times [n_cycles + 1],
     SimState), on x0's device. After a call,
@@ -332,7 +334,7 @@ def simulate_batched(problem, params, x0_batch, final_time: float = 10.0,
     spec, dyn, costs = problem.spec, problem.dynamics, problem.player_costs
     B, dev = x0_batch.shape[0], x0_batch.device
     solver_kw = dict(trips_per_call=trips_per_call, batch_block=batch_block,
-                     merit_backend=merit_backend)
+                     merit_backend=merit_backend, fuse_stages=fuse_stages)
 
     t_start = time.perf_counter()
     first_run = batched.make_host_batched_solver(

@@ -20,8 +20,12 @@ the driver. `run.last_stats["host_syncs"]` counts those reads.
 
 A constrained game's trip is the flat AL machine's; an unconstrained
 game's is a bare iLQ iteration with the full budget, as in the JAX
-package. Only feedback Nash and the SUM cost structure are ported; open
-loop and the extremal structures raise.
+package. A game with MAX or MIN players carries each lane's extreme knots
+(`extreme_ks`, from `pcost.total_costs`, evaluated again on the selected
+operating point every trip) and gates those players' state terms with
+them in the stage and the merits; a game of SUM players makes no gate and
+skips that evaluation, as the JAX package's `_all_sum` does. Only
+feedback Nash is ported; open loop raises.
 """
 
 from __future__ import annotations
@@ -114,8 +118,7 @@ def _expected_decrease_bm(spec, ops: dict, al_r, dxs):
     return -control - state
 
 
-def _check_supported(player_costs, params: SolverParams):
-    pcost.check_structures(player_costs)
+def _check_supported(params: SolverParams):
     if params.open_loop:
         raise NotImplementedError("open-loop Nash is not ported yet")
 
@@ -128,19 +131,28 @@ def iteration_step_batched(dyn, player_costs, spec, params, x0, al_state, c,
     caller keeps; lanes outside it cannot force deep-ladder rounds.
     `fuse_stages`: linearize and quadraticize through K1 from (c.op,
     al_state) and keep the operands batch-minor; `c.quad` is not read."""
-    _check_supported(player_costs, params)
+    _check_supported(params)
     Bt = x0.shape[0]
     dev = x0.device
     last_op = c.op
     Bb = batch_block
+    all_sum = pcost.all_sum(player_costs)
+    gate = None if all_sum else pcost.extreme_gate(player_costs, spec,
+                                                  c.extreme_ks)
+
+    def extremes_of(op):
+        """The extreme knots of an operating point (the carry's where
+        every player is SUM: then they are all 0)."""
+        return (c.extreme_ks if all_sum else
+                pcost.total_costs(player_costs, spec, op)[1])
 
     if fuse_stages:
         N, P, um, xd = (spec.num_time_steps, spec.num_players, spec.umax,
                         spec.xdim)
         op_bm, x0m = sweep._prep_op(spec, x0, last_op, Bb)
-        lamS, lamC, mu_bm = sweep._prep_al(spec, al_state, Bb)
+        lamS, lamC, mu_bm, gate_bm = sweep._prep_al(spec, al_state, gate, Bb)
         ops = stage.lin_quad(dyn, player_costs, spec, op_bm, lamS, lamC,
-                             mu_bm)
+                             mu_bm, gate_bm)
         Ps_r, al_r, dxs = lq.solve_lq_feedback_bm(
             spec, ops, x0m - op_bm["xs"][0],
             adaptive_regularization=params.adaptive_regularization)
@@ -156,7 +168,7 @@ def iteration_step_batched(dyn, player_costs, spec, params, x0, al_state, c,
             scal_cb = scal_c[:, None].expand(-1, x0m.shape[-1]).contiguous()
             m = sweep.sweep_merits_bm(dyn, player_costs, spec, x0m, op_bm,
                                       st_bm, scal_cb, lamS, lamC, mu_bm,
-                                      merit_backend)
+                                      merit_backend, gate_bm)
             return m[:, :Bt].T
 
         def sweep_compact_fn(sel, scal_w):
@@ -167,7 +179,7 @@ def iteration_step_batched(dyn, player_costs, spec, params, x0, al_state, c,
                 dyn, player_costs, spec, g(x0m),
                 {k: g(v) for k, v in op_bm.items()},
                 {k: g(v) for k, v in st_bm.items()}, scal_w.T.contiguous(),
-                g(lamS), g(lamC), g(mu_bm), merit_backend)
+                g(lamS), g(lamC), g(mu_bm), merit_backend, g(gate_bm))
             return m.T
 
         def reroll_fn(scal_lane):
@@ -193,7 +205,7 @@ def iteration_step_batched(dyn, player_costs, spec, params, x0, al_state, c,
             return sweep.sweep_merits(dyn, player_costs, spec, x0, last_op,
                                       lq_strategy, scal_c, al_state,
                                       batch_block=batch_block,
-                                      merit_backend=merit_backend)
+                                      merit_backend=merit_backend, gate=gate)
 
         def sweep_compact_fn(sel, scal_w):
             # Gather the selected lanes into one block; scal_w [Bc, CD]
@@ -202,23 +214,32 @@ def iteration_step_batched(dyn, player_costs, spec, params, x0, al_state, c,
             return sweep.sweep_merits(dyn, player_costs, spec, x0[sel],
                                       g(last_op), g(lq_strategy), scal_w,
                                       g(al_state), batch_block=sel.shape[0],
-                                      merit_backend=merit_backend)
+                                      merit_backend=merit_backend,
+                                      gate=None if gate is None else gate[sel])
 
         def reroll_fn(scal_lane):
             return sweep.rollout(dyn, spec, x0, last_op, lq_strategy,
                                  scal=scal_lane, batch_block=batch_block)
 
+        # The selected operating point is quadraticized with the carry's
+        # gate, as the JAX package's `quad_of` does.
         quad_of = lambda op: pcost.quadraticize(player_costs, spec, op,
-                                                al_state)
+                                                al_state, gate=gate)
 
     if not params.linesearch:
-        # The full step at the initial scaling, taken on every lane.
+        # The full step at the initial scaling, taken on every lane, and
+        # its quadraticization with the trial point's own gate.
         scal = torch.full((Bt,), params.initial_alpha_scaling, device=dev)
         trial_op = reroll_fn(scal)
+        extreme_ks = extremes_of(trial_op)
+        quad = (_empty_quad(Bt, dev) if fuse_stages else pcost.quadraticize(
+            player_costs, spec, trial_op, al_state,
+            gate=None if all_sum else pcost.extreme_gate(
+                player_costs, spec, extreme_ks)))
         return c.replace(
             op=trial_op,
             strategy=lq_strategy.scale_alphas(params.initial_alpha_scaling),
-            quad=quad_of(trial_op), iteration=c.iteration + 1)
+            quad=quad, extreme_ks=extreme_ks, iteration=c.iteration + 1)
 
     n_cand = params.max_backtracking_steps
     scalings = params.initial_alpha_scaling * (
@@ -312,7 +333,8 @@ def iteration_step_batched(dyn, player_costs, spec, params, x0, al_state, c,
         op=_bwhere(passed, op_sel, c.op),
         strategy=_bwhere(passed, strategy_sel, c.strategy),
         quad=_bwhere(passed, quad_sel, c.quad),
-        extreme_ks=c.extreme_ks,
+        extreme_ks=(c.extreme_ks if all_sum else
+                    _bwhere(passed, extremes_of(op_sel), c.extreme_ks)),
         last_merit=torch.where(passed, merit_sel, c.last_merit),
         iteration=c.iteration + 1,
         converged=converged,
@@ -323,21 +345,27 @@ def iteration_step_batched(dyn, player_costs, spec, params, x0, al_state, c,
 def _init_inner_batched(dyn, player_costs, spec, x0, op, strategy, al,
                         last_merit, *, batch_block, fuse_stages=False):
     """Batched ILQSolver::Solve initialization: roll out from the warm
-    start and quadraticize at the current multipliers (not carried under
+    start, find its extreme knots (0 where every player is SUM) and
+    quadraticize at the current multipliers (not carried under
     `fuse_stages`)."""
     Bt = x0.shape[0]
     xs = op.xs.clone()
     xs[:, 0] = x0
     current_op = sweep.rollout(dyn, spec, x0, op.replace(xs=xs), strategy,
                                batch_block=batch_block)
+    if pcost.all_sum(player_costs):
+        extreme_ks = torch.zeros((Bt, spec.num_players), dtype=torch.int32,
+                                 device=x0.device)
+        gate = None
+    else:
+        extreme_ks = pcost.total_costs(player_costs, spec, current_op)[1]
+        gate = pcost.extreme_gate(player_costs, spec, extreme_ks)
     quad = (_empty_quad(Bt, x0.device) if fuse_stages else
-            pcost.quadraticize(player_costs, spec, current_op, al))
+            pcost.quadraticize(player_costs, spec, current_op, al, gate=gate))
     zi = torch.zeros((Bt,), dtype=torch.int32, device=x0.device)
     zb = torch.zeros((Bt,), dtype=torch.bool, device=x0.device)
     return ilq._SolveCarry(
-        op=current_op, strategy=strategy, quad=quad,
-        extreme_ks=torch.zeros((Bt, spec.num_players), dtype=torch.int32,
-                               device=x0.device),
+        op=current_op, strategy=strategy, quad=quad, extreme_ks=extreme_ks,
         last_merit=last_merit, iteration=zi, converged=zb, failed=zb)
 
 
@@ -452,7 +480,7 @@ def _driver_parts(dyn, player_costs, spec, params, batch_block,
     package's `_driver_parts`; a game without constraints has max
     violation -inf and converges when its last iteration did without
     failing."""
-    _check_supported(player_costs, params)
+    _check_supported(params)
     constrained = pcost.is_constrained(player_costs)
     one_trip = _trip_batched if constrained else _trip_unconstrained
 

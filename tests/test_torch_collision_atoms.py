@@ -217,7 +217,7 @@ def test_stage_plain_uses_absolute_time(collision_stage):
     op = convert.from_operating_point(JOp(xs=xs, us=us, t0=t0))
     op_bm, _ = sweep._prep_op(prob.spec, torch.zeros((B, spec.xdim)), op, 1)
     al = pc.ALState.init(prob.player_costs, prob.spec, B)
-    _, _, mu = sweep._prep_al(prob.spec, al, 1)
+    _, _, mu, _ = sweep._prep_al(prob.spec, al, None, 1)
     got = stage.lin_quad_plain(prob.dynamics, prob.player_costs, prob.spec,
                                op_bm, None, None, mu)
     jop_bm = {k: jnp.asarray(v.numpy()) for k, v in op_bm.items()}

@@ -65,7 +65,7 @@ def test_unconstrained_games_import_no_jax():
         "semiquadratic_polyline2\n"
         "from ilqgames_tpu_torch.dynamics.base import linear\n"
         "from ilqgames_tpu_torch import bench\n"
-        "assert sorted(bench.CONFIGS) == [1, 2, 4]\n"
+        "assert sorted(bench.CONFIGS) == [1, 2, 4, 5]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
         "print(bad)\n")
@@ -88,6 +88,29 @@ def test_flat_game_imports_no_jax():
         "from ilqgames_tpu_torch import bench\n"
         "assert bench.CONFIGS[4]['make'] is "
         "three_player_flat_intersection.make_problem\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_reachability_game_imports_no_jax():
+    """car_5d, the signed-distance and extreme-value atoms, the
+    single-dimension constraint, the reachability example and its bench
+    config pull in no JAX."""
+    script = (
+        "import sys\n"
+        "from ilqgames_tpu_torch.dynamics.models import car_5d\n"
+        "from ilqgames_tpu_torch.costs.atoms import extreme_value, "
+        "signed_distance\n"
+        "from ilqgames_tpu_torch.costs.constraints import single_dimension\n"
+        "from ilqgames_tpu_torch.examples import reachability\n"
+        "from ilqgames_tpu_torch.runtime import receding_horizon\n"
+        "from ilqgames_tpu_torch import bench\n"
+        "assert bench.CONFIGS[5]['make'] is reachability.make_problem\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
         "print(bad)\n")

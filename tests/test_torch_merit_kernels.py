@@ -66,8 +66,8 @@ def mid_solve():
         prob.spec, torch.tensor(np.asarray(x0)),
         convert.from_operating_point(c.op), convert.from_strategy(strategy),
         B)
-    lamS, lamC, mu = sweep._prep_al(prob.spec, convert.from_al_state(fc.al),
-                                    B)
+    lamS, lamC, mu, _ = sweep._prep_al(
+        prob.spec, convert.from_al_state(fc.al), None, B)
     scal = torch.tensor(SCALINGS)[:, None].expand(4, B).contiguous()
     port = dict(x0m=x0m, op=op, st=st, lamS=lamS, lamC=lamC, mu=mu,
                 scal=scal)

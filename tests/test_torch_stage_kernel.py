@@ -59,7 +59,7 @@ def _port_operands(prob, xs, us, t0, lams, mu):
     op = convert.from_operating_point(JOp(xs=xs, us=us, t0=t0))
     op_bm, _ = sweep._prep_op(prob.spec, torch.zeros((B, prob.spec.xdim)),
                               op, 1)
-    lamS, lamC, mu_bm = sweep._prep_al(prob.spec, al, 1)
+    lamS, lamC, mu_bm, _ = sweep._prep_al(prob.spec, al, None, 1)
     return op, al, op_bm, lamS, lamC, mu_bm
 
 
