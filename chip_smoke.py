@@ -112,21 +112,24 @@ in-kernel merit) and K6 (merit consumer). Phases:
    once, and their ptxas reports (failing on a spill, and on a stack frame
    outside K1 and K5); (b) reachability 1000 x 7 through
    `bench.run_config(5)` (1000 agents drawn with sigma 0.25, replanned
-   every 0.25 s over 2 s, max_solver_iters 20, after an 8-lane, one-cycle
-   load), launch counters reset just before, one JSON line, failing
-   unless every lane replanned 7 times to t = 1.75, states are finite on
-   every lane the cold solve did not leave diverged, and K1-K4 launched;
-   (c) each kernel at each shape the cell launched it against its plain
-   version, and K5 and K6 at its linesearch shapes; (d) three trips of 8
+   every 0.25 s over 2 s, max_solver_iters 20), launch counters reset
+   just before its 8-lane, one-cycle load and again before the timed run,
+   one JSON line, failing unless every lane replanned 7 times to t = 1.75,
+   states are finite on every lane the cold solve did not leave diverged,
+   and K1-K4 launched in the timed run; (c) each kernel at each shape the
+   load and the cell launched it (two cells, each with its own launches)
+   against its plain version, and K5 and K6 at the cell's linesearch
+   shapes; (d) three trips of 8
    lanes on the card against the CPU, fused under each merit backend and
    unfused under "xla": decisions equal, every array of the carry
    (extreme_ks included) bitwise equal; (e) a 4-lane, 2-cycle replanning
    run on the card against the CPU, as 7d.
 
-The holds of phases 7-10 run K2, K4 and K5 (and their plain versions) on
+The holds of phases 7-10 run K4 and K5 (and their plain versions) on
 the first HOLD_DEPTH (20) knots of each launch's arguments, but for each
 game's first K4 and K5 shape, held at the cell's depth (the flagship's
-K4 and K5 at N=100 in phase 2).
+K4 and K5 at N=100 in phase 2); every other kernel, K2 included, is held
+at the cell's depth.
 
 Every kernel's entry in the kernels line carries its bound: the larger of
 the bytes it must move (each operand read once, each output written once)
@@ -204,13 +207,14 @@ FLAT_MEAN_ITERS, FLAT_ITERS_REL = 59.2, 0.10
 FLAT_COST_P50 = (14667.5, 4553.1, 1141.9)
 # Phases 8e and 9e: trips of each game on the card against the CPU, 8 lanes.
 SMALL_B, SMALL_TRIPS = 8, 3
-# Phases 7-10: the knots on which the holds of the cells' K2, K4 and K5
+# Phases 7-10: the knots on which the holds of the cells' K4 and K5
 # launches run (a kernel and its plain version on the first HOLD_DEPTH
 # knots of the same arguments: the plain versions on the card take seconds
 # a call at N=100). Each game's K4 and K5 are also held once at full depth
-# (the flagship's in phase 2, the others' at their cell's first shape).
+# (the flagship's in phase 2, the others' at their cell's first shape);
+# every other kernel, K2 included, at the cell's depth.
 HOLD_DEPTH = 20
-PREFIX_KERNELS = ("K2", "K4", "K5")
+PREFIX_KERNELS = ("K4", "K5")
 # Phase 10: bench_all.py's config 5, receding-horizon reachability.
 RH5_REPLANS, RH5_T_END = 7, 1.75
 
@@ -773,6 +777,16 @@ class _FirstLaunches:
     def _spy(self, name, fn, sig):
         return _Spy(self, name, fn, sig)
 
+    def split(self):
+        """What was seen so far, as an object with `seen` and `tally`; the
+        spy goes on from nothing."""
+        import collections
+        import types
+
+        done = types.SimpleNamespace(seen=self.seen, tally=self.tally)
+        self.seen, self.tally = {}, collections.Counter()
+        return done
+
 
 def _once_ms(fn):
     """Ms of one call of `fn`, on CUDA events (for a plain version that
@@ -817,10 +831,10 @@ def _hold_launches(cell, spy, launches, only=None, full=("K4",)):
     `only`, if given), on the arguments of its first launch there,
     against its plain version (tolerance TOL), timed both ways; one
     kernels-line entry each, with the kernel's launches over the cell's
-    run, or, where `launches` is None, its launches at that shape. K2,
-    K4 and K5 run on the first HOLD_DEPTH knots of those arguments, but
-    for the first shape of each kernel in `full`, held at the cell's
-    depth."""
+    run, or, where `launches` is None, its launches at that shape. K4
+    and K5 run on the first HOLD_DEPTH knots of those arguments, but for
+    the first shape of each kernel in `full`, held at the cell's depth;
+    the other kernels at the cell's depth."""
     import importlib
 
     from ilqgames_tpu_torch.tools._probe import float_ops
@@ -1341,6 +1355,8 @@ def phase10(dev):
     against the CPU (fused under each merit backend, unfused under "xla")
     and a short replanning run on the card against the CPU. Returns the
     kernels-line entries."""
+    import collections
+
     import torch
 
     from ilqgames_tpu_torch import bench
@@ -1370,10 +1386,21 @@ def phase10(dev):
             ("K6", merit_lib, "merit_kernel", False)):
         _ptxas(f"{label} ({cell})", lib, kern, stack_ok)
 
-    # (b) the cell at full size, launch counters reset just before.
+    # (b) the cell at full size, launch counters reset just before the
+    # 8-lane load and again after it: the load's launches are held and
+    # counted as a cell of their own.
+    load = {}
     bench.reset_launches()
     with _FirstLaunches() as spy:
-        (states, times, state), out = bench.run_config(5, dev)
+        def loaded():
+            torch.cuda.synchronize()
+            load.update(spy=spy.split(), launches=bench.launches(),
+                        by_shape=collections.Counter(
+                            sweep.rollout_bm.by_shape))
+            bench.reset_launches()
+
+        (states, times, state), out = bench.run_config(5, dev,
+                                                       after_load=loaded)
     torch.cuda.synchronize()
     launches = bench.launches()
     print(json.dumps(out), flush=True)
@@ -1398,15 +1425,21 @@ def phase10(dev):
               "did not leave diverged")
     if min(launches[k] for k in ("K1", "K2", "K3", "K4")) <= 0:
         _fail(f"{cell}: a kernel of the path was not launched: {launches}")
+    if launches != out["launches"]:
+        _fail(f"{cell}: launches {launches}, the timed run's "
+              f"{out['launches']}")
     print(f"# {cell}: {int(calm.sum())} of {n} lanes not diverged by the "
           f"cold solve, all finite; {RH5_REPLANS} replans on every lane; "
-          f"launches counted from 0 over the 8-lane load and the timed run: "
-          f"{launches}", flush=True)
+          f"launches counted from 0 over the timed run: {launches}; over "
+          f"the 8-lane load: {load['launches']}", flush=True)
+    load_cell = "reachability load, 8 lanes x 1"
+    _check_k4_held(load_cell, load["spy"], load["by_shape"])
     _check_k4_held(cell, spy, sweep.rollout_bm.by_shape)
 
-    # (c) every (kernel, shape) of the cell, and K5, K6 at its linesearch
-    # shapes.
-    kernels = _hold_launches(cell, spy, launches)
+    # (c) every (kernel, shape) of the load and of the cell, and K5, K6 at
+    # the cell's linesearch shapes.
+    kernels = _hold_launches(load_cell, load["spy"], load["launches"])
+    kernels += _hold_launches(cell, spy, launches)
     kernels += _hold_merits(cell, spy, p)
 
     # (d) trips on the card against the CPU: fused under every merit

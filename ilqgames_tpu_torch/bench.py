@@ -21,7 +21,8 @@ config 1 (the two-player point mass, 1024 instances drawn with sigma 0.5,
 stages) or 5 (receding-horizon reachability: 1000 agents of the
 three-player collision-avoidance game drawn with sigma 0.25, replanning
 every 0.25 s over 2 s) as bench_all.py runs it (`run_config`), and prints
-its metric and fields.
+its metric and fields; BENCH_FUSE=0 or 1 overrides the config's stages
+(BENCH_ALL_r05 row 5 was taken unfused: BENCH_CONFIG=5 BENCH_FUSE=0).
 Needs a CUDA device: it never measures on a CPU.
 
     python3 -m ilqgames_tpu_torch.bench
@@ -30,6 +31,7 @@ Needs a CUDA device: it never measures on a CPU.
     BENCH_CONFIG=1 python3 -m ilqgames_tpu_torch.bench
     BENCH_CONFIG=4 python3 -m ilqgames_tpu_torch.bench
     BENCH_CONFIG=5 python3 -m ilqgames_tpu_torch.bench
+    BENCH_CONFIG=5 BENCH_FUSE=0 python3 -m ilqgames_tpu_torch.bench
 """
 
 from __future__ import annotations
@@ -367,7 +369,8 @@ def config_fields(res, batch: int, elapsed: float) -> dict:
     return out
 
 
-def run_receding(config: int, device="cuda"):
+def run_receding(config: int, device="cuda", fuse_stages=None,
+                 after_load=None):
     """bench_all.py's config 5 (`config5_receding_horizon_1k`) on `device`:
     the config's agents from the x0 draw with its sigma, the exec main's
     parameters with its budgets, `receding_horizon.simulate_batched` over
@@ -379,8 +382,10 @@ def run_receding(config: int, device="cuda"):
     times, SimState), JSON dict): bench_all.py's metric and fields, the
     replans over the whole run's wall time (its cold solve included),
     `vs_baseline` against the reference's 4 replans/s/instance, and per
-    cycle the converged fraction, trips and deep-ladder rounds."""
+    cycle the converged fraction, trips and deep-ladder rounds.
+    `fuse_stages` (None: the config's) and `after_load` as `run_config`'s."""
     cfg = CONFIGS[config]
+    fuse = cfg["fuse_stages"] if fuse_stages is None else fuse_stages
     set_precision()
     dev = _cuda_device(device)
     problem = cfg["make"]()
@@ -389,11 +394,12 @@ def run_receding(config: int, device="cuda"):
     run = lambda x0, final_time: receding_horizon.simulate_batched(
         problem, params, x0, final_time=final_time,
         replan_interval=cfg["replan_interval"],
-        planner_time=cfg["planner_time"], batch_block=128,
-        fuse_stages=cfg["fuse_stages"])
+        planner_time=cfg["planner_time"], batch_block=128, fuse_stages=fuse)
     n = cfg["batch"]
     x0 = torch.tensor(perturbed_x0(problem, n, cfg["sigma"]), device=dev)
     run(x0[:8], 2 * cfg["replan_interval"])
+    if after_load is not None:
+        after_load()
     before = launches()
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -410,7 +416,7 @@ def run_receding(config: int, device="cuda"):
            "cold_s": round(st["cold_s"], 3),
            "device": torch.cuda.get_device_name(dev),
            "driver": "receding_horizon", "batch_block": 128,
-           "fuse_stages": cfg["fuse_stages"],
+           "fuse_stages": fuse,
            "final_time": cfg["final_time"],
            "replan_interval": cfg["replan_interval"],
            "cold_trips": st["cold"]["trips"],
@@ -425,7 +431,8 @@ def run_receding(config: int, device="cuda"):
     return (states, times, state), out
 
 
-def run_config(config: int, device="cuda"):
+def run_config(config: int, device="cuda", fuse_stages=None,
+               after_load=None):
     """bench_all.py's config 1, 2, 4 or 5 on `device`. Config 5, receding
     horizon, is `run_receding`'s. The others as bench_all.py's
     `_throughput` runs them: the exec main's parameters (with the config's
@@ -433,10 +440,13 @@ def run_config(config: int, device="cuda"):
     driver with lane blocks of 128 and 20 trips per dispatch, the config's
     stages (fused but for config 4) and the merit backend "xla"; one
     warm-up solve, then the timed one. Returns (ALResult, JSON dict) with
-    bench_all.py's metric and fields."""
+    bench_all.py's metric and fields. `fuse_stages` overrides the config's
+    stages (BENCH_ALL_r05 row 5 was taken unfused); `after_load`, if given,
+    is called after the warm-up (or load), before the clock starts."""
     cfg = CONFIGS[config]
     if "final_time" in cfg:
-        return run_receding(config, device)
+        return run_receding(config, device, fuse_stages, after_load)
+    fuse = cfg["fuse_stages"] if fuse_stages is None else fuse_stages
     set_precision()
     dev = _cuda_device(device)
     problem = cfg["make"]()
@@ -447,9 +457,11 @@ def run_config(config: int, device="cuda"):
         problem.dynamics, problem.player_costs, problem.spec, params,
         warm_op=problem.initial_operating_point(),
         warm_strategy=problem.initial_strategy(), trips_per_call=20,
-        batch_block=128, fuse_stages=cfg["fuse_stages"])
+        batch_block=128, fuse_stages=fuse)
     x0 = torch.tensor(perturbed_x0(problem, n, cfg["sigma"]), device=dev)
     solver(x0)
+    if after_load is not None:
+        after_load()
     before = launches()
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
@@ -462,7 +474,7 @@ def run_config(config: int, device="cuda"):
            **config_fields(res, n, elapsed),
            "device": torch.cuda.get_device_name(dev), "driver": "plain",
            "trips_per_call": 20, "batch_block": 128,
-           "fuse_stages": cfg["fuse_stages"],
+           "fuse_stages": fuse,
            **{k: stats[k] for k in ("trips", "dispatches", "host_syncs",
                                     "deep_rounds", "collapse_exits")},
            "launches": {k: v - before[k] for k, v in launches().items()}}
@@ -475,7 +487,9 @@ def main():
     env = os.environ.get
     batch = int(env("BENCH_BATCH", "2048"))
     if env("BENCH_CONFIG"):
-        _, out = run_config(int(env("BENCH_CONFIG")))
+        fuse = env("BENCH_FUSE")
+        _, out = run_config(int(env("BENCH_CONFIG")),
+                            fuse_stages=None if fuse is None else fuse != "0")
     elif env("BENCH_LATENCY", "0") == "1":
         _, out = run_latency()
     elif env("BENCH_QUEUE", "1") == "1":

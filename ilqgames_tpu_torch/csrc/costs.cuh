@@ -39,9 +39,9 @@
 // The problem arrives as a CostTable (atom kinds, dims, weights, nominals,
 // thresholds, signs, orientations, gate times, segment offsets, extremal
 // groups, each player's structure; built by ops/cuda/cost_table.py), in the
-// constant memory of K1's and K6's libraries (set by their `*_set_*`
-// functions before a launch of another problem) and by value as a kernel
-// parameter of K5 and the probe P2, and a small device array
+// constant memory of K1's library (set by stage_set_tables before a launch
+// of another problem) and by value as a kernel parameter of K5, K6 and the
+// probe P2, and a small device array
 // of polyline segments, 7 floats each: p1x p1y p2x p2y ux uy length,
 // computed on the host in float32 as geometry._static_segments computes
 // them, then the signed queries' shortcut segments, 8 floats each

@@ -40,11 +40,9 @@
 // items in as few passes of at most MAX_WARPS warps as they can: at N=100,
 // one pass of 25 warps.
 //
-// The CostTable lives in this library's constant memory
-// (merit_set_cost_table). Built with CT_REACH (the reachability
-// games), K6 also reads the control constraints' multipliers lamC
-// [N, nC, B] and, when the game has a MAX or MIN player, the extremal gate
-// [N, P, B], which multiplies each player's squared state gradient before
+// Built with CT_REACH (the reachability games), K6 also reads the control
+// constraints' multipliers lamC [N, nC, B] and, when the game has a MAX or
+// MIN player, the extremal gate [N, P, B], which multiplies each player's squared state gradient before
 // the players' sum (ops/cuda/sweep.py: merit_plain).
 //
 // LANES and MAX_WARPS were chosen on the card among blocks of 2, 4, 8, 16
@@ -76,8 +74,6 @@ constexpr int MAX_WARPS = 32;  // warps per block at most
 constexpr int COLUMNS = CT_NORMS ? 3 : 2;
 static_assert(WARP % LANES == 0, "a warp holds whole knots of the chains");
 
-__constant__ CostTable c_cost;
-
 __global__ void __launch_bounds__(MAX_WARPS * WARP)
     merit_kernel(const float* __restrict__ xs, const float* __restrict__ us,
                  const float* __restrict__ t0,
@@ -85,10 +81,9 @@ __global__ void __launch_bounds__(MAX_WARPS * WARP)
                  const float* __restrict__ lamC, int nC,
                  const float* __restrict__ gate,
                  const float* __restrict__ mu, const float* __restrict__ segs,
-                 float* __restrict__ merit_out, int N, int C, int B,
-                 float dt) {
+                 float* __restrict__ merit_out, int N, int C, int B, float dt,
+                 const __grid_constant__ CostTable cost) {
   extern __shared__ float smem[];
-  const CostTable& cost = c_cost;
   const int nw = blockDim.x / WARP;
   const int w = threadIdx.x / WARP;
   const int lane = threadIdx.x % WARP;
@@ -157,15 +152,14 @@ extern "C" {
 
 // xs [N,X,C,B], us [N,PU,C,B], t0 [B], lamS [N,nS,B] (null when nS = 0),
 // lamC [N,nC,B] (null when nC = 0) and gate [N,P,B] (null: no MAX or MIN
-// player; both read only with CT_REACH), mu [B], segs and the cost table of
-// merit_set_cost_table -> raw merits merit_out [C,B]. The block's
-// shared memory grows with N (the opt-in is to the most a block may use);
+// player; both read only with CT_REACH), mu [B], segs (cost_table.py) ->
+// raw merits merit_out [C,B]. The block's shared memory grows with N (the opt-in is to the most a block may use);
 // a launch that does not fit returns its error.
 int merit_consumer(const float* xs, const float* us, const float* t0,
                    const float* lamS, int nS, const float* lamC, int nC,
                    const float* gate, const float* mu, const float* segs,
                    float* merit_out, int N, int C, int B, float dt,
-                   void* stream) {
+                   CostTable cost, void* stream) {
   static unsigned opted = 0;
   const long total = (long)C * B;
   if (total == 0 || N == 0) return 0;
@@ -181,16 +175,9 @@ int merit_consumer(const float* xs, const float* us, const float* t0,
       sizeof(float);
   merit_kernel<<<(int)((total + LANES - 1) / LANES), nw * WARP, bytes,
                  (cudaStream_t)stream>>>(xs, us, t0, lamS, nS, lamC, nC, gate,
-                                         mu, segs, merit_out, N, C, B, dt);
+                                         mu, segs, merit_out, N, C, B, dt,
+                                         cost);
   return (int)cudaGetLastError();
-}
-
-// Copy the game's cost table into this library's constant memory, in
-// stream order (kernels launched before still read the previous one).
-int merit_set_cost_table(const CostTable* cost, void* stream) {
-  return (int)cudaMemcpyToSymbolAsync(c_cost, cost, sizeof(CostTable), 0,
-                                      cudaMemcpyHostToDevice,
-                                      (cudaStream_t)stream);
 }
 
 }  // extern "C"

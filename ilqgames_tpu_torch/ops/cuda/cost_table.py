@@ -4,10 +4,11 @@ dims, weights, nominals, thresholds, signs, orientations, gate times,
 polyline segments and extremal groups, its control constraints and its
 cost structure, as a ctypes struct (`cost_table`), and the polyline
 segments (and, for the signed query, their shortcut segments) as a
-small device tensor. K1 and K6 hold the struct in their libraries'
-constant memory, copied there before a launch on another problem
-(`set_tables`); K5 and the probe P2 take it by value as a kernel
-parameter (in constant or shared memory, ptxas spilled K5).
+small device tensor. K1 holds the struct, with the SubsysTable, in its
+library's constant memory (`stage._set_tables`: the two tables passed by
+value came near the 4 KB of kernel parameters); K5, K6 and the probe P2
+take it by value as a kernel parameter (in constant or shared memory,
+ptxas spilled the flagship's K5).
 
 An atom or constraint with no device form raises NotImplementedError, so
 a kernel is never launched on a problem it cannot compute. The two norm
@@ -214,21 +215,3 @@ def cost_table(player_costs, spec: GameSpec, device):
     segs = const_tensor(flat, torch.device(device))
     return tab, segs
 
-
-def set_tables(lib, setter: str, structs, stream: int, device) -> None:
-    """Make kernel library `lib`'s constant tables hold `structs` (ctypes
-    structs cached per problem, so that their identity names them) on
-    `device`, through the library's C function `setter`, on `stream`: a
-    copy in stream order, made only when the library holds another
-    problem's tables there."""
-    key = tuple(id(s) for s in structs)
-    resident = getattr(lib, "_resident_tables", None)
-    if resident is None:
-        resident = lib._resident_tables = {}
-    if resident.get(device.index) == key:
-        return
-    rc = getattr(lib, setter)(*(ctypes.addressof(s) for s in structs),
-                              stream)
-    if rc != 0:
-        raise RuntimeError(f"{setter}: CUDA error {rc}")
-    resident[device.index] = key

@@ -19,8 +19,7 @@ from ilqgames_tpu_torch.costs import player_cost as pcost
 from ilqgames_tpu_torch.dynamics import base as dyn_base
 from ilqgames_tpu_torch.dynamics.models import KIND_CAR_5D
 from ilqgames_tpu_torch.ops.cuda import build, lq
-from ilqgames_tpu_torch.ops.cuda.cost_table import cost_table, has_norms, \
-    set_tables
+from ilqgames_tpu_torch.ops.cuda.cost_table import cost_table, has_norms
 from ilqgames_tpu_torch.ops.cuda.layout import mb
 from ilqgames_tpu_torch.ops.cuda.sweep import _device_table, \
     _reach_operands, merit_operands
@@ -54,8 +53,26 @@ def load_kernels(spec: GameSpec, reach: bool = False) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def _subsys_table(dyn, spec: GameSpec):
     """The game's SubsysTable, made once per game (its identity names it
-    in `cost_table.set_tables`)."""
+    in `_set_tables`)."""
     return _device_table(dyn, spec)
+
+
+def _set_tables(lib, structs, stream: int, device) -> None:
+    """Make K1's library `lib` hold the tables `structs` (SubsysTable,
+    CostTable: ctypes structs cached per problem, so that their identity
+    names them) in its constant memory on `device`, on `stream`: a copy in
+    stream order, made only when the library holds another problem's
+    tables there."""
+    key = tuple(id(s) for s in structs)
+    resident = getattr(lib, "_resident_tables", None)
+    if resident is None:
+        resident = lib._resident_tables = {}
+    if resident.get(device.index) == key:
+        return
+    rc = lib.stage_set_tables(*(ctypes.addressof(s) for s in structs),
+                              stream)
+    build.check(rc, "stage_set_tables")
+    resident[device.index] = key
 
 
 def _al_state(player_costs, spec: GameSpec, lamS, lamC, mu, Bt: int):
@@ -137,8 +154,7 @@ def lin_quad(dyn, player_costs, spec: GameSpec, op_bm: dict, lamS, lamC,
     costs, segs = cost_table(player_costs, spec, dev)
     lib = load_kernels(spec, reach)
     stream = build.stream(dev)
-    set_tables(lib, "stage_set_tables", (_subsys_table(dyn, spec), costs),
-               stream, dev)
+    _set_tables(lib, (_subsys_table(dyn, spec), costs), stream, dev)
     out = {k: torch.empty(s, dtype=torch.float32, device=dev)
            for k, s in lq._op_shapes(spec, B).items()}
     nS = 0 if lamS is None else lamS.shape[1]

@@ -41,7 +41,7 @@ from ilqgames_tpu_torch.costs import player_cost as pcost
 from ilqgames_tpu_torch.dynamics import base as dyn_base
 from ilqgames_tpu_torch.ops.cuda import build
 from ilqgames_tpu_torch.ops.cuda.cost_table import CostTable, cost_table, \
-    has_norms, has_reach, set_tables
+    has_norms, has_reach
 from ilqgames_tpu_torch.dynamics.models import KIND_CAR_5D, KIND_CAR_6D, \
     KIND_LINEAR, KIND_UNICYCLE_4D
 from ilqgames_tpu_torch.ops.cuda.layout import bm, mb, pad_batch
@@ -259,10 +259,8 @@ def load_merit_kernel(spec: GameSpec, norms: bool = False,
     lib = build.load(*merit_library(spec, norms, reach))
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.merit_consumer.argtypes = ([P] * 4 + [I, P, I] + [P] * 4 + [I] * 3
-                                   + [ctypes.c_float, P])
+                                   + [ctypes.c_float, CostTable, P])
     lib.merit_consumer.restype = I
-    lib.merit_set_cost_table.argtypes = [P, P]
-    lib.merit_set_cost_table.restype = I
     return lib
 
 
@@ -525,15 +523,13 @@ def consumer_merits(player_costs, spec: GameSpec, xs_cand, us_cand, t0_bm,
     reach, (lamc_p, nC, gate_p) = _reach_operands(player_costs, lamC, gate)
     costs, segs = cost_table(player_costs, spec, dev)
     lib = load_merit_kernel(spec, has_norms(player_costs), reach)
-    stream = build.stream(dev)
-    set_tables(lib, "merit_set_cost_table", (costs,), stream, dev)
     merits = torch.empty((C, B), dtype=torch.float32, device=dev)
     rc = lib.merit_consumer(
         xs_cand.data_ptr(), us_cand.data_ptr(), t0_bm.data_ptr(),
         None if lamS is None else lamS.data_ptr(),
         0 if lamS is None else lamS.shape[1], lamc_p, nC, gate_p,
         mu.data_ptr(), segs.data_ptr(), merits.data_ptr(), N, C, B, spec.dt,
-        stream)
+        costs, build.stream(dev))
     build.check(rc, "merit_consumer")
     consumer_merits.launches += 1
     return merits

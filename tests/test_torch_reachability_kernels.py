@@ -5,7 +5,7 @@ signed-distance members, the two per-dim control quadratics and four
 single-dimension control constraints on lamC rows 4i .. 4i+3), the
 libraries built with CT_REACH (and the other games' without), the
 kernels' refusals of reach operands for a game without the features, and
-the tables copied into a library's constant memory once per problem. On
+the tables copied into K1's library's constant memory once per problem. On
 the card (marker `cuda`, skipped here):
 K1 against `lin_quad_plain` (tolerance 1e-5, as chip_smoke.py holds it)
 and K4, K5 and K6 against their plain versions bit for bit, on operands
@@ -78,14 +78,14 @@ def test_reach_cost_table():
 
 
 def test_tables_set_once_per_problem():
-    """A kernel library's constant tables are copied only when it holds
+    """K1's library's constant tables are copied only when it holds
     another problem's (the structs are cached per problem, so their
     identity names it), per device; the CostTable's new fields sit at its
     end."""
     calls = []
 
     class Lib:
-        def set(self, *args):
+        def stage_set_tables(self, *args):
             calls.append(args)
             return 0
 
@@ -97,7 +97,7 @@ def test_tables_set_once_per_problem():
     d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
     for tab, dev in ((tp, d0), (tp, d0), (tf, d0), (tf, d1), (tp, d0),
                      (tf, d1)):
-        ct.set_tables(lib, "set", (tab,), 7, dev)
+        stage._set_tables(lib, (tab,), 7, dev)
     assert calls == [(ctypes.addressof(tp), 7), (ctypes.addressof(tf), 7),
                      (ctypes.addressof(tf), 7), (ctypes.addressof(tp), 7)]
     assert stage._subsys_table(p.dynamics, p.spec) is stage._subsys_table(

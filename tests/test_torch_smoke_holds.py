@@ -127,3 +127,35 @@ def test_a_wrapper_counting_on_its_module_name_counts_on_itself():
     assert dict(spy.tally) == {("K4", "C=1, B=4, emit_us"): 2}
     module.k4.launches = 0             # a reset reaches the wrapper too
     assert wrapper.launches == 0
+
+
+def test_split_hands_over_what_was_seen_and_starts_anew():
+    """A run's load and its timed run are held as two cells: `split`
+    returns the launches seen so far and the spy goes on from nothing."""
+    cs = _chip_smoke()
+
+    def stand_in(dyn, spec, x0m, op_bm, st_bm, scal_cb, emit_us=False):
+        stand_in.launches += 1
+        return sweep.rollout_plain(dyn, spec, x0m, op_bm, st_bm, scal_cb,
+                                   emit_us)
+
+    stand_in.launches = 0
+    spy = cs._FirstLaunches()
+    k4 = spy._spy("K4", stand_in, inspect.signature(sweep.rollout_bm))
+    k4(*_k4_operands(C=1, B=2))
+    load = spy.split()
+    k4(*_k4_operands(C=1, B=3))
+    k4(*_k4_operands(C=1, B=3))
+    assert dict(load.tally) == {("K4", "C=1, B=2"): 1}
+    assert set(load.seen) == {("K4", "C=1, B=2")}
+    assert dict(spy.tally) == {("K4", "C=1, B=3"): 2}
+    assert set(spy.seen) == {("K4", "C=1, B=3")}
+
+
+def test_only_the_rollouts_are_held_on_a_prefix():
+    """The cells' K2 (and K1, K3, K6) are held at the cell's depth; only
+    K4 and K5, whose plain versions take seconds a call at N=100, on the
+    first HOLD_DEPTH knots."""
+    cs = _chip_smoke()
+    assert cs.PREFIX_KERNELS == ("K4", "K5")
+    assert cs.HOLD_DEPTH < 100
