@@ -7,9 +7,11 @@ Builds the port's CUDA kernels from csrc/ and drives its paths: the
 flagship three-player intersection solved for perturbed x0 by the batched
 AL + iLQ machine, and the two-player point mass and collision by its
 unconstrained trip (and the three-player flat intersection with unfused
-stages), through kernels K1 (fused stage), K2 (LQ Riccati
-sweep), K3 (δx forward pass), K4 (candidate rollout), K5 (rollout with
-in-kernel merit) and K6 (merit consumer). Phases:
+stages), and the two Dubins cars of the reference's open-loop example in
+both information patterns, through kernels K1 (fused stage), K2 (LQ
+Riccati sweep), K3 (δx forward pass), K4 (candidate rollout), K5 (rollout
+with in-kernel merit), K6 (merit consumer) and K7 (open-loop LQ sweep).
+Phases:
 
 1. the card's name and power limit, and the kernels' build time (one
    nvcc per source, all at once);
@@ -23,7 +25,7 @@ in-kernel merit) and K6 (merit consumer). Phases:
    per knot (K6 also per launch replayed from a CUDA graph, the device's
    time without the wrapper's host steps), K5 against K4 + K6 bit for
    bit;
-3. four trips on the card against four on the CPU (plain versions) from
+3. two trips on the card against two on the CPU (plain versions) from
    the same carry, without and with fused stages: decisions exactly
    equal; then six fused trips on the card with the K5 and the K6 merit
    backends against the plain fold: decisions and merits exactly equal
@@ -39,7 +41,7 @@ in-kernel merit) and K6 (merit consumer). Phases:
 6. the probes (ilqgames_tpu_torch/tools/, the counterparts of the JAX
    package's TPU probes under tools/): the probe kernels P1 (dependent
    multiply-add chain), P2 (every instantiated rung of the probe rollout:
-   the top rung at N=100, the fifteen below it on the first 20 knots of
+   the top rung at N=100, the fifteen below it on the first 10 knots of
    the same operands) and P3 (x * 2 + 1, also at 1, 3, 5 and 32771
    elements) against their plain versions, the registers and stack frame of each rung and of K2-K6
    from ptxas; K4 and K5 beside the rungs prod_static (one
@@ -84,7 +86,7 @@ in-kernel merit) and K6 (merit consumer). Phases:
    0.9 and converged in [0.1, 0.35]); (d) each kernel at each shape each
    cell launched it, on a copy of its first launch's arguments, against
    its plain version, and K5 and K6 at the cells' linesearch shapes, one
-   kernels-line entry each; (e) three fused trips of 8 lanes of each game
+   kernels-line entry each; (e) two fused trips of 8 lanes of each game
    on the card against the CPU under each merit backend: decisions equal,
    every array of the carry bitwise equal;
 9. the three-player flat intersection (bench_all.py's config 4: two flat
@@ -100,7 +102,7 @@ in-kernel merit) and K6 (merit consumer). Phases:
    of 59.2, cost_p50 within 15% of [14667.5, 4553.1, 1141.9]), and K1
    never launched; (d) each kernel at each shape the cell launched it
    against its plain version, and K5 and K6 at its linesearch shapes;
-   (e) three unfused trips of 8 lanes on the card against the CPU under
+   (e) two unfused trips of 8 lanes on the card against the CPU under
    each merit backend: decisions equal, every array of the carry (the
    carried quadraticization too) bitwise equal;
 10. receding-horizon reachability (bench_all.py's config 5: three car_5d
@@ -119,26 +121,47 @@ in-kernel merit) and K6 (merit consumer). Phases:
    and K1-K4 launched in the timed run; (c) each kernel at each shape the
    load and the cell launched it (two cells, each with its own launches)
    against its plain version, and K5 and K6 at the cell's linesearch
-   shapes; (d) three trips of 8
+   shapes; (d) two trips of 8
    lanes on the card against the CPU, fused under each merit backend and
    unfused under "xla": decisions equal, every array of the carry
    (extreme_ks included) bitwise equal; (e) a 4-lane, 2-cycle replanning
-   run on the card against the CPU, as 7d.
+   run on the card against the CPU, as 7d;
+11. open-loop Nash on the reference's `dubins_origin` game (two Dubins
+   cars, x=6, 2 players x 1 control, N=100), in both information
+   patterns: open loop on unfused stages through K7, feedback fused:
+   (a) its libraries (K1 with CT_DIFF and CT_DUBINS, K5 and K6 with
+   CT_DIFF, K7), one nvcc each, all at once, and their ptxas reports;
+   (b) the reference exec main's golden runs (`bench.run_golden`: the
+   nominal x0 in a block of 8, no linesearch, 1000 iterations) in both
+   patterns against tests/golden/dubins_origin_{open_loop,feedback}.txt
+   with tests/test_golden_more.py's bounds (P1 within 0.5 m, P2 within
+   2.0 m) and the two patterns more than 0.5 apart, K7 held at the golden
+   shape; (c) the cells dubins_ol_1024 and dubins_fb_1024 through
+   `bench.run_config` (1024 instances, sigma 0.1, bench_all.py's exec
+   main parameters), launch counters reset just before, one JSON line
+   each, their outcome against the JAX package's on the same draw
+   (converged and diverged_frac within 0.08, mean_iters within 10%,
+   cost_p50 within 15%), every (kernel, shape) each launched held against
+   its plain version, and K5, K6 at their linesearch shapes; (d) two
+   trips of 8 lanes of each pattern on the card against the CPU under
+   each merit backend: decisions equal, every array of the carry bitwise
+   equal.
 
-The holds of phases 7-10 run K4 and K5 (and their plain versions) on
-the first HOLD_DEPTH (20) knots of each launch's arguments, but for each
-game's first K4 and K5 shape, held at the cell's depth (the flagship's
-K4 and K5 at N=100 in phase 2); every other kernel, K2 included, is held
-at the cell's depth.
+The holds of phases 7-11 run K4 and K5 (and their plain versions) on
+the first HOLD_DEPTH (10) knots of each launch's arguments, but for each
+game's first K4 and K5 shape in one of its cells (reachability's timed
+cell, dubins_ol_1024), held at the cell's depth (the flagship's K4 and K5
+at N=100 in phase 2); every other kernel, K2 included, is held at the
+cell's depth.
 
 Every kernel's entry in the kernels line carries its bound: the larger of
 the bytes it must move (each operand read once, each output written once)
 over 3.35 TB/s and its float32 operations over 33.5e12 per second (the
 H100 SXM's published 67 TFLOP/s counts an FMA as two; the kernels issue
-separate multiplies and adds). The operations are counted on this run's
-operands by running the kernel's plain version, which repeats them in
-order, under tools/_probe.float_ops: adds, multiplies, divides, roots,
-min/max and roundings, one per output element.
+separate multiplies and adds). The operations are counted by running the
+kernel's plain version, which repeats them in order, under
+tools/_probe.float_ops on this run's operands (adds, multiplies,
+divides, roots, min/max and roundings, one per output element).
 
 Each phase prints, when it ends, the time since the build began and its
 own duration. Prints
@@ -158,10 +181,10 @@ import time
 # Tolerances, |kernel - plain| <= tol + tol * |plain|, those of the JAX
 # package's kernel tests. Each kernel repeats its plain version's float32
 # operations in the same order, without FMA contraction, so the two are
-# expected to agree bit for bit; the script prints how many lanes do. K2-K6
+# expected to agree bit for bit; the script prints how many lanes do. K2-K7
 # are held to that (phase 3's card-vs-CPU decisions rest on it).
 TOL = {"K1": 1e-5, "K2": 0.0, "K3": 0.0, "K4": 0.0, "K5": 0.0,
-       "K6": 0.0, "P1": 0.0, "P2": 1e-5, "P3": 0.0}
+       "K6": 0.0, "K7": 0.0, "P1": 0.0, "P2": 1e-5, "P3": 0.0}
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3, bytes/s
 # The H100 SXM's 67 TFLOP/s in float32 outside the tensor cores counts an
 # FMA as two operations. The kernels build with --fmad=false, so each
@@ -180,11 +203,11 @@ GOLDEN_POSITIONS = ((0, 1), (6, 7), (12, 13))
 GOLDEN_MAX_M, GOLDEN_MEAN_M = 2.0, 1.0
 RH_B, RH_FINAL_TIME, RH_REPLANS = 1024, 2.0, 7
 # Phase 3: trips on the card against trips on the CPU (the CPU's plain
-# versions take most of the phase's time).
-CPU_TRIPS = 4
+# versions take most of the phase's time; two since phase 11 came).
+CPU_TRIPS = 2
 # Phase 6: the knots on which P2's fifteen lower rungs are held (the top
 # rung at all N).
-P2_DEPTH = 20
+P2_DEPTH = 10
 # Phase 7d: a budget that keeps the CPU's run under a minute.
 RH_SMALL = dict(max_solver_iters=2, unconstrained_solver_max_iters=2)
 # Phase 8: the JAX package's outcome of bench_all.py's configs 1 and 2
@@ -205,18 +228,54 @@ COLL_JAX_MEAN_ITERS = 16.4
 FLAT_CONVERGED, FLAT_DIVERGED, FLAT_FRAC_TOL = 0.4062, 0.3867, 0.08
 FLAT_MEAN_ITERS, FLAT_ITERS_REL = 59.2, 0.10
 FLAT_COST_P50 = (14667.5, 4553.1, 1141.9)
-# Phases 8e and 9e: trips of each game on the card against the CPU, 8 lanes.
-SMALL_B, SMALL_TRIPS = 8, 3
+# Phases 8e-11d: trips of each game on the card against the CPU, 8 lanes
+# (two since phase 11 came).
+SMALL_B, SMALL_TRIPS = 8, 2
 # Phases 7-10: the knots on which the holds of the cells' K4 and K5
 # launches run (a kernel and its plain version on the first HOLD_DEPTH
 # knots of the same arguments: the plain versions on the card take seconds
 # a call at N=100). Each game's K4 and K5 are also held once at full depth
 # (the flagship's in phase 2, the others' at their cell's first shape);
 # every other kernel, K2 included, at the cell's depth.
-HOLD_DEPTH = 20
+HOLD_DEPTH = 10
 PREFIX_KERNELS = ("K4", "K5")
 # Phase 10: bench_all.py's config 5, receding-horizon reachability.
 RH5_REPLANS, RH5_T_END = 7, 1.75
+# Phase 11: the golden runs' files and bounds (tests/test_golden_more.py:
+# 27-56): P1's and P2's position error against the reference solver's
+# trajectory, and how far apart the two patterns' trajectories must be.
+DUBINS_GOLDEN = {True: os.path.join("tests", "golden",
+                                    "dubins_origin_open_loop.txt"),
+                 False: os.path.join("tests", "golden",
+                                     "dubins_origin_feedback.txt")}
+DUBINS_P1_M, DUBINS_P2_M, DUBINS_GAP_M = 0.5, 2.0, 0.5
+# The JAX package's outcome of the two cells on the same draw (1024
+# instances, N=100, bench_all.py's exec main parameters, sigma 0.1), by
+# its per-instance machine, made on a CPU (~10 min) with
+#   python -c "import jax; jax.config.update('jax_platforms', 'cpu')
+#   import numpy as np, bench_all
+#   from ilqgames_tpu.examples import dubins_origin as d
+#   from ilqgames_tpu.solver import fused
+#   p = d.make_problem()
+#   for ol in (True, False):
+#       r = fused.make_host_batched_solver(
+#           p.dynamics, p.player_costs, p.spec,
+#           bench_all._exec_params(open_loop=ol),
+#           warm_op=p.initial_operating_point(),
+#           warm_strategy=p.initial_strategy())(
+#           bench_all._perturbed_x0(p, 1024, 0.1))
+#       c = np.asarray(r.total_costs)
+#       print(ol, float(r.converged.mean()),
+#             float(r.cumulative_iterations.mean()),
+#             np.percentile(c, 50, axis=0), float((c.max(1) > 1e6).mean()))"
+# The bands are phase 9's: fractions within 0.08, mean_iters within 10%,
+# cost_p50 within 15%.
+DUBINS_JAX = {
+    "dubins_ol": dict(converged=0.6943, mean_iters=5.9,
+                      cost_p50=(18535.6, 127857.0), diverged_frac=0.0),
+    "dubins_fb": dict(converged=0.9062, mean_iters=38.4,
+                      cost_p50=(17363.9, 78824.4), diverged_frac=0.0)}
+DUBINS_FRAC_TOL, DUBINS_ITERS_REL = 0.08, 0.10
 
 
 def _fail(msg: str) -> None:
@@ -639,9 +698,16 @@ KERNEL_SITES = {
     "K6": ("sweep", "consumer_merits", "merit_plain",
            "ilqgames_tpu_torch/csrc/merit.cu",
            "ilqgames_tpu/ops/pallas/sweep.py:395", "merit consumer"),
+    # K7 replaces no pallas_call: the JAX package's open-loop LQ sweep is
+    # XLA.
+    "K7": ("lq_open_loop", "lq_open_loop", "lq_open_loop_plain",
+           "ilqgames_tpu_torch/csrc/lq_open_loop.cu",
+           "ilqgames_tpu/solver/lq_open_loop.py:44 (XLA)",
+           "open-loop LQ sweep"),
 }
 OUTPUT_NAMES = {"K2": ("Ps", "alphas"), "K3": ("dxs",), "K4": ("xs", "us"),
-                "K5": ("merits",), "K6": ("merits",)}
+                "K5": ("merits",), "K6": ("merits",),
+                "K7": ("alphas", "dxs")}
 
 
 def _k4_shape(C, B, emit_us) -> str:
@@ -656,7 +722,7 @@ def _launch_shape(name, arg) -> str:
     if name == "K2":
         return f"B={arg('ops')['A'].shape[-1]}" + (
             "" if arg("adaptive") else ", fixed regularization")
-    if name == "K3":
+    if name in ("K3", "K7"):
         return f"B={arg('dx0').shape[-1]}"
     if name == "K6":
         _, _, C, B = arg("xs_cand").shape
@@ -671,11 +737,12 @@ def _launch_bytes(name, a, outs) -> int:
     if name == "K1":
         return _nbytes(a["op_bm"], a["lamS"], a["lamC"], a["mu"], a["gate"],
                        outs)
-    if name == "K2":
+    if name in ("K2", "K7"):
+        # Knot N-1 of A, Bf, Rf and rf is never read (K7 reads dx0 too).
         ops = a["ops"]
         return _nbytes({k: ops[k] for k in ("Qf", "lf")},
                        {k: ops[k][:-1] for k in ("A", "Bf", "Rf", "rf")},
-                       outs)
+                       a.get("dx0"), outs)
     if name == "K3":
         return _nbytes(a["A"][:-1], a["Bf"][:-1], a["alphas"], a["dx0"],
                        outs)
@@ -803,6 +870,16 @@ def _once_ms(fn):
     return start.elapsed_time(stop)
 
 
+def _plain_run(plain, *args, **kwargs):
+    """(result, ms, float32 operations) of a plain version on the card: its
+    operations counted under tools/_probe.float_ops in one call (whose
+    result is returned), then one more call timed (`_once_ms`)."""
+    from ilqgames_tpu_torch.tools._probe import float_ops
+
+    out, n_ops = float_ops(lambda: plain(*args, **kwargs))
+    return out, _once_ms(lambda: plain(*args, **kwargs)), n_ops
+
+
 def _prefix(a: dict, depth: int) -> dict:
     """A launch's arguments `a` on their first `depth` knots: the spec's
     horizon cut to `depth`, and every knot-major tensor (first axis the
@@ -837,8 +914,6 @@ def _hold_launches(cell, spy, launches, only=None, full=("K4",)):
     the other kernels at the cell's depth."""
     import importlib
 
-    from ilqgames_tpu_torch.tools._probe import float_ops
-
     print(f"# {cell}: launches by (kernel, shape) " + json.dumps(
         [[*key, n] for key, n in sorted(spy.tally.items())]), flush=True)
     entries = []
@@ -856,14 +931,14 @@ def _hold_launches(cell, spy, launches, only=None, full=("K4",)):
         module = importlib.import_module(f"ilqgames_tpu_torch.ops.cuda.{mod}")
         fn, plain = getattr(module, attr), getattr(module, plain_attr)
         got = _outputs(fn(**a))
-        want, n_ops = float_ops(lambda: plain(**a))
+        want, plain_ms, n_ops = _plain_run(plain, **a)
         names = OUTPUT_NAMES.get(name, [k for k, _ in got])
         err = max(_compare(f"{name} {nm} {shape}{depth} ({cell})", g, w,
                            TOL[name])
                   for nm, (_, g), (_, w) in zip(names, got, _outputs(want)))
         entries.append(dict(_entry(
             f"{name} {label} ({shape}{depth}; {cell})", source, replaces, err,
-            _time_ms(lambda: fn(**a), 20), _once_ms(lambda: plain(**a)),
+            _time_ms(lambda: fn(**a), 20), plain_ms,
             _launch_bytes(name, a, [g for _, g in got]), n_ops),
             launches=(spy.tally[(name, shape)] if launches is None
                       else launches[name])))
@@ -1049,22 +1124,23 @@ def _merit_state(problem, op_bm):
     return sweep._prep_al(spec, al1, gate, 1)
 
 
-def _hold_merits(cell, spy, problem):
+def _hold_merits(cell, spy, problem, full=True):
     """K5 and K6 at every shape at which `cell`'s run launched K4 without
     emitting controls (the linesearch's candidates), on the first such
     launch's arguments with the multipliers, mu and extremal gate of
     `_merit_state` there, against their plain versions: the merit backends
     "kernel" and "pallas" on the cell's shapes; K5 at the cell's depth at
-    the first shape and on the first HOLD_DEPTH knots at the others (K6
-    at the cell's depth, and at K5's for K5 == K4 + K6). One kernels-line
-    entry each, with 0 launches: the cell's path (merit backend "xla")
-    does not launch them, and these holds are not counted."""
+    the first shape (unless not `full`: the game's K5 was held at full
+    depth in another cell) and on the first HOLD_DEPTH knots at the others
+    (K6 at the cell's depth, and at K5's for K5 == K4 + K6). One
+    kernels-line entry each, with 0 launches: the cell's path (merit
+    backend "xla") does not launch them, and these holds are not
+    counted."""
     from ilqgames_tpu_torch.ops.cuda import sweep
-    from ilqgames_tpu_torch.tools._probe import float_ops
 
     costs, spec = problem.player_costs, problem.spec
     entries = []
-    first = True
+    first = full
     for (name, shape), a in sorted(spy.seen.items()):
         if name != "K4" or a["emit_us"]:
             continue
@@ -1092,13 +1168,13 @@ def _hold_merits(cell, spy, problem):
                 ("K6", sweep.consumer_merits, sweep.merit_plain, k6, "")):
             _, _, _, source, replaces, label = KERNEL_SITES[kname]
             got[kname] = fn(**args)
-            want, n_ops = float_ops(lambda: plain(**args))
+            want, plain_ms, n_ops = _plain_run(plain, **args)
             err = _compare(f"{kname} merits {shape}{dep} ({cell})",
                            got[kname], want, TOL[kname])
             entries.append(dict(_entry(
                 f"{kname} {label} ({shape}{dep}; {cell}, held only: its xla "
                 "path does not launch it)", source, replaces, err,
-                _time_ms(lambda: fn(**args), 20), _once_ms(lambda: plain(**args)),
+                _time_ms(lambda: fn(**args), 20), plain_ms,
                 _launch_bytes(kname, args, [got[kname]]), n_ops),
                 launches=0))
         k6_at = got["K6"] if not depth else sweep.consumer_merits(
@@ -1276,7 +1352,7 @@ def phase9(dev):
     size through `bench.run_config` (unfused stages, as the JAX package
     runs it): its outcome against the JAX package's bands, K1 never
     launched, every (kernel, shape) the cell launched against its plain
-    version (and K5, K6 at its linesearch shapes), and three unfused trips
+    version (and K5, K6 at its linesearch shapes), and two unfused trips
     of 8 lanes on the card against the CPU under every merit backend.
     Returns the kernels-line entries."""
     import torch
@@ -1351,7 +1427,7 @@ def phase10(dev):
     constraints), at full size through `bench.run_config(5)`: its libraries
     and their ptxas reports, the cell's replans and outcome, every
     (kernel, shape) it launched held against its plain version (and K5,
-    K6 at its linesearch shapes), three trips of 8 lanes on the card
+    K6 at its linesearch shapes), two trips of 8 lanes on the card
     against the CPU (fused under each merit backend, unfused under "xla")
     and a short replanning run on the card against the CPU. Returns the
     kernels-line entries."""
@@ -1438,7 +1514,8 @@ def phase10(dev):
 
     # (c) every (kernel, shape) of the load and of the cell, and K5, K6 at
     # the cell's linesearch shapes.
-    kernels = _hold_launches(load_cell, load["spy"], load["launches"])
+    kernels = _hold_launches(load_cell, load["spy"], load["launches"],
+                             full=())
     kernels += _hold_launches(cell, spy, launches)
     kernels += _hold_merits(cell, spy, p)
 
@@ -1450,6 +1527,147 @@ def phase10(dev):
 
     # (e) a short replanning run, the card against the CPU.
     _replanning_card_vs_cpu("reachability replanning", p, cfg["sigma"], dev)
+    return kernels
+
+
+def _dubins_outcome(cell, key, out):
+    """A dubins cell's outcome against the JAX package's on the same
+    draw, within the phase's bands."""
+    ref = DUBINS_JAX[key]
+    band = (f"converged {ref['converged']} +- {DUBINS_FRAC_TOL}, "
+            f"diverged_frac {ref['diverged_frac']} +- {DUBINS_FRAC_TOL}, "
+            f"mean_iters {ref['mean_iters']} +- {DUBINS_ITERS_REL:.0%}, "
+            f"cost_p50 {list(ref['cost_p50'])} +- {COST_P50_REL:.0%}")
+    ok = (abs(out["converged"] - ref["converged"]) <= DUBINS_FRAC_TOL
+          and abs(out["diverged_frac"] - ref["diverged_frac"])
+          <= DUBINS_FRAC_TOL
+          and abs(out["mean_iters"] - ref["mean_iters"])
+          <= DUBINS_ITERS_REL * ref["mean_iters"]
+          and all(abs(g - r) <= COST_P50_REL * r
+                  for g, r in zip(out["cost_p50"], ref["cost_p50"])))
+    if not ok:
+        _fail(f"{cell}: outcome outside the JAX package's band ({band}): "
+              f"{out}")
+    return band
+
+
+def _dubins_launches(what, launches, open_loop):
+    """Open loop runs K7 where feedback runs K2 and K3, on unfused stages
+    (no K1); feedback runs K1-K4 and never K7."""
+    ran = ("K4", "K7") if open_loop else ("K1", "K2", "K3", "K4")
+    idle = ("K1", "K2", "K3") if open_loop else ("K7",)
+    if min(launches[k] for k in ran) <= 0 or any(launches[k]
+                                                  for k in idle):
+        _fail(f"{what}: launches {launches}, want {ran} launched and "
+              f"{idle} not")
+
+
+def phase11(dev):
+    """Open-loop Nash on dubins_origin in both information patterns: its
+    libraries and their ptxas reports, the golden runs against the
+    reference solver's trajectories, the cells dubins_ol_1024 and
+    dubins_fb_1024 against the JAX package's outcome, every (kernel,
+    shape) they launched held against its plain version (and K5, K6 at
+    their linesearch shapes), and two trips of 8 lanes of each pattern
+    on the card against the CPU. Returns the kernels-line entries."""
+    import numpy as np
+    import torch
+
+    from ilqgames_tpu_torch import bench
+    from ilqgames_tpu_torch.ops.cuda import build, sweep
+
+    p = bench.CONFIGS["dubins_ol"]["make"]()
+    dyn, spec, costs = p.dynamics, p.spec, p.player_costs
+
+    # (a) its libraries (K1 with CT_DIFF and CT_DUBINS, K5 and K6 with
+    # CT_DIFF, K7), one nvcc each.
+    t0 = time.perf_counter()
+    libs = bench.kernel_libraries(dyn, spec, costs, open_loop=True)
+    build.compile_all(libs)
+    bench.build_kernels(dyn, spec, costs, open_loop=True)
+    print(f"# phase 11 build: {time.perf_counter() - t0:.1f} s (concurrent "
+          f"nvcc: {len(libs)} libraries)", flush=True)
+    for label, lib, kern, stack_ok in (
+            ("K1", libs[0], "stage_kernel", True),
+            ("K2", libs[1], "lq_backward_kernel", False),
+            ("K3", libs[1], "lq_forward_kernel", False),
+            ("K6", libs[2], "merit_kernel", False),
+            ("K4", libs[3], "rollout_warp_kernel", False),
+            ("K5", libs[4], "rollout_merit_warp_kernel", True),
+            ("K7", libs[5], "lq_open_loop_kernel", False)):
+        _ptxas(f"{label} (dubins_origin)", lib, kern, stack_ok)
+
+    # (b) the golden runs, K7 held at their shape.
+    kernels, golden = [], {}
+    root = os.path.dirname(os.path.abspath(__file__))
+    for open_loop in (True, False):
+        what = "golden " + ("open loop" if open_loop else "feedback")
+        bench.reset_launches()
+        with _FirstLaunches() as spy:
+            res, info = bench.run_golden(open_loop, dev)
+        torch.cuda.synchronize()
+        launches = bench.launches()
+        _dubins_launches(what, launches, open_loop)
+        xs = res.op.xs[0].cpu().numpy()
+        ref = np.loadtxt(os.path.join(root, DUBINS_GOLDEN[open_loop]))
+        if xs.shape != ref.shape:
+            _fail(f"{what}: trajectory shape {xs.shape}, reference "
+                  f"{ref.shape}")
+        e1 = float(np.hypot(xs[:, 0] - ref[:, 0], xs[:, 1] - ref[:, 1]).max())
+        e2 = float(np.hypot(xs[:, 3] - ref[:, 3], xs[:, 4] - ref[:, 4]).max())
+        print(f"# {what}: P1 max {e1:.4f} m, P2 max {e2:.4f} m (bounds "
+              f"{DUBINS_P1_M}, {DUBINS_P2_M}); {info['trips']} trips in "
+              f"{info['wall_s']} s; launches {launches}", flush=True)
+        if not (e1 < DUBINS_P1_M and e2 < DUBINS_P2_M):
+            _fail(f"{what}: beyond tests/test_golden_more.py's bounds")
+        golden[open_loop] = xs
+        if open_loop:
+            kernels += _hold_launches(f"{what} 1/{bench.GOLDEN_BLOCK}", spy,
+                                      launches, only=("K7",))
+    gap = float(np.abs(golden[True] - golden[False]).max())
+    print(f"# golden: the patterns {gap:.4f} apart (more than "
+          f"{DUBINS_GAP_M} wanted)", flush=True)
+    if not gap > DUBINS_GAP_M:
+        _fail("golden: open loop and feedback give the same play")
+
+    # (c) the cells, their outcome and their launches held.
+    merit_held = []
+    for key, cell in (("dubins_ol", "dubins_ol_1024"),
+                      ("dubins_fb", "dubins_fb_1024")):
+        open_loop = key == "dubins_ol"
+        bench.reset_launches()
+        with _FirstLaunches() as spy:
+            res, out = bench.run_config(key, dev)
+        torch.cuda.synchronize()
+        launches = bench.launches()
+        print(json.dumps(out), flush=True)
+        _dubins_launches(cell, launches, open_loop)
+        shape = (out["B"], spec.num_time_steps, spec.xdim)
+        if tuple(res.op.xs.shape) != shape:
+            _fail(f"{cell}: result shape {tuple(res.op.xs.shape)}, want "
+                  f"{shape}")
+        if not bool(torch.isfinite(res.op.xs[res.converged]).all()):
+            _fail(f"{cell}: non-finite trajectory on a converged lane")
+        if open_loop and bool(res.strategy.Ps.any()):
+            _fail(f"{cell}: an open-loop strategy with P != 0")
+        band = _dubins_outcome(cell, key, out)
+        print(f"# {cell}: outcome within the JAX package's band ({band}); "
+              f"launches counted from 0 over the warm-up and timed solves: "
+              f"{launches}", flush=True)
+        _check_k4_held(cell, spy, sweep.rollout_bm.by_shape)
+        # The game's K4 and K5 at full depth once: in the open-loop cell.
+        kernels += _hold_launches(cell, spy, launches,
+                                  full=("K4",) if open_loop else ())
+        merit_held.append((cell, spy, open_loop))
+
+    # (d) trips on the card against the CPU, every merit backend.
+    kernels += _trips_card_vs_cpu("dubins_origin open loop", p, "dubins_ol",
+                                  False, dev)
+    kernels += _trips_card_vs_cpu("dubins_origin feedback", p, "dubins_fb",
+                                  True, dev)
+    # K5 and K6 at the cells' linesearch shapes, held only.
+    for cell, spy, full in merit_held:
+        kernels += _hold_merits(cell, spy, p, full)
     return kernels
 
 
@@ -1469,7 +1687,6 @@ def main():
     from ilqgames_tpu_torch.ops.cuda import build, lq, probes, stage, sweep
     from ilqgames_tpu_torch.solver import batched
     from ilqgames_tpu_torch.solver.al import constraint_violations
-    from ilqgames_tpu_torch.tools._probe import float_ops
     from ilqgames_tpu_torch.types import tree_map
 
     dev = torch.device("cuda")
@@ -1519,13 +1736,14 @@ def main():
 
     _ptxas("K2", lq.library(spec), "lq_backward_kernel")
     Ps_k, al_k = lq.lq_backward(spec, ops)
-    (Ps_p, al_p), n_ops = float_ops(lambda: lq.lq_backward_plain(spec, ops))
+    (Ps_p, al_p), plain_ms, n_ops = _plain_run(lq.lq_backward_plain, spec,
+                                                ops)
     err = max(_compare("K2 Ps", Ps_k, Ps_p, TOL["K2"]),
               _compare("K2 alphas", al_k, al_p, TOL["K2"]))
     entry("K2 lq_backward (B=1024)", "ilqgames_tpu_torch/csrc/lq.cu",
           "ilqgames_tpu/ops/pallas/lq.py:82", err,
           _time_ms(lambda: lq.lq_backward(spec, ops), 10),
-          _once_ms(lambda: lq.lq_backward_plain(spec, ops)),
+          plain_ms,
           # Knot N-1 of A, Bf, Rf and rf is never read: it is the
           # terminal condition, Qf and lf only.
           _nbytes({k: ops[k] for k in ("Qf", "lf")},
@@ -1538,7 +1756,7 @@ def main():
         """K3 against its plain version at Bk lanes, and its entry."""
         args = (spec, A, Bf, al, dx0)
         dxs_k = lq.lq_forward(*args)
-        dxs_p, n_ops = float_ops(lambda: lq.lq_forward_plain(*args))
+        dxs_p, plain_ms, n_ops = _plain_run(lq.lq_forward_plain, *args)
         err = _compare(f"K3 dxs B={Bk}", dxs_k, dxs_p, TOL["K3"])
         ms = _time_ms(lambda: lq.lq_forward(*args), 20)
         knots = spec.num_time_steps - 1
@@ -1547,7 +1765,7 @@ def main():
               f"{k3_ptxas['stack']} B)", flush=True)
         entry(f"K3 lq_forward (B={Bk})", "ilqgames_tpu_torch/csrc/lq.cu",
               "ilqgames_tpu/ops/pallas/lq.py:254", err, ms,
-              _once_ms(lambda: lq.lq_forward_plain(*args)),
+              plain_ms,
               # knots 0 .. N-2 of A and Bf make dx_1 .. dx_{N-1}
               _nbytes(A[:-1], Bf[:-1], al, dx0, dxs_k), n_ops)
 
@@ -1574,8 +1792,8 @@ def main():
                 scal.expand(C, Bk).contiguous())
         shape = f"C={C}, B={Bk}" + (", emit_us" if emit else "")
         got = _outputs(sweep.rollout_bm(*args, emit_us=emit))
-        want, n_ops = float_ops(lambda: sweep.rollout_plain(
-            *args, emit_us=emit))
+        want, plain_ms, n_ops = _plain_run(sweep.rollout_plain, *args,
+                                           emit_us=emit)
         want = _outputs(want)
         names = ("xs", "us")
         err = max(_compare(f"K4 {nm} {shape}", g, w, TOL["K4"])
@@ -1587,8 +1805,7 @@ def main():
               f"{k4_ptxas['stack']} B)", flush=True)
         entry(f"K4 rollout ({shape})", "ilqgames_tpu_torch/csrc/sweep.cu",
               "ilqgames_tpu/ops/pallas/sweep.py:176", err, ms_k4,
-              _once_ms(lambda: sweep.rollout_plain(*args, emit_us=emit)),
-              _nbytes(args[2], _read(args[3]), args[4:],
+              plain_ms, _nbytes(args[2], _read(args[3]), args[4:],
                       [g for _, g in got]), n_ops)
 
     # K1 at B=2048, on the first rollout of bench's draw with the
@@ -1600,13 +1817,13 @@ def main():
     lamS, lamC, mu1, _ = sweep._prep_al(spec, al1, None, 1)
     k1_args = (dyn, costs, spec, op1, lamS, lamC, mu1)
     ops_k = stage.lin_quad(*k1_args)
-    ops_p, n_ops = float_ops(lambda: stage.lin_quad_plain(*k1_args))
+    ops_p, plain_ms, n_ops = _plain_run(stage.lin_quad_plain, *k1_args)
     err = max(_compare(f"K1 {name}", ops_k[name], ops_p[name], TOL["K1"])
               for name in ops_p)
     entry(f"K1 lin_quad (B={B1})", "ilqgames_tpu_torch/csrc/stage.cu",
           "ilqgames_tpu/ops/pallas/stage.py:65", err,
           _time_ms(lambda: stage.lin_quad(*k1_args), 20),
-          _once_ms(lambda: stage.lin_quad_plain(*k1_args)),
+          plain_ms,
           _nbytes(op1, k1_args[4:], ops_k), n_ops)
 
     # K3 at the queue's lanes (B=2048) on K1's operands and K2's alphas
@@ -1629,8 +1846,8 @@ def main():
         k5_args = (dyn, costs, spec, x1m[:, :Bk].contiguous(), sub(op1),
                    sub(st1), scal_cb, lam_k, None, mu_k)
         m5_k = sweep.rollout_merits(*k5_args)
-        m5_p, n_ops = float_ops(lambda: sweep.rollout_merits_plain(
-            *k5_args))
+        m5_p, plain_ms, n_ops = _plain_run(sweep.rollout_merits_plain,
+                                           *k5_args)
         err = _compare(f"K5 merits C={C} B={Bk}", m5_k, m5_p, TOL["K5"])
         ms_k5 = _time_ms(lambda: sweep.rollout_merits(*k5_args), 20)
         print(f"# K5 C={C}, B={Bk}: {ms_k5:.4f} ms ({1e3 * ms_k5 / N:.3f} "
@@ -1639,7 +1856,7 @@ def main():
         entry(f"K5 rollout+merit (C={C}, B={Bk})",
               "ilqgames_tpu_torch/csrc/sweep.cu",
               "ilqgames_tpu/ops/pallas/sweep.py:176", err, ms_k5,
-              _once_ms(lambda: sweep.rollout_merits_plain(*k5_args)),
+              plain_ms,
               _nbytes(k5_args[3], k5_args[4], k5_args[5:], m5_k),
               n_ops)
         xs_c = sweep.rollout_bm(dyn, spec, x1m[:, :Bk].contiguous(), sub(op1),
@@ -1648,7 +1865,7 @@ def main():
         k6_args = (costs, spec, xs_c, us_c, sub(op1)["t0"], lam_k, None,
                    mu_k)
         m6_k = sweep.consumer_merits(*k6_args)
-        m6_p, n_ops = float_ops(lambda: sweep.merit_plain(*k6_args))
+        m6_p, plain_ms, n_ops = _plain_run(sweep.merit_plain, *k6_args)
         err = _compare(f"K6 merits C={C} B={Bk}", m6_k, m6_p, TOL["K6"])
         ms_k6 = _time_ms(lambda: sweep.consumer_merits(*k6_args), 20)
         graph_ms = _graph_ms(lambda: sweep.consumer_merits(*k6_args), 20)
@@ -1659,7 +1876,7 @@ def main():
         entry(f"K6 merit consumer (C={C}, B={Bk})",
               "ilqgames_tpu_torch/csrc/merit.cu",
               "ilqgames_tpu/ops/pallas/sweep.py:395", err, ms_k6,
-              _once_ms(lambda: sweep.merit_plain(*k6_args)),
+              plain_ms,
               _nbytes(k6_args[2:], m6_k), n_ops)
         same = _same_bits(m5_k, m6_k)
         print(f"# K5 == K4 + K6 bitwise (C={C}, B={Bk}): {same}", flush=True)
@@ -1783,6 +2000,10 @@ def main():
     # ---- phase 10: receding-horizon reachability ----
     kernels += phase10(dev)
     elapsed(10)
+
+    # ---- phase 11: open-loop Nash on dubins_origin ----
+    kernels += phase11(dev)
+    elapsed(11)
 
     print(f"# total: {time.perf_counter() - t_main:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

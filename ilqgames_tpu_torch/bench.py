@@ -23,7 +23,12 @@ three-player collision-avoidance game drawn with sigma 0.25, replanning
 every 0.25 s over 2 s) as bench_all.py runs it (`run_config`), and prints
 its metric and fields; BENCH_FUSE=0 or 1 overrides the config's stages
 (BENCH_ALL_r05 row 5 was taken unfused: BENCH_CONFIG=5 BENCH_FUSE=0).
-Needs a CUDA device: it never measures on a CPU.
+BENCH_CONFIG=dubins_ol or dubins_fb runs the reference's open-loop
+example, `dubins_origin` (two Dubins cars), in the open-loop (unfused
+stages, K7) or the feedback information pattern (fused stages): 1024
+instances of the x0 draw with sigma 0.1, bench_all.py's exec main
+parameters, as `run_config` runs configs 1, 2 and 4. Needs a CUDA device:
+it never measures on a CPU.
 
     python3 -m ilqgames_tpu_torch.bench
     BENCH_QUEUE=0 BENCH_BATCH=1024 python3 -m ilqgames_tpu_torch.bench
@@ -32,6 +37,7 @@ Needs a CUDA device: it never measures on a CPU.
     BENCH_CONFIG=4 python3 -m ilqgames_tpu_torch.bench
     BENCH_CONFIG=5 python3 -m ilqgames_tpu_torch.bench
     BENCH_CONFIG=5 BENCH_FUSE=0 python3 -m ilqgames_tpu_torch.bench
+    BENCH_CONFIG=dubins_ol python3 -m ilqgames_tpu_torch.bench
 """
 
 from __future__ import annotations
@@ -45,13 +51,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ilqgames_tpu_torch.examples import reachability, \
+from ilqgames_tpu_torch.examples import dubins_origin, reachability, \
     three_player_flat_intersection, two_player_collision, \
     two_player_point_mass
 from ilqgames_tpu_torch.examples.three_player_intersection import \
     make_problem
-from ilqgames_tpu_torch.ops.cuda import build, lq, stage, sweep
-from ilqgames_tpu_torch.ops.cuda.cost_table import has_norms, has_reach
+from ilqgames_tpu_torch.ops.cuda import build, lq, lq_open_loop, stage, \
+    sweep
+from ilqgames_tpu_torch.ops.cuda.cost_table import has_diff, has_norms, \
+    has_reach
 from ilqgames_tpu_torch.solver import batched
 from ilqgames_tpu_torch.runtime import receding_horizon
 from ilqgames_tpu_torch.solver.params import SolverParams
@@ -132,7 +140,7 @@ def summarize(res, batch: int, elapsed: float) -> dict:
 # The kernels' wrappers, by name (each keeps a launch count).
 KERNELS = {"K1": stage.lin_quad, "K2": lq.lq_backward, "K3": lq.lq_forward,
            "K4": sweep.rollout_bm, "K5": sweep.rollout_merits,
-           "K6": sweep.consumer_merits}
+           "K6": sweep.consumer_merits, "K7": lq_open_loop.lq_open_loop}
 
 
 def launches() -> dict:
@@ -145,29 +153,36 @@ def reset_launches() -> None:
     sweep.rollout_bm.by_shape.clear()
 
 
-def kernel_libraries(dyn, spec, player_costs=()) -> list:
+def kernel_libraries(dyn, spec, player_costs=(), open_loop=False) -> list:
     """The (source, defines) of every kernel library of the port for this
     game: a game whose costs hold a norm atom gets its merit kernels K5
     and K6 with those atoms, a game with the reachability features
-    (`cost_table.has_reach`) its K1, K5 and K6 with those; K4 takes
-    neither."""
+    (`cost_table.has_reach`) its K1, K5 and K6 with those, a game with a
+    quadratic_difference atom (`cost_table.has_diff`) its K1, K5 and K6
+    with it, dynamics with a dubins_car their K1 with its Jacobian; K4
+    takes none of them. With `open_loop`, K7's library comes last."""
     norms, reach = has_norms(player_costs), has_reach(player_costs)
-    sweeps = sorted({(False, False), (norms, reach)})
-    return ([stage.library(spec, reach), lq.library(spec),
-             sweep.merit_library(spec, norms, reach)]
-            + [sweep.library(dyn, spec, n, r) for n, r in sweeps])
+    diff = has_diff(player_costs)
+    sweeps = sorted({(False, False, False), (norms, reach, diff)})
+    return ([stage.library(spec, reach, diff, stage.has_dubins(dyn)),
+             lq.library(spec), sweep.merit_library(spec, norms, reach, diff)]
+            + [sweep.library(dyn, spec, n, r, d) for n, r, d in sweeps]
+            + ([lq_open_loop.library(spec)] if open_loop else []))
 
 
-def build_kernels(dyn, spec, player_costs=()) -> None:
+def build_kernels(dyn, spec, player_costs=(), open_loop=False) -> None:
     """Build every kernel library of the game (`kernel_libraries`; one
     concurrent nvcc per source) and load them."""
     norms, reach = has_norms(player_costs), has_reach(player_costs)
-    build.compile_all(kernel_libraries(dyn, spec, player_costs))
-    stage.load_kernels(spec, reach)
+    diff = has_diff(player_costs)
+    build.compile_all(kernel_libraries(dyn, spec, player_costs, open_loop))
+    stage.load_kernels(spec, reach, diff, stage.has_dubins(dyn))
     lq.load_kernels(spec)
-    sweep.load_merit_kernel(spec, norms, reach)
-    for n, r in sorted({(False, False), (norms, reach)}):
-        sweep.load_kernels(dyn, spec, n, r)
+    sweep.load_merit_kernel(spec, norms, reach, diff)
+    for n, r, d in sorted({(False, False, False), (norms, reach, diff)}):
+        sweep.load_kernels(dyn, spec, n, r, d)
+    if open_loop:
+        lq_open_loop.load_kernels(spec)
 
 
 def _cuda_device(device) -> torch.device:
@@ -336,7 +351,26 @@ CONFIGS = {
                         unconstrained_solver_max_iters=10),
             fuse_stages=True, final_time=2.0, replan_interval=0.25,
             planner_time=0.25),
+    # The reference's open-loop example (src/dubins_origin_example.cpp) in
+    # both information patterns, as a Monte-Carlo batch over x0 with
+    # bench_all.py's exec main parameters: open loop on unfused stages
+    # (the JAX package's only path for it), feedback fused.
+    "dubins_ol": dict(make=dubins_origin.make_problem,
+                      metric="dubins_origin_open_loop_solves_per_sec_per_chip",
+                      batch=1024, sigma=0.1, params=dict(open_loop=True),
+                      fuse_stages=False),
+    "dubins_fb": dict(make=dubins_origin.make_problem,
+                      metric="dubins_origin_feedback_solves_per_sec_per_chip",
+                      batch=1024, sigma=0.1, params={}, fuse_stages=True),
 }
+# The exec main of the reference's dubins_origin example
+# (exec/dubins_origin_example/main.cpp defaults, tests/test_golden_more.py:
+# 36-40): no linesearch, the full step at alpha 0.1 for 1000 iterations.
+GOLDEN_PARAMS = dict(linesearch=False, initial_alpha_scaling=0.1,
+                     expected_decrease_fraction=0.1,
+                     convergence_tolerance=0.1, max_backtracking_steps=100,
+                     max_solver_iters=1000)
+GOLDEN_BLOCK = 8
 # The reference's replan contract that bench_all.py's config 5 divides by:
 # one replan per instance within 0.25 s, 4 replans/s/instance on one core
 # (src/receding_horizon_simulator.cpp:119).
@@ -431,14 +465,14 @@ def run_receding(config: int, device="cuda", fuse_stages=None,
     return (states, times, state), out
 
 
-def run_config(config: int, device="cuda", fuse_stages=None,
-               after_load=None):
-    """bench_all.py's config 1, 2, 4 or 5 on `device`. Config 5, receding
-    horizon, is `run_receding`'s. The others as bench_all.py's
-    `_throughput` runs them: the exec main's parameters (with the config's
-    budgets), the x0 draw with the config's sigma, the plain host-stepped
-    driver with lane blocks of 128 and 20 trips per dispatch, the config's
-    stages (fused but for config 4) and the merit backend "xla"; one
+def run_config(config, device="cuda", fuse_stages=None, after_load=None):
+    """bench_all.py's config 1, 2, 4 or 5, or "dubins_ol" / "dubins_fb", on
+    `device`. Config 5, receding horizon, is `run_receding`'s. The others
+    as bench_all.py's `_throughput` runs them: the exec main's parameters
+    (with the config's budgets and information pattern), the x0 draw with
+    the config's sigma, the plain host-stepped driver with lane blocks of
+    128 and 20 trips per dispatch, the config's stages (fused but for
+    config 4 and dubins_ol) and the merit backend "xla"; one
     warm-up solve, then the timed one. Returns (ALResult, JSON dict) with
     bench_all.py's metric and fields. `fuse_stages` overrides the config's
     stages (BENCH_ALL_r05 row 5 was taken unfused); `after_load`, if given,
@@ -452,7 +486,8 @@ def run_config(config: int, device="cuda", fuse_stages=None,
     problem = cfg["make"]()
     n = cfg["batch"]
     params = dataclasses.replace(exec_main_params(), **cfg["params"])
-    build_kernels(problem.dynamics, problem.spec, problem.player_costs)
+    build_kernels(problem.dynamics, problem.spec, problem.player_costs,
+                  params.open_loop)
     solver = batched.make_host_batched_solver(
         problem.dynamics, problem.player_costs, problem.spec, params,
         warm_op=problem.initial_operating_point(),
@@ -474,11 +509,47 @@ def run_config(config: int, device="cuda", fuse_stages=None,
            **config_fields(res, n, elapsed),
            "device": torch.cuda.get_device_name(dev), "driver": "plain",
            "trips_per_call": 20, "batch_block": 128,
-           "fuse_stages": fuse,
+           "fuse_stages": fuse, "open_loop": params.open_loop,
            **{k: stats[k] for k in ("trips", "dispatches", "host_syncs",
                                     "deep_rounds", "collapse_exits")},
            "launches": {k: v - before[k] for k, v in launches().items()}}
     return res, out
+
+
+def run_golden(open_loop: bool, device="cuda"):
+    """The exec main of the reference's dubins_origin example on `device`:
+    its nominal x0, one lane padded to GOLDEN_BLOCK, from the zero
+    operating point and strategy, GOLDEN_PARAMS (no linesearch, 1000
+    iterations) in the open-loop (unfused stages, K7) or the feedback
+    information pattern (fused stages), plain driver, 20 trips a dispatch.
+    The kernels are built first. Returns (ALResult of the one lane,
+    {"trips", "wall_s", "launches"})."""
+    set_precision()
+    dev = _cuda_device(device)
+    problem = dubins_origin.make_problem()
+    params = SolverParams(open_loop=open_loop, **GOLDEN_PARAMS)
+    build_kernels(problem.dynamics, problem.spec, problem.player_costs,
+                  open_loop)
+    solver = batched.make_host_batched_solver(
+        problem.dynamics, problem.player_costs, problem.spec, params,
+        warm_op=problem.initial_operating_point(),
+        warm_strategy=problem.initial_strategy(), trips_per_call=20,
+        batch_block=GOLDEN_BLOCK)
+    before = launches()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    res = solver(problem.x0[None].to(dev))
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    return res, {"trips": solver.last_stats["trips"],
+                 "wall_s": round(wall, 3),
+                 "launches": {k: v - before[k]
+                              for k, v in launches().items()}}
+
+
+def _config_key(name: str):
+    """A BENCH_CONFIG value as a CONFIGS key: a number, or a name."""
+    return int(name) if name.isdigit() else name
 
 
 def main():
@@ -488,7 +559,7 @@ def main():
     batch = int(env("BENCH_BATCH", "2048"))
     if env("BENCH_CONFIG"):
         fuse = env("BENCH_FUSE")
-        _, out = run_config(int(env("BENCH_CONFIG")),
+        _, out = run_config(_config_key(env("BENCH_CONFIG")),
                             fuse_stages=None if fuse is None else fuse != "0")
     elif env("BENCH_LATENCY", "0") == "1":
         _, out = run_latency()

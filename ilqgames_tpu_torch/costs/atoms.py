@@ -1,8 +1,8 @@
 """Cost atoms (counterpart of ilqgames_tpu/costs/atoms.py: `quadratic` at
 :39, `quadratic_norm` at :103, `semiquadratic_norm` at :120,
-`signed_distance` at :178, `proximity` at :213, `quadratic_polyline2` at
-:366, `semiquadratic_polyline2` at :433, `final_time` at :652 and
-`extreme_value` at :685).
+`quadratic_difference` at :148, `signed_distance` at :178, `proximity` at
+:213, `quadratic_polyline2` at :366, `semiquadratic_polyline2` at :433,
+`final_time` at :652 and `extreme_value` at :685).
 
 Gradients and Hessians are the JAX package's sparse pairs, with the
 reference's shipped branch semantics for the polyline costs: a vertex
@@ -176,6 +176,62 @@ def semiquadratic_norm(weight: float, dim1: int, dim2: int,
                     "dims": (dim1, dim2), "weight": weight,
                     "threshold": threshold,
                     "oriented_right": oriented_right}))
+
+
+def quadratic_difference(weight: float, dims1, dims2,
+                         name: str = "quadratic_difference") -> Cost:
+    """0.5*w*sum_i (v[dims1[i]] - v[dims2[i]])^2.
+
+    The JAX package quadraticizes it by autodiff over its support
+    dims1 + dims2 (`costs/base.py` `_restricted`), and the pairs here are
+    what that gives, in support order: the gradient 0.0 + (p + p) at
+    dims1[i] and 0.0 + -(p + p) at dims2[i], with p = (0.5 w) d_i and
+    d_i = v[dims1[i]] - v[dims2[i]] (the 0.0 is the scatter into the
+    support's zeros: a zero gradient is +0); the Hessian over every
+    (support, support) pair, w on the diagonal, -w between dims1[i] and
+    dims2[i], +0 elsewhere, whatever v is. Its device form takes two
+    differences (the position pairs of every reference game)."""
+    d1, d2 = tuple(dims1), tuple(dims2)
+    if len(d1) != len(d2):
+        raise ValueError("dims1 and dims2 differ in length")
+    half = 0.5 * weight
+    support = d1 + d2
+    n = len(d1)
+
+    def evaluate(t, v):
+        total = None
+        for a, b in zip(d1, d2):
+            diff = v[..., a] - v[..., b]
+            sq = diff * diff
+            total = sq if total is None else total + sq
+        return half * total
+
+    def grad_pairs(t, v):
+        gs = []
+        for a, b in zip(d1, d2):
+            p = half * (v[..., a] - v[..., b])
+            gs.append(p + p)
+        return ([(a, 0.0 + g) for a, g in zip(d1, gs)]
+                + [(b, 0.0 + -g) for b, g in zip(d2, gs)])
+
+    def quad_pairs(t, v):
+        like = v[..., 0]
+
+        def entry(r, c):
+            if r == c:
+                return torch.full_like(like, weight)
+            if r % n == c % n:
+                return torch.full_like(like, -weight)
+            return torch.zeros_like(like)
+
+        hp = [((support[r], support[c]), entry(r, c))
+              for r in range(2 * n) for c in range(2 * n)]
+        return hp, grad_pairs(t, v)
+
+    device = None
+    if n == 2:
+        device = ("quadratic_difference", {"dims": support, "weight": weight})
+    return Cost(name, evaluate, grad_pairs, quad_pairs, device=device)
 
 
 def quadratic_polyline2(weight: float, points, xidx: int, yidx: int,

@@ -27,7 +27,10 @@
 //                        -(p * g): a pair's negation after the gate)
 //   single_dimension     costs/constraints.py:single_dimension, a control
 //                        constraint's AL terms
-//   car_6d, unicycle_4d, car_5d, the linear system
+//   quadratic_difference costs/atoms.py:quadratic_difference (two
+//                        differences: the pairs of the JAX package's
+//                        autodiff over its support)
+//   car_6d, unicycle_4d, car_5d, dubins_car, the linear system
 //                        the Jacobian entries of dynamics/models.py and the
 //                        constant ones of dynamics/base.py:linear
 // The two norm atoms are the merit's only (K5, K6): they are compiled in
@@ -35,7 +38,9 @@
 // has neither (its caller refuses them). The reachability games' atoms,
 // control constraints and car_5d's Jacobian are compiled in where the
 // library is built with CT_REACH=1 (cost_table.has_reach), so that the
-// other games' kernels are the same code.
+// other games' kernels are the same code; so are quadratic_difference
+// (CT_DIFF=1, cost_table.has_diff) and dubins_car's Jacobian (CT_DUBINS=1,
+// K1 only).
 // The problem arrives as a CostTable (atom kinds, dims, weights, nominals,
 // thresholds, signs, orientations, gate times, segment offsets, extremal
 // groups, each player's structure; built by ops/cuda/cost_table.py), in the
@@ -72,6 +77,12 @@
 #ifndef CT_REACH
 #define CT_REACH 0
 #endif
+#ifndef CT_DIFF
+#define CT_DIFF 0
+#endif
+#ifndef CT_DUBINS
+#define CT_DUBINS 0
+#endif
 
 namespace costs {
 
@@ -88,11 +99,13 @@ constexpr int KIND_SEMI_NORM = 6;
 constexpr int KIND_SIGNED_DIST = 7;
 constexpr int KIND_EXTREME = 8;
 constexpr int KIND_SINGLE_DIM = 9;
+constexpr int KIND_QUAD_DIFF = 10;
 constexpr int MAX_LIN = 32;
 constexpr int KIND_CAR_6D = 0;      // dynamics/models.py KIND_CAR_6D
 constexpr int KIND_UNICYCLE_4D = 1;  // dynamics/models.py KIND_UNICYCLE_4D
 constexpr int KIND_LINEAR = 2;       // dynamics/models.py KIND_LINEAR
 constexpr int KIND_CAR_5D = 3;       // dynamics/models.py KIND_CAR_5D
+constexpr int KIND_DUBINS = 4;       // dynamics/models.py KIND_DUBINS
 constexpr float SMALL_NUMBER = 1e-4f;  // types.SMALL_NUMBER
 constexpr float EPS = 1e-12f;          // constraints._EPS
 
@@ -102,10 +115,10 @@ extern "C" {
 
 // The concatenated models of the joint dynamics (ops/cuda/sweep.py
 // _device_table): kind, state offset, control offset (flat, player-major)
-// and inter-axle length of each. A linear system is one subsystem over the
-// whole state reading every control row;
-// its nlin constant Jacobian entries (lin_u: of Bf, else of A; row, column,
-// value) are the plain linearize's values.
+// and parameter (a car's inter-axle length, a Dubins car's speed) of each.
+// A linear system is one subsystem over the whole state reading every
+// control row; its nlin constant Jacobian entries (lin_u: of Bf, else of
+// A; row, column, value) are the plain linearize's values.
 struct SubsysTable {
   int n;
   int kind[costs::MAX_SUBSYS];
@@ -132,8 +145,9 @@ struct SubsysTable {
 // s, aux = nominal. Extremal group header: group = its member count, right
 // = 1 for the minimum; its members follow it, with group = -1. Single-
 // dimension control constraint: on = j, dim[0], w = threshold, aux = +1
-// (keep below) or -1 (keep above), lam = its row of lamC. gated: a
-// final-time gate at tgate.
+// (keep below) or -1 (keep above), lam = its row of lamC. Quadratic
+// difference: dim[0..3] = its support d1[0], d1[1], d2[0], d2[1], w =
+// weight. gated: a final-time gate at tgate.
 struct CostAtom {
   int kind;
   int player;
@@ -508,6 +522,21 @@ __device__ __forceinline__ void semi_norm_grad(const CostAtom& a, const V& v,
   g2 = on ? ct * y + ct * y : 0.0f;
 }
 
+#if CT_DIFF
+// atoms.quadratic_difference's gradient: g[n] = p + p with p = (0.5 w) *
+// (v[d1[n]] - v[d2[n]]); its pairs are (d1[n], 0 + g[n]) and
+// (d2[n], 0 + -g[n]), the 0 the JAX package's scatter into zeros.
+template <typename V>
+__device__ __forceinline__ void qdiff_grad(const CostAtom& a, const V& v,
+                                           float g[2]) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const float p = (0.5f * a.w) * (v[a.dim[n]] - v[a.dim[2 + n]]);
+    g[n] = p + p;
+  }
+}
+#endif  // CT_DIFF
+
 #if CT_REACH
 struct SignedDist {
   float dx, dy, ssq;
@@ -778,6 +807,16 @@ __device__ __forceinline__ void gradient_sq_into(
       gs.add(a.dim[3], gv(-gy));
     }
 #endif
+#if CT_DIFF
+    else if (a.kind == KIND_QUAD_DIFF) {
+      float g[2];
+      qdiff_grad(a, v, g);
+      gs.add(a.dim[0], gv(0.0f + g[0]));
+      gs.add(a.dim[1], gv(0.0f + g[1]));
+      gs.add(a.dim[2], gv(0.0f + -g[0]));
+      gs.add(a.dim[3], gv(0.0f + -g[1]));
+    }
+#endif
   }
 #if CT_NORMS
   if (dense) {
@@ -882,6 +921,14 @@ __device__ void jacobian(const SubsysTable& tab, const float* x, Add add,
       add(false, o + 2, o + 4, fmath::tan(x[o + 3]) / L);
       add(true, o + 3, q + 0, 1.0f);
       add(true, o + 4, q + 1, 1.0f);
+    }
+#endif
+#if CT_DUBINS
+    else if (tab.kind[s] == KIND_DUBINS) {
+      const float speed = tab.length[s];
+      add(false, o + 0, o + 2, (-speed) * fmath::sin(x[o + 2]));
+      add(false, o + 1, o + 2, speed * fmath::cos(x[o + 2]));
+      add(true, o + 2, q + 0, 1.0f);
     }
 #endif
   }

@@ -2,8 +2,9 @@
 // with in-kernel merit K5 (sweep.cu) and by the probe rollout P2
 // (probes.cu): the joint ODE of the flagship's models, one RK4 step with 2
 // substeps, and the affine control law. K4 and K5 also run car_5d (the
-// reachability game's model) in `sub_ode`. Each repeats its plain PyTorch
-// version operation by operation (built with FMA contraction off).
+// reachability game's model) and dubins_car (dubins_origin's) in
+// `sub_ode`. Each repeats its plain PyTorch version operation by operation
+// (built with FMA contraction off).
 //
 // P2's one thread per chain takes the models from a table of subsystems
 // (kind, state offset, control offset, inter-axle length each): a
@@ -39,6 +40,7 @@ namespace rollout {
 using costs::KIND_CAR_5D;
 using costs::KIND_CAR_6D;
 using costs::KIND_LINEAR;
+using costs::KIND_DUBINS;
 using costs::KIND_UNICYCLE_4D;
 
 // The flagship's models are time-invariant: `t` is accepted for the
@@ -107,7 +109,10 @@ __device__ __forceinline__ void control_law(
 
 // State dimension of a model kind.
 template <int KIND>
-constexpr int kind_dim = KIND == KIND_CAR_6D ? 6 : KIND == KIND_CAR_5D ? 5 : 4;
+constexpr int kind_dim = KIND == KIND_CAR_6D   ? 6
+                        : KIND == KIND_CAR_5D ? 5
+                        : KIND == KIND_DUBINS ? 3
+                                              : 4;
 
 // The term list of a game with no linear system.
 struct NoLin {
@@ -161,7 +166,8 @@ template <int KIND, int D, int X, typename Lin, int O = 0, int Q = 0>
 __device__ __forceinline__ void sub_ode(float length, const float* x,
                                         const float* u, float* dx) {
   static_assert(KIND == KIND_CAR_6D || KIND == KIND_UNICYCLE_4D ||
-                    KIND == KIND_LINEAR || KIND == KIND_CAR_5D,
+                    KIND == KIND_LINEAR || KIND == KIND_CAR_5D ||
+                    KIND == KIND_DUBINS,
                 "no device ODE for this model kind");
   if constexpr (KIND == KIND_LINEAR) {
     // A row without terms is 0 (x * 0 with zero_start); the others fold
@@ -183,6 +189,11 @@ __device__ __forceinline__ void sub_ode(float length, const float* x,
     dx[2] = (x[4] / length) * fmath::tan(x[3]);
     dx[3] = u[0];
     dx[4] = u[1];
+  } else if constexpr (KIND == KIND_DUBINS) {
+    // `length` is the car's speed.
+    dx[0] = length * fmath::cos(x[2]);
+    dx[1] = length * fmath::sin(x[2]);
+    dx[2] = u[0];
   } else {
     dx[0] = x[3] * fmath::cos(x[2]);
     dx[1] = x[3] * fmath::sin(x[2]);

@@ -20,7 +20,9 @@
 // (dim, dim) and r the gradient, after the control costs, in the order of
 // al_quad_pairs) with their multipliers lamC, and the extremal gate
 // gate [N,P,B], which multiplies a MAX or MIN player's state terms before
-// the regularization (player_cost.quadraticize).
+// the regularization (player_cost.quadraticize). Built with CT_DIFF and
+// CT_DUBINS (costs.cuh), it takes quadratic_difference atoms and
+// dubins_car's Jacobian.
 //
 // The game's SubsysTable and CostTable live in this library's constant
 // memory (stage_set_tables), where every thread of a warp reads the same
@@ -260,6 +262,24 @@ __global__ void stage_kernel(const float* __restrict__ xs,
         gq(a.dim[1], gv(gy));
         gq(a.dim[2], gv(-gx));
         gq(a.dim[3], gv(-gy));
+      }
+#endif
+#if CT_DIFF
+      else if (a.kind == costs::KIND_QUAD_DIFF) {
+        // The Hessian over the support (d1[0], d1[1], d2[0], d2[1]): w on
+        // the diagonal, -w between d1[n] and d2[n], +0 elsewhere.
+        float g[2];
+        costs::qdiff_grad(a, x, g);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            hq(a.dim[r], a.dim[c],
+               gv(r == c ? a.w : ((r % 2 == c % 2) ? -a.w : 0.0f)));
+        gq(a.dim[0], gv(0.0f + g[0]));
+        gq(a.dim[1], gv(0.0f + g[1]));
+        gq(a.dim[2], gv(0.0f + -g[0]));
+        gq(a.dim[3], gv(0.0f + -g[1]));
       }
 #endif
     }

@@ -18,8 +18,8 @@
 // right and then over the knots in ascending k; it emits only the raw
 // merits [C, B]. Its fold is K6's and merit_plain's.
 //
-// Dynamics: car_6d, unicycle_4d and car_5d
-// (ilqgames_tpu/dynamics/models.py:80-175)
+// Dynamics: car_6d, unicycle_4d, car_5d and dubins_car
+// (ilqgames_tpu/dynamics/models.py:47-175)
 // and the constant-linear systems of the two-player point mass
 // (ilqgames_tpu/examples/two_player_point_mass.py:31-35; one subsystem that
 // both players drive) and of the flat systems
@@ -151,9 +151,10 @@ struct Sub {
 };
 
 // K4's and K5's launch bounds: a block of one warp per subsystem; with
-// SW_MIN_BLOCKS (ops/cuda/sweep.py:library, a layout with a car_5d), also
-// the least blocks per SM, which lifts ptxas's register target: without it
-// ptxas held the reachability game's K4 to 56 registers and spilled.
+// SW_MIN_BLOCKS (ops/cuda/sweep.py:library, a layout with a car_5d or a
+// dubins_car), also the least blocks per SM, which lifts ptxas's register
+// target: without it ptxas held the reachability game's K4 to 56
+// registers and dubins_origin's K5 to 48, and both spilled.
 #ifdef SW_MIN_BLOCKS
 #define SW_BOUNDS __launch_bounds__(WARP * NSUB, SW_MIN_BLOCKS)
 #else

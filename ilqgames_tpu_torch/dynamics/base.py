@@ -24,7 +24,8 @@ class SinglePlayerModel:
     """A single player's dynamics: xdot = ode(t, x_sub, u), with analytic
     sparse Jacobian entries `jac(t, x_sub, u) -> (jx, ju)`. `kind` and
     `length` select the model's device ODE in the rollout kernel
-    (None: the model has none)."""
+    (None: the model has none); `length` is its one parameter there (a
+    car's inter-axle length, a Dubins car's speed)."""
 
     name: str
     xdim: int

@@ -1,10 +1,13 @@
 """Dynamics models (counterpart of ilqgames_tpu/dynamics/models.py:
-`unicycle_4d` at :80, `car_5d` at :117 and `car_6d` at :146).
+`dubins_car` at :47, `unicycle_4d` at :80, `car_5d` at :117 and `car_6d`
+at :146).
 
 Each model has a continuous vector field `ode(t, x, u)` over tensors
 whose last axis is the state (or control) index, and analytic sparse
 Jacobian entries `jac` in the JAX package's form. `kind` and `length`
-name the model's device ODE for the rollout kernel (csrc/sweep.cu).
+name the model's device ODE for the rollout kernel (csrc/sweep.cu);
+`length` is the model's one parameter there (a car's inter-axle length,
+a Dubins car's speed).
 Trigonometry goes through `fmath`, which rounds the same on the CPU, in
 PyTorch on the card and in the kernel.
 """
@@ -22,6 +25,23 @@ KIND_CAR_6D = 0
 KIND_UNICYCLE_4D = 1
 KIND_LINEAR = 2
 KIND_CAR_5D = 3
+KIND_DUBINS = 4
+
+
+def dubins_car(speed: float) -> SinglePlayerModel:
+    """[px py theta] / [omega] at fixed speed."""
+
+    def ode(t, x, u):
+        return torch.stack([speed * fmath.cos(x[..., 2]),
+                            speed * fmath.sin(x[..., 2]), u[..., 0]], dim=-1)
+
+    def jac(t, x, u):
+        return ([((0, 2), -speed * fmath.sin(x[..., 2])),
+                 ((1, 2), speed * fmath.cos(x[..., 2]))],
+                [((2, 0), 1.0)])
+
+    return SinglePlayerModel("dubins_car", 3, 1, ode, position_dims=(0, 1),
+                             jac=jac, kind=KIND_DUBINS, length=speed)
 
 
 def unicycle_4d() -> SinglePlayerModel:

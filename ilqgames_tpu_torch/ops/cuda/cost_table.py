@@ -17,7 +17,8 @@ built with CT_NORMS=1 (`has_norms`); the stage kernel K1 refuses them.
 The reachability games' features (`has_reach`: the signed-distance atom,
 an extremal group of atoms, a control constraint, a MAX or MIN player)
 are compiled into K1, K5 and K6 only with CT_REACH=1, so that the other
-games' kernels are the same code.
+games' kernels are the same code; so is the quadratic_difference atom,
+with CT_DIFF=1 (`has_diff`).
 
 An extremal group (atoms.extreme_value) is a header atom (kind
 "extreme", `group` its member count, `right` 1 for the minimum) followed
@@ -41,7 +42,8 @@ MAX_PLAYERS = 8
 KIND = {"quadratic": 0, "polyline": 1, "proximity": 2,
         "semiquadratic_polyline": 3, "proximity_cost": 4,
         "quadratic_norm": 5, "semiquadratic_norm": 6,
-        "signed_distance": 7, "extreme": 8, "single_dimension": 9}
+        "signed_distance": 7, "extreme": 8, "single_dimension": 9,
+        "quadratic_difference": 10}
 NORM_KINDS = ("quadratic_norm", "semiquadratic_norm")
 REACH_KINDS = ("signed_distance", "extreme")
 
@@ -178,6 +180,9 @@ def _build(player_costs, spec: GameSpec):
             a.w, a.aux = prm["sign"], prm["nominal"]
         elif kind == "extreme":
             a.right = int(prm["is_min"])
+        elif kind == "quadratic_difference":
+            a.dim[:] = list(prm["dims"])
+            a.w = prm["weight"]
         elif kind == "single_dimension":
             a.dim[0], a.w, a.lam = prm["dim"], prm["threshold"], lam
             a.aux = 1.0 if prm["keep_below"] else -1.0
@@ -200,6 +205,13 @@ def has_reach(player_costs) -> bool:
                or any(c.device is not None and c.device[0] in REACH_KINDS
                       for c in pc.state_costs)
                for pc in player_costs)
+
+
+def has_diff(player_costs) -> bool:
+    """Whether a game's table holds a quadratic_difference atom: its K1,
+    K5 and K6 are then built with it (CT_DIFF=1)."""
+    return any(c.device is not None and c.device[0] == "quadratic_difference"
+               for pc in player_costs for c in pc.state_costs)
 
 
 def has_norms(player_costs) -> bool:

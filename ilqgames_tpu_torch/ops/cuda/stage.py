@@ -17,30 +17,46 @@ import torch
 
 from ilqgames_tpu_torch.costs import player_cost as pcost
 from ilqgames_tpu_torch.dynamics import base as dyn_base
-from ilqgames_tpu_torch.dynamics.models import KIND_CAR_5D
+from ilqgames_tpu_torch.dynamics.models import KIND_CAR_5D, KIND_DUBINS
 from ilqgames_tpu_torch.ops.cuda import build, lq
-from ilqgames_tpu_torch.ops.cuda.cost_table import cost_table, has_norms
+from ilqgames_tpu_torch.ops.cuda.cost_table import cost_table, has_diff, \
+    has_norms
 from ilqgames_tpu_torch.ops.cuda.layout import mb
 from ilqgames_tpu_torch.ops.cuda.sweep import _device_table, \
     _reach_operands, merit_operands
 from ilqgames_tpu_torch.types import GameSpec, OperatingPoint
 
 
-def library(spec: GameSpec, reach: bool = False):
+def library(spec: GameSpec, reach: bool = False, diff: bool = False,
+            dubins: bool = False):
     """(source name, defines) of csrc/stage.cu for this game's dims; with
     `reach` (`cost_table.has_reach`), built with the reachability games'
-    atoms, control constraints and extremal gates (CT_REACH=1)."""
+    atoms, control constraints and extremal gates (CT_REACH=1); with
+    `diff` (`cost_table.has_diff`), with the quadratic_difference atom
+    (CT_DIFF=1); with `dubins` (`has_dubins`), with dubins_car's Jacobian
+    (CT_DUBINS=1)."""
     defines = {"ST_X": spec.xdim, "ST_P": spec.num_players,
                "ST_U": spec.umax}
     if reach:
         defines["CT_REACH"] = 1
+    if diff:
+        defines["CT_DIFF"] = 1
+    if dubins:
+        defines["CT_DUBINS"] = 1
     return "stage", defines
 
 
+def has_dubins(dyn) -> bool:
+    """Whether the dynamics hold a dubins_car, whose Jacobian K1 has only
+    in a library built with it."""
+    return any(m.kind == KIND_DUBINS for m in dyn.models)
+
+
 @functools.lru_cache(maxsize=None)
-def load_kernels(spec: GameSpec, reach: bool = False) -> ctypes.CDLL:
+def load_kernels(spec: GameSpec, reach: bool = False, diff: bool = False,
+                 dubins: bool = False) -> ctypes.CDLL:
     """Build (once per shape) and load csrc/stage.cu for this game's dims."""
-    lib = build.load(*library(spec, reach))
+    lib = build.load(*library(spec, reach, diff, dubins))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.stage_lin_quad.argtypes = ([P, P, P, P, I, P, I, P, P, P] + [P] * 6
                                    + [I, I, F, P])
@@ -152,7 +168,7 @@ def lin_quad(dyn, player_costs, spec: GameSpec, op_bm: dict, lamS, lamC,
             "K1 has car_5d's Jacobian only in a library built with the "
             "reachability games' features (CT_REACH)")
     costs, segs = cost_table(player_costs, spec, dev)
-    lib = load_kernels(spec, reach)
+    lib = load_kernels(spec, reach, has_diff(player_costs), has_dubins(dyn))
     stream = build.stream(dev)
     _set_tables(lib, (_subsys_table(dyn, spec), costs), stream, dev)
     out = {k: torch.empty(s, dtype=torch.float32, device=dev)

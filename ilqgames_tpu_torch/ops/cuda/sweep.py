@@ -41,9 +41,9 @@ from ilqgames_tpu_torch.costs import player_cost as pcost
 from ilqgames_tpu_torch.dynamics import base as dyn_base
 from ilqgames_tpu_torch.ops.cuda import build
 from ilqgames_tpu_torch.ops.cuda.cost_table import CostTable, cost_table, \
-    has_norms, has_reach
+    has_diff, has_norms, has_reach
 from ilqgames_tpu_torch.dynamics.models import KIND_CAR_5D, KIND_CAR_6D, \
-    KIND_LINEAR, KIND_UNICYCLE_4D
+    KIND_DUBINS, KIND_LINEAR, KIND_UNICYCLE_4D
 from ilqgames_tpu_torch.ops.cuda.layout import bm, mb, pad_batch
 from ilqgames_tpu_torch.types import GameSpec, OperatingPoint, Strategy, \
     const_tensor
@@ -150,7 +150,8 @@ def _hexf(v: float) -> str:
     return f"{float(ctypes.c_float(v).value).hex()}f"
 
 
-def library(dyn, spec: GameSpec, norms: bool = False, reach: bool = False):
+def library(dyn, spec: GameSpec, norms: bool = False, reach: bool = False,
+            diff: bool = False):
     """(source name, defines) of csrc/sweep.cu (K4, K5) for this game: its
     dims, and its layout of subsystems from `_device_table`'s data (so a
     model with no device ODE raises): the count SW_NSUB and, per field, a
@@ -160,12 +161,15 @@ def library(dyn, spec: GameSpec, norms: bool = False, reach: bool = False):
     rows. A linear system adds its terms, in row order: SW_NLIN, and per
     term its row, its source (a state index, or X plus a flat control row)
     and its coefficient, and SW_LIN_ZERO, whether its rows fold from
-    x * 0. A layout with a car_5d adds SW_MIN_BLOCKS=1 (K4's and K5's
-    launch bounds ask for one block per SM at the least: ptxas's default
-    register target spilled them). With `norms` (a game whose costs hold
-    a norm atom), K5 is built with those atoms (CT_NORMS=1); with `reach`
+    x * 0. A layout with a car_5d or a dubins_car adds SW_MIN_BLOCKS=1
+    (K4's and K5's launch bounds ask for one block per SM at the least:
+    ptxas's default register target spilled them). With `norms` (a game
+    whose costs hold a norm atom), K5 is built with those atoms
+    (CT_NORMS=1); with `reach`
     (`cost_table.has_reach`), with the reachability games' atoms, control
-    constraints and extremal gates (CT_REACH=1).
+    constraints and extremal gates (CT_REACH=1); with `diff`
+    (`cost_table.has_diff`), with the quadratic_difference atom
+    (CT_DIFF=1).
 
     Warp s computes the control rows from SW_SUB_UOFF[s] on (its player's
     for a model or a flat system's block, every player's for a linear
@@ -194,7 +198,8 @@ def library(dyn, spec: GameSpec, norms: bool = False, reach: bool = False):
                 "do, and it needs exactly one")
     items = lambda vals: "".join(f"SW_ITEM({v})" for v in vals)
     kinds = set(tab.kind[:n])
-    if not kinds <= {KIND_CAR_6D, KIND_UNICYCLE_4D, KIND_LINEAR, KIND_CAR_5D}:
+    if not kinds <= {KIND_CAR_6D, KIND_UNICYCLE_4D, KIND_LINEAR, KIND_CAR_5D,
+                     KIND_DUBINS}:
         raise NotImplementedError(f"model kinds {sorted(kinds)}")
     defines = {
         "SW_X": spec.xdim, "SW_PU": spec.num_players * spec.umax,
@@ -213,34 +218,41 @@ def library(dyn, spec: GameSpec, norms: bool = False, reach: bool = False):
             SW_LIN_SRC=items(t[1] for t in terms),
             SW_LIN_COEF=items(_hexf(t[2]) for t in terms),
             SW_LIN_ZERO=int(dyn.linear_zero_start))
-    if KIND_CAR_5D in kinds:
-        # ptxas's default register target spilled the car_5d warps' K4.
+    if kinds & {KIND_CAR_5D, KIND_DUBINS}:
+        # ptxas's default register target spilled the car_5d warps' K4 and
+        # the dubins_car warps' K5.
         defines["SW_MIN_BLOCKS"] = 1
     if norms:
         defines["CT_NORMS"] = 1
     if reach:
         defines["CT_REACH"] = 1
+    if diff:
+        defines["CT_DIFF"] = 1
     return "sweep", defines
 
 
-def merit_library(spec: GameSpec, norms: bool = False, reach: bool = False):
+def merit_library(spec: GameSpec, norms: bool = False, reach: bool = False,
+                  diff: bool = False):
     """(source name, defines) of csrc/merit.cu (K6); with `norms`, built
     with the norm atoms (CT_NORMS=1), with `reach`, with the reachability
-    games' features (CT_REACH=1)."""
+    games' features (CT_REACH=1), with `diff`, with the
+    quadratic_difference atom (CT_DIFF=1)."""
     defines = {"MR_X": spec.xdim, "MR_P": spec.num_players,
                "MR_U": spec.umax}
     if norms:
         defines["CT_NORMS"] = 1
     if reach:
         defines["CT_REACH"] = 1
+    if diff:
+        defines["CT_DIFF"] = 1
     return "merit", defines
 
 
 @functools.lru_cache(maxsize=None)
 def load_kernels(dyn, spec: GameSpec, norms: bool = False,
-                 reach: bool = False) -> ctypes.CDLL:
+                 reach: bool = False, diff: bool = False) -> ctypes.CDLL:
     """Build (once per game) and load csrc/sweep.cu (K4, K5)."""
-    lib = build.load(*library(dyn, spec, norms, reach))
+    lib = build.load(*library(dyn, spec, norms, reach, diff))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sweep_rollout.argtypes = ([P] * 9 + [I] * 3 + [F, F, I, _SubsysTable,
                                                        P])
@@ -254,9 +266,9 @@ def load_kernels(dyn, spec: GameSpec, norms: bool = False,
 
 @functools.lru_cache(maxsize=None)
 def load_merit_kernel(spec: GameSpec, norms: bool = False,
-                      reach: bool = False) -> ctypes.CDLL:
+                      reach: bool = False, diff: bool = False) -> ctypes.CDLL:
     """Build (once per shape) and load csrc/merit.cu (K6)."""
-    lib = build.load(*merit_library(spec, norms, reach))
+    lib = build.load(*merit_library(spec, norms, reach, diff))
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.merit_consumer.argtypes = ([P] * 4 + [I, P, I] + [P] * 4 + [I] * 3
                                    + [ctypes.c_float, CostTable, P])
@@ -391,7 +403,8 @@ def rollout_merits(dyn, player_costs, spec: GameSpec, x0m, op_bm: dict,
     reach, (lamc_p, nC, gate_p) = _reach_operands(player_costs, lamC, gate)
     tab = _device_table(dyn, spec)
     costs, segs = cost_table(player_costs, spec, dev)
-    lib = load_kernels(dyn, spec, has_norms(player_costs), reach)
+    lib = load_kernels(dyn, spec, has_norms(player_costs), reach,
+                       has_diff(player_costs))
     merits = torch.empty((C, B), dtype=torch.float32, device=dev)
     umask = sum(1 << af for af, m in enumerate(_umask_flat(spec)) if m)
     rc = lib.sweep_rollout_merit(
@@ -522,7 +535,8 @@ def consumer_merits(player_costs, spec: GameSpec, xs_cand, us_cand, t0_bm,
                            lamC, mu, gate)
     reach, (lamc_p, nC, gate_p) = _reach_operands(player_costs, lamC, gate)
     costs, segs = cost_table(player_costs, spec, dev)
-    lib = load_merit_kernel(spec, has_norms(player_costs), reach)
+    lib = load_merit_kernel(spec, has_norms(player_costs), reach,
+                            has_diff(player_costs))
     merits = torch.empty((C, B), dtype=torch.float32, device=dev)
     rc = lib.merit_consumer(
         xs_cand.data_ptr(), us_cand.data_ptr(), t0_bm.data_ptr(),

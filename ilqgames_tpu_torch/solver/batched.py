@@ -24,8 +24,13 @@ package. A game with MAX or MIN players carries each lane's extreme knots
 (`extreme_ks`, from `pcost.total_costs`, evaluated again on the selected
 operating point every trip) and gates those players' state terms with
 them in the stage and the merits; a game of SUM players makes no gate and
-skips that evaluation, as the JAX package's `_all_sum` does. Only
-feedback Nash is ported; open loop raises.
+skips that evaluation, as the JAX package's `_all_sum` does.
+
+With `params.open_loop` the trip solves each lane's open-loop Nash LQ
+game (K7, solver/lq_open_loop.py) where the feedback path runs K2/K3;
+its stages stay unfused, as in the JAX package, and everything after the
+LQ solve (expected decrease, linesearch, reroll) is the feedback path's:
+the open-loop strategies are affine laws with P == 0.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from ilqgames_tpu_torch.solver import ilq
 from ilqgames_tpu_torch.solver.al import ALResult, constraint_violations, \
     max_constraint_violation
 from ilqgames_tpu_torch.solver.fused import _FusedCarry
+from ilqgames_tpu_torch.solver.lq_open_loop import solve_lq_open_loop
 from ilqgames_tpu_torch.solver.params import SolverParams
 from ilqgames_tpu_torch.types import OperatingPoint, QuadraticCosts, \
     Strategy, tree_leaves, tree_map
@@ -74,7 +80,8 @@ def _bwhere(mask, a, b):
 def _resolve_fuse_for(params: SolverParams, fuse_stages, dyn) -> bool:
     """fuse_stages None -> True (the JAX package's default); False for
     dynamics without analytic Jacobians, which K1 needs, and for open
-    loop (which the port does not run yet)."""
+    loop (the fused stage feeds the feedback LQ kernels only, as in the
+    JAX package)."""
     fs = True if fuse_stages is None else bool(fuse_stages)
     if params.open_loop or dyn.ode_jac is None:
         return False
@@ -118,11 +125,6 @@ def _expected_decrease_bm(spec, ops: dict, al_r, dxs):
     return -control - state
 
 
-def _check_supported(params: SolverParams):
-    if params.open_loop:
-        raise NotImplementedError("open-loop Nash is not ported yet")
-
-
 def iteration_step_batched(dyn, player_costs, spec, params, x0, al_state, c,
                            *, active=None, batch_block=128, stats=None,
                            fuse_stages=False, merit_backend="xla"):
@@ -130,8 +132,13 @@ def iteration_step_batched(dyn, player_costs, spec, params, x0, al_state, c,
     ilq.iteration_step). `active` ([Bt] bool) marks lanes whose results the
     caller keeps; lanes outside it cannot force deep-ladder rounds.
     `fuse_stages`: linearize and quadraticize through K1 from (c.op,
-    al_state) and keep the operands batch-minor; `c.quad` is not read."""
-    _check_supported(params)
+    al_state) and keep the operands batch-minor; `c.quad` is not read.
+    Open loop (`params.open_loop`) takes unfused stages only, as in the
+    JAX package."""
+    if params.open_loop and fuse_stages:
+        raise ValueError(
+            "fuse_stages supports feedback LQ only; open-loop problems run "
+            "the open-loop LQ kernel on unfused stages (fuse_stages=False)")
     Bt = x0.shape[0]
     dev = x0.device
     last_op = c.op
@@ -193,10 +200,14 @@ def iteration_step_batched(dyn, player_costs, spec, params, x0, al_state, c,
         quad_of = lambda op: _empty_quad(Bt, dev)
     else:
         lin = dyn_base.linearize(dyn, spec, c.op)
-        lqsol = lq.solve_lq_feedback(
-            spec, lin, c.quad, x0 - c.op.xs[:, 0],
-            adaptive_regularization=params.adaptive_regularization,
-            batch_block=batch_block)
+        if params.open_loop:
+            lqsol = solve_lq_open_loop(spec, lin, c.quad, x0 - c.op.xs[:, 0],
+                                       batch_block=batch_block)
+        else:
+            lqsol = lq.solve_lq_feedback(
+                spec, lin, c.quad, x0 - c.op.xs[:, 0],
+                adaptive_regularization=params.adaptive_regularization,
+                batch_block=batch_block)
         expected_decrease = ilq._expected_decrease(
             spec, c.quad, lqsol.strategy.alphas, lqsol.delta_xs)
         lq_strategy = lqsol.strategy
@@ -480,7 +491,6 @@ def _driver_parts(dyn, player_costs, spec, params, batch_block,
     package's `_driver_parts`; a game without constraints has max
     violation -inf and converges when its last iteration did without
     failing."""
-    _check_supported(params)
     constrained = pcost.is_constrained(player_costs)
     one_trip = _trip_batched if constrained else _trip_unconstrained
 

@@ -48,7 +48,7 @@ def test_kernel_wrappers_share_one_stream_helper():
     """Every kernel wrapper passes its C function the current stream's raw
     handle from `build.stream`; none builds a Stream object at launch."""
     cuda = REPO / "ilqgames_tpu_torch" / "ops" / "cuda"
-    for name in ("lq", "sweep", "stage", "probes"):
+    for name in ("lq", "sweep", "stage", "probes", "lq_open_loop"):
         src = (cuda / f"{name}.py").read_text()
         assert "current_stream" not in src, name
         assert "build.stream(dev)" in src, name
@@ -65,7 +65,8 @@ def test_unconstrained_games_import_no_jax():
         "semiquadratic_polyline2\n"
         "from ilqgames_tpu_torch.dynamics.base import linear\n"
         "from ilqgames_tpu_torch import bench\n"
-        "assert sorted(bench.CONFIGS) == [1, 2, 4, 5]\n"
+        "assert sorted(map(str, bench.CONFIGS)) == "
+        "['1', '2', '4', '5', 'dubins_fb', 'dubins_ol']\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
         "print(bad)\n")
@@ -111,6 +112,33 @@ def test_reachability_game_imports_no_jax():
         "from ilqgames_tpu_torch.runtime import receding_horizon\n"
         "from ilqgames_tpu_torch import bench\n"
         "assert bench.CONFIGS[5]['make'] is reachability.make_problem\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_open_loop_pieces_import_no_jax():
+    """dubins_car, quadratic_difference, dubins_origin, the open-loop LQ
+    solve and its kernel's wrapper, the Nash oracles and the dubins bench
+    configs pull in no JAX."""
+    script = (
+        "import sys\n"
+        "from ilqgames_tpu_torch.dynamics.models import dubins_car\n"
+        "from ilqgames_tpu_torch.costs.atoms import quadratic_difference\n"
+        "from ilqgames_tpu_torch.examples import dubins_origin\n"
+        "from ilqgames_tpu_torch.solver.lq_open_loop import "
+        "solve_lq_open_loop\n"
+        "from ilqgames_tpu_torch.ops.cuda import lq_open_loop\n"
+        "from ilqgames_tpu_torch.utils.check_nash import "
+        "numerical_check_local_nash\n"
+        "from ilqgames_tpu_torch import bench\n"
+        "assert bench.CONFIGS['dubins_ol']['make'] is "
+        "dubins_origin.make_problem\n"
+        "assert bench.KERNELS['K7'] is lq_open_loop.lq_open_loop\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
         "print(bad)\n")

@@ -50,7 +50,7 @@ def _k4_operands(C, B, N=5):
 def test_first_launches_spies_on_every_wrapper_and_restores_it():
     cs = _chip_smoke()
     before = _wrappers(cs)
-    assert set(before) == {"K1", "K2", "K3", "K4", "K5", "K6"}
+    assert set(before) == {"K1", "K2", "K3", "K4", "K5", "K6", "K7"}
     with cs._FirstLaunches():
         during = _wrappers(cs)
         assert all(during[k] is not before[k] for k in before)
@@ -159,3 +159,53 @@ def test_only_the_rollouts_are_held_on_a_prefix():
     cs = _chip_smoke()
     assert cs.PREFIX_KERNELS == ("K4", "K5")
     assert cs.HOLD_DEPTH < 100
+
+
+def test_k7_launches_are_keyed_and_bounded():
+    """K7 (the open-loop LQ sweep) is spied on through its module's name,
+    which the open-loop solve calls it by; its launches are keyed by B,
+    and bounded by what it reads (Qf and lf at every knot, A, Bf, Rf and
+    rf but at the last, dx0) and writes (alphas, dxs), each once."""
+    from ilqgames_tpu_torch.examples import dubins_origin
+    from ilqgames_tpu_torch.ops.cuda import lq, lq_open_loop
+    from ilqgames_tpu_torch.solver import lq_open_loop as solver
+    from ilqgames_tpu_torch.types import LinearDynamics, QuadraticCosts
+
+    cs = _chip_smoke()
+    spec = dubins_origin.make_problem(num_time_steps=5).spec
+    N, P, x, u, Bt = 5, 2, 6, 1, 3
+    rng = np.random.RandomState(1)
+    t = lambda *s: torch.tensor(rng.standard_normal(s), dtype=torch.float32)
+    lin = LinearDynamics(A=t(Bt, N, x, x), Bs=t(Bt, N, P, x, u))
+    spd = torch.eye(x).expand(Bt, N, P, x, x).contiguous()
+    quad = QuadraticCosts(Q=spd, l=t(Bt, N, P, x),
+                          R=torch.eye(u).expand(Bt, N, P, P, u, u) + 0.0,
+                          r=t(Bt, N, P, P, u))
+
+    def stand_in(spec, ops, dx0):
+        stand_in.launches += 1
+        return lq_open_loop.lq_open_loop_plain(spec, ops, dx0)
+
+    stand_in.launches = 0
+    spy = cs._FirstLaunches()
+    saved = lq_open_loop.lq_open_loop
+    lq_open_loop.lq_open_loop = spy._spy(
+        "K7", stand_in, inspect.signature(saved))
+    try:
+        sol = solver.solve_lq_open_loop(spec, lin, quad, t(Bt, x),
+                                        batch_block=4)
+    finally:
+        lq_open_loop.lq_open_loop = saved
+    assert dict(spy.tally) == {("K7", "B=4"): 1}
+    kept = spy.seen[("K7", "B=4")]
+    out = lq_open_loop.lq_open_loop_plain(**kept)
+    assert torch.equal(out[0][:, :, :Bt].permute(2, 0, 1).reshape(
+        Bt, N - 1, P, u), sol.strategy.alphas[:, :-1])
+    B, Pu = 4, P * u
+    ops = lq.lq_operands(spec, lin, quad, 4)
+    assert set(kept["ops"]) == set(ops)
+    want = 4 * B * (N * P * x * x + N * P * x + (N - 1) * (
+        x * x + x * Pu + P * P * u * u + P * P * u) + x
+        + (N - 1) * Pu + N * x)
+    assert cs._launch_bytes("K7", kept, list(out)) == want
+
