@@ -150,31 +150,38 @@ def lq_open_loop_plain(spec: GameSpec, ops: dict, dx0: torch.Tensor):
     return alphas, torch.stack(dxs)
 
 
-def lq_open_loop(spec: GameSpec, ops: dict, dx0: torch.Tensor):
-    """K7: (alphas [N-1, Pu, B], dxs [N, x, B]) from K2's batch-minor
-    operand dict and dx0 [x, B]. CUDA tensors launch
-    csrc/lq_open_loop.cu; CPU tensors take `lq_open_loop_plain`."""
+def _run(fn, spec: GameSpec, ops: dict, dx0: torch.Tensor, *extra):
+    """Launch K7's C function `fn` on checked CUDA operands, with `extra`
+    arguments before the stream: (alphas, dxs)."""
     N, x = spec.num_time_steps, spec.xdim
     Pu = spec.num_players * spec.umax
     B = dx0.shape[-1]
-    shapes = _op_shapes(spec, B)
-    dev = build.check_operands([(k, ops[k], shapes[k]) for k in shapes]
-                               + [("dx0", dx0, (x, B))])
-    if dev.type == "cpu":
-        return lq_open_loop_plain(spec, ops, dx0)
-    lib = load_kernels(spec)
+    dev = dx0.device
     F = cache_floats(spec)
     al = torch.empty((N - 1, Pu, B), dtype=torch.float32, device=dev)
     dxs = torch.empty((N, x, B), dtype=torch.float32, device=dev)
     cache = torch.empty((N - 1, F, B), dtype=torch.float32, device=dev)
     pad_mask = sum(1 << af for af in _pad_rows(spec))
     args = [ops[k].data_ptr() for k in ("A", "Bf", "Qf", "lf", "Rf", "rf")]
-    rc = lib.lq_open_loop(*args, dx0.data_ptr(), al.data_ptr(),
-                          dxs.data_ptr(), cache.data_ptr(), F, N, B,
-                          pad_mask, build.stream(dev))
+    rc = fn(*args, dx0.data_ptr(), al.data_ptr(), dxs.data_ptr(),
+            cache.data_ptr(), F, N, B, pad_mask, *extra, build.stream(dev))
     build.check(rc, "lq_open_loop")
-    lq_open_loop.launches += 1
     return al, dxs
+
+
+def lq_open_loop(spec: GameSpec, ops: dict, dx0: torch.Tensor):
+    """K7: (alphas [N-1, Pu, B], dxs [N, x, B]) from K2's batch-minor
+    operand dict and dx0 [x, B]. CUDA tensors launch
+    csrc/lq_open_loop.cu; CPU tensors take `lq_open_loop_plain`."""
+    B = dx0.shape[-1]
+    shapes = _op_shapes(spec, B)
+    dev = build.check_operands([(k, ops[k], shapes[k]) for k in shapes]
+                               + [("dx0", dx0, (spec.xdim, B))])
+    if dev.type == "cpu":
+        return lq_open_loop_plain(spec, ops, dx0)
+    out = _run(load_kernels(spec).lq_open_loop, spec, ops, dx0)
+    lq_open_loop.launches += 1
+    return out
 
 
 lq_open_loop.launches = 0
