@@ -130,7 +130,8 @@ Phases:
    cars, x=6, 2 players x 1 control, N=100), in both information
    patterns: open loop on unfused stages through K7, feedback fused:
    (a) its libraries (K1 with CT_DIFF and CT_DUBINS, K5 and K6 with
-   CT_DIFF, K7), one nvcc each, all at once, and their ptxas reports;
+   CT_DIFF, K7, and K7 at the flagship's dims too), one nvcc each, all at
+   once, and their ptxas reports (K7's two block sizes, G = 8 and 1);
    (b) the reference exec main's golden runs (`bench.run_golden`: the
    nominal x0 in a block of 8, no linesearch, 1000 iterations) in both
    patterns against tests/golden/dubins_origin_{open_loop,feedback}.txt
@@ -1574,19 +1575,22 @@ def phase11(dev):
     import torch
 
     from ilqgames_tpu_torch import bench
-    from ilqgames_tpu_torch.ops.cuda import build, sweep
+    from ilqgames_tpu_torch.examples import three_player_intersection
+    from ilqgames_tpu_torch.ops.cuda import build, lq_open_loop, sweep
 
     p = bench.CONFIGS["dubins_ol"]["make"]()
     dyn, spec, costs = p.dynamics, p.spec, p.player_costs
 
     # (a) its libraries (K1 with CT_DIFF and CT_DUBINS, K5 and K6 with
-    # CT_DIFF, K7), one nvcc each.
+    # CT_DIFF, K7, and K7 at the flagship's dims), one nvcc each.
     t0 = time.perf_counter()
     libs = bench.kernel_libraries(dyn, spec, costs, open_loop=True)
-    build.compile_all(libs)
+    k7_flagship = lq_open_loop.library(
+        three_player_intersection.make_problem().spec)
+    build.compile_all(libs + [k7_flagship])
     bench.build_kernels(dyn, spec, costs, open_loop=True)
     print(f"# phase 11 build: {time.perf_counter() - t0:.1f} s (concurrent "
-          f"nvcc: {len(libs)} libraries)", flush=True)
+          f"nvcc: {len(libs) + 1} libraries)", flush=True)
     for label, lib, kern, stack_ok in (
             ("K1", libs[0], "stage_kernel", True),
             ("K2", libs[1], "lq_backward_kernel", False),
@@ -1594,8 +1598,12 @@ def phase11(dev):
             ("K6", libs[2], "merit_kernel", False),
             ("K4", libs[3], "rollout_warp_kernel", False),
             ("K5", libs[4], "rollout_merit_warp_kernel", True),
-            ("K7", libs[5], "lq_open_loop_kernel", False)):
+            ("K7 G=8", libs[5], "lq_open_loop_kernelILi8E", False),
+            ("K7 G=1", libs[5], "lq_open_loop_kernelILi1E", False)):
         _ptxas(f"{label} (dubins_origin)", lib, kern, stack_ok)
+    for g in (8, 1):
+        _ptxas(f"K7 G={g} (the flagship's dims)", k7_flagship,
+               f"lq_open_loop_kernelILi{g}E")
 
     # (b) the golden runs, K7 held at their shape.
     kernels, golden = [], {}

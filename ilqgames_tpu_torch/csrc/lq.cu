@@ -201,31 +201,6 @@ __device__ __forceinline__ float add2(float a, float q, float p) {
   return (a + q) + p;
 }
 
-// Stage n floats per lane of the batch-minor array src, from element base,
-// into each lane's region at off, with loads and stores or, ASYNC, with
-// cp.async copies. Consecutive threads read consecutive lanes; lanes past
-// B read the last lane.
-template <bool ASYNC>
-__device__ __forceinline__ void stage(float* sm, int off,
-                                      const float* __restrict__ src,
-                                      long base, int n, int b0, int B,
-                                      int tid) {
-  const long Bl = B;
-  for (int idx = tid; idx < n * G; idx += NTB) {
-    const int e = idx / G, g = idx % G;
-    const int b = min(b0 + g, B - 1);
-    float* dst = sm + g * LANE + off + e;
-    const float* from = src + (base + e) * Bl + b;
-    if constexpr (ASYNC) {
-      const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-                   "l"(from));
-    } else {
-      *dst = *from;
-    }
-  }
-}
-
 // Stage knot s's operands into buffer buf of every lane by cp.async, as
 // one commit group.
 __device__ __forceinline__ void stage_knot(
@@ -234,13 +209,14 @@ __device__ __forceinline__ void stage_knot(
     const float* __restrict__ lf, const float* __restrict__ Rf,
     const float* __restrict__ rf, int s, int b0, int B, int tid) {
   const int o = OFF_S + buf * STAGED;
-  stage<true>(sm, o + S_Q, Qf, (long)s * PX * X, PX * X, b0, B, tid);
-  stage<true>(sm, o + S_A, A, (long)s * X * X, X * X, b0, B, tid);
-  stage<true>(sm, o + S_B, Bf, (long)s * X * PU, X * PU, b0, B, tid);
-  stage<true>(sm, o + S_L, lf, (long)s * PX, PX, b0, B, tid);
-  stage<true>(sm, o + S_R, Rf, (long)s * PPU * U, PPU * U, b0, B, tid);
-  stage<true>(sm, o + S_RV, rf, (long)s * PPU, PPU, b0, B, tid);
-  asm volatile("cp.async.commit_group;\n" ::);
+  const long sx = (long)s * X, spx = (long)s * PX, spp = (long)s * PPU;
+  stage<true, G, LANE, PX * X>(sm, o + S_Q, Qf, spx * X, b0, B, tid);
+  stage<true, G, LANE, X * X>(sm, o + S_A, A, sx * X, b0, B, tid);
+  stage<true, G, LANE, X * PU>(sm, o + S_B, Bf, sx * PU, b0, B, tid);
+  stage<true, G, LANE, PX>(sm, o + S_L, lf, spx, b0, B, tid);
+  stage<true, G, LANE, PPU * U>(sm, o + S_R, Rf, spp * U, b0, B, tid);
+  stage<true, G, LANE, PPU>(sm, o + S_RV, rf, spp, b0, B, tid);
+  cp_async_commit();
 }
 
 // Write knot s's [P | alpha] of the block's lanes below B, coalesced.
@@ -306,8 +282,10 @@ __global__ void K2_BOUNDS lq_backward_kernel(
   };
 
   // Terminal condition: the last knot's quadraticization.
-  stage<false>(sm, OFF_Z, Qf, (long)(N - 1) * PX * X, PX * X, b0, B, tid);
-  stage<false>(sm, OFF_ZETA, lf, (long)(N - 1) * PX, PX, b0, B, tid);
+  stage<false, G, LANE, PX * X>(sm, OFF_Z, Qf, (long)(N - 1) * PX * X, b0,
+                                B, tid);
+  stage<false, G, LANE, PX>(sm, OFF_ZETA, lf, (long)(N - 1) * PX, b0, B,
+                            tid);
   if (N >= 2)
     stage_knot(sm, 0, A, Bf, Qf, lf, Rf, rf, N - 2, b0, B, tid);
 
@@ -317,9 +295,9 @@ __global__ void K2_BOUNDS lq_backward_kernel(
     if (s < N - 2) store_knot(sm, Ps, al, s + 1, b0, B, tid);
     if (s > 0) {  // knot s - 1 into the buffer knot s + 1 left
       stage_knot(sm, cur ^ 1, A, Bf, Qf, lf, Rf, rf, s - 1, b0, B, tid);
-      asm volatile("cp.async.wait_group 1;\n" ::);
+      cp_async_wait<1>();
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+      cp_async_wait<0>();
     }
     __syncthreads();
     const float* St = L + OFF_S + cur * STAGED;
@@ -591,17 +569,6 @@ static_assert(FWD_SMEM <= MAX_SMEM, "a block may use 227 KB of shared memory");
 static_assert(FWD_SMEM == LQ_FWD_SMEM,
               "ops/cuda/lq.py:forward_smem_bytes disagrees with the layout");
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
-}
-
 // Copy knot k's A, Bf and alpha of lanes b0 .. b0 + FG - 1 into `buf` by
 // cp.async, V lanes a copy. Consecutive threads take consecutive lanes, so
 // that the FG lanes of one element are one 64-byte read; lanes past B read
@@ -649,7 +616,7 @@ __device__ __forceinline__ void fwd_stage(float* buf,
     fwd_copy<FV>(buf, A, Bf, al, k, b0, B, tid);
   else
     fwd_copy<1>(buf, A, Bf, al, k, b0, B, tid);
-  asm volatile("cp.async.commit_group;\n" ::);
+  cp_async_commit();
 }
 
 // K3: FG lanes per block, thread (row, g) computes state row `row` of lane
@@ -675,19 +642,19 @@ __global__ void __launch_bounds__(NT3) lq_forward_kernel(
   dx[row * FG + g] = own;
   for (int s = 0; s < FSTAGES - 1; ++s) {
     if (s < ns) fwd_stage(fsm + s * FKNOT, A, Bf, al, s, b0, B, tid, vec);
-    else asm volatile("cp.async.commit_group;\n" ::);
+    else cp_async_commit();
   }
   for (int k = 0; k < ns; ++k) {
     // Groups committed: knots 0 .. k + FSTAGES - 2; knot k's is done when
     // at most FSTAGES - 2 are pending.
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(FSTAGES - 2));
+    cp_async_wait<FSTAGES - 2>();
     __syncthreads();
     const int kn = k + FSTAGES - 1;
     if (kn < ns)
       fwd_stage(fsm + (kn % FSTAGES) * FKNOT, A, Bf, al, kn, b0, B, tid,
                 vec);
     else
-      asm volatile("cp.async.commit_group;\n" ::);
+      cp_async_commit();
     const float* op = fsm + (k % FSTAGES) * FKNOT;
     const float* xc = dx + (k & 1) * X * FG + g;
     float acc = op[F_A + row * FG + g] * xc[0];

@@ -43,10 +43,12 @@ def library(spec: GameSpec):
 
 
 def cache_floats(spec: GameSpec) -> int:
-    """Floats of one knot's cache of one lane, csrc/lq_open_loop.cu's F:
-    [W | w] [Pu, x+1], [L | l] [x, x+1], M [P, x, x], m [P, x]."""
+    """Floats of one knot's cache of one lane, csrc/lq_open_loop.cu's FS:
+    [W | w] [Pu, x+1], [L | l] [x, x+1], M [P, x, x], m [P, x], padded to
+    a multiple of 4 (the kernel copies a lane's cache in 16-byte pieces)."""
     P, x, u = spec.num_players, spec.xdim, spec.umax
-    return P * u * (x + 1) + x * (x + 1) + P * x * x + P * x
+    floats = P * u * (x + 1) + x * (x + 1) + P * x * x + P * x
+    return (floats + 3) // 4 * 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -160,7 +162,7 @@ def _run(fn, spec: GameSpec, ops: dict, dx0: torch.Tensor, *extra):
     F = cache_floats(spec)
     al = torch.empty((N - 1, Pu, B), dtype=torch.float32, device=dev)
     dxs = torch.empty((N, x, B), dtype=torch.float32, device=dev)
-    cache = torch.empty((N - 1, F, B), dtype=torch.float32, device=dev)
+    cache = torch.empty((N - 1, B, F), dtype=torch.float32, device=dev)
     pad_mask = sum(1 << af for af in _pad_rows(spec))
     args = [ops[k].data_ptr() for k in ("A", "Bf", "Qf", "lf", "Rf", "rf")]
     rc = fn(*args, dx0.data_ptr(), al.data_ptr(), dxs.data_ptr(),

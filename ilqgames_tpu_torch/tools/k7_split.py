@@ -12,7 +12,9 @@ phases of its chain (its outputs held bitwise against the main build's).
 Per phase, the cycles per knot of a warp (the mean over the warps, and the
 largest), its share of the warp's whole run, and the warp's cycles over
 the stamped launch's ms (the SM clock the run saw). The backward phases
-are per backward knot, the forward's per forward knot. One JSON line per
+are per backward knot, the forward's per forward knot. Since the column
+assembly of Lambda folds W M and W m itself, their slot reads 0 and
+"Lambda assembly" holds both. One JSON line per
 B, with the card's name and power limit. Not a phase of chip_smoke.py.
 """
 

@@ -7,9 +7,11 @@ and K3's wrapper (`lq.lq_forward`) at the queue's lanes.
 
 For each of the two: device us per call (the kernel's time under
 torch.profiler, over 20 calls), call us (host clock per call, 2000 calls
-issued back to back, before the synchronize) and total us per call (the
-same, after it). Then the host us of each step of P3's wrapper on its own,
-each over 2000 repetitions: the operand checks, the output's allocation,
+issued back to back, before the synchronize), total us per call (the
+same, after it) and ms per call over 20 back-to-back calls on CUDA events
+(chip_smoke.py's measure of P3; the two timed in turns, P3, add, add,
+P3). Then the host us of each step of P3's wrapper on its own, each over
+2000 repetitions: the operand checks, the output's allocation,
 the cached library function, the current stream's raw handle, the data
 pointers and the bare ctypes call of the C function (the launch
 included); of the steps the K1-K6 wrappers take in their place
@@ -36,6 +38,7 @@ from ilqgames_tpu_torch.tools import _probe
 
 SHAPE = (128, 256)
 PROFILED, REPS = 20, 2000
+SMOKE_REPS = 20         # chip_smoke.py times P3 over 20 calls
 K3_B, K3_REPS = 2048, 200
 
 
@@ -99,6 +102,10 @@ def main():
         enq, tot = _probe.split_ms(fn, REPS)
         out[name] = {"device_us": device_us(fn, kernel),
                      "call_us": enq * 1e3, "total_us": tot * 1e3}
+    for name, fn in (("P3", p3), ("torch.add", add), ("torch.add", add),
+                     ("P3", p3)):
+        out[name].setdefault("ms_20_calls", []).append(
+            _probe.time_ms(fn, SMOKE_REPS))
     o = torch.empty_like(x)
     stream = build.stream(dev)
     fn = probes._smoke_fn(spec)

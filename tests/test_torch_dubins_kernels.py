@@ -5,7 +5,8 @@ libraries built with CT_DIFF (K1, K5, K6) and CT_DUBINS (K1) and K7's
 library (and the other games' without them), K7's cache size and its
 wrapper's refusals. On the card (marker `cuda`, skipped here): K7 against
 `lq_open_loop_plain` bit for bit on random operands at dubins_origin's
-dims and with padded controls (a NaN lane among them); K1 against
+dims (B = 8, 37 and 1024; N = 100 and a single knot), with padded
+controls and at the flagship's dims (a NaN lane among them); K1 against
 `lin_quad_plain` (tolerance 1e-5, as chip_smoke.py holds it) and K4, K5
 and K6 against their plain versions bit for bit on dubins_origin's
 operands under feedback and open-loop (P == 0) strategies. This file
@@ -153,16 +154,22 @@ def _needs_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("udims,B", [((1, 1), 37), ((2, 1, 2), 12)])
-def test_k7_on_card(udims, B):
-    """K7 against its plain version bit for bit on random operands at
-    N=100 (padded controls with udims (2, 1, 2)), the last lane NaN from
-    knot 40."""
+@pytest.mark.parametrize("xdims,udims,B,N", [
+    ((3, 3), (1, 1), 37, 100),          # dubins_origin's dims, 4-byte rows
+    ((2, 3, 2), (2, 1, 2), 12, 100),    # padded controls
+    ((6, 6, 4), (2, 2, 2), 9, 100),     # the flagship's dims
+    ((3, 3), (1, 1), 8, 100),           # the golden run's shape
+    ((3, 3), (1, 1), 1024, 100),        # dubins_ol_1024's shape
+    ((3, 3), (1, 1), 8, 2),             # a single knot
+], ids=["dubins-37", "padded-12", "flagship-9", "dubins-8", "dubins-1024",
+        "one-knot-8"])
+def test_k7_on_card(xdims, udims, B, N):
+    """K7 against its plain version bit for bit on random operands, the
+    last lane NaN from knot 40 (knot 0 at N=2)."""
     _needs_card()
-    xdims = (3, 3) if len(udims) == 2 else (2, 3, 2)
-    spec = GameSpec(xdims=xdims, udims=udims)
-    ops, dx0 = _lq_operands(spec, B, B, "cuda")
-    ops["A"][40:, :, :, -1] = float("nan")
+    spec = GameSpec(xdims=xdims, udims=udims, num_time_steps=N)
+    ops, dx0 = _lq_operands(spec, B, B + N, "cuda")
+    ops["A"][min(40, N - 2):, :, :, -1] = float("nan")
     al, dxs = lq_open_loop.lq_open_loop(spec, ops, dx0)
     want_al, want_dxs = lq_open_loop.lq_open_loop_plain(spec, ops, dx0)
     torch.cuda.synchronize()

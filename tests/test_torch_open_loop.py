@@ -7,6 +7,7 @@
   linearization and quadraticization, alphas and δxs within rtol 1e-4 and
   atol 1e-5 (the LUs' pivoted eliminations against LAPACK's: float-level
   differences), Ps == 0 and the terminal rows zero exactly;
+- K7's cache stride (`cache_floats`) is whole 16-byte copies;
 - `fuse_stages=True` with open loop raises ValueError, as the JAX package's
   batched machine does, and the drivers resolve open loop to unfused
   stages;
@@ -54,7 +55,7 @@ from ilqgames_tpu_torch.dynamics import base as dyn_base  # noqa: E402
 from ilqgames_tpu_torch.examples import dubins_origin as do  # noqa: E402
 from ilqgames_tpu_torch.examples import three_player_intersection as fl  # noqa: E402
 from ilqgames_tpu_torch.examples import two_player_point_mass as pm  # noqa: E402
-from ilqgames_tpu_torch.ops.cuda import lq, sweep  # noqa: E402
+from ilqgames_tpu_torch.ops.cuda import lq, lq_open_loop, sweep  # noqa: E402
 from ilqgames_tpu_torch.solver import batched  # noqa: E402
 from ilqgames_tpu_torch.solver.lq_open_loop import solve_lq_open_loop  # noqa: E402
 from ilqgames_tpu_torch.solver.params import SolverParams  # noqa: E402
@@ -170,6 +171,20 @@ def test_open_loop_lq_on_dubins_origin_matches_jax():
     spec_args, args = _dubins_stage()
     _check_solution(_port_solve(spec_args, *args, batch_block=4),
                     _jax_solve(spec_args, *args), 2, 1)
+
+
+def test_k7_cache_stride_is_whole_16_byte_copies():
+    """K7's per-knot, per-lane cache stride (`cache_floats`, the kernel's
+    FS) is the cache's floats padded to a multiple of 4: the forward pass
+    copies a lane's cache in 16-byte pieces. dubins_origin's 140 floats
+    need no pad; the flagship's 1,190 take 1,192."""
+    for prob, floats in ((do.make_problem(), 140), (fl.make_problem(), 1190)):
+        spec = prob.spec
+        P, x, u = spec.num_players, spec.xdim, spec.umax
+        assert P * u * (x + 1) + x * (x + 1) + P * x * x + P * x == floats
+        stride = lq_open_loop.cache_floats(spec)
+        assert stride % 4 == 0 and 0 <= stride - floats < 4
+    assert lq_open_loop.cache_floats(fl.make_problem().spec) == 1192
 
 
 def test_fuse_stages_with_open_loop_raises():
