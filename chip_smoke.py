@@ -173,6 +173,7 @@ there is no CUDA device or any phase fails.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
@@ -204,8 +205,10 @@ GOLDEN_POSITIONS = ((0, 1), (6, 7), (12, 13))
 GOLDEN_MAX_M, GOLDEN_MEAN_M = 2.0, 1.0
 RH_B, RH_FINAL_TIME, RH_REPLANS = 1024, 2.0, 7
 # Phase 3: trips on the card against trips on the CPU (the CPU's plain
-# versions take most of the phase's time; two since phase 11 came).
+# versions take most of the phase's time; two since phase 11 came), of the
+# flagship's first FLAGSHIP_TRIP_B instances.
 CPU_TRIPS = 2
+FLAGSHIP_TRIP_B = 64
 # Phase 6: the knots on which P2's fifteen lower rungs are held (the top
 # rung at all N).
 P2_DEPTH = 10
@@ -277,11 +280,160 @@ DUBINS_JAX = {
     "dubins_fb": dict(converged=0.9062, mean_iters=38.4,
                       cost_p50=(17363.9, 78824.4), diverged_frac=0.0)}
 DUBINS_FRAC_TOL, DUBINS_ITERS_REL = 0.08, 0.10
+# Phase 12: the driving games' golden runs (tests/test_golden_more.py:
+# 59-104): the reference solver's trajectory, the players, each player's
+# position error bound (m) and whether the reference converged; the
+# overtaking's total costs within rtol 1e-3.
+DRIVING_GOLDEN = {
+    "overtaking": (os.path.join("tests", "golden",
+                                "three_player_overtaking_exec_params.txt"),
+                   3, 0.01, True),
+    "roundabout": (os.path.join("tests", "golden",
+                                "roundabout_merging_exec_params.txt"),
+                   4, 0.3, False)}
+OVERTAKING_COSTS, OVERTAKING_RTOL = (17954.3398, 2294.2961, 1984.0383), 1e-3
+# The JAX package's outcome of the roundabout_256 cell on the same draw
+# (256 instances, N=100, bench_all.py's exec main parameters, sigma 0.1),
+# by its per-instance machine, made on a CPU with
+#   python -c "import jax; jax.config.update('jax_platforms', 'cpu')
+#   import numpy as np, bench_all
+#   from ilqgames_tpu.examples import roundabout_merging as r
+#   from ilqgames_tpu.solver import fused
+#   p = r.make_problem()
+#   res = fused.make_host_batched_solver(
+#       p.dynamics, p.player_costs, p.spec, bench_all._exec_params(),
+#       warm_op=p.initial_operating_point(),
+#       warm_strategy=p.initial_strategy())(
+#       bench_all._perturbed_x0(p, 256, 0.1))
+#   c = np.asarray(res.total_costs)
+#   print(float(res.converged.mean()),
+#         float(res.cumulative_iterations.mean()),
+#         np.percentile(c, 50, axis=0), float((c.max(1) > 1e6).mean()))"
+# The bands are phase 9's (DUBINS_FRAC_TOL, DUBINS_ITERS_REL,
+# COST_P50_REL).
+ROUNDABOUT_JAX = dict(converged=0.75, mean_iters=29.6,
+                      cost_p50=(24523.7, 30424.7, 24013.8, 29507.2),
+                      diverged_frac=0.082)
+# Phase 12: the games (the roundabout and the overtaking first, then the
+# three whose trips alone run on the card) and, for the trips of the games
+# that no bench config runs, the exec main's parameters and the x0 draw's
+# sigma.
+DRIVING_GAMES = ("roundabout_merging", "three_player_overtaking",
+                 "three_player_intersection_reachability",
+                 "modified_three_player_intersection", "skeleton")
+SMALL_CONFIG = dict(params={}, sigma=0.1)
 
 
 def _fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    if _CPU["pool"] is not None:
+        _CPU["pool"].terminate()
     sys.exit(1)
+
+
+# Phases 3, 7d, 8e-12c hold trips on the card against the same trips on the
+# CPU (the plain versions: minutes in all). The CPU's run in CPU_WORKERS
+# worker processes of CPU_THREADS threads each (spawned: they never touch
+# the card), started after the build, while the card runs the phases
+# before theirs.
+CPU_WORKERS, CPU_THREADS = 3, 2
+_CPU = {"pool": None, "jobs": {}}
+
+
+def _cpu_worker_init() -> None:
+    import torch
+
+    torch.set_num_threads(CPU_THREADS)
+
+
+def _start_cpu_jobs(jobs) -> None:
+    """Start each (function, *arguments) of `jobs` in the worker pool."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(
+        CPU_WORKERS, initializer=_cpu_worker_init)
+    _CPU["pool"] = pool
+    for fn, *args in jobs:
+        _CPU["jobs"][(fn.__name__, *args)] = pool.apply_async(fn, args)
+
+
+def _stop_cpu_jobs() -> None:
+    """Close the worker pool, once every job it was given has ended."""
+    if _CPU["pool"] is not None:
+        _CPU["pool"].close()
+        _CPU["pool"].join()
+        _CPU["pool"] = None
+
+
+def _cpu_job(fn, *args):
+    """fn(*args): the worker pool's result where it was started there,
+    else computed here."""
+    job = _CPU["jobs"].get((fn.__name__, *args))
+    return job.get() if job is not None else fn(*args)
+
+
+def _make_game(game):
+    """The problem of a CPU job: ("config", a bench config key) or
+    ("example", a registry name)."""
+    import ilqgames_tpu_torch.examples as ex
+    from ilqgames_tpu_torch import bench
+
+    kind, name = game
+    return (bench.CONFIGS[name]["make"]() if kind == "config"
+            else ex.get(name)())
+
+
+def _cpu_trips(game, config, fuse):
+    """SMALL_TRIPS fused (or unfused) trips of SMALL_B lanes of `game` on
+    the CPU under the merit backend "xla", from its fresh carry, with the
+    x0 draw's sigma and the exec main's parameters of bench config
+    `config` ("small": SMALL_CONFIG): (x0, [carries], seconds)."""
+    import dataclasses
+
+    import torch
+
+    from ilqgames_tpu_torch import bench
+    from ilqgames_tpu_torch.solver import batched
+
+    p = _make_game(game)
+    dyn, costs, spec = p.dynamics, p.player_costs, p.spec
+    cfg = SMALL_CONFIG if config == "small" else bench.CONFIGS[config]
+    params = dataclasses.replace(bench.exec_main_params(), **cfg["params"])
+    x0c = torch.tensor(bench.perturbed_x0(p, SMALL_B, cfg["sigma"]))
+    t0 = time.perf_counter()
+    cpu = [batched._fresh_init(dyn, costs, spec, None, None, SMALL_B,
+                               fuse)(x0c)]
+    trip, _ = batched._driver_parts(dyn, costs, spec, params, SMALL_B, fuse,
+                                    "xla")
+    for _ in range(SMALL_TRIPS):
+        cpu.append(trip(x0c, cpu[-1]))
+    return x0c, cpu, time.perf_counter() - t0
+
+
+def _cpu_flagship_trips(fuse):
+    """Phase 3's CPU side: CPU_TRIPS trips of the flagship's first
+    FLAGSHIP_TRIP_B instances of bench.py's draw (lane blocks of 128), from
+    its fresh carry: [carries]."""
+    import torch
+
+    from ilqgames_tpu_torch import bench
+    from ilqgames_tpu_torch.solver import batched
+
+    p = _make_game(("example", "three_player_intersection"))
+    dyn, costs, spec = p.dynamics, p.player_costs, p.spec
+    x0c = torch.tensor(bench.perturbed_x0(p, FLAGSHIP_TRIP_B))
+    trip, _ = batched._driver_parts(dyn, costs, spec,
+                                    bench.exec_main_params(), 128, fuse)
+    cpu = [batched._fresh_init(dyn, costs, spec, None, None, 128, fuse)(x0c)]
+    for _ in range(CPU_TRIPS):
+        cpu.append(trip(x0c, cpu[-1]))
+    return cpu
+
+
+def _cpu_replanning(game, sigma):
+    """The CPU side of `_replanning_card_vs_cpu`: (arrays, trips per
+    cycle, seconds)."""
+    return _replanning_run(_make_game(game), sigma, "cpu")
 
 
 def _card_line() -> str:
@@ -503,6 +655,34 @@ def _outputs(result):
     return [("", result)]
 
 
+def _knots_cut(_probe, dev, depth):
+    """A probe context whose spec and operands end after `depth` knots:
+    each drawn tensor whose first axis is the probes' horizon is cut to
+    its first `depth` rows (the draws stay the TPU scripts')."""
+    import dataclasses
+
+    import torch
+
+    class Cut(_probe.Context):
+        def __init__(self):
+            super().__init__(dev)
+            self.spec = dataclasses.replace(self.spec,
+                                            num_time_steps=depth)
+
+        def tensors(self, key, draw):
+            def cut(v):
+                if isinstance(v, dict):
+                    return {k: cut(a) for k, a in v.items()}
+                t = torch.tensor(v, device=self.dev)
+                if t.ndim >= 2 and t.shape[0] == _probe.N_KNOTS:
+                    t = t[:depth].contiguous()
+                return t
+
+            return self.cached(key, lambda: cut(draw()))
+
+    return Cut()
+
+
 def phase6(dyn, spec, dev):
     """The probes: P1-P3 against their plain versions at the probes'
     shapes, the rungs' ptxas reports, every distinct launch of the probe
@@ -628,13 +808,15 @@ def phase6(dyn, spec, dev):
           n_ops, _time_ms(lambda: torch.add(one, xs3, alpha=2.0), 20))
 
     # Every other distinct (kernel, cost table, shape) that the probe
-    # modules launch, once, on the module's own operands.
+    # modules launch, once, on the module's own operands cut to their
+    # first P2_DEPTH knots (at N=100 the plain versions took 50 s).
     mods = [importlib.import_module(f"ilqgames_tpu_torch.tools.{name}")
             for name, _ in PROBE_MODULES]
     t0 = time.perf_counter()
     n_checked = 0
+    cut_ctx = _knots_cut(_probe, dev, P2_DEPTH)
     for mod in mods:
-        for call in _probe.checks(mod.CASES, ctx, seen):
+        for call in _probe.checks(mod.CASES, cut_ctx, seen):
             kern = call.key[0]
             got, want = _outputs(call.fn()), _outputs(call.plain())
             for (name, g), (_, w) in zip(got, want):
@@ -644,8 +826,9 @@ def phase6(dyn, spec, dev):
                     err[kern] = max(err[kern], e)
             n_checked += 1
     print(f"# phase 6: {n_checked} more distinct probe launches held "
-          f"against their plain versions in {time.perf_counter() - t0:.1f} "
-          f"s; {len(seen)} in all", flush=True)
+          f"against their plain versions, first {P2_DEPTH} knots, in "
+          f"{time.perf_counter() - t0:.1f} s; {len(seen)} in all",
+          flush=True)
 
     src = "ilqgames_tpu_torch/csrc/probes.cu"
     out.append(_entry("P1 fma_chain (16 x 128, 100 x 50)", src,
@@ -1052,14 +1235,15 @@ def phase7(problem, dev):
     kernels += _hold_launches("receding horizon", spy, launches, full=())
 
     # (d) the card against the CPU, 4 lanes, 2 cycles.
-    _replanning_card_vs_cpu("replanning", problem, 0.1, dev)
+    _replanning_card_vs_cpu(
+        "replanning", ("example", "three_player_intersection"), 0.1, dev)
     return kernels
 
 
-def _replanning_card_vs_cpu(name, problem, sigma, dev):
+def _replanning_run(problem, sigma, device):
     """A short replanning run (4 lanes of bench's draw with `sigma`, 2
-    cycles, budgets RH_SMALL) on the card and on the CPU: decisions
-    equal, states and the splicer's arrays bitwise equal."""
+    cycles, budgets RH_SMALL) on `device`: (its arrays on the CPU, trips
+    per cycle, seconds)."""
     import dataclasses
 
     import torch
@@ -1068,25 +1252,33 @@ def _replanning_card_vs_cpu(name, problem, sigma, dev):
     from ilqgames_tpu_torch.runtime import receding_horizon as rh
 
     small = dataclasses.replace(bench.exec_main_params(), **RH_SMALL)
-    x0c = torch.tensor(bench.perturbed_x0(problem, 4, sigma))
+    x = torch.tensor(bench.perturbed_x0(problem, 4, sigma)).to(device)
     t0 = time.perf_counter()
-    runs = {}
-    for where, x in (("CPU", x0c), ("card", x0c.to(dev))):
-        states, times, state = rh.simulate_batched(
-            problem, small, x, final_time=0.75, batch_block=4)
-        sp, st = state.splicer, rh.simulate_batched.last_stats
-        runs[where] = ({
-            "states": states, "times": times, "x": state.x, "t": state.t,
-            "converged": state.converged, "num_replans": state.num_replans,
-            "cold converged": st["first"].converged,
-            "splicer xs": sp.op.xs, "splicer us": sp.op.us,
-            "splicer t0": sp.op.t0, "splicer Ps": sp.strategy.Ps,
-            "splicer alphas": sp.strategy.alphas,
-            "splicer length": sp.length},
-            [c["trips"] for c in st["cycles"]])
-    (cpu, cpu_trips), (card, card_trips) = runs["CPU"], runs["card"]
+    states, times, state = rh.simulate_batched(
+        problem, small, x, final_time=0.75, batch_block=4)
+    sp, st = state.splicer, rh.simulate_batched.last_stats
+    arrays = {
+        "states": states, "times": times, "x": state.x, "t": state.t,
+        "converged": state.converged, "num_replans": state.num_replans,
+        "cold converged": st["first"].converged,
+        "splicer xs": sp.op.xs, "splicer us": sp.op.us,
+        "splicer t0": sp.op.t0, "splicer Ps": sp.strategy.Ps,
+        "splicer alphas": sp.strategy.alphas,
+        "splicer length": sp.length}
+    return ({k: v.cpu() for k, v in arrays.items()},
+            [c["trips"] for c in st["cycles"]], time.perf_counter() - t0)
+
+
+def _replanning_card_vs_cpu(name, game, sigma, dev):
+    """A short replanning run of `game` (`_make_game`) on the card and on
+    the CPU (`_replanning_run`): decisions equal, states and the
+    splicer's arrays bitwise equal."""
+    import torch
+
+    card, card_trips, card_s = _replanning_run(_make_game(game), sigma, dev)
+    cpu, cpu_trips, cpu_s = _cpu_job(_cpu_replanning, game, sigma)
     for what, c in cpu.items():
-        g = card[what].cpu()
+        g = card[what]
         if not (_same_bits(g, c) if c.dtype == torch.float32
                 else torch.equal(g, c)):
             _fail(f"{name} card vs CPU: {what} differs")
@@ -1096,8 +1288,8 @@ def _replanning_card_vs_cpu(name, problem, sigma, dev):
     print(f"# {name} card vs CPU (4 lanes, 2 cycles, {RH_SMALL}): "
           f"decisions equal, every array bitwise equal; trips per cycle "
           f"{cpu_trips}, cold converged {cpu['cold converged'].tolist()}, "
-          f"converged {cpu['converged'].tolist()} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"converged {cpu['converged'].tolist()} ({card_s:.1f} s on the "
+          f"card, {cpu_s:.1f} s on the CPU)", flush=True)
 
 
 def _merit_state(problem, op_bm):
@@ -1185,14 +1377,19 @@ def _hold_merits(cell, spy, problem, full=True):
     return entries
 
 
-def _trips_card_vs_cpu(name, p, config, fuse, dev,
-                       backends=("xla", "kernel", "pallas")):
-    """SMALL_TRIPS trips of SMALL_B lanes of bench config `config`'s game
-    (stages fused or not) on the card against the CPU under each merit
-    backend of `backends`: decisions equal, every array of the carry
-    bitwise equal. On the CPU the three backends are one computation (the
-    plain versions). Returns the kernels-line entries of K5 and K6 at each
-    shape these trips launched them, with their launches there."""
+def _trips_card_vs_cpu(name, game, config, fuse, dev,
+                       backends=("xla", "kernel", "pallas"), hold=(),
+                       against_cpu=True):
+    """SMALL_TRIPS trips of SMALL_B lanes of `game` (`_make_game`; stages
+    fused or not) with the x0 draw's sigma and the exec main's parameters
+    of bench config `config` ("small": SMALL_CONFIG) on the card against
+    the CPU (`_cpu_trips`) under each merit backend of `backends`:
+    decisions equal, every array of the carry bitwise equal. On the CPU
+    the three backends are one computation (the plain versions). Without
+    `against_cpu`, the card's trips alone, from the fresh carry made here.
+    Returns the kernels-line entries of K5 and K6 at each shape these trips
+    launched them, and of the kernels `hold` at each shape the "xla" trips
+    launched them, with their launches there."""
     import dataclasses
 
     import torch
@@ -1201,19 +1398,16 @@ def _trips_card_vs_cpu(name, p, config, fuse, dev,
     from ilqgames_tpu_torch.solver import batched
     from ilqgames_tpu_torch.types import tree_leaves, tree_map
 
+    p = _make_game(game)
     dyn, costs, spec = p.dynamics, p.player_costs, p.spec
-    cfg = bench.CONFIGS[config]
+    cfg = SMALL_CONFIG if config == "small" else bench.CONFIGS[config]
     params = dataclasses.replace(bench.exec_main_params(), **cfg["params"])
-    x0c = torch.tensor(bench.perturbed_x0(p, SMALL_B, cfg["sigma"]))
-    fc0 = batched._fresh_init(dyn, costs, spec, None, None, SMALL_B,
-                              fuse)(x0c)
-    t0 = time.perf_counter()
-    trip, _ = batched._driver_parts(dyn, costs, spec, params, SMALL_B, fuse,
-                                    "xla")
-    cpu = [fc0]
-    for _ in range(SMALL_TRIPS):
-        cpu.append(trip(x0c, cpu[-1]))
-    cpu_s = time.perf_counter() - t0
+    if against_cpu:
+        x0c, cpu, cpu_s = _cpu_job(_cpu_trips, game, config, fuse)
+    else:
+        x0c = torch.tensor(bench.perturbed_x0(p, SMALL_B, cfg["sigma"]))
+        cpu = [batched._fresh_init(dyn, costs, spec, None, None, SMALL_B,
+                                   fuse)(x0c)]
     kernels = []
     for backend, kname in (("xla", "K4"), ("kernel", "K5"),
                            ("pallas", "K6")):
@@ -1221,11 +1415,13 @@ def _trips_card_vs_cpu(name, p, config, fuse, dev,
             continue
         trip, _ = batched._driver_parts(dyn, costs, spec, params, SMALL_B,
                                         fuse, backend)
-        fc = tree_map(lambda a: a.to(dev), fc0)
+        fc = tree_map(lambda a: a.to(dev), cpu[0])
         bench.reset_launches()
         with _FirstLaunches() as spy:
             for i in range(SMALL_TRIPS):
                 fc = trip(x0c.to(dev), fc)
+                if not against_cpu:
+                    continue
                 what = f"{name} card vs CPU, {backend!r}, trip {i}"
                 _same_decisions(what, fc, cpu[i + 1])
                 for g, w in zip(tree_leaves(fc), tree_leaves(cpu[i + 1])):
@@ -1238,18 +1434,23 @@ def _trips_card_vs_cpu(name, p, config, fuse, dev,
         if bench.launches()[kname] <= 0:
             _fail(f"{name}: merit_backend={backend!r} never launched "
                   f"{kname}")
-        if backend != "xla":
-            # The merit kernel of this backend at each shape these trips
-            # launched it, with its launches there.
+        held = (kname,) if backend != "xla" else tuple(hold)
+        if held:
+            # The merit kernel of this backend (of "xla": the kernels
+            # `hold`, K4 on the first HOLD_DEPTH knots) at each shape
+            # these trips launched it, with its launches there.
             kernels += _hold_launches(
-                f"{name} card vs CPU, {SMALL_B} lanes, {backend!r}", spy,
-                None, only=(kname,))
+                f"{name} {'card vs CPU, ' if against_cpu else ''}"
+                f"{SMALL_B} lanes, {backend!r}", spy, None, only=held,
+                full=("K4",) if backend != "xla" else ())
     stages = "fused" if fuse else "unfused"
-    print(f"# {name} card vs CPU ({SMALL_B} lanes, {SMALL_TRIPS} {stages} "
-          f"trips, merit backends {', '.join(backends)}): decisions equal, "
-          f"every array bitwise equal; failed {cpu[-1].c.failed.tolist()}, "
-          f"converged {cpu[-1].c.converged.tolist()} ({cpu_s:.1f} s on the "
-          "CPU)", flush=True)
+    if against_cpu:
+        print(f"# {name} card vs CPU ({SMALL_B} lanes, {SMALL_TRIPS} {stages} "
+              f"trips, merit backends {', '.join(backends)}): decisions "
+              f"equal, every array bitwise equal; failed "
+              f"{cpu[-1].c.failed.tolist()}, converged "
+              f"{cpu[-1].c.converged.tolist()} ({cpu_s:.1f} s on the CPU)",
+              flush=True)
     return kernels
 
 
@@ -1340,7 +1541,7 @@ def phase8(dev):
 
     # (e) trips on the card against the CPU, every merit backend.
     for c, p in games.items():
-        kernels += _trips_card_vs_cpu(names[c], p, c, True, dev)
+        kernels += _trips_card_vs_cpu(names[c], ("config", c), c, True, dev)
 
     # K5 and K6 at the cells' linesearch shapes, held only.
     for cell, spy, p in merit_held:
@@ -1416,7 +1617,7 @@ def phase9(dev):
     kernels = _hold_launches(cell, spy, launches)
 
     # (e) unfused trips on the card against the CPU, every merit backend.
-    kernels += _trips_card_vs_cpu(cell, p, 4, False, dev)
+    kernels += _trips_card_vs_cpu(cell, ("config", 4), 4, False, dev)
     # K5 and K6 at the cell's linesearch shapes, held only.
     kernels += _hold_merits(cell, spy, p)
     return kernels
@@ -1522,19 +1723,29 @@ def phase10(dev):
 
     # (d) trips on the card against the CPU: fused under every merit
     # backend, unfused under "xla".
-    kernels += _trips_card_vs_cpu("reachability", p, 5, True, dev)
-    kernels += _trips_card_vs_cpu("reachability", p, 5, False, dev,
+    kernels += _trips_card_vs_cpu("reachability", ("config", 5), 5, True,
+                                  dev)
+    kernels += _trips_card_vs_cpu("reachability", ("config", 5), 5, False,
+                                  dev,
                                   backends=("xla",))
 
     # (e) a short replanning run, the card against the CPU.
-    _replanning_card_vs_cpu("reachability replanning", p, cfg["sigma"], dev)
+    _replanning_card_vs_cpu("reachability replanning", ("config", 5),
+                            cfg["sigma"], dev)
     return kernels
 
 
 def _dubins_outcome(cell, key, out):
     """A dubins cell's outcome against the JAX package's on the same
     draw, within the phase's bands."""
-    ref = DUBINS_JAX[key]
+    return _outcome_band(cell, DUBINS_JAX[key], out)
+
+
+def _outcome_band(cell, ref, out):
+    """A cell's outcome against the JAX package's `ref` on the same draw,
+    within phase 9's bands: converged and diverged_frac within
+    DUBINS_FRAC_TOL, mean_iters within DUBINS_ITERS_REL, cost_p50 within
+    COST_P50_REL."""
     band = (f"converged {ref['converged']} +- {DUBINS_FRAC_TOL}, "
             f"diverged_frac {ref['diverged_frac']} +- {DUBINS_FRAC_TOL}, "
             f"mean_iters {ref['mean_iters']} +- {DUBINS_ITERS_REL:.0%}, "
@@ -1612,7 +1823,8 @@ def phase11(dev):
         what = "golden " + ("open loop" if open_loop else "feedback")
         bench.reset_launches()
         with _FirstLaunches() as spy:
-            res, info = bench.run_golden(open_loop, dev)
+            res, info = bench.run_golden(
+                "dubins_ol" if open_loop else "dubins_fb", dev)
         torch.cuda.synchronize()
         launches = bench.launches()
         _dubins_launches(what, launches, open_loop)
@@ -1669,14 +1881,184 @@ def phase11(dev):
         merit_held.append((cell, spy, open_loop))
 
     # (d) trips on the card against the CPU, every merit backend.
-    kernels += _trips_card_vs_cpu("dubins_origin open loop", p, "dubins_ol",
+    kernels += _trips_card_vs_cpu("dubins_origin open loop",
+                                  ("config", "dubins_ol"), "dubins_ol",
                                   False, dev)
-    kernels += _trips_card_vs_cpu("dubins_origin feedback", p, "dubins_fb",
+    kernels += _trips_card_vs_cpu("dubins_origin feedback",
+                                  ("config", "dubins_fb"), "dubins_fb",
                                   True, dev)
     # K5 and K6 at the cells' linesearch shapes, held only.
     for cell, spy, full in merit_held:
         kernels += _hold_merits(cell, spy, p, full)
     return kernels
+
+
+def _driving_golden(run, dev):
+    """A driving game's golden run (`bench.run_golden`) against the
+    reference solver's trajectory: each player's largest position error
+    within the bound, converged as the reference (and the overtaking's
+    total costs within OVERTAKING_RTOL of the reference's)."""
+    import numpy as np
+    import torch
+
+    from ilqgames_tpu_torch import bench
+
+    path, players, bound, converged = DRIVING_GOLDEN[run]
+    what = f"golden {run}"
+    bench.reset_launches()
+    res, info = bench.run_golden(run, dev)
+    torch.cuda.synchronize()
+    launches = bench.launches()
+    if min(launches[k] for k in ("K1", "K2", "K3", "K4")) <= 0:
+        _fail(f"{what}: a kernel of the path was not launched: {launches}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    ref = np.loadtxt(os.path.join(root, path))
+    xs = res.op.xs[0].cpu().numpy()
+    if xs.shape != ref.shape:
+        _fail(f"{what}: trajectory shape {xs.shape}, reference {ref.shape}")
+    errs = [float(np.hypot(xs[:, 6 * i] - ref[:, 6 * i],
+                           xs[:, 6 * i + 1] - ref[:, 6 * i + 1]).max())
+            for i in range(players)]
+    costs = res.total_costs[0].tolist()
+    conv = bool(res.converged[0])
+    print(f"# {what}: max position error per player "
+          f"{[round(e, 4) for e in errs]} m (bound {bound}); converged "
+          f"{conv} (the reference: {converged}); total costs "
+          f"{[round(c, 4) for c in costs]}; {info['trips']} trips in "
+          f"{info['wall_s']} s; launches {launches}", flush=True)
+    if max(errs) >= bound or conv != converged:
+        _fail(f"{what}: beyond tests/test_golden_more.py's bounds")
+    if run == "overtaking" and not np.allclose(costs, OVERTAKING_COSTS,
+                                               rtol=OVERTAKING_RTOL, atol=0):
+        _fail(f"{what}: total costs {costs}, the reference's "
+              f"{OVERTAKING_COSTS} within rtol {OVERTAKING_RTOL}")
+
+
+def _later_libraries():
+    """Every kernel library that phases 8-12 load, so that phase 1 builds
+    them with the flagship's, one nvcc each, all at once (a library named
+    twice is built once: `build._compile`)."""
+    import ilqgames_tpu_torch.examples as ex
+    from ilqgames_tpu_torch import bench
+    from ilqgames_tpu_torch.ops.cuda import lq_open_loop
+
+    libs = []
+    for key in (1, 2, 4, 5, "dubins_ol"):
+        p = bench.CONFIGS[key]["make"]()
+        game = bench.kernel_libraries(p.dynamics, p.spec, p.player_costs,
+                                      open_loop=key == "dubins_ol")
+        libs += game[1:] if key == 4 else game  # the flat game has no K1
+    libs.append(lq_open_loop.library(ex.get(
+        "three_player_intersection")().spec))
+    for name in DRIVING_GAMES:
+        g = ex.get(name)()
+        libs += bench.kernel_libraries(g.dynamics, g.spec, g.player_costs)
+    return libs
+
+
+def phase12(dev):
+    """The driving games: the four-car roundabout (4 car_6d, x = 24,
+    W = 33, K2 at 4 lanes a block, 44 cost atoms) and the three-player
+    overtaking, their golden runs against the reference solver's
+    trajectories; the roundabout_256 cell through `bench.run_config`
+    against the JAX package's outcome, every (kernel, shape) it launched
+    held against its plain version (and K5, K6 at its linesearch shapes);
+    two trips of 8 lanes of the roundabout and of
+    three_player_intersection_reachability on the card against the CPU
+    under every merit backend, and of modified_three_player_intersection
+    (car_5d in K1 outside CT_REACH) and the skeleton (P = 1), with K1 and
+    K4 held too. Returns the kernels-line entries."""
+    import torch
+
+    import ilqgames_tpu_torch.examples as ex
+    from ilqgames_tpu_torch import bench
+    from ilqgames_tpu_torch.ops.cuda import build, sweep
+
+    cell = "roundabout_256"
+    p = bench.CONFIGS["roundabout"]["make"]()
+    dyn, spec, costs = p.dynamics, p.spec, p.player_costs
+
+    # (a) the libraries of the five games (built in phase 1) and the
+    # roundabout's ptxas reports: no spill anywhere, no stack in K2-K6.
+    games = {n: ex.get(n)() for n in DRIVING_GAMES}
+    t0 = time.perf_counter()
+    for g in games.values():
+        bench.build_kernels(g.dynamics, g.spec, g.player_costs)
+    print(f"# phase 12 build: {time.perf_counter() - t0:.1f} s (loading the "
+          f"{len(games)} games' libraries)", flush=True)
+    for name, g in games.items():
+        libs = bench.kernel_libraries(g.dynamics, g.spec, g.player_costs)
+        what = cell if name == DRIVING_GAMES[0] else name
+        for label, lib, kern, stack_ok in (
+                ("K1", libs[0], "stage_kernel", True),
+                ("K2", libs[1], "lq_backward_kernel", False),
+                ("K3", libs[1], "lq_forward_kernel", False),
+                ("K6", libs[2], "merit_kernel", False),
+                ("K4", libs[3], "rollout_warp_kernel", False),
+                ("K5", libs[-1], "rollout_merit_warp_kernel", False)):
+            _ptxas(f"{label} ({what})", lib, kern, stack_ok)
+    d = bench.kernel_libraries(dyn, spec, costs)[1][1]
+    tab = sweep.cost_table(costs, spec, "cpu")[0]
+    print(f"# {cell}: K2 at {d['LQ_G']} lanes a block, {d['LQ_SMEM']} B of "
+          f"shared memory; {tab.n} cost atoms in a table for {tab.capacity} "
+          f"({ctypes.sizeof(tab)} B, K5's and K6's parameter)", flush=True)
+
+    # (b) the golden runs.
+    for run in DRIVING_GOLDEN:
+        _driving_golden(run, dev)
+
+    # (c) the cell, counters reset just before, and its outcome.
+    bench.reset_launches()
+    with _FirstLaunches() as spy:
+        res, out = bench.run_config("roundabout", dev)
+    torch.cuda.synchronize()
+    launches = bench.launches()
+    print(json.dumps(out), flush=True)
+    if min(launches[k] for k in ("K1", "K2", "K3", "K4")) <= 0:
+        _fail(f"{cell}: a kernel of the path was not launched: {launches}")
+    shape = (out["B"], spec.num_time_steps, spec.xdim)
+    if tuple(res.op.xs.shape) != shape:
+        _fail(f"{cell}: result shape {tuple(res.op.xs.shape)}, want {shape}")
+    if not bool(torch.isfinite(res.op.xs[res.converged]).all()):
+        _fail(f"{cell}: non-finite trajectory on a converged lane")
+    band = _outcome_band(cell, ROUNDABOUT_JAX, out)
+    print(f"# {cell}: {out['value']} solves/s, {out['trips']} trips, "
+          f"{out['deep_rounds']} deep rounds; outcome within the JAX "
+          f"package's band ({band}); launches counted from 0 over the "
+          f"warm-up and timed solves: {launches}", flush=True)
+    _check_k4_held(cell, spy, sweep.rollout_bm.by_shape)
+    kernels = _hold_launches(cell, spy, launches)
+    kernels += _hold_merits(cell, spy, p)
+
+    # (d) trips on the card against the CPU, every merit backend; K1 and
+    # K4 of the two games that no cell runs held at their shapes.
+    kernels += _trips_card_vs_cpu("roundabout", ("config", "roundabout"),
+                                  "roundabout", True, dev)
+    kernels += _trips_card_vs_cpu(
+        DRIVING_GAMES[2], ("example", DRIVING_GAMES[2]), "small", True, dev)
+    for name in DRIVING_GAMES[3:]:
+        kernels += _trips_card_vs_cpu(name, ("example", name), "small", True,
+                                      dev, hold=("K1", "K4"),
+                                      against_cpu=False)
+    return kernels
+
+
+def _cpu_jobs():
+    """The CPU side of every card-vs-CPU check, in the order that the
+    phases ask for them."""
+    jobs = [(_cpu_flagship_trips, False), (_cpu_flagship_trips, True),
+            (_cpu_replanning, ("example", "three_player_intersection"),
+             0.1)]
+    jobs += [(_cpu_trips, ("config", c), c, True) for c in (1, 2)]
+    jobs += [(_cpu_trips, ("config", 4), 4, False),
+             (_cpu_trips, ("config", 5), 5, True),
+             (_cpu_trips, ("config", 5), 5, False),
+             (_cpu_replanning, ("config", 5), 0.25),
+             (_cpu_trips, ("config", "dubins_ol"), "dubins_ol", False),
+             (_cpu_trips, ("config", "dubins_fb"), "dubins_fb", True),
+             (_cpu_trips, ("config", "roundabout"), "roundabout", True),
+             (_cpu_trips, ("example", DRIVING_GAMES[2]), "small", True)]
+    return jobs
 
 
 def main():
@@ -1716,13 +2098,17 @@ def main():
     spec = problem.spec
     dyn, costs = problem.dynamics, problem.player_costs
     t0 = time.perf_counter()
+    later = _later_libraries()
     build.compile_all([stage.library(spec), lq.library(spec),
                        sweep.library(dyn, spec), sweep.merit_library(spec),
-                       probes.library(spec)])
+                       probes.library(spec)] + later)
     bench.build_kernels(dyn, spec)
     probes.load_kernels(spec)
     print(f"# build: {time.perf_counter() - t0:.1f} s (concurrent nvcc: "
-          f"csrc/stage.cu, lq.cu, sweep.cu, merit.cu, probes.cu)", flush=True)
+          f"csrc/stage.cu, lq.cu, sweep.cu, merit.cu, probes.cu at the "
+          f"flagship's dims and {len(later)} libraries of phases 8-12)",
+          flush=True)
+    _start_cpu_jobs(_cpu_jobs())
     elapsed(1)
 
     # ---- phase 2: each kernel against its plain version ----
@@ -1840,7 +2226,7 @@ def main():
     k3_row(B1, ops_k["A"], ops_k["Bf"], al_r,
            (x1m - op1["xs"][0]).contiguous())
     k5_ptxas = _ptxas("K5", sweep.library(dyn, spec),
-                      "rollout_merit_warp_kernel", stack_ok=True)
+                      "rollout_merit_warp_kernel")
     k6_ptxas = _ptxas("K6", sweep.merit_library(spec), "merit_kernel")
     zero = lambda a: a.new_zeros((1,) + a.shape[1:])
     st1 = {"Ps": torch.cat([Ps_r, zero(Ps_r)]),
@@ -1894,15 +2280,14 @@ def main():
     elapsed(2)
 
     # ---- phase 3: trips on the card against trips on the CPU ----
-    Bt = 64
-    x0c = torch.tensor(bench.perturbed_x0(problem, Bt))
-    x0g = x0c.to(dev)
+    Bt = FLAGSHIP_TRIP_B
+    x0g = torch.tensor(bench.perturbed_x0(problem, Bt)).to(dev)
     for fuse in (False, True):
         trip, _ = batched._driver_parts(dyn, costs, spec, params, 128, fuse)
-        fc_cpu = carry0(x0c, fuse)
-        fc_gpu = tree_map(lambda a: a.to(dev), fc_cpu)
+        cpu = _cpu_job(_cpu_flagship_trips, fuse)
+        fc_gpu = tree_map(lambda a: a.to(dev), cpu[0])
         for i in range(CPU_TRIPS):
-            fc_cpu = trip(x0c, fc_cpu)
+            fc_cpu = cpu[i + 1]
             fc_gpu = trip(x0g, fc_gpu)
             _same_decisions(f"fuse_stages={fuse} trip {i}, card vs CPU",
                             fc_gpu, fc_cpu)
@@ -2012,6 +2397,11 @@ def main():
     # ---- phase 11: open-loop Nash on dubins_origin ----
     kernels += phase11(dev)
     elapsed(11)
+
+    # ---- phase 12: the driving games ----
+    kernels += phase12(dev)
+    elapsed(12)
+    _stop_cpu_jobs()
 
     print(f"# total: {time.perf_counter() - t_main:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -27,8 +27,10 @@ BENCH_CONFIG=dubins_ol or dubins_fb runs the reference's open-loop
 example, `dubins_origin` (two Dubins cars), in the open-loop (unfused
 stages, K7) or the feedback information pattern (fused stages): 1024
 instances of the x0 draw with sigma 0.1, bench_all.py's exec main
-parameters, as `run_config` runs configs 1, 2 and 4. Needs a CUDA device:
-it never measures on a CPU.
+parameters, as `run_config` runs configs 1, 2 and 4. BENCH_CONFIG=roundabout
+runs the four-car roundabout (`roundabout_merging`: 256 instances, sigma
+0.1, fused stages) the same way. Needs a CUDA device: it never measures
+on a CPU.
 
     python3 -m ilqgames_tpu_torch.bench
     BENCH_QUEUE=0 BENCH_BATCH=1024 python3 -m ilqgames_tpu_torch.bench
@@ -38,6 +40,7 @@ it never measures on a CPU.
     BENCH_CONFIG=5 python3 -m ilqgames_tpu_torch.bench
     BENCH_CONFIG=5 BENCH_FUSE=0 python3 -m ilqgames_tpu_torch.bench
     BENCH_CONFIG=dubins_ol python3 -m ilqgames_tpu_torch.bench
+    BENCH_CONFIG=roundabout python3 -m ilqgames_tpu_torch.bench
 """
 
 from __future__ import annotations
@@ -52,14 +55,13 @@ import numpy as np
 import torch
 
 from ilqgames_tpu_torch.examples import dubins_origin, reachability, \
-    three_player_flat_intersection, two_player_collision, \
-    two_player_point_mass
+    roundabout_merging, three_player_flat_intersection, \
+    three_player_overtaking, two_player_collision, two_player_point_mass
 from ilqgames_tpu_torch.examples.three_player_intersection import \
     make_problem
 from ilqgames_tpu_torch.ops.cuda import build, lq, lq_open_loop, stage, \
     sweep
-from ilqgames_tpu_torch.ops.cuda.cost_table import has_diff, has_norms, \
-    has_reach
+from ilqgames_tpu_torch.ops.cuda.cost_table import MAX_ATOMS
 from ilqgames_tpu_torch.solver import batched
 from ilqgames_tpu_torch.runtime import receding_horizon
 from ilqgames_tpu_torch.solver.params import SolverParams
@@ -155,32 +157,31 @@ def reset_launches() -> None:
 
 def kernel_libraries(dyn, spec, player_costs=(), open_loop=False) -> list:
     """The (source, defines) of every kernel library of the port for this
-    game: a game whose costs hold a norm atom gets its merit kernels K5
-    and K6 with those atoms, a game with the reachability features
-    (`cost_table.has_reach`) its K1, K5 and K6 with those, a game with a
-    quadratic_difference atom (`cost_table.has_diff`) its K1, K5 and K6
-    with it, dynamics with a dubins_car their K1 with its Jacobian; K4
-    takes none of them. With `open_loop`, K7's library comes last."""
-    norms, reach = has_norms(player_costs), has_reach(player_costs)
-    diff = has_diff(player_costs)
-    sweeps = sorted({(False, False, False), (norms, reach, diff)})
-    return ([stage.library(spec, reach, diff, stage.has_dubins(dyn)),
-             lq.library(spec), sweep.merit_library(spec, norms, reach, diff)]
-            + [sweep.library(dyn, spec, n, r, d) for n, r, d in sweeps]
+    game, in the order K1, K2/K3, K6, K4, K5 (K4 and K5 one library where
+    the game's merit needs no flag), then K7's with `open_loop`: K1 with
+    the game's atoms and Jacobians (`stage.features`), K5 and K6 with its
+    merit's atoms (`sweep.merit_features`: the norm atoms, the
+    reachability features, quadratic_difference, semiquadratic, a table
+    of more than MAX_ATOMS atoms); K4 takes none of them."""
+    mf = sweep.merit_features(player_costs, spec)
+    plain = dict({k: False for k in mf}, atoms=MAX_ATOMS)
+    sweeps = [plain] + ([mf] if mf != plain else [])
+    return ([stage.library(spec, **stage.features(dyn, player_costs, spec)),
+             lq.library(spec), sweep.merit_library(spec, **mf)]
+            + [sweep.library(dyn, spec, **f) for f in sweeps]
             + ([lq_open_loop.library(spec)] if open_loop else []))
 
 
 def build_kernels(dyn, spec, player_costs=(), open_loop=False) -> None:
     """Build every kernel library of the game (`kernel_libraries`; one
     concurrent nvcc per source) and load them."""
-    norms, reach = has_norms(player_costs), has_reach(player_costs)
-    diff = has_diff(player_costs)
     build.compile_all(kernel_libraries(dyn, spec, player_costs, open_loop))
-    stage.load_kernels(spec, reach, diff, stage.has_dubins(dyn))
+    mf = sweep.merit_features(player_costs, spec)
+    stage.load_kernels(spec, **stage.features(dyn, player_costs, spec))
     lq.load_kernels(spec)
-    sweep.load_merit_kernel(spec, norms, reach, diff)
-    for n, r, d in sorted({(False, False, False), (norms, reach, diff)}):
-        sweep.load_kernels(dyn, spec, n, r, d)
+    sweep.load_merit_kernel(spec, **mf)
+    sweep.load_kernels(dyn, spec)
+    sweep.load_kernels(dyn, spec, **mf)
     if open_loop:
         lq_open_loop.load_kernels(spec)
 
@@ -362,6 +363,14 @@ CONFIGS = {
     "dubins_fb": dict(make=dubins_origin.make_problem,
                       metric="dubins_origin_feedback_solves_per_sec_per_chip",
                       batch=1024, sigma=0.1, params={}, fuse_stages=True),
+    # The ICRA 2020 paper's four-car roundabout (the reference's
+    # roundabout_merging_example.cpp: 4 car_6d, x = 24, 44 cost atoms),
+    # as bench_all.py runs the collision and the flat intersection
+    # (bench_all.py:161-212): 256 instances of the x0 draw with sigma 0.1,
+    # the exec main's parameters, fused stages.
+    "roundabout": dict(make=roundabout_merging.make_problem,
+                       metric="roundabout_merging_solves_per_sec_per_chip",
+                       batch=256, sigma=0.1, params={}, fuse_stages=True),
 }
 # The exec main of the reference's dubins_origin example
 # (exec/dubins_origin_example/main.cpp defaults, tests/test_golden_more.py:
@@ -370,6 +379,23 @@ GOLDEN_PARAMS = dict(linesearch=False, initial_alpha_scaling=0.1,
                      expected_decrease_fraction=0.1,
                      convergence_tolerance=0.1, max_backtracking_steps=100,
                      max_solver_iters=1000)
+# The exec mains of the reference's overtaking and roundabout examples
+# (their flag defaults, tests/test_golden_more.py:63-67 and :86-90): the
+# linesearch from alpha 0.75, tolerance 0.01, 1000 iterations at most.
+DRIVING_GOLDEN_PARAMS = dict(linesearch=True, initial_alpha_scaling=0.75,
+                             expected_decrease_fraction=0.1,
+                             convergence_tolerance=0.01,
+                             max_backtracking_steps=100)
+# The golden runs: the game and the exec main's parameters of each, the
+# trajectories of the unmodified reference in tests/golden/.
+GOLDEN_RUNS = {
+    "dubins_ol": (dubins_origin.make_problem,
+                  dict(GOLDEN_PARAMS, open_loop=True)),
+    "dubins_fb": (dubins_origin.make_problem, GOLDEN_PARAMS),
+    "overtaking": (three_player_overtaking.make_problem,
+                   DRIVING_GOLDEN_PARAMS),
+    "roundabout": (roundabout_merging.make_problem, DRIVING_GOLDEN_PARAMS),
+}
 GOLDEN_BLOCK = 8
 # The reference's replan contract that bench_all.py's config 5 divides by:
 # one replan per instance within 0.25 s, 4 replans/s/instance on one core
@@ -466,8 +492,8 @@ def run_receding(config: int, device="cuda", fuse_stages=None,
 
 
 def run_config(config, device="cuda", fuse_stages=None, after_load=None):
-    """bench_all.py's config 1, 2, 4 or 5, or "dubins_ol" / "dubins_fb", on
-    `device`. Config 5, receding horizon, is `run_receding`'s. The others
+    """bench_all.py's config 1, 2, 4 or 5, or "dubins_ol" / "dubins_fb" /
+    "roundabout", on `device`. Config 5, receding horizon, is `run_receding`'s. The others
     as bench_all.py's `_throughput` runs them: the exec main's parameters
     (with the config's budgets and information pattern), the x0 draw with
     the config's sigma, the plain host-stepped driver with lane blocks of
@@ -516,20 +542,22 @@ def run_config(config, device="cuda", fuse_stages=None, after_load=None):
     return res, out
 
 
-def run_golden(open_loop: bool, device="cuda"):
-    """The exec main of the reference's dubins_origin example on `device`:
-    its nominal x0, one lane padded to GOLDEN_BLOCK, from the zero
-    operating point and strategy, GOLDEN_PARAMS (no linesearch, 1000
-    iterations) in the open-loop (unfused stages, K7) or the feedback
-    information pattern (fused stages), plain driver, 20 trips a dispatch.
-    The kernels are built first. Returns (ALResult of the one lane,
-    {"trips", "wall_s", "launches"})."""
+def run_golden(run: str, device="cuda"):
+    """The exec main of a reference example on `device` (`GOLDEN_RUNS`:
+    "dubins_ol" and "dubins_fb", dubins_origin in the open-loop (unfused
+    stages, K7) and the feedback information pattern, no linesearch, 1000
+    iterations; "overtaking" and "roundabout", the driving games with
+    their linesearch, fused stages): its nominal x0, one lane padded to
+    GOLDEN_BLOCK, from the zero operating point and strategy, plain
+    driver, 20 trips a dispatch. The kernels are built first. Returns
+    (ALResult of the one lane, {"trips", "wall_s", "launches"})."""
     set_precision()
     dev = _cuda_device(device)
-    problem = dubins_origin.make_problem()
-    params = SolverParams(open_loop=open_loop, **GOLDEN_PARAMS)
+    make, prm = GOLDEN_RUNS[run]
+    problem = make()
+    params = SolverParams(**prm)
     build_kernels(problem.dynamics, problem.spec, problem.player_costs,
-                  open_loop)
+                  params.open_loop)
     solver = batched.make_host_batched_solver(
         problem.dynamics, problem.player_costs, problem.spec, params,
         warm_op=problem.initial_operating_point(),

@@ -1,5 +1,5 @@
 """Cost atoms (counterpart of ilqgames_tpu/costs/atoms.py: `quadratic` at
-:39, `quadratic_norm` at :103, `semiquadratic_norm` at :120,
+:39, `semiquadratic` at :79, `quadratic_norm` at :103, `semiquadratic_norm` at :120,
 `quadratic_difference` at :148, `signed_distance` at :178, `proximity` at
 :213, `quadratic_polyline2` at :366, `semiquadratic_polyline2` at :433,
 `final_time` at :652 and `extreme_value` at :685).
@@ -73,6 +73,35 @@ def quadratic(weight: float, dim: Optional[int], nominal: float = 0.0,
                 grad_pairs(t, v))
 
     return Cost(name, evaluate, grad_pairs, quad_pairs, device=device)
+
+
+def semiquadratic(weight: float, dim: int, threshold: float,
+                  oriented_right: bool, name: str = "semiquadratic") -> Cost:
+    """0.5*w*(v[dim]-threshold)^2 above (oriented_right) or below the
+    threshold, else 0: strictly beyond it (zero at the threshold), as the
+    JAX package's `where`s select."""
+
+    def active(v):
+        diff = v[..., dim] - threshold
+        return diff, (diff > 0.0) if oriented_right else (diff < 0.0)
+
+    def evaluate(t, v):
+        diff, on = active(v)
+        return torch.where(on, 0.5 * weight * diff * diff, 0.0)
+
+    def grad_pairs(t, v):
+        diff, on = active(v)
+        return [(dim, torch.where(on, weight * diff, 0.0))]
+
+    def quad_pairs(t, v):
+        _, on = active(v)
+        return ([((dim, dim), torch.where(on, weight, 0.0))],
+                grad_pairs(t, v))
+
+    return Cost(name, evaluate, grad_pairs, quad_pairs,
+                device=("semiquadratic", {"dim": dim, "weight": weight,
+                                          "threshold": threshold,
+                                          "oriented_right": oriented_right}))
 
 
 def _norm_quad(weight: float, dim1: int, dim2: int, nominal: float, v):

@@ -30,17 +30,20 @@
 //   quadratic_difference costs/atoms.py:quadratic_difference (two
 //                        differences: the pairs of the JAX package's
 //                        autodiff over its support)
+//   semiquadratic        costs/atoms.py:semiquadratic (strictly beyond its
+//                        threshold on its side, else 0)
 //   car_6d, unicycle_4d, car_5d, dubins_car, the linear system
 //                        the Jacobian entries of dynamics/models.py and the
 //                        constant ones of dynamics/base.py:linear
 // The two norm atoms are the merit's only (K5, K6): they are compiled in
 // where the library is built with CT_NORMS=1 (ops/cuda/sweep.py), and K1
-// has neither (its caller refuses them). The reachability games' atoms,
-// control constraints and car_5d's Jacobian are compiled in where the
-// library is built with CT_REACH=1 (cost_table.has_reach), so that the
+// has neither (its caller refuses them). The reachability games' atoms
+// and control constraints are compiled in where the library is built with CT_REACH=1 (cost_table.has_reach), so that the
 // other games' kernels are the same code; so are quadratic_difference
-// (CT_DIFF=1, cost_table.has_diff) and dubins_car's Jacobian (CT_DUBINS=1,
-// K1 only).
+// (CT_DIFF=1, cost_table.has_diff), semiquadratic (CT_SEMI=1,
+// cost_table.has_semi) and the Jacobians of dubins_car (CT_DUBINS=1) and
+// car_5d (CT_CAR5D=1), K1's only (ops/cuda/stage.py). The CostTable holds
+// CT_MAX_ATOMS atoms (32 unless the build says more: cost_table.capacity).
 // The problem arrives as a CostTable (atom kinds, dims, weights, nominals,
 // thresholds, signs, orientations, gate times, segment offsets, extremal
 // groups, each player's structure; built by ops/cuda/cost_table.py), in the
@@ -83,10 +86,19 @@
 #ifndef CT_DUBINS
 #define CT_DUBINS 0
 #endif
+#ifndef CT_SEMI
+#define CT_SEMI 0
+#endif
+#ifndef CT_CAR5D
+#define CT_CAR5D 0
+#endif
+#ifndef CT_MAX_ATOMS
+#define CT_MAX_ATOMS 32
+#endif
 
 namespace costs {
 
-constexpr int MAX_ATOMS = 32;
+constexpr int MAX_ATOMS = CT_MAX_ATOMS;
 constexpr int MAX_PLAYERS = 8;
 constexpr int MAX_SUBSYS = 8;
 constexpr int KIND_QUADRATIC = 0;
@@ -100,6 +112,7 @@ constexpr int KIND_SIGNED_DIST = 7;
 constexpr int KIND_EXTREME = 8;
 constexpr int KIND_SINGLE_DIM = 9;
 constexpr int KIND_QUAD_DIFF = 10;
+constexpr int KIND_SEMIQUADRATIC = 11;
 constexpr int MAX_LIN = 32;
 constexpr int KIND_CAR_6D = 0;      // dynamics/models.py KIND_CAR_6D
 constexpr int KIND_UNICYCLE_4D = 1;  // dynamics/models.py KIND_UNICYCLE_4D
@@ -147,7 +160,8 @@ struct SubsysTable {
 // dimension control constraint: on = j, dim[0], w = threshold, aux = +1
 // (keep below) or -1 (keep above), lam = its row of lamC. Quadratic
 // difference: dim[0..3] = its support d1[0], d1[1], d2[0], d2[1], w =
-// weight. gated: a final-time gate at tgate.
+// weight. Semiquadratic: dim[0], w = weight, aux = threshold, right =
+// oriented right. gated: a final-time gate at tgate.
 struct CostAtom {
   int kind;
   int player;
@@ -537,6 +551,17 @@ __device__ __forceinline__ void qdiff_grad(const CostAtom& a, const V& v,
 }
 #endif  // CT_DIFF
 
+#if CT_SEMI
+// atoms.semiquadratic at the value x of its dim: its gradient w * diff
+// and Hessian w where diff = x - threshold is strictly beyond it on its
+// side (right: above), else 0.
+__device__ __forceinline__ bool semi_active(const CostAtom& a, float x,
+                                            float& diff) {
+  diff = x - a.aux;
+  return a.right ? diff > 0.0f : diff < 0.0f;
+}
+#endif  // CT_SEMI
+
 #if CT_REACH
 struct SignedDist {
   float dx, dy, ssq;
@@ -807,6 +832,13 @@ __device__ __forceinline__ void gradient_sq_into(
       gs.add(a.dim[3], gv(-gy));
     }
 #endif
+#if CT_SEMI
+    else if (a.kind == KIND_SEMIQUADRATIC) {
+      float diff;
+      const bool on = semi_active(a, v[a.dim[0]], diff);
+      gs.add(a.dim[0], gv(on ? a.w * diff : 0.0f));
+    }
+#endif
 #if CT_DIFF
     else if (a.kind == KIND_QUAD_DIFF) {
       float g[2];
@@ -907,7 +939,7 @@ __device__ void jacobian(const SubsysTable& tab, const float* x, Add add,
       add(true, o + 2, q + 0, 1.0f);
       add(true, o + 3, q + 1, 1.0f);
     }
-#if CT_REACH
+#if CT_CAR5D
     else if (tab.kind[s] == KIND_CAR_5D) {
       const float L = tab.length[s];
       const float sn = fmath::sin(x[o + 2]), cs = fmath::cos(x[o + 2]);

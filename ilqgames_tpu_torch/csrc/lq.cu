@@ -14,7 +14,10 @@
 // the reference's shipped forward pass (no -B P feedback term).
 //
 // Design. K2 runs G = LQ_G lanes per block (8: eight floats of
-// neighbouring lanes fill one 32-byte sector) and one warp per lane. The
+// neighbouring lanes fill one 32-byte sector; fewer where the shared
+// memory of eight does not fit a block, ops/cuda/lq.py:lanes_per_block: 4
+// at the roundabout's x = 24, P = 4, whose reads of one element then fill
+// half a sector) and one warp per lane. The
 // whole block stages each knot's operands of its G lanes (A, Bf, Qf, lf,
 // Rf, rf: 1,222 floats a lane) from device memory into shared memory,
 // consecutive threads on consecutive lanes, so every read is coalesced and
@@ -35,10 +38,13 @@
 // a padded term. The LU pivot search is
 // a warp reduction (NaN-propagating max, then the first row attaining it
 // by ballot). The eliminations touch only the columns right of the pivot:
-// the entries left of it are never read again. R_i P_j is formed once per
-// knot (RP) and the value update folds from it. A lane takes 5,028 floats
-// of dynamic shared memory with both operand buffers and its padding
-// against bank conflicts (160,896 B a block at G = 8). Lanes past B compute on
+// the entries left of it are never read again. The augmented system's
+// W = PU + X + 1 columns may outnumber a warp's threads (33 at the
+// roundabout): a row swap takes them in a strided loop, as the
+// eliminations do. R_i P_j is formed once per knot (RP) and the value
+// update folds from it. A lane takes 5,028 floats of dynamic shared memory
+// at the flagship's dims with both operand buffers and its padding against
+// bank conflicts (160,896 B a block at G = 8). Lanes past B compute on
 // the last lane, meet every barrier and store nothing.
 //
 // K3 runs FG = LQ_FWD_G lanes per block (16) and one thread per (state
@@ -103,8 +109,9 @@ constexpr int PPU = P * P * U;  // rows of Rf and rf at one knot
 // F, RP, and Qf of the staged operands) start at multiples of four floats:
 // the carry and the knot's temporaries first, then the staged operands,
 // twice over: the knot's own and the next knot's, in flight. A lane's
-// stride is 4 more than a multiple of 32 floats, so that the staging's
-// stores, eight lanes of one element side by side, fall in distinct banks.
+// stride is 32 / G more than a multiple of 32 floats, so that the
+// staging's stores (a warp's threads on G lanes of 32 / G elements side by
+// side, lane g's banks 32 / G g further) fall in distinct banks.
 constexpr int pad4(int n) { return (n + 3) / 4 * 4; }
 constexpr int OFF_Z = 0;                        // Z [P][X][X]
 constexpr int OFF_T = OFF_Z + PX * X;           // Z_i F [P][X][X]
@@ -127,7 +134,7 @@ constexpr int S_R = S_L + PX;                   //   Rf [PPU][U]
 constexpr int S_RV = S_R + PPU * U;             //   rf [PPU]
 constexpr int STAGED = pad4(S_RV + PPU);
 constexpr int LANE_USED = OFF_S + 2 * STAGED;
-constexpr int LANE = LANE_USED + ((4 - LANE_USED) % 32 + 32) % 32;
+constexpr int LANE = LANE_USED + ((32 / G - LANE_USED) % 32 + 32) % 32;
 constexpr int SMEM_BYTES = G * LANE * (int)sizeof(float);
 
 // The value update's tiles: a thread holds CW adjacent columns of MR rows
@@ -140,11 +147,28 @@ constexpr int RG = 32 / CG;                // row groups
 constexpr int MR = (X + RG - 1) / RG;      // rows of one player per thread
 constexpr bool FULL = CG * RG == 32 && X % RG == 0;
 static_assert(CG <= 32, "K2's value-update tiles need x / CW <= 32");
+// Players a thread's tiles take in one pass: all of them where their
+// accumulators fit `budget` floats, else the fewest passes' worth that do.
+// Every game before the roundabout takes its players in one pass (the
+// overtaking's x = 18 fills both budgets); at the roundabout's x = 24,
+// P = 4 (MR = 5 rows of 4 columns a player) all four players' tiles held
+// ptxas at 255 registers with 32-96 B of spills, and of the splits tried
+// on the card only T one player a pass with the value update two a pass
+// built without a spill (250 registers).
+constexpr int players_per_pass(int tile, int budget) {
+  int passes = 1;
+  while ((P + passes - 1) / passes * tile > budget && passes < P) ++passes;
+  return (P + passes - 1) / passes;
+}
+constexpr int PT = players_per_pass(MR * CW, 36);      // T = Z F
+constexpr int PZ = players_per_pass(2 * MR * CW, 96);  // the value update
 static_assert(SMEM_BYTES == LQ_SMEM,
               "ops/cuda/lq.py:backward_smem_bytes disagrees with the layout");
 static_assert(SMEM_BYTES <= MAX_SMEM, "a block may use 227 KB of shared memory");
-static_assert(X + 1 <= 32 && W <= 32 && PU <= 32,
-              "a warp needs a thread per column and per pivot row");
+static_assert(32 % G == 0, "a block's lanes divide a warp's banks");
+static_assert(X + 1 <= 32 && PU <= 32,
+              "a warp needs a thread per pivot row (the pivot's ballot) "
+              "and per right-hand side (the back-substitution)");
 
 // A tile row of CW floats, loaded and stored as one vector.
 template <int W>
@@ -381,10 +405,12 @@ __global__ void K2_BOUNDS lq_backward_kernel(
         m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, o));
       const unsigned hit = __ballot_sync(0xffffffffu, mine && v >= m);
       const int p = hit ? __ffs(hit) - 1 : k;
-      if (p != k && lt < W) {
-        const float tmp = M[k * W + lt];
-        M[k * W + lt] = M[p * W + lt];
-        M[p * W + lt] = tmp;
+      if (p != k) {
+        for (int c = lt; c < W; c += 32) {
+          const float tmp = M[k * W + c];
+          M[k * W + c] = M[p * W + c];
+          M[p * W + c] = tmp;
+        }
       }
       __syncwarp();
       // Rows below k, columns right of k. This step writes nothing it
@@ -434,33 +460,41 @@ __global__ void K2_BOUNDS lq_backward_kernel(
     // of the four rows of F; each entry still folds y in order. The folds
     // start from -0, the identity of IEEE addition (-0 + p == p for every
     // p), so the first step equals the plain version's bare product.
-    {
-      Vec acc[P][MR];
+#pragma unroll 1
+    for (int i0 = 0; i0 < P; i0 += PT) {
+      // Player i0 + ii of this pass (past P in a short last pass: none).
+      auto live = [&](int ii) {
+        if constexpr (P % PT == 0) return true;
+        else return i0 + ii < P;
+      };
+      Vec acc[PT][MR];
 #pragma unroll
-      for (int i = 0; i < P; ++i)
+      for (int ii = 0; ii < PT; ++ii)
 #pragma unroll
-        for (int m = 0; m < MR; ++m) acc[i][m] = splat(Vec{}, -0.0f);
+        for (int m = 0; m < MR; ++m) acc[ii][m] = splat(Vec{}, -0.0f);
 #pragma unroll 1
       for (int y0 = 0; y0 < X; y0 += CW) {
         Vec fy[CW];
 #pragma unroll
         for (int d = 0; d < CW; ++d) fy[d] = ldv(F + (y0 + d) * X + c0);
 #pragma unroll
-        for (int i = 0; i < P; ++i) {
+        for (int ii = 0; ii < PT; ++ii) {
+          if (!live(ii)) continue;
 #pragma unroll
           for (int m = 0; m < MR; ++m) {
-            const Vec z = ldv(Z + (i * X + row(m)) * X + y0);
+            const Vec z = ldv(Z + ((i0 + ii) * X + row(m)) * X + y0);
 #pragma unroll
             for (int d = 0; d < CW; ++d)
-              acc[i][m] = madd(acc[i][m], comp(z, d), fy[d]);
+              acc[ii][m] = madd(acc[ii][m], comp(z, d), fy[d]);
           }
         }
       }
 #pragma unroll
-      for (int i = 0; i < P; ++i)
+      for (int ii = 0; ii < PT; ++ii)
 #pragma unroll
         for (int m = 0; m < MR; ++m)
-          if (owns(m)) stv(T + (i * X + row(m)) * X + c0, acc[i][m]);
+          if (live(ii) && owns(m))
+            stv(T + ((i0 + ii) * X + row(m)) * X + c0, acc[ii][m]);
     }
     for (int e = lt; e < PX; e += 32) {
       const float* Zr = Z + e * X;
@@ -499,14 +533,19 @@ __global__ void K2_BOUNDS lq_backward_kernel(
     }
     // Z in the same tiles: row (i, a) of F^T T_i + Q_i + P^T R_i P, the
     // F column entries and the P rows shared across players.
-    {
-      Vec acc[P][MR], prp[P][MR];
+#pragma unroll 1
+    for (int i0 = 0; i0 < P; i0 += PZ) {
+      auto live = [&](int ii) {
+        if constexpr (P % PZ == 0) return true;
+        else return i0 + ii < P;
+      };
+      Vec acc[PZ][MR], prp[PZ][MR];
 #pragma unroll
-      for (int i = 0; i < P; ++i)
+      for (int ii = 0; ii < PZ; ++ii)
 #pragma unroll
         for (int m = 0; m < MR; ++m) {
-          acc[i][m] = splat(Vec{}, -0.0f);
-          prp[i][m] = splat(Vec{}, 0.0f);
+          acc[ii][m] = splat(Vec{}, -0.0f);
+          prp[ii][m] = splat(Vec{}, 0.0f);
         }
 #pragma unroll 1
       for (int xx = 0; xx < X; ++xx) {
@@ -514,10 +553,12 @@ __global__ void K2_BOUNDS lq_backward_kernel(
 #pragma unroll
         for (int m = 0; m < MR; ++m) fa[m] = F[xx * X + row(m)];
 #pragma unroll
-        for (int i = 0; i < P; ++i) {
-          const Vec t = ldv(T + (i * X + xx) * X + c0);
+        for (int ii = 0; ii < PZ; ++ii) {
+          if (!live(ii)) continue;
+          const Vec t = ldv(T + ((i0 + ii) * X + xx) * X + c0);
 #pragma unroll
-          for (int m = 0; m < MR; ++m) acc[i][m] = madd(acc[i][m], fa[m], t);
+          for (int m = 0; m < MR; ++m)
+            acc[ii][m] = madd(acc[ii][m], fa[m], t);
         }
       }
 #pragma unroll 1
@@ -526,18 +567,21 @@ __global__ void K2_BOUNDS lq_backward_kernel(
 #pragma unroll
         for (int m = 0; m < MR; ++m) pa[m] = Xs[ja * XA + row(m)];
 #pragma unroll
-        for (int i = 0; i < P; ++i) {
-          const Vec rp = ldv(RP + (i * PU + ja) * X + c0);
+        for (int ii = 0; ii < PZ; ++ii) {
+          if (!live(ii)) continue;
+          const Vec rp = ldv(RP + ((i0 + ii) * PU + ja) * X + c0);
 #pragma unroll
-          for (int m = 0; m < MR; ++m) prp[i][m] = madd(prp[i][m], pa[m], rp);
+          for (int m = 0; m < MR; ++m)
+            prp[ii][m] = madd(prp[ii][m], pa[m], rp);
         }
       }
 #pragma unroll
-      for (int i = 0; i < P; ++i) {
+      for (int ii = 0; ii < PZ; ++ii) {
 #pragma unroll
         for (int m = 0; m < MR; ++m) {
-          const int e = (i * X + row(m)) * X + c0;
-          if (owns(m)) stv(Z + e, add2(acc[i][m], ldv(Qs + e), prp[i][m]));
+          const int e = ((i0 + ii) * X + row(m)) * X + c0;
+          if (live(ii) && owns(m))
+            stv(Z + e, add2(acc[ii][m], ldv(Qs + e), prp[ii][m]));
         }
       }
     }
@@ -625,7 +669,15 @@ __device__ __forceinline__ void fwd_stage(float* buf,
 // FSTAGES - 1 knots of copies are in flight while a knot folds. One block
 // barrier per knot: it makes knot k's copies and dx_k visible, and frees
 // the ring slot and the dx buffer that knot k - 1 read.
-__global__ void __launch_bounds__(NT3) lq_forward_kernel(
+// At x = 24 (384 threads a block) ptxas held K3 to 80 registers and
+// spilled unless told that one block per SM is enough (its shared memory,
+// 152,064 B, allows no second); the smaller x's keep their build.
+#if LQ_X >= 24
+#define K3_BOUNDS __launch_bounds__(NT3, 1)
+#else
+#define K3_BOUNDS __launch_bounds__(NT3)
+#endif
+__global__ void K3_BOUNDS lq_forward_kernel(
     const float* __restrict__ A, const float* __restrict__ Bf,
     const float* __restrict__ al, const float* __restrict__ dx0,
     float* __restrict__ dxs, int N, int B, bool vec) {

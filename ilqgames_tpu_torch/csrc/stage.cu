@@ -20,9 +20,10 @@
 // (dim, dim) and r the gradient, after the control costs, in the order of
 // al_quad_pairs) with their multipliers lamC, and the extremal gate
 // gate [N,P,B], which multiplies a MAX or MIN player's state terms before
-// the regularization (player_cost.quadraticize). Built with CT_DIFF and
-// CT_DUBINS (costs.cuh), it takes quadratic_difference atoms and
-// dubins_car's Jacobian.
+// the regularization (player_cost.quadraticize). Built with CT_DIFF,
+// CT_SEMI, CT_DUBINS and CT_CAR5D (costs.cuh), it takes
+// quadratic_difference and semiquadratic atoms and the Jacobians of
+// dubins_car and car_5d.
 //
 // The game's SubsysTable and CostTable live in this library's constant
 // memory (stage_set_tables), where every thread of a warp reads the same
@@ -262,6 +263,15 @@ __global__ void stage_kernel(const float* __restrict__ xs,
         gq(a.dim[1], gv(gy));
         gq(a.dim[2], gv(-gx));
         gq(a.dim[3], gv(-gy));
+      }
+#endif
+#if CT_SEMI
+      else if (a.kind == costs::KIND_SEMIQUADRATIC) {
+        const int d = a.dim[0];
+        float diff;
+        const bool on = costs::semi_active(a, x[d], diff);
+        hq(d, d, gv(on ? a.w : 0.0f));
+        gq(d, gv(on ? a.w * diff : 0.0f));
       }
 #endif
 #if CT_DIFF

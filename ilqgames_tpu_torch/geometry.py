@@ -19,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ilqgames_tpu_torch import fmath
 from ilqgames_tpu_torch.types import SMALL_NUMBER
 
 _EPS = 1e-12
@@ -75,6 +76,41 @@ def shortcut_segments(points):
 def sign(x: torch.Tensor) -> torch.Tensor:
     """jnp.sign: -1, +1, or x itself at +-0 and NaN."""
     return torch.where(x > 0.0, 1.0, torch.where(x < 0.0, -1.0, x))
+
+
+def polyline_cumulative_lengths(points) -> torch.Tensor:
+    """[M] cumulative arc length at each vertex (first entry 0), float32:
+    each segment's norm, then a running sum in vertex order."""
+    pts = torch.as_tensor(np.asarray(points, np.float32))
+    d = pts[1:] - pts[:-1]
+    seg = fmath.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1])
+    out = [torch.zeros((), dtype=torch.float32)]
+    for s in range(seg.shape[0]):
+        out.append(out[-1] + seg[s])
+    return torch.stack(out)
+
+
+def polyline_point_at(points, route_pos: torch.Tensor) -> torch.Tensor:
+    """The point `route_pos` meters along the polyline, [..., 2] (the
+    JAX package's polyline_point_at, the reference's Polyline2::PointAt):
+    the last segment whose cumulative start length (a Python float sum of
+    the float32 lengths) is <= route_pos wins, and a position past the end
+    extrapolates the last segment."""
+    _, segs = _static_segments(points)
+    cum = 0.0
+    px = py = None
+    for s, (p1, _p2, (ux, uy), length) in enumerate(segs):
+        rem = route_pos - cum
+        cand_x = p1[0] + rem * ux
+        cand_y = p1[1] + rem * uy
+        if s == 0:
+            px, py = cand_x, cand_y
+        else:
+            inside = route_pos >= cum
+            px = torch.where(inside, cand_x, px)
+            py = torch.where(inside, cand_y, py)
+        cum += length
+    return torch.stack([px, py], dim=-1)
 
 
 def polyline_closest_point_xy(points, qx: torch.Tensor, qy: torch.Tensor,

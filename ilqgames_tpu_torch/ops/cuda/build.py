@@ -58,8 +58,9 @@ def _target(name: str, defines: dict):
 
 
 def _compile(targets) -> None:
-    """Run one nvcc per target not built yet, all at once, and wait."""
-    todo = [t for t in targets if not t[2].exists()]
+    """Run one nvcc per library not built yet (a library named twice is
+    built once), all at once, and wait."""
+    todo = list({t[2]: t for t in targets if not t[2].exists()}.values())
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

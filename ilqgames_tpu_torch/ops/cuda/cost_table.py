@@ -23,7 +23,17 @@ with CT_DIFF=1 (`has_diff`).
 An extremal group (atoms.extreme_value) is a header atom (kind
 "extreme", `group` its member count, `right` 1 for the minimum) followed
 by its members (`group` -1), each of which the kernels multiply by its
-one-hot gate.
+one-hot gate. The semiquadratic atom is compiled into K1, K5 and K6 only
+where a game's table holds one (`has_semi`: CT_SEMI=1).
+
+The table's capacity is per build, as the other layout defines are
+(`capacity`): MAX_ATOMS (32) atoms for a game with at most that many, so
+that those games' table is the same 2,980 B struct and their kernels the
+same code as before; else the game's count rounded up to 8, built with
+CT_MAX_ATOMS (`table_type` makes the ctypes struct of each capacity).
+88 B an atom: 4,388 B at 48 (the roundabout's 44 atoms), above the
+classic 4 KB of kernel parameters that K5 and K6 take it in; CUDA 12.1
+and later on sm_70 and later take 32,764 B.
 """
 
 from __future__ import annotations
@@ -37,13 +47,14 @@ from ilqgames_tpu_torch import geometry
 from ilqgames_tpu_torch.costs import player_cost as pcost
 from ilqgames_tpu_torch.types import GameSpec, const_tensor
 
-MAX_ATOMS = 32
+MAX_ATOMS = 32          # a table's capacity, where the game fits it
+MAX_CAPACITY = 256      # 22,692 B: the most any build takes
 MAX_PLAYERS = 8
 KIND = {"quadratic": 0, "polyline": 1, "proximity": 2,
         "semiquadratic_polyline": 3, "proximity_cost": 4,
         "quadratic_norm": 5, "semiquadratic_norm": 6,
         "signed_distance": 7, "extreme": 8, "single_dimension": 9,
-        "quadratic_difference": 10}
+        "quadratic_difference": 10, "semiquadratic": 11}
 NORM_KINDS = ("quadratic_norm", "semiquadratic_norm")
 REACH_KINDS = ("signed_distance", "extreme")
 
@@ -59,13 +70,34 @@ class CostAtom(ctypes.Structure):
                 ("aux2", ctypes.c_float), ("group", ctypes.c_int)]
 
 
-class CostTable(ctypes.Structure):
-    _fields_ = [("n", ctypes.c_int), ("atom", CostAtom * MAX_ATOMS),
-                ("state_reg", ctypes.c_float * MAX_PLAYERS),
-                ("ctrl_reg", ctypes.c_float * MAX_PLAYERS),
-                ("ctrl_players", ctypes.c_int * MAX_PLAYERS),
-                ("udims", ctypes.c_int * MAX_PLAYERS),
-                ("extremal", ctypes.c_int * MAX_PLAYERS)]
+@functools.lru_cache(maxsize=None)
+def table_type(atoms: int = MAX_ATOMS):
+    """The ctypes CostTable of a build whose table holds `atoms` atoms
+    (csrc/costs.cuh's, with CT_MAX_ATOMS = atoms)."""
+
+    class CostTable(ctypes.Structure):
+        _fields_ = [("n", ctypes.c_int), ("atom", CostAtom * atoms),
+                    ("state_reg", ctypes.c_float * MAX_PLAYERS),
+                    ("ctrl_reg", ctypes.c_float * MAX_PLAYERS),
+                    ("ctrl_players", ctypes.c_int * MAX_PLAYERS),
+                    ("udims", ctypes.c_int * MAX_PLAYERS),
+                    ("extremal", ctypes.c_int * MAX_PLAYERS)]
+
+    CostTable.capacity = atoms
+    return CostTable
+
+
+CostTable = table_type(MAX_ATOMS)
+
+
+def _capacity_of(n: int) -> int:
+    """The capacity of a table of n atoms: MAX_ATOMS, or n rounded up to
+    8."""
+    cap = MAX_ATOMS if n <= MAX_ATOMS else -(-n // 8) * 8
+    if cap > MAX_CAPACITY:
+        raise NotImplementedError(
+            f"{n} cost atoms: a table takes at most {MAX_CAPACITY}")
+    return cap
 
 
 def _device_form(atom):
@@ -84,7 +116,6 @@ def _build(player_costs, spec: GameSpec):
     (geometry.shortcut_segments), at float offset `fix0`."""
     if len(player_costs) > MAX_PLAYERS:
         raise NotImplementedError(f"more than {MAX_PLAYERS} players")
-    tab = CostTable()
     segs = []
     atoms = []
     lam_row = ctrl_row = 0
@@ -127,14 +158,14 @@ def _build(player_costs, spec: GameSpec):
                     "constraints have a device form")
             atoms.append((i, j, con.device, ctrl_row))
             ctrl_row += 1
+    tab = table_type(_capacity_of(len(atoms)))()
+    for i, pc in enumerate(player_costs):
         tab.state_reg[i] = pc.state_regularization
         tab.ctrl_reg[i] = pc.control_regularization
         tab.ctrl_players[i] = sum(1 << j for j in pc.control_players())
         tab.extremal[i] = int(pc.structure != pcost.STRUCTURE_SUM)
     for i, d in enumerate(spec.udims):
         tab.udims[i] = d
-    if len(atoms) > MAX_ATOMS:
-        raise NotImplementedError(f"more than {MAX_ATOMS} cost atoms")
 
     fixes = []
     for n, (i, on, (kind, prm), lam) in enumerate(atoms):
@@ -183,6 +214,9 @@ def _build(player_costs, spec: GameSpec):
         elif kind == "quadratic_difference":
             a.dim[:] = list(prm["dims"])
             a.w = prm["weight"]
+        elif kind == "semiquadratic":
+            a.dim[0], a.w, a.aux = prm["dim"], prm["weight"], prm["threshold"]
+            a.right = int(prm["oriented_right"])
         elif kind == "single_dimension":
             a.dim[0], a.w, a.lam = prm["dim"], prm["threshold"], lam
             a.aux = 1.0 if prm["keep_below"] else -1.0
@@ -212,6 +246,19 @@ def has_diff(player_costs) -> bool:
     K5 and K6 are then built with it (CT_DIFF=1)."""
     return any(c.device is not None and c.device[0] == "quadratic_difference"
                for pc in player_costs for c in pc.state_costs)
+
+
+def has_semi(player_costs) -> bool:
+    """Whether a game's table holds a semiquadratic atom: its K1, K5 and K6
+    are then built with it (CT_SEMI=1)."""
+    return any(c.device is not None and c.device[0] == "semiquadratic"
+               for pc in player_costs for c in pc.state_costs)
+
+
+def capacity(player_costs, spec: GameSpec) -> int:
+    """The atoms that the game's table holds room for, its kernels'
+    CT_MAX_ATOMS (`table_type`)."""
+    return _build(tuple(player_costs), spec)[0].capacity
 
 
 def has_norms(player_costs) -> bool:

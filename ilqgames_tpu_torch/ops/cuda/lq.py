@@ -10,7 +10,8 @@ Layout is batch-minor ([..., B]), the operand dict of the JAX package's
 `solve_lq_feedback_bm`: A [N,x,x,B], Bf [N,x,Pu,B], Qf [N,P*x,x,B],
 lf [N,P*x,B], Rf [N,P*P*u,u,B], rf [N,P*P*u,B].
 
-K2 runs `LQ_G` lanes per block, one warp per lane. While a knot computes,
+K2 runs `lanes_per_block` lanes per block (8, or fewer where eight do not
+fit a block's shared memory), one warp per lane. While a knot computes,
 the block copies the next knot's operands of its lanes into a second
 buffer of dynamic shared memory (cp.async, consecutive threads on
 consecutive lanes, so the reads coalesce), and each warp works through its
@@ -51,17 +52,19 @@ def _pad_rows(spec: GameSpec):
             for a in range(d, spec.umax)]
 
 
-LQ_G = 8                # K2 lanes per block (one warp each)
+LQ_G = 8                # K2's most lanes per block (one warp each)
 SMEM_LIMIT = 232448     # shared memory a block may use on an H100, bytes
 FWD_G = 16              # K3 lanes per block (one 64-byte read an element)
 FWD_STAGES = 3          # K3's ring: the knot folded and two in flight
 
 
-def backward_smem_bytes(spec: GameSpec) -> int:
-    """K2's dynamic shared memory per block, csrc/lq.cu's layout: per lane
-    the value-function carry and the knot's temporaries, then two buffers
-    of a knot's staged operands, each part padded to a multiple of 4
-    floats and the lane to 4 more than a multiple of 32."""
+def backward_smem_bytes(spec: GameSpec, G: int = LQ_G) -> int:
+    """K2's dynamic shared memory per block of G lanes, csrc/lq.cu's
+    layout: per lane the value-function carry and the knot's temporaries,
+    then two buffers of a knot's staged operands, each part padded to a
+    multiple of 4 floats and the lane to 32 / G more than a multiple of 32
+    (the staging's stores, G lanes of one element side by side, then fall
+    in distinct banks)."""
     P, x, u = spec.num_players, spec.xdim, spec.umax
     Pu, Px = P * u, P * x
     pad4 = lambda n: -(-n // 4) * 4
@@ -70,7 +73,15 @@ def backward_smem_bytes(spec: GameSpec) -> int:
     temps = (Pu * x + Pu * (Pu + x + 1) + Pu * (x + 1) + x * x + x + Pu
              + Px * x + Px + P * Pu + P * Pu * x)
     used = pad4(carry + temps) + 2 * pad4(staged)
-    return 4 * LQ_G * (used + (4 - used) % 32)
+    return 4 * G * (used + (32 // G - used) % 32)
+
+
+def lanes_per_block(spec: GameSpec) -> int:
+    """K2's lanes per block at this game's dims: the most of 8, 4, 2 and 1
+    whose shared memory fits a block (`backward_smem_bytes`), or 0 where
+    none does."""
+    return next((G for G in (8, 4, 2, 1)
+                 if backward_smem_bytes(spec, G) <= SMEM_LIMIT), 0)
 
 
 def forward_smem_bytes(spec: GameSpec) -> int:
@@ -90,17 +101,19 @@ def library(spec: GameSpec):
                          f"shared memory per block at {FWD_G} lanes, above "
                          f"1024 or {SMEM_LIMIT} B")
     Pu = spec.num_players * spec.umax
-    if Pu + x + 1 > 32:
-        raise ValueError(f"K2 gives each column of the augmented system "
-                         f"[S | B^T Z A | B^T zeta + r] a thread of one "
-                         f"warp: Pu + x + 1 = {Pu + x + 1} > 32")
-    smem = backward_smem_bytes(spec)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"K2 needs {smem} B of shared memory per block at "
-                         f"{LQ_G} lanes, above the {SMEM_LIMIT} B a block "
-                         "may use")
+    if Pu > 32 or x + 1 > 32:
+        raise ValueError(f"K2's LU searches a pivot over a warp's threads, "
+                         f"one per control row, and back-substitutes one "
+                         f"thread per column of [P | alpha]: Pu = {Pu} and "
+                         f"x + 1 = {x + 1}, where each must be at most 32")
+    G = lanes_per_block(spec)
+    if G == 0:
+        raise ValueError(f"K2 needs {backward_smem_bytes(spec, 1)} B of "
+                         f"shared memory per block at one lane, above the "
+                         f"{SMEM_LIMIT} B a block may use")
     return "lq", {"LQ_X": spec.xdim, "LQ_P": spec.num_players,
-                  "LQ_U": spec.umax, "LQ_G": LQ_G, "LQ_SMEM": smem,
+                  "LQ_U": spec.umax, "LQ_G": G,
+                  "LQ_SMEM": backward_smem_bytes(spec, G),
                   "LQ_FWD_G": FWD_G, "LQ_FWD_SMEM": fwd}
 
 

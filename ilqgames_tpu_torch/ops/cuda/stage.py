@@ -19,8 +19,8 @@ from ilqgames_tpu_torch.costs import player_cost as pcost
 from ilqgames_tpu_torch.dynamics import base as dyn_base
 from ilqgames_tpu_torch.dynamics.models import KIND_CAR_5D, KIND_DUBINS
 from ilqgames_tpu_torch.ops.cuda import build, lq
-from ilqgames_tpu_torch.ops.cuda.cost_table import cost_table, has_diff, \
-    has_norms
+from ilqgames_tpu_torch.ops.cuda.cost_table import MAX_ATOMS, capacity, \
+    cost_table, has_diff, has_norms, has_reach, has_semi
 from ilqgames_tpu_torch.ops.cuda.layout import mb
 from ilqgames_tpu_torch.ops.cuda.sweep import _device_table, \
     _reach_operands, merit_operands
@@ -28,21 +28,27 @@ from ilqgames_tpu_torch.types import GameSpec, OperatingPoint
 
 
 def library(spec: GameSpec, reach: bool = False, diff: bool = False,
-            dubins: bool = False):
+            dubins: bool = False, semi: bool = False, car5d: bool = False,
+            atoms: int = MAX_ATOMS):
     """(source name, defines) of csrc/stage.cu for this game's dims; with
     `reach` (`cost_table.has_reach`), built with the reachability games'
     atoms, control constraints and extremal gates (CT_REACH=1); with
     `diff` (`cost_table.has_diff`), with the quadratic_difference atom
-    (CT_DIFF=1); with `dubins` (`has_dubins`), with dubins_car's Jacobian
-    (CT_DUBINS=1)."""
+    (CT_DIFF=1); with `semi` (`cost_table.has_semi`), with the
+    semiquadratic atom (CT_SEMI=1); with `dubins` and `car5d`
+    (`has_dubins`, `has_car5d`), with the Jacobian of dubins_car
+    (CT_DUBINS=1) and of car_5d (CT_CAR5D=1); for a table of more than
+    MAX_ATOMS atoms, with its capacity `atoms` (CT_MAX_ATOMS,
+    `cost_table.capacity`). `features` gives a game's flags."""
     defines = {"ST_X": spec.xdim, "ST_P": spec.num_players,
                "ST_U": spec.umax}
-    if reach:
-        defines["CT_REACH"] = 1
-    if diff:
-        defines["CT_DIFF"] = 1
-    if dubins:
-        defines["CT_DUBINS"] = 1
+    for flag, name in ((reach, "CT_REACH"), (diff, "CT_DIFF"),
+                       (dubins, "CT_DUBINS"), (semi, "CT_SEMI"),
+                       (car5d, "CT_CAR5D")):
+        if flag:
+            defines[name] = 1
+    if atoms != MAX_ATOMS:
+        defines["CT_MAX_ATOMS"] = atoms
     return "stage", defines
 
 
@@ -52,11 +58,25 @@ def has_dubins(dyn) -> bool:
     return any(m.kind == KIND_DUBINS for m in dyn.models)
 
 
+def has_car5d(dyn) -> bool:
+    """Whether the dynamics hold a car_5d, whose Jacobian K1 has only in a
+    library built with it."""
+    return any(m.kind == KIND_CAR_5D for m in dyn.models)
+
+
+def features(dyn, player_costs, spec: GameSpec) -> dict:
+    """The keyword arguments of `library` and `load_kernels` for a game."""
+    return dict(reach=has_reach(player_costs), diff=has_diff(player_costs),
+                dubins=has_dubins(dyn), semi=has_semi(player_costs),
+                car5d=has_car5d(dyn), atoms=capacity(player_costs, spec))
+
+
 @functools.lru_cache(maxsize=None)
 def load_kernels(spec: GameSpec, reach: bool = False, diff: bool = False,
-                 dubins: bool = False) -> ctypes.CDLL:
+                 dubins: bool = False, semi: bool = False,
+                 car5d: bool = False, atoms: int = MAX_ATOMS) -> ctypes.CDLL:
     """Build (once per shape) and load csrc/stage.cu for this game's dims."""
-    lib = build.load(*library(spec, reach, diff, dubins))
+    lib = build.load(*library(spec, reach, diff, dubins, semi, car5d, atoms))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.stage_lin_quad.argtypes = ([P, P, P, P, I, P, I, P, P, P] + [P] * 6
                                    + [I, I, F, P])
@@ -162,13 +182,9 @@ def lin_quad(dyn, player_costs, spec: GameSpec, op_bm: dict, lamS, lamC,
     if has_norms(player_costs):
         raise NotImplementedError(
             "the stage kernel has no device form of the norm atoms")
-    reach, (lamc_p, nC, gate_p) = _reach_operands(player_costs, lamC, gate)
-    if not reach and any(m.kind == KIND_CAR_5D for m in dyn.models):
-        raise NotImplementedError(
-            "K1 has car_5d's Jacobian only in a library built with the "
-            "reachability games' features (CT_REACH)")
+    _, (lamc_p, nC, gate_p) = _reach_operands(player_costs, lamC, gate)
     costs, segs = cost_table(player_costs, spec, dev)
-    lib = load_kernels(spec, reach, has_diff(player_costs), has_dubins(dyn))
+    lib = load_kernels(spec, **features(dyn, player_costs, spec))
     stream = build.stream(dev)
     _set_tables(lib, (_subsys_table(dyn, spec), costs), stream, dev)
     out = {k: torch.empty(s, dtype=torch.float32, device=dev)

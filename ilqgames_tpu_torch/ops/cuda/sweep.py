@@ -40,8 +40,8 @@ import torch
 from ilqgames_tpu_torch.costs import player_cost as pcost
 from ilqgames_tpu_torch.dynamics import base as dyn_base
 from ilqgames_tpu_torch.ops.cuda import build
-from ilqgames_tpu_torch.ops.cuda.cost_table import CostTable, cost_table, \
-    has_diff, has_norms, has_reach
+from ilqgames_tpu_torch.ops.cuda.cost_table import MAX_ATOMS, capacity, \
+    cost_table, has_diff, has_norms, has_reach, has_semi, table_type
 from ilqgames_tpu_torch.dynamics.models import KIND_CAR_5D, KIND_CAR_6D, \
     KIND_DUBINS, KIND_LINEAR, KIND_UNICYCLE_4D
 from ilqgames_tpu_torch.ops.cuda.layout import bm, mb, pad_batch
@@ -151,7 +151,7 @@ def _hexf(v: float) -> str:
 
 
 def library(dyn, spec: GameSpec, norms: bool = False, reach: bool = False,
-            diff: bool = False):
+            diff: bool = False, semi: bool = False, atoms: int = MAX_ATOMS):
     """(source name, defines) of csrc/sweep.cu (K4, K5) for this game: its
     dims, and its layout of subsystems from `_device_table`'s data (so a
     model with no device ODE raises): the count SW_NSUB and, per field, a
@@ -161,15 +161,19 @@ def library(dyn, spec: GameSpec, norms: bool = False, reach: bool = False,
     rows. A linear system adds its terms, in row order: SW_NLIN, and per
     term its row, its source (a state index, or X plus a flat control row)
     and its coefficient, and SW_LIN_ZERO, whether its rows fold from
-    x * 0. A layout with a car_5d or a dubins_car adds SW_MIN_BLOCKS=1
-    (K4's and K5's launch bounds ask for one block per SM at the least:
-    ptxas's default register target spilled them). With `norms` (a game
+    x * 0. A layout with a car_5d or a dubins_car, or of more than 16
+    states, adds SW_MIN_BLOCKS=1 (K4's and K5's launch bounds ask for one
+    block per SM at the least: ptxas's default register target spilled
+    them). With `norms` (a game
     whose costs hold a norm atom), K5 is built with those atoms
     (CT_NORMS=1); with `reach`
     (`cost_table.has_reach`), with the reachability games' atoms, control
     constraints and extremal gates (CT_REACH=1); with `diff`
     (`cost_table.has_diff`), with the quadratic_difference atom
-    (CT_DIFF=1).
+    (CT_DIFF=1); with `semi` (`cost_table.has_semi`), with the
+    semiquadratic atom (CT_SEMI=1); for a table of more than MAX_ATOMS
+    atoms, with its capacity `atoms` (CT_MAX_ATOMS). K4 takes none of
+    these: `merit_features` gives a game's flags for K5.
 
     Warp s computes the control rows from SW_SUB_UOFF[s] on (its player's
     for a model or a flat system's block, every player's for a linear
@@ -218,60 +222,75 @@ def library(dyn, spec: GameSpec, norms: bool = False, reach: bool = False,
             SW_LIN_SRC=items(t[1] for t in terms),
             SW_LIN_COEF=items(_hexf(t[2]) for t in terms),
             SW_LIN_ZERO=int(dyn.linear_zero_start))
-    if kinds & {KIND_CAR_5D, KIND_DUBINS}:
-        # ptxas's default register target spilled the car_5d warps' K4 and
-        # the dubins_car warps' K5.
+    if kinds & {KIND_CAR_5D, KIND_DUBINS} or spec.xdim > 16:
+        # ptxas's default register target spilled the car_5d warps' K4,
+        # the dubins_car warps' K5 and the K5 of the overtaking's and the
+        # roundabout's car_6d warps (x = 18 and 24: 24 B of stack).
         defines["SW_MIN_BLOCKS"] = 1
-    if norms:
-        defines["CT_NORMS"] = 1
-    if reach:
-        defines["CT_REACH"] = 1
-    if diff:
-        defines["CT_DIFF"] = 1
+    _merit_defines(defines, norms, reach, diff, semi, atoms)
     return "sweep", defines
 
 
+def _merit_defines(defines, norms, reach, diff, semi, atoms):
+    """Add the merit's flags (K5's, K6's) to `defines`."""
+    for flag, name in ((norms, "CT_NORMS"), (reach, "CT_REACH"),
+                       (diff, "CT_DIFF"), (semi, "CT_SEMI")):
+        if flag:
+            defines[name] = 1
+    if atoms != MAX_ATOMS:
+        defines["CT_MAX_ATOMS"] = atoms
+
+
+def merit_features(player_costs, spec: GameSpec) -> dict:
+    """The merit kernels' keyword arguments of `library`, `merit_library`
+    and their loaders for a game."""
+    return dict(norms=has_norms(player_costs), reach=has_reach(player_costs),
+                diff=has_diff(player_costs), semi=has_semi(player_costs),
+                atoms=capacity(player_costs, spec))
+
+
 def merit_library(spec: GameSpec, norms: bool = False, reach: bool = False,
-                  diff: bool = False):
+                  diff: bool = False, semi: bool = False,
+                  atoms: int = MAX_ATOMS):
     """(source name, defines) of csrc/merit.cu (K6); with `norms`, built
     with the norm atoms (CT_NORMS=1), with `reach`, with the reachability
     games' features (CT_REACH=1), with `diff`, with the
-    quadratic_difference atom (CT_DIFF=1)."""
+    quadratic_difference atom (CT_DIFF=1), with `semi`, with the
+    semiquadratic atom (CT_SEMI=1); with `atoms`, a table of that
+    capacity (CT_MAX_ATOMS, where above MAX_ATOMS)."""
     defines = {"MR_X": spec.xdim, "MR_P": spec.num_players,
                "MR_U": spec.umax}
-    if norms:
-        defines["CT_NORMS"] = 1
-    if reach:
-        defines["CT_REACH"] = 1
-    if diff:
-        defines["CT_DIFF"] = 1
+    _merit_defines(defines, norms, reach, diff, semi, atoms)
     return "merit", defines
 
 
 @functools.lru_cache(maxsize=None)
 def load_kernels(dyn, spec: GameSpec, norms: bool = False,
-                 reach: bool = False, diff: bool = False) -> ctypes.CDLL:
+                 reach: bool = False, diff: bool = False, semi: bool = False,
+                 atoms: int = MAX_ATOMS) -> ctypes.CDLL:
     """Build (once per game) and load csrc/sweep.cu (K4, K5)."""
-    lib = build.load(*library(dyn, spec, norms, reach, diff))
+    lib = build.load(*library(dyn, spec, norms, reach, diff, semi, atoms))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sweep_rollout.argtypes = ([P] * 9 + [I] * 3 + [F, F, I, _SubsysTable,
                                                        P])
     lib.sweep_rollout.restype = I
     lib.sweep_rollout_merit.argtypes = ([P] * 8 + [I, P, I] + [P] * 4
                                         + [I] * 3 + [F, F, I, _SubsysTable,
-                                                     CostTable, P])
+                                                     table_type(atoms), P])
     lib.sweep_rollout_merit.restype = I
     return lib
 
 
 @functools.lru_cache(maxsize=None)
 def load_merit_kernel(spec: GameSpec, norms: bool = False,
-                      reach: bool = False, diff: bool = False) -> ctypes.CDLL:
+                      reach: bool = False, diff: bool = False,
+                      semi: bool = False,
+                      atoms: int = MAX_ATOMS) -> ctypes.CDLL:
     """Build (once per shape) and load csrc/merit.cu (K6)."""
-    lib = build.load(*merit_library(spec, norms, reach, diff))
+    lib = build.load(*merit_library(spec, norms, reach, diff, semi, atoms))
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.merit_consumer.argtypes = ([P] * 4 + [I, P, I] + [P] * 4 + [I] * 3
-                                   + [ctypes.c_float, CostTable, P])
+                                   + [ctypes.c_float, table_type(atoms), P])
     lib.merit_consumer.restype = I
     return lib
 
@@ -400,11 +419,10 @@ def rollout_merits(dyn, player_costs, spec: GameSpec, x0m, op_bm: dict,
     if dev.type == "cpu":
         return rollout_merits_plain(dyn, player_costs, spec, x0m, op_bm,
                                     st_bm, scal_cb, lamS, lamC, mu, gate)
-    reach, (lamc_p, nC, gate_p) = _reach_operands(player_costs, lamC, gate)
+    _, (lamc_p, nC, gate_p) = _reach_operands(player_costs, lamC, gate)
     tab = _device_table(dyn, spec)
     costs, segs = cost_table(player_costs, spec, dev)
-    lib = load_kernels(dyn, spec, has_norms(player_costs), reach,
-                       has_diff(player_costs))
+    lib = load_kernels(dyn, spec, **merit_features(player_costs, spec))
     merits = torch.empty((C, B), dtype=torch.float32, device=dev)
     umask = sum(1 << af for af, m in enumerate(_umask_flat(spec)) if m)
     rc = lib.sweep_rollout_merit(
@@ -533,10 +551,9 @@ def consumer_merits(player_costs, spec: GameSpec, xs_cand, us_cand, t0_bm,
     if dev.type == "cpu":
         return merit_plain(player_costs, spec, xs_cand, us_cand, t0_bm, lamS,
                            lamC, mu, gate)
-    reach, (lamc_p, nC, gate_p) = _reach_operands(player_costs, lamC, gate)
+    _, (lamc_p, nC, gate_p) = _reach_operands(player_costs, lamC, gate)
     costs, segs = cost_table(player_costs, spec, dev)
-    lib = load_merit_kernel(spec, has_norms(player_costs), reach,
-                            has_diff(player_costs))
+    lib = load_merit_kernel(spec, **merit_features(player_costs, spec))
     merits = torch.empty((C, B), dtype=torch.float32, device=dev)
     rc = lib.merit_consumer(
         xs_cand.data_ptr(), us_cand.data_ptr(), t0_bm.data_ptr(),

@@ -93,8 +93,8 @@ def _lam(ctx, d, rows, real):
         return None
     if real:
         return d["lamS"][:, rows].contiguous()
-    return torch.zeros((N, len(rows), d["x0c"].shape[-1]),
-                       device=ctx.dev)
+    return torch.zeros((ctx.spec.num_time_steps, len(rows),
+                        d["x0c"].shape[-1]), device=ctx.dev)
 
 
 def _op_st(d):

@@ -66,7 +66,7 @@ def test_unconstrained_games_import_no_jax():
         "from ilqgames_tpu_torch.dynamics.base import linear\n"
         "from ilqgames_tpu_torch import bench\n"
         "assert sorted(map(str, bench.CONFIGS)) == "
-        "['1', '2', '4', '5', 'dubins_fb', 'dubins_ol']\n"
+        "['1', '2', '4', '5', 'dubins_fb', 'dubins_ol', 'roundabout']\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
         "print(bad)\n")
@@ -139,6 +139,28 @@ def test_open_loop_pieces_import_no_jax():
         "assert bench.CONFIGS['dubins_ol']['make'] is "
         "dubins_origin.make_problem\n"
         "assert bench.KERNELS['K7'] is lq_open_loop.lq_open_loop\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_driving_games_import_no_jax():
+    """The semiquadratic atom, the routes, the five driving examples, the
+    registry (every ported builder) and the roundabout's bench config
+    pull in no JAX."""
+    script = (
+        "import sys\n"
+        "from ilqgames_tpu_torch.costs.atoms import semiquadratic\n"
+        "from ilqgames_tpu_torch.examples import routes, roundabout_merging\n"
+        "import ilqgames_tpu_torch.examples as ex\n"
+        "probs = [ex.get(n)() for n in ex.ported()]\n"
+        "from ilqgames_tpu_torch import bench\n"
+        "assert bench.CONFIGS['roundabout']['make'] is "
+        "roundabout_merging.make_problem\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
         "print(bad)\n")

@@ -154,7 +154,7 @@ def test_k2_build_defines_and_shared_memory():
     """K2's library carries its lanes per block and the shared memory that
     csrc/lq.cu checks its layout against; the flagship fits a block at 8
     lanes with the operands double-buffered, and a build that would not
-    fit is refused before nvcc runs."""
+    fit a block even at one lane is refused before nvcc runs."""
     spec = make_problem().spec
     name, d = lq.library(spec)
     assert name == "lq" and d["LQ_G"] == lq.LQ_G == 8
@@ -163,7 +163,7 @@ def test_k2_build_defines_and_shared_memory():
     assert d["LQ_SMEM"] == lq.backward_smem_bytes(spec) == 8 * 5028 * 4 \
         <= lq.SMEM_LIMIT == 232448
     with pytest.raises(ValueError, match="shared memory"):
-        lq.library(GameSpec(xdims=(4, 4, 4, 4), udims=(3, 3, 3, 3)))
+        lq.library(GameSpec(xdims=(20,) + (0,) * 31, udims=(1,) * 32))
 
 
 def test_k3_build_defines_and_shared_memory():

@@ -209,3 +209,85 @@ def test_k7_launches_are_keyed_and_bounded():
         + (N - 1) * Pu + N * x)
     assert cs._launch_bytes("K7", kept, list(out)) == want
 
+
+
+def test_phase_1_builds_every_later_library_once(tmp_path, monkeypatch):
+    """Phase 1 builds the libraries of phases 8-12 with the flagship's:
+    the driving games' (the roundabout's K2 at 4 lanes a block, its K1 and
+    K6 for a table of 48 atoms, the modified intersection's K1 with
+    car_5d's Jacobian) among them; a library that two games share (the
+    flat game's K2 is the flagship's) is one nvcc process."""
+    from ilqgames_tpu_torch.ops.cuda import build, lq
+
+    cs = _chip_smoke()
+    libs = cs._later_libraries()
+    flagship = lq.library(make_problem().spec)
+    assert flagship in libs
+    runs = []
+
+    class Nvcc:
+        def __init__(self, cmd, **kwargs):
+            runs.append(cmd)
+            Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+            self.returncode = 0
+
+        def communicate(self):
+            return "", ""
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_target", lambda n, d: (
+        Path(n), [], tmp_path / f"lib{n}_{hash(tuple(sorted(d.items())))}"))
+    monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(build.subprocess, "Popen", Nvcc)
+    build.compile_all([flagship] + libs)
+    keys = {(n, tuple(sorted(d.items()))) for n, d in [flagship] + libs}
+    assert len(runs) == len(keys) < len(libs) + 1
+    lq_g = {d["LQ_X"]: d["LQ_G"] for n, d in libs if n == "lq"}
+    assert lq_g[24] == 4 and lq_g[18] == 8
+    assert ("stage", {"ST_X": 24, "ST_P": 4, "ST_U": 2, "CT_SEMI": 1,
+                      "CT_MAX_ATOMS": 48}) in libs
+    assert ("merit", {"MR_X": 24, "MR_P": 4, "MR_U": 2, "CT_SEMI": 1,
+                      "CT_MAX_ATOMS": 48}) in libs
+    assert ("stage", {"ST_X": 14, "ST_P": 3, "ST_U": 2, "CT_SEMI": 1,
+                      "CT_CAR5D": 1}) in libs
+
+
+def test_phase_6_holds_the_registry_on_a_prefix():
+    """The probe registry's holds run on a context whose spec and drawn
+    operands end after P2_DEPTH knots; the draws stay the TPU scripts'."""
+    from ilqgames_tpu_torch.tools import _probe
+
+    cs = _chip_smoke()
+    cut = cs._knots_cut(_probe, "cpu", cs.P2_DEPTH)
+    full = _probe.Context("cpu")
+    assert cut.spec.num_time_steps == cs.P2_DEPTH < _probe.N_KNOTS
+    draw = lambda: _probe.floor_draws(full.spec, 8, 16)
+    got, want = cut.tensors("floor", draw), full.tensors("floor", draw)
+    for k, v in want.items():
+        if v.ndim >= 2 and v.shape[0] == _probe.N_KNOTS:
+            assert torch.equal(got[k], v[:cs.P2_DEPTH])
+        else:
+            assert torch.equal(got[k], v)
+
+
+def test_phase_12_golden_bounds_and_cpu_jobs():
+    """The driving games' golden runs are held with
+    tests/test_golden_more.py's bounds on the reference's files (N=100,
+    every player's position columns); the CPU side of every card-vs-CPU
+    check is a job the worker pool can run, keyed as the phases ask for
+    it, and computed in the caller's process where no pool runs it."""
+    cs = _chip_smoke()
+    bounds = {run: (n, bound, conv) for run, (_, n, bound, conv)
+              in cs.DRIVING_GOLDEN.items()}
+    assert bounds == {"overtaking": (3, 0.01, True),
+                      "roundabout": (4, 0.3, False)}
+    for path, n, _, _ in cs.DRIVING_GOLDEN.values():
+        assert np.loadtxt(REPO / path).shape == (100, 6 * n)
+    jobs = cs._cpu_jobs()
+    keys = [(fn.__name__, *args) for fn, *args in jobs]
+    assert len(keys) == len(set(keys))
+    assert ("_cpu_trips", ("config", "roundabout"), "roundabout",
+            True) in keys
+    x0, carries, _ = cs._cpu_job(cs._cpu_trips, ("example", "skeleton"),
+                                 "small", True)
+    assert x0.shape == (cs.SMALL_B, 4) and len(carries) == cs.SMALL_TRIPS + 1

@@ -29,8 +29,9 @@ FLAGSHIP_LQ = {"LQ_X": 16, "LQ_P": 3, "LQ_U": 2, "LQ_G": 8,
 
 def test_k2_library_takes_small_widths():
     """x=2 with Pu=2 and x=12 with Pu=4 build; the flagship's defines are
-    unchanged; a game whose augmented system is wider than a warp is
-    refused before nvcc runs."""
+    unchanged; a game whose back-substitution needs more than a warp's
+    threads (x + 1 > 32: one per column of [P | alpha]) is refused before
+    nvcc runs."""
     assert lq.library(fl.make_problem().spec) == ("lq", FLAGSHIP_LQ)
     for make, x, pu in ((pm.make_problem, 2, 2), (tc.make_problem, 12, 4)):
         spec = make().spec
@@ -38,8 +39,8 @@ def test_k2_library_takes_small_widths():
         name, d = lq.library(spec)
         assert (name, d["LQ_X"], d["LQ_G"]) == ("lq", x, 8)
         assert d["LQ_SMEM"] == lq.backward_smem_bytes(spec) <= lq.SMEM_LIMIT
-    with pytest.raises(ValueError, match="Pu \\+ x \\+ 1"):
-        lq.library(GameSpec(xdims=(14, 14), udims=(2, 2)))
+    with pytest.raises(ValueError, match="x \\+ 1 = 33"):
+        lq.library(GameSpec(xdims=(16, 16), udims=(2, 2)))
 
 
 def test_player_warp_map_of_the_unconstrained_games():
