@@ -146,14 +146,40 @@ Phases:
    its plain version, and K5, K6 at their linesearch shapes; (d) two
    trips of 8 lanes of each pattern on the card against the CPU under
    each merit backend: decisions equal, every array of the carry bitwise
-   equal.
+   equal;
+12. the driving games (the four-car roundabout, the three-player
+   overtaking, the modified intersection pair and the skeleton): their
+   ptxas reports, the golden runs of the overtaking and the roundabout
+   against tests/test_golden_more.py's bounds, the roundabout_256 cell
+   (one timed solve, no warm-up) against the JAX package's outcome with
+   its launches held, and trips of 8 lanes card vs CPU;
+13. the first half of the reachability family: (a) the ptxas reports of
+   one_player_reachability (a Dubins car, P = 1, the polyline
+   signed-distance atom under CT_POLYSD, the AL loop with a MAX player),
+   two_player_collision_avoidance_reachability (two car_5d, one signed
+   distance shared by two MAX players) and modified_air_3d (two point
+   masses as one linear system, quadratic differences at +-1e6); (b) the
+   one-player golden run (`bench.run_golden("one_player_reach")`)
+   within tests/test_golden.py's bounds (total cost within 0.09 of
+   8.8074, positions within 0.35 m), every (kernel, shape) it launched
+   held (K2 and K3 at P = 1); (c) the collision_reach_1024 cell through
+   `bench.run_config("collision_reach")` (1024 instances, sigma 0.1, exec
+   main parameters, fused; one timed solve) against the JAX package's
+   outcome on the same draw (COLLISION_REACH_JAX) within phase 9's
+   bands, its launches held, K5 and K6 at its linesearch shapes; (d) two
+   trips of 8 lanes of each game on the card against the CPU under each
+   merit backend, K5 and K6 held where they launched, K1-K4 of
+   modified_air_3d held at the shapes its trips launched them.
 
 The holds of phases 7-11 run K4 and K5 (and their plain versions) on
 the first HOLD_DEPTH (10) knots of each launch's arguments, but for each
 game's first K4 and K5 shape in one of its cells (reachability's timed
 cell, dubins_ol_1024), held at the cell's depth (the flagship's K4 and K5
 at N=100 in phase 2); every other kernel, K2 included, is held at the
-cell's depth.
+cell's depth. A plain version's float32 operations are counted on its
+arguments' first 2, 4 and 6 knots and carried to the call's depth
+(`_count_ops`: the count is linear in the knots), and the plain version
+runs once at the call's depth, timed.
 
 Every kernel's entry in the kernels line carries its bound: the larger of
 the bytes it must move (each operand read once, each output written once)
@@ -322,6 +348,48 @@ DRIVING_GAMES = ("roundabout_merging", "three_player_overtaking",
                  "three_player_intersection_reachability",
                  "modified_three_player_intersection", "skeleton")
 SMALL_CONFIG = dict(params={}, sigma=0.1)
+# Phase 13: the first half of the reachability family (the one-player
+# game's golden run, the collision_reach cell; the air game's trips).
+REACH_GAMES = ("one_player_reachability",
+               "two_player_collision_avoidance_reachability",
+               "modified_air_3d")
+# tests/test_golden.py:48-71: the one-player golden run's total cost within
+# 0.09 of the reference's 8.8074, its positions within 0.35 m of the
+# reference solver's trajectory.
+REACH_GOLDEN = os.path.join("tests", "golden",
+                            "one_player_reachability_exec_params.txt")
+REACH_GOLDEN_COST, REACH_COST_TOL, REACH_POS_M = 8.8074, 0.09, 0.35
+# The JAX package's outcome of the collision_reach cell on the same draw
+# (1024 instances, N=100, bench_all.py's exec main parameters, sigma 0.1),
+# by its batched machine with fused stages (its Pallas kernels in
+# interpret mode; lane blocks of 128, 20 trips a dispatch, as
+# bench.run_config), made on a CPU (~12 min) with
+#   python -c "import jax; jax.config.update('jax_platforms', 'cpu')
+#   import numpy as np, bench_all
+#   from ilqgames_tpu.examples import more_reachability as m
+#   from ilqgames_tpu.solver import batched
+#   p = m.make_two_player_collision_avoidance()
+#   res = batched.make_host_batched_solver(
+#       p.dynamics, p.player_costs, p.spec, bench_all._exec_params(),
+#       warm_op=p.initial_operating_point(),
+#       warm_strategy=p.initial_strategy(), trips_per_call=20,
+#       batch_block=128, interpret=True, fuse_stages=True)(
+#       bench_all._perturbed_x0(p, 1024, 0.1))
+#   c = np.asarray(res.total_costs)
+#   print(float(res.converged.mean()),
+#         float(res.cumulative_iterations.mean()),
+#         np.percentile(c, 50, axis=0), float((c.max(1) > 1e6).mean()))"
+# Not the per-instance machine (`fused.make_host_batched_solver`) of the
+# earlier cells: in a MAX game the two JAX machines decide apart. The
+# per-instance iLQ solve quadraticizes the accepted iterate with the
+# previous iterate's extreme knots (ilqgames_tpu/solver/ilq.py:263), the
+# fused batched machine gates its stage with the accepted iterate's
+# (batched.py:202), as the port does; on this draw the per-instance
+# machine gives converged 0.8018, mean_iters 6.5, cost_p50 [3.0991,
+# 3.0269], diverged_frac 0.0908. The bands are phase 9's
+# (DUBINS_FRAC_TOL, DUBINS_ITERS_REL, COST_P50_REL).
+COLLISION_REACH_JAX = dict(converged=0.8809, mean_iters=8.3,
+                           cost_p50=(3.3816, 3.5301), diverged_frac=0.0781)
 
 
 def _fail(msg: str) -> None:
@@ -1054,14 +1122,47 @@ def _once_ms(fn):
     return start.elapsed_time(stop)
 
 
-def _plain_run(plain, *args, **kwargs):
-    """(result, ms, float32 operations) of a plain version on the card: its
-    operations counted under tools/_probe.float_ops in one call (whose
-    result is returned), then one more call timed (`_once_ms`)."""
+# The knots at which `_count_ops` counts a plain version's operations.
+COUNT_DEPTHS = (2, 4, 6)
+
+
+def _count_ops(plain, a: dict) -> int:
+    """The float32 operations of plain(**a) (arguments by name, with its
+    GameSpec as "spec"), counted under tools/_probe.float_ops on the
+    arguments cut to the first COUNT_DEPTHS knots (`_prefix`) and carried
+    to the call's depth N. A plain version repeats the same operations at
+    every knot (its loops and folds run over the knots, and no branch
+    reads the data), so its count is c + d N: the three depths give c and
+    d, and fail the run unless they lie on one line. Counting at the
+    call's depth ran the slowest plain versions (seconds a call at N=100)
+    a second time; tests/test_torch_smoke_holds.py holds this count to the
+    count at full depth for every kernel's plain version."""
     from ilqgames_tpu_torch.tools._probe import float_ops
 
-    out, n_ops = float_ops(lambda: plain(*args, **kwargs))
-    return out, _once_ms(lambda: plain(*args, **kwargs)), n_ops
+    N = a["spec"].num_time_steps
+    if N <= COUNT_DEPTHS[-1]:
+        return float_ops(lambda: plain(**a))[1]
+    c = [float_ops(lambda: plain(**_prefix(a, n)))[1] for n in COUNT_DEPTHS]
+    (n0, n1, n2), step = COUNT_DEPTHS, c[1] - c[0]
+    if (step % (n1 - n0) or (c[2] - c[1]) * (n1 - n0) != step * (n2 - n1)):
+        _fail(f"{plain.__name__}: operation counts {c} at {COUNT_DEPTHS} "
+              "knots are not linear in the knots")
+    return c[0] + step // (n1 - n0) * (N - n0)
+
+
+def _plain_run(plain, *args, **kwargs):
+    """(result, ms, float32 operations) of a plain version on the card: its
+    operations counted on a few knots (`_count_ops`), then one call at the
+    arguments' depth timed (`_once_ms`), whose result is returned."""
+    import inspect
+
+    bound = inspect.signature(plain).bind(*args, **kwargs)
+    bound.apply_defaults()
+    a = dict(bound.arguments)
+    n_ops = _count_ops(plain, a)
+    out = []
+    ms = _once_ms(lambda: out.append(plain(**a)))
+    return out[0], ms, n_ops
 
 
 def _prefix(a: dict, depth: int) -> dict:
@@ -1935,7 +2036,7 @@ def _driving_golden(run, dev):
 
 
 def _later_libraries():
-    """Every kernel library that phases 8-12 load, so that phase 1 builds
+    """Every kernel library that phases 8-13 load, so that phase 1 builds
     them with the flagship's, one nvcc each, all at once (a library named
     twice is built once: `build._compile`)."""
     import ilqgames_tpu_torch.examples as ex
@@ -1950,7 +2051,7 @@ def _later_libraries():
         libs += game[1:] if key == 4 else game  # the flat game has no K1
     libs.append(lq_open_loop.library(ex.get(
         "three_player_intersection")().spec))
-    for name in DRIVING_GAMES:
+    for name in DRIVING_GAMES + REACH_GAMES:
         g = ex.get(name)()
         libs += bench.kernel_libraries(g.dynamics, g.spec, g.player_costs)
     return libs
@@ -2007,10 +2108,11 @@ def phase12(dev):
     for run in DRIVING_GOLDEN:
         _driving_golden(run, dev)
 
-    # (c) the cell, counters reset just before, and its outcome.
+    # (c) the cell (one solve, timed: no warm-up), counters reset just
+    # before, and its outcome.
     bench.reset_launches()
     with _FirstLaunches() as spy:
-        res, out = bench.run_config("roundabout", dev)
+        res, out = bench.run_config("roundabout", dev, warmup=False)
     torch.cuda.synchronize()
     launches = bench.launches()
     print(json.dumps(out), flush=True)
@@ -2025,7 +2127,7 @@ def phase12(dev):
     print(f"# {cell}: {out['value']} solves/s, {out['trips']} trips, "
           f"{out['deep_rounds']} deep rounds; outcome within the JAX "
           f"package's band ({band}); launches counted from 0 over the "
-          f"warm-up and timed solves: {launches}", flush=True)
+          f"timed solve: {launches}", flush=True)
     _check_k4_held(cell, spy, sweep.rollout_bm.by_shape)
     kernels = _hold_launches(cell, spy, launches)
     kernels += _hold_merits(cell, spy, p)
@@ -2043,6 +2145,124 @@ def phase12(dev):
     return kernels
 
 
+def _reach_golden(dev):
+    """The one-player reachability golden run (`bench.run_golden`, the AL
+    loop at the reference's x0) against the reference solver's trajectory
+    and total cost, within tests/test_golden.py's bounds; every (kernel,
+    shape) it launched held against its plain version (K2 and K3 at
+    P = 1). Returns the kernels-line entries."""
+    import numpy as np
+    import torch
+
+    from ilqgames_tpu_torch import bench
+    from ilqgames_tpu_torch.ops.cuda import sweep
+
+    what = "golden one_player_reach"
+    bench.reset_launches()
+    with _FirstLaunches() as spy:
+        res, info = bench.run_golden("one_player_reach", dev)
+    torch.cuda.synchronize()
+    launches = bench.launches()
+    if min(launches[k] for k in ("K1", "K2", "K3", "K4")) <= 0:
+        _fail(f"{what}: a kernel of the path was not launched: {launches}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    ref = np.loadtxt(os.path.join(root, REACH_GOLDEN))
+    xs = res.op.xs[0].cpu().numpy()
+    if xs.shape != ref.shape:
+        _fail(f"{what}: trajectory shape {xs.shape}, reference {ref.shape}")
+    err = float(np.hypot(xs[:, 0] - ref[:, 0], xs[:, 1] - ref[:, 1]).max())
+    cost = float(res.total_costs[0, 0])
+    print(f"# {what}: total cost {cost:.4f} (the reference's "
+          f"{REACH_GOLDEN_COST} +- {REACH_COST_TOL}); max position error "
+          f"{err:.4f} m (bound {REACH_POS_M}); iterations "
+          f"{int(res.cumulative_iterations[0])}, converged "
+          f"{bool(res.converged[0])}; {info['trips']} trips in "
+          f"{info['wall_s']} s; launches {launches}", flush=True)
+    if not (abs(cost - REACH_GOLDEN_COST) < REACH_COST_TOL
+            and err < REACH_POS_M):
+        _fail(f"{what}: beyond tests/test_golden.py's bounds")
+    _check_k4_held(what, spy, sweep.rollout_bm.by_shape)
+    return _hold_launches(what, spy, launches)
+
+
+def phase13(dev):
+    """The first half of the reachability family: one-player reachability
+    (a Dubins car, P = 1, the polyline signed-distance atom, the AL loop
+    with a MAX player), the two-car collision-avoidance game (two car_5d,
+    one signed distance shared by both MAX players) and modified_air_3d
+    (two point masses as one linear system, quadratic differences at
+    +-1e6): the three games' ptxas reports; the one-player golden run
+    against the reference solver's; the collision_reach cell through
+    `bench.run_config` against the JAX package's outcome, its launches
+    held (and K5, K6 at its linesearch shapes); two trips of 8 lanes of
+    each game on the card against the CPU under every merit backend, with
+    K5 and K6 held where they launched, and K1-K4 of the air game (which
+    no cell runs). Returns the kernels-line entries."""
+    import torch
+
+    import ilqgames_tpu_torch.examples as ex
+    from ilqgames_tpu_torch import bench
+    from ilqgames_tpu_torch.ops.cuda import sweep
+
+    cell = "collision_reach_1024"
+    p = bench.CONFIGS["collision_reach"]["make"]()
+    spec = p.spec
+
+    # (a) the libraries of the three games (built in phase 1) and their
+    # ptxas reports: no spill anywhere, no stack in K2-K6.
+    games = {n: ex.get(n)() for n in REACH_GAMES}
+    for g in games.values():
+        bench.build_kernels(g.dynamics, g.spec, g.player_costs)
+    for name, g in games.items():
+        libs = bench.kernel_libraries(g.dynamics, g.spec, g.player_costs)
+        for label, lib, kern, stack_ok in (
+                ("K1", libs[0], "stage_kernel", True),
+                ("K2", libs[1], "lq_backward_kernel", False),
+                ("K3", libs[1], "lq_forward_kernel", False),
+                ("K6", libs[2], "merit_kernel", False),
+                ("K4", libs[3], "rollout_warp_kernel", False),
+                ("K5", libs[-1], "rollout_merit_warp_kernel", False)):
+            _ptxas(f"{label} ({name})", lib, kern, stack_ok)
+
+    # (b) the one-player golden run.
+    kernels = _reach_golden(dev)
+
+    # (c) the cell (one solve, timed), counters reset just before, and its
+    # outcome.
+    bench.reset_launches()
+    with _FirstLaunches() as spy:
+        res, out = bench.run_config("collision_reach", dev, warmup=False)
+    torch.cuda.synchronize()
+    launches = bench.launches()
+    print(json.dumps(out), flush=True)
+    if min(launches[k] for k in ("K1", "K2", "K3", "K4")) <= 0:
+        _fail(f"{cell}: a kernel of the path was not launched: {launches}")
+    shape = (out["B"], spec.num_time_steps, spec.xdim)
+    if tuple(res.op.xs.shape) != shape:
+        _fail(f"{cell}: result shape {tuple(res.op.xs.shape)}, want {shape}")
+    if not bool(torch.isfinite(res.op.xs[res.converged]).all()):
+        _fail(f"{cell}: non-finite trajectory on a converged lane")
+    band = _outcome_band(cell, COLLISION_REACH_JAX, out)
+    print(f"# {cell}: {out['value']} solves/s, {out['trips']} trips, "
+          f"{out['deep_rounds']} deep rounds; outcome within the JAX "
+          f"package's band ({band}); launches counted from 0 over the "
+          f"timed solve: {launches}", flush=True)
+    _check_k4_held(cell, spy, sweep.rollout_bm.by_shape)
+    kernels += _hold_launches(cell, spy, launches)
+    kernels += _hold_merits(cell, spy, p)
+
+    # (d) trips on the card against the CPU, every merit backend.
+    kernels += _trips_card_vs_cpu(REACH_GAMES[0], ("example", REACH_GAMES[0]),
+                                  "small", True, dev)
+    kernels += _trips_card_vs_cpu(REACH_GAMES[1],
+                                  ("config", "collision_reach"),
+                                  "collision_reach", True, dev)
+    kernels += _trips_card_vs_cpu(REACH_GAMES[2], ("example", REACH_GAMES[2]),
+                                  "small", True, dev,
+                                  hold=("K1", "K2", "K3", "K4"))
+    return kernels
+
+
 def _cpu_jobs():
     """The CPU side of every card-vs-CPU check, in the order that the
     phases ask for them."""
@@ -2057,7 +2277,11 @@ def _cpu_jobs():
              (_cpu_trips, ("config", "dubins_ol"), "dubins_ol", False),
              (_cpu_trips, ("config", "dubins_fb"), "dubins_fb", True),
              (_cpu_trips, ("config", "roundabout"), "roundabout", True),
-             (_cpu_trips, ("example", DRIVING_GAMES[2]), "small", True)]
+             (_cpu_trips, ("example", DRIVING_GAMES[2]), "small", True),
+             (_cpu_trips, ("example", REACH_GAMES[0]), "small", True),
+             (_cpu_trips, ("config", "collision_reach"), "collision_reach",
+              True),
+             (_cpu_trips, ("example", REACH_GAMES[2]), "small", True)]
     return jobs
 
 
@@ -2106,7 +2330,7 @@ def main():
     probes.load_kernels(spec)
     print(f"# build: {time.perf_counter() - t0:.1f} s (concurrent nvcc: "
           f"csrc/stage.cu, lq.cu, sweep.cu, merit.cu, probes.cu at the "
-          f"flagship's dims and {len(later)} libraries of phases 8-12)",
+          f"flagship's dims and {len(later)} libraries of phases 8-13)",
           flush=True)
     _start_cpu_jobs(_cpu_jobs())
     elapsed(1)
@@ -2401,6 +2625,10 @@ def main():
     # ---- phase 12: the driving games ----
     kernels += phase12(dev)
     elapsed(12)
+
+    # ---- phase 13: the first half of the reachability family ----
+    kernels += phase13(dev)
+    elapsed(13)
     _stop_cpu_jobs()
 
     print(f"# total: {time.perf_counter() - t_main:.1f} s", flush=True)

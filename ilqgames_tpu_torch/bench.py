@@ -29,8 +29,10 @@ stages, K7) or the feedback information pattern (fused stages): 1024
 instances of the x0 draw with sigma 0.1, bench_all.py's exec main
 parameters, as `run_config` runs configs 1, 2 and 4. BENCH_CONFIG=roundabout
 runs the four-car roundabout (`roundabout_merging`: 256 instances, sigma
-0.1, fused stages) the same way. Needs a CUDA device: it never measures
-on a CPU.
+0.1, fused stages) the same way, and BENCH_CONFIG=collision_reach the
+reference's two-car collision-avoidance reachability game
+(`two_player_collision_avoidance_reachability`: 1024 instances, sigma
+0.1, fused stages). Needs a CUDA device: it never measures on a CPU.
 
     python3 -m ilqgames_tpu_torch.bench
     BENCH_QUEUE=0 BENCH_BATCH=1024 python3 -m ilqgames_tpu_torch.bench
@@ -41,11 +43,13 @@ on a CPU.
     BENCH_CONFIG=5 BENCH_FUSE=0 python3 -m ilqgames_tpu_torch.bench
     BENCH_CONFIG=dubins_ol python3 -m ilqgames_tpu_torch.bench
     BENCH_CONFIG=roundabout python3 -m ilqgames_tpu_torch.bench
+    BENCH_CONFIG=collision_reach python3 -m ilqgames_tpu_torch.bench
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -54,8 +58,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ilqgames_tpu_torch.examples import dubins_origin, reachability, \
-    roundabout_merging, three_player_flat_intersection, \
+from ilqgames_tpu_torch.examples import dubins_origin, more_reachability, \
+    reachability, roundabout_merging, three_player_flat_intersection, \
     three_player_overtaking, two_player_collision, two_player_point_mass
 from ilqgames_tpu_torch.examples.three_player_intersection import \
     make_problem
@@ -371,6 +375,17 @@ CONFIGS = {
     "roundabout": dict(make=roundabout_merging.make_problem,
                        metric="roundabout_merging_solves_per_sec_per_chip",
                        batch=256, sigma=0.1, params={}, fuse_stages=True),
+    # The reference's two-car reachability game (its
+    # two_player_collision_avoidance_reachability_example.cpp: 2 car_5d,
+    # x = 10, one signed distance shared by both MAX players) as a
+    # Monte-Carlo batch over x0, as bench_all.py runs the collision
+    # (bench_all.py:161-170): 1024 instances of the x0 draw with sigma
+    # 0.1, the exec main's parameters, fused stages.
+    "collision_reach": dict(
+        make=more_reachability.make_two_player_collision_avoidance,
+        metric="two_player_collision_avoidance_reachability_solves_per_sec"
+               "_per_chip",
+        batch=1024, sigma=0.1, params={}, fuse_stages=True),
 }
 # The exec main of the reference's dubins_origin example
 # (exec/dubins_origin_example/main.cpp defaults, tests/test_golden_more.py:
@@ -386,6 +401,16 @@ DRIVING_GOLDEN_PARAMS = dict(linesearch=True, initial_alpha_scaling=0.75,
                              expected_decrease_fraction=0.1,
                              convergence_tolerance=0.01,
                              max_backtracking_steps=100)
+# The exec main of the reference's one-player reachability example at its
+# default x0 (1.75, 1.75, 0), inside the target circle
+# (tests/test_golden.py:48-64): the AL loop, the linesearch from alpha
+# 0.1, tolerance 0.01.
+REACH_GOLDEN_PARAMS = dict(max_solver_iters=100,
+                           unconstrained_solver_max_iters=10,
+                           max_backtracking_steps=100,
+                           initial_alpha_scaling=0.1,
+                           convergence_tolerance=0.01,
+                           expected_decrease_fraction=0.1)
 # The golden runs: the game and the exec main's parameters of each, the
 # trajectories of the unmodified reference in tests/golden/.
 GOLDEN_RUNS = {
@@ -395,6 +420,9 @@ GOLDEN_RUNS = {
     "overtaking": (three_player_overtaking.make_problem,
                    DRIVING_GOLDEN_PARAMS),
     "roundabout": (roundabout_merging.make_problem, DRIVING_GOLDEN_PARAMS),
+    "one_player_reach": (functools.partial(reachability.make_one_player,
+                                           px0=1.75, py0=1.75, theta0=0.0),
+                         REACH_GOLDEN_PARAMS),
 }
 GOLDEN_BLOCK = 8
 # The reference's replan contract that bench_all.py's config 5 divides by:
@@ -491,15 +519,19 @@ def run_receding(config: int, device="cuda", fuse_stages=None,
     return (states, times, state), out
 
 
-def run_config(config, device="cuda", fuse_stages=None, after_load=None):
+def run_config(config, device="cuda", fuse_stages=None, after_load=None,
+               warmup=True):
     """bench_all.py's config 1, 2, 4 or 5, or "dubins_ol" / "dubins_fb" /
-    "roundabout", on `device`. Config 5, receding horizon, is `run_receding`'s. The others
+    "roundabout" / "collision_reach", on `device`. Config 5, receding
+    horizon, is `run_receding`'s. The others
     as bench_all.py's `_throughput` runs them: the exec main's parameters
     (with the config's budgets and information pattern), the x0 draw with
     the config's sigma, the plain host-stepped driver with lane blocks of
     128 and 20 trips per dispatch, the config's stages (fused but for
     config 4 and dubins_ol) and the merit backend "xla"; one
-    warm-up solve, then the timed one. Returns (ALResult, JSON dict) with
+    warm-up solve (none without `warmup`: the timed solve then carries
+    the first solve's one-time costs), then the timed one. Returns
+    (ALResult, JSON dict) with
     bench_all.py's metric and fields. `fuse_stages` overrides the config's
     stages (BENCH_ALL_r05 row 5 was taken unfused); `after_load`, if given,
     is called after the warm-up (or load), before the clock starts."""
@@ -520,7 +552,8 @@ def run_config(config, device="cuda", fuse_stages=None, after_load=None):
         warm_strategy=problem.initial_strategy(), trips_per_call=20,
         batch_block=128, fuse_stages=fuse)
     x0 = torch.tensor(perturbed_x0(problem, n, cfg["sigma"]), device=dev)
-    solver(x0)
+    if warmup:
+        solver(x0)
     if after_load is not None:
         after_load()
     before = launches()
@@ -536,6 +569,7 @@ def run_config(config, device="cuda", fuse_stages=None, after_load=None):
            "device": torch.cuda.get_device_name(dev), "driver": "plain",
            "trips_per_call": 20, "batch_block": 128,
            "fuse_stages": fuse, "open_loop": params.open_loop,
+           "warmup": warmup,
            **{k: stats[k] for k in ("trips", "dispatches", "host_syncs",
                                     "deep_rounds", "collapse_exits")},
            "launches": {k: v - before[k] for k, v in launches().items()}}
@@ -547,7 +581,9 @@ def run_golden(run: str, device="cuda"):
     "dubins_ol" and "dubins_fb", dubins_origin in the open-loop (unfused
     stages, K7) and the feedback information pattern, no linesearch, 1000
     iterations; "overtaking" and "roundabout", the driving games with
-    their linesearch, fused stages): its nominal x0, one lane padded to
+    their linesearch, fused stages; "one_player_reach", one-player
+    reachability at the reference's x0 with the AL loop, fused stages):
+    its nominal x0, one lane padded to
     GOLDEN_BLOCK, from the zero operating point and strategy, plain
     driver, 20 trips a dispatch. The kernels are built first. Returns
     (ALResult of the one lane, {"trips", "wall_s", "launches"})."""

@@ -2,7 +2,8 @@
 :39, `semiquadratic` at :79, `quadratic_norm` at :103, `semiquadratic_norm` at :120,
 `quadratic_difference` at :148, `signed_distance` at :178, `proximity` at
 :213, `quadratic_polyline2` at :366, `semiquadratic_polyline2` at :433,
-`final_time` at :652 and `extreme_value` at :685).
+`polyline2_signed_distance` at :511, `final_time` at :652 and
+`extreme_value` at :685).
 
 Gradients and Hessians are the JAX package's sparse pairs, with the
 reference's shipped branch semantics for the polyline costs: a vertex
@@ -373,6 +374,66 @@ def semiquadratic_polyline2(weight: float, points, xidx: int, yidx: int,
                     "points": points, "xidx": xidx, "yidx": yidx,
                     "weight": weight, "threshold": threshold,
                     "oriented_right": oriented_right}))
+
+
+def polyline2_signed_distance(points, xidx: int, yidx: int,
+                              nominal: float = 0.0,
+                              oriented_same_as_polyline: bool = True,
+                              name: str = "polyline2_signed_distance"
+                              ) -> Cost:
+    """sgn(ssd) * sqrt(max(|ssd|, EPS)) - nominal, with ssd the signed sq
+    distance of (v[xidx], v[yidx]) to the polyline (right positive, the
+    signed query with its interior-vertex side fix) times the orientation
+    flip (-1 unless oriented the same as the polyline); sgn(0) is 0.
+
+    Its pairs are the JAX package's written derivatives, operation by
+    operation: at a vertex the true derivatives of s * distance (the
+    gradient s * delta / dist, the Hessian delta delta^T over denom, with
+    denom = ssd * dist where |ssd * dist| >= EPS, else EPS); in a
+    segment's interior the gradient (uy, -ux) of the chosen segment's
+    unit direction and a zero Hessian, the orientation flip NOT applied
+    there (the reference's shipped quirk, kept)."""
+    flip = 1.0 if oriented_same_as_polyline else -1.0
+
+    def query(v):
+        qx, qy = v[..., xidx], v[..., yidx]
+        res = geometry.polyline_closest_point_xy(points, qx, qy,
+                                                 need_sign=True)
+        ssd = res.signed_sq_distance * flip
+        dist = fmath.sqrt(torch.clamp_min(torch.abs(ssd), _EPS))
+        return qx, qy, res, ssd, geometry.sign(ssd), dist
+
+    def evaluate(t, v):
+        _, _, _, ssd, s, dist = query(v)
+        return s * dist - nominal
+
+    def gradient(v):
+        qx, qy, res, ssd, s, dist = query(v)
+        dx = torch.where(res.is_vertex, s * (qx - res.cpx) / dist, res.uy)
+        dy = torch.where(res.is_vertex, s * (qy - res.cpy) / dist, -res.ux)
+        return dx, dy, qx, qy, res, ssd, dist
+
+    def grad_pairs(t, v):
+        dx, dy = gradient(v)[:2]
+        return [(xidx, dx), (yidx, dy)]
+
+    def quad_pairs(t, v):
+        dx, dy, qx, qy, res, ssd, dist = gradient(v)
+        delta_x = qx - res.cpx
+        delta_y = qy - res.cpy
+        sd = ssd * dist
+        denom = torch.where(torch.abs(sd) < _EPS, _EPS, sd)
+        ddx = torch.where(res.is_vertex, delta_y * delta_y / denom, 0.0)
+        ddy = torch.where(res.is_vertex, delta_x * delta_x / denom, 0.0)
+        dxdy = torch.where(res.is_vertex, -delta_x * delta_y / denom, 0.0)
+        return ([((xidx, xidx), ddx), ((yidx, yidx), ddy),
+                 ((xidx, yidx), dxdy), ((yidx, xidx), dxdy)],
+                [(xidx, dx), (yidx, dy)])
+
+    return Cost(name, evaluate, grad_pairs, quad_pairs,
+                device=("polyline_signed_distance", {
+                    "points": points, "xidx": xidx, "yidx": yidx,
+                    "nominal": nominal, "flip": flip}))
 
 
 def signed_distance(dims1, dims2, nominal: float = 0.0,

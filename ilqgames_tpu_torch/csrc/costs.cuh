@@ -32,6 +32,9 @@
 //                        autodiff over its support)
 //   semiquadratic        costs/atoms.py:semiquadratic (strictly beyond its
 //                        threshold on its side, else 0)
+//   polyline2_signed_distance
+//                        costs/atoms.py:polyline2_signed_distance's pairs,
+//                        with the signed query (need_sign=True)
 //   car_6d, unicycle_4d, car_5d, dubins_car, the linear system
 //                        the Jacobian entries of dynamics/models.py and the
 //                        constant ones of dynamics/base.py:linear
@@ -41,7 +44,8 @@
 // and control constraints are compiled in where the library is built with CT_REACH=1 (cost_table.has_reach), so that the
 // other games' kernels are the same code; so are quadratic_difference
 // (CT_DIFF=1, cost_table.has_diff), semiquadratic (CT_SEMI=1,
-// cost_table.has_semi) and the Jacobians of dubins_car (CT_DUBINS=1) and
+// cost_table.has_semi), polyline2_signed_distance (CT_POLYSD=1,
+// cost_table.has_polysd) and the Jacobians of dubins_car (CT_DUBINS=1) and
 // car_5d (CT_CAR5D=1), K1's only (ops/cuda/stage.py). The CostTable holds
 // CT_MAX_ATOMS atoms (32 unless the build says more: cost_table.capacity).
 // The problem arrives as a CostTable (atom kinds, dims, weights, nominals,
@@ -92,6 +96,9 @@
 #ifndef CT_CAR5D
 #define CT_CAR5D 0
 #endif
+#ifndef CT_POLYSD
+#define CT_POLYSD 0
+#endif
 #ifndef CT_MAX_ATOMS
 #define CT_MAX_ATOMS 32
 #endif
@@ -113,6 +120,7 @@ constexpr int KIND_EXTREME = 8;
 constexpr int KIND_SINGLE_DIM = 9;
 constexpr int KIND_QUAD_DIFF = 10;
 constexpr int KIND_SEMIQUADRATIC = 11;
+constexpr int KIND_POLY_SD = 12;
 constexpr int MAX_LIN = 32;
 constexpr int KIND_CAR_6D = 0;      // dynamics/models.py KIND_CAR_6D
 constexpr int KIND_UNICYCLE_4D = 1;  // dynamics/models.py KIND_UNICYCLE_4D
@@ -161,7 +169,10 @@ struct SubsysTable {
 // (keep below) or -1 (keep above), lam = its row of lamC. Quadratic
 // difference: dim[0..3] = its support d1[0], d1[1], d2[0], d2[1], w =
 // weight. Semiquadratic: dim[0], w = weight, aux = threshold, right =
-// oriented right. gated: a final-time gate at tgate.
+// oriented right. Polyline signed distance: dim[0..1] = x, y index,
+// seg0/nseg its segments, fix0 the float offset of its shortcut rows, aux
+// = the orientation flip (+1 or -1), aux2 = nominal. gated: a final-time
+// gate at tgate.
 struct CostAtom {
   int kind;
   int player;
@@ -386,6 +397,36 @@ __device__ __forceinline__ void semi_scalars(const CostAtom& a,
   out[3] = h1 * gate;
   out[4] = h2 * gate;
 }
+
+#if CT_POLYSD
+// atoms.polyline2_signed_distance's pairs: the gradient out[0..1] = (dx,
+// dy) and, with HESS, the Hessian out[2..4] = (ddx, ddy, dxdy). At a
+// vertex s * delta / dist and delta delta^T / denom, with s = sgn(ssd)
+// (0 at 0), dist = sqrt(max(|ssd|, EPS)) and denom = ssd * dist, or EPS
+// where |ssd * dist| < EPS; in a segment's interior (uy, -ux) and 0, the
+// orientation flip not applied there (shipped).
+template <bool HESS, typename V>
+__device__ __forceinline__ void polysd_scalars(const CostAtom& a,
+                                               const float* segs, const V& v,
+                                               float out[5]) {
+  const float qx = v[a.dim[0]], qy = v[a.dim[1]];
+  float ssd;
+  const Closest c = closest_signed(a, segs, qx, qy, ssd);
+  ssd = ssd * a.aux;
+  const float s = sign_of(ssd);
+  const float dist = fmath::sqrt(clamp_min(fabsf(ssd), EPS));
+  const float delta_x = qx - c.cpx, delta_y = qy - c.cpy;
+  out[0] = c.vertex ? s * delta_x / dist : c.uy;
+  out[1] = c.vertex ? s * delta_y / dist : -c.ux;
+  if (HESS) {
+    const float sd = ssd * dist;
+    const float denom = (fabsf(sd) < EPS) ? EPS : sd;
+    out[2] = c.vertex ? delta_y * delta_y / denom : 0.0f;
+    out[3] = c.vertex ? delta_x * delta_x / denom : 0.0f;
+    out[4] = c.vertex ? -delta_x * delta_y / denom : 0.0f;
+  }
+}
+#endif  // CT_POLYSD
 
 struct ProxCost {
   float dx, dy, dsq, dist, gap;
@@ -837,6 +878,14 @@ __device__ __forceinline__ void gradient_sq_into(
       float diff;
       const bool on = semi_active(a, v[a.dim[0]], diff);
       gs.add(a.dim[0], gv(on ? a.w * diff : 0.0f));
+    }
+#endif
+#if CT_POLYSD
+    else if (a.kind == KIND_POLY_SD) {
+      float sc[5];
+      polysd_scalars<false>(a, segs, v, sc);
+      gs.add(a.dim[0], gv(sc[0]));
+      gs.add(a.dim[1], gv(sc[1]));
     }
 #endif
 #if CT_DIFF

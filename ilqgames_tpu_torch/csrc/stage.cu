@@ -21,9 +21,9 @@
 // al_quad_pairs) with their multipliers lamC, and the extremal gate
 // gate [N,P,B], which multiplies a MAX or MIN player's state terms before
 // the regularization (player_cost.quadraticize). Built with CT_DIFF,
-// CT_SEMI, CT_DUBINS and CT_CAR5D (costs.cuh), it takes
-// quadratic_difference and semiquadratic atoms and the Jacobians of
-// dubins_car and car_5d.
+// CT_SEMI, CT_POLYSD, CT_DUBINS and CT_CAR5D (costs.cuh), it takes
+// quadratic_difference, semiquadratic and polyline2_signed_distance atoms
+// and the Jacobians of dubins_car and car_5d.
 //
 // The game's SubsysTable and CostTable live in this library's constant
 // memory (stage_set_tables), where every thread of a warp reads the same
@@ -272,6 +272,19 @@ __global__ void stage_kernel(const float* __restrict__ xs,
         const bool on = costs::semi_active(a, x[d], diff);
         hq(d, d, gv(on ? a.w : 0.0f));
         gq(d, gv(on ? a.w * diff : 0.0f));
+      }
+#endif
+#if CT_POLYSD
+      else if (a.kind == costs::KIND_POLY_SD) {
+        float sc[5];
+        costs::polysd_scalars<true>(a, segs, x, sc);
+        const int xi = a.dim[0], yi = a.dim[1];
+        hq(xi, xi, gv(sc[2]));
+        hq(yi, yi, gv(sc[3]));
+        hq(xi, yi, gv(sc[4]));
+        hq(yi, xi, gv(sc[4]));
+        gq(xi, gv(sc[0]));
+        gq(yi, gv(sc[1]));
       }
 #endif
 #if CT_DIFF

@@ -25,7 +25,10 @@ class SinglePlayerModel:
     sparse Jacobian entries `jac(t, x_sub, u) -> (jx, ju)`. `kind` and
     `length` select the model's device ODE in the rollout kernel
     (None: the model has none); `length` is its one parameter there (a
-    car's inter-axle length, a Dubins car's speed)."""
+    car's inter-axle length, a Dubins car's speed). A constant-linear
+    model has `linear_rows` instead, its terms in `linear`'s form over
+    its own states and controls (control terms as ("u", (0, col),
+    coef)), from which `concatenate` builds the joint system."""
 
     name: str
     xdim: int
@@ -35,6 +38,7 @@ class SinglePlayerModel:
     jac: Optional[Callable] = None
     kind: Optional[int] = None
     length: float = 0.0
+    linear_rows: Optional[Tuple[Tuple[tuple, ...], ...]] = None
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -83,7 +87,12 @@ class MultiPlayerDynamics:
 
 def concatenate(name: str,
                 models: Sequence[SinglePlayerModel]) -> MultiPlayerDynamics:
-    """Joint system from per-player subsystems: block-diagonal field."""
+    """Joint system from per-player subsystems: block-diagonal field. A
+    concatenation of constant-linear models (each with `linear_rows`) is
+    one `linear` system over the whole state, its rows the models' terms
+    at their offsets: its ode takes each row's one term bare, as the
+    models' own fields do, and the kernels run it as one linear
+    subsystem (K1 from its constant Jacobian)."""
     xdims = tuple(m.xdim for m in models)
     udims = tuple(m.udim for m in models)
     offsets = []
@@ -91,15 +100,26 @@ def concatenate(name: str,
     for d in xdims:
         offsets.append(acc)
         acc += d
+    position_dims = tuple(tuple(offsets[i] + d for d in m.position_dims)
+                          for i, m in enumerate(models))
+
+    if models and all(m.linear_rows is not None for m in models):
+        def shift(i, src, idx, coef):
+            o = offsets[i]
+            return ((src, o + idx, coef) if src == "x"
+                    else (src, (i, idx[1]), coef))
+
+        rows = [tuple(shift(i, *term) for term in row)
+                for i, m in enumerate(models) for row in m.linear_rows]
+        return dataclasses.replace(
+            linear(name, xdims, udims, rows), position_dims=position_dims,
+            models=tuple(models))
 
     def ode(t, x, us):
         return torch.cat([
             m.ode(t, x[..., offsets[i]:offsets[i] + m.xdim],
                   us[..., i, :m.udim])
             for i, m in enumerate(models)], dim=-1)
-
-    position_dims = tuple(tuple(offsets[i] + d for d in m.position_dims)
-                          for i, m in enumerate(models))
 
     ode_jac = None
     if all(m.jac is not None for m in models):

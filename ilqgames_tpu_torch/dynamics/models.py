@@ -1,5 +1,5 @@
 """Dynamics models (counterpart of ilqgames_tpu/dynamics/models.py:
-`dubins_car` at :47, `unicycle_4d` at :80, `car_5d` at :117 and `car_6d`
+`point_mass_2d` at :33, `dubins_car` at :47, `unicycle_4d` at :80, `car_5d` at :117 and `car_6d`
 at :146).
 
 Each model has a continuous vector field `ode(t, x, u)` over tensors
@@ -26,6 +26,25 @@ KIND_UNICYCLE_4D = 1
 KIND_LINEAR = 2
 KIND_CAR_5D = 3
 KIND_DUBINS = 4
+
+
+def point_mass_2d() -> SinglePlayerModel:
+    """[px py vx vy] / [ax ay]: a constant-linear model, each row one term
+    of coefficient 1 (its ode copies x[2], x[3], u[0], u[1], as the JAX
+    package's does), which `concatenate` joins into one linear system."""
+    rows = ((("x", 2, 1.0),), (("x", 3, 1.0),), (("u", (0, 0), 1.0),),
+            (("u", (0, 1), 1.0),))
+
+    def ode(t, x, u):
+        return torch.stack([x[..., 2], x[..., 3], u[..., 0], u[..., 1]],
+                           dim=-1)
+
+    def jac(t, x, u):
+        return ([((0, 2), 1.0), ((1, 3), 1.0)],
+                [((2, 0), 1.0), ((3, 1), 1.0)])
+
+    return SinglePlayerModel("point_mass_2d", 4, 2, ode, position_dims=(0, 1),
+                             jac=jac, linear_rows=rows)
 
 
 def dubins_car(speed: float) -> SinglePlayerModel:

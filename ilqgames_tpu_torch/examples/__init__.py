@@ -19,7 +19,7 @@ _REGISTRY: Dict[str, Optional[str]] = {
     "two_player_collision": "two_player_collision:make_problem",
     "air_3d": None,
     "dubins_origin": "dubins_origin:make_problem",
-    "one_player_reachability": None,
+    "one_player_reachability": "reachability:make_one_player",
     "two_player_reachability": None,
     "three_player_collision_avoidance_reachability":
         "reachability:make_three_player_collision_avoidance",
@@ -30,8 +30,9 @@ _REGISTRY: Dict[str, Optional[str]] = {
         "modified_intersection:make_problem",
     "three_player_intersection_reachability":
         "modified_intersection:make_reachability",
-    "modified_air_3d": None,
-    "two_player_collision_avoidance_reachability": None,
+    "modified_air_3d": "more_reachability:make_modified_air_3d",
+    "two_player_collision_avoidance_reachability":
+        "more_reachability:make_two_player_collision_avoidance",
     "flat_roundabout_merging": None,
     "skeleton": "skeleton:make_problem",
     "two_player_point_mass": "two_player_point_mass:make_problem",

@@ -1,12 +1,21 @@
-"""Three-player collision-avoidance reachability (counterpart of
-ilqgames_tpu/examples/reachability.py:103-157,
-`make_three_player_collision_avoidance`; the reference's
-three_player_collision_avoidance_reachability_example.cpp and BENCH_ALL's
-config 5): three 5D cars on a collision course. Each player's cost is the
-maximum over time (STRUCTURE_MAX) of the worse of its two pairwise
-signed-distance margins (an extreme value with the maximum, buffer 3 m,
-no weight), plus a control quadratic, under box constraints on its turn
-rate (|omega| <= 1) and acceleration (|a| <= 0.1).
+"""Reachability examples (counterpart of ilqgames_tpu/examples/
+reachability.py):
+
+- `make_one_player` (:36-66, the reference's
+  one_player_reachability_example.cpp): a Dubins car (speed 1) and a
+  circular target of radius 2 (10 segments); its cost is the maximum
+  over time (STRUCTURE_MAX) of the signed distance to the circle minus
+  1.0, plus a control quadratic, under |omega| <= 1. The reference's
+  constructor call passes its avoid flag where the float nominal sits and
+  the name where the orientation sits, so the cost that ships is the
+  signed distance - 1.0 with the default orientation: kept.
+- `make_three_player_collision_avoidance` (:103-157, the reference's
+  three_player_collision_avoidance_reachability_example.cpp and
+  BENCH_ALL's config 5): three 5D cars on a collision course. Each
+  player's cost is the maximum over time of the worse of its two pairwise
+  signed-distance margins (an extreme value with the maximum, buffer 3 m,
+  no weight), plus a control quadratic, under box constraints on its turn
+  rate (|omega| <= 1) and acceleration (|a| <= 0.1).
 """
 
 from __future__ import annotations
@@ -14,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ilqgames_tpu_torch import geometry
 from ilqgames_tpu_torch.costs import atoms, constraints
 from ilqgames_tpu_torch.costs.player_cost import STRUCTURE_MAX, PlayerCost
 from ilqgames_tpu_torch.dynamics import base as dyn_base
@@ -23,6 +33,34 @@ from ilqgames_tpu_torch.problem import Problem
 INTER_AXLE_LENGTH = 4.0
 OMEGA_MAX, A_MAX = 1.0, 0.1
 CONTROL_WEIGHT = 0.1
+
+
+def make_one_player(dt=None, num_time_steps=None, px0=-5.0, py0=-5.0,
+                    theta0=np.pi / 4) -> Problem:
+    speed = 1.0
+    dyn = dyn_base.concatenate("one_player_reachability",
+                               [models.dubins_car(speed)])
+    spec = dyn.spec(dt=dt, num_time_steps=num_time_steps)
+
+    x0 = np.zeros(spec.xdim, np.float32)
+    x0[:3] = [px0, py0, theta0]
+
+    circle = geometry.draw_circle((0.0, 0.0), 2.0, 10)
+    pc1 = PlayerCost(
+        state_costs=(atoms.polyline2_signed_distance(circle, 0, 1,
+                                                     nominal=1.0,
+                                                     name="Target"),),
+        control_costs=((0, atoms.quadratic(CONTROL_WEIGHT, None, 0.0,
+                                           "ControlCost")),),
+        control_constraints=(
+            (0, constraints.single_dimension(0, OMEGA_MAX, True,
+                                             "OmegaMax")),
+            (0, constraints.single_dimension(0, -OMEGA_MAX, False,
+                                             "OmegaMin")),
+        ),
+        structure=STRUCTURE_MAX)
+    return Problem(name="one_player_reachability", dynamics=dyn,
+                   player_costs=(pc1,), x0=torch.tensor(x0), spec=spec)
 
 
 def make_three_player_collision_avoidance(dt=None, num_time_steps=None,

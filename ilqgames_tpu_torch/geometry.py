@@ -1,4 +1,5 @@
-"""Polyline closest-point query (counterpart of ilqgames_tpu/geometry.py).
+"""Polyline closest-point query and the shapes the examples draw
+(counterpart of ilqgames_tpu/geometry.py).
 
 Queries are elementwise over tensors of any shape; the polyline is a
 static (M, 2) array whose segment constants are Python floats, computed
@@ -199,3 +200,40 @@ def polyline_closest_point_xy(points, qx: torch.Tensor, qy: torch.Tensor,
                           is_vertex=chosen_is_vertex,
                           is_endpoint=is_endpoint, p1x=p1x, p1y=p1y,
                           ux=unx, uy=uny)
+
+
+def draw_square(center, side_length: float) -> np.ndarray:
+    """Closed square polyline [5, 2] float32, counterclockwise from the
+    top-left corner (the JAX package's draw_square, the reference's
+    src/draw_shapes.cpp:51-63): each coordinate the center's float32 value
+    minus or plus half the side, rounded to float32 as the JAX package's
+    float32 arithmetic rounds it."""
+    h = np.float32(0.5 * side_length)
+    cx, cy = np.asarray(center, np.float32)[:2]
+    return np.array([[cx - h, cy + h], [cx - h, cy - h], [cx + h, cy - h],
+                     [cx + h, cy + h], [cx - h, cy + h]], np.float32)
+
+
+def draw_circle(center, radius: float, num_segments: int) -> np.ndarray:
+    """Closed circular polyline [num_segments + 1, 2] float32 (the JAX
+    package's draw_circle, the reference's src/draw_shapes.cpp:65-75),
+    with the JAX package's float32 values bit for bit at the reference's
+    sizes. Its angles are `jnp.linspace(0, 2 pi, num_segments + 1)` as
+    XLA compiles it: the division by num_segments becomes a product with
+    its float32 reciprocal, folded into the constant stop, so angle i is
+    (stop * (1 / num_segments)) * i in float32 and the last is stop
+    itself. Its cosines and sines are XLA's float32 cos and sin, which at
+    these angles equal the correctly rounded values (taken here in
+    float64 and rounded) for every num_segments up to 33, the reference's
+    10 among them (tests/test_torch_reach_family.py checks the points);
+    then center + radius * cos (sin) in float32."""
+    stop = np.float32(2.0 * np.pi)
+    n = int(num_segments)
+    step = stop * (np.float32(1.0) / np.float32(n))
+    angles = np.append(step * np.arange(n, dtype=np.float32),
+                       stop).astype(np.float32)
+    c = np.asarray(center, np.float32)
+    r = np.float32(radius)
+    cos = np.cos(angles.astype(np.float64)).astype(np.float32)
+    sin = np.sin(angles.astype(np.float64)).astype(np.float32)
+    return np.stack([c[0] + r * cos, c[1] + r * sin], -1).astype(np.float32)

@@ -24,7 +24,9 @@ An extremal group (atoms.extreme_value) is a header atom (kind
 "extreme", `group` its member count, `right` 1 for the minimum) followed
 by its members (`group` -1), each of which the kernels multiply by its
 one-hot gate. The semiquadratic atom is compiled into K1, K5 and K6 only
-where a game's table holds one (`has_semi`: CT_SEMI=1).
+where a game's table holds one (`has_semi`: CT_SEMI=1), and so is the
+polyline signed-distance atom (`has_polysd`: CT_POLYSD=1), which shares
+the semiquadratic polyline's signed query and shortcut rows.
 
 The table's capacity is per build, as the other layout defines are
 (`capacity`): MAX_ATOMS (32) atoms for a game with at most that many, so
@@ -54,8 +56,11 @@ KIND = {"quadratic": 0, "polyline": 1, "proximity": 2,
         "semiquadratic_polyline": 3, "proximity_cost": 4,
         "quadratic_norm": 5, "semiquadratic_norm": 6,
         "signed_distance": 7, "extreme": 8, "single_dimension": 9,
-        "quadratic_difference": 10, "semiquadratic": 11}
+        "quadratic_difference": 10, "semiquadratic": 11,
+        "polyline_signed_distance": 12}
 NORM_KINDS = ("quadratic_norm", "semiquadratic_norm")
+# The polyline atoms of the signed query, with shortcut rows at `fix0`.
+SIGNED_KINDS = ("semiquadratic_polyline", "polyline_signed_distance")
 REACH_KINDS = ("signed_distance", "extreme")
 
 
@@ -178,20 +183,25 @@ def _build(player_costs, spec: GameSpec):
         a.group = prm.get("group", 0)
         if kind == "quadratic":
             a.dim[0], a.w, a.aux = prm["dim"], prm["weight"], prm["nominal"]
-        elif kind in ("polyline", "semiquadratic_polyline"):
+        elif kind in SIGNED_KINDS + ("polyline",):
             pts, rows = geometry._static_segments(prm["points"])
-            a.dim[0], a.dim[1], a.w = prm["xidx"], prm["yidx"], prm["weight"]
+            a.dim[0], a.dim[1] = prm["xidx"], prm["yidx"]
             a.seg0, a.nseg = len(segs), len(rows)
             for p1, p2, unit, length in rows:
                 segs.append(p1 + p2 + unit + (length,))
             a.ends[:] = [float(pts[0][0]), float(pts[0][1]),
                          float(pts[-1][0]), float(pts[-1][1])]
+            if kind in SIGNED_KINDS:
+                a.fix0 = len(fixes)
+                fixes.extend(geometry.shortcut_segments(prm["points"]))
+            if kind == "polyline_signed_distance":
+                a.aux, a.aux2 = prm["flip"], prm["nominal"]
+            else:
+                a.w = prm["weight"]
             if kind == "semiquadratic_polyline":
                 thr = prm["threshold"]
                 a.aux, a.right = thr, int(prm["oriented_right"])
                 a.aux2 = (1.0 if thr >= 0 else -1.0) * thr * thr
-                a.fix0 = len(fixes)
-                fixes.extend(geometry.shortcut_segments(prm["points"]))
         elif kind == "proximity":
             a.dim[:] = list(prm["dims"])
             a.w, a.aux, a.lam = prm["threshold"], prm["sign"], lam
@@ -223,7 +233,7 @@ def _build(player_costs, spec: GameSpec):
     tab.n = len(atoms)
     # The shortcut rows follow the segment rows.
     for n in range(tab.n):
-        if tab.atom[n].kind == KIND["semiquadratic_polyline"]:
+        if tab.atom[n].kind in [KIND[k] for k in SIGNED_KINDS]:
             tab.atom[n].fix0 = 7 * len(segs) + 8 * tab.atom[n].fix0
     flat = tuple(v for row in segs for v in row) + tuple(
         v for row in fixes for v in row)
@@ -241,18 +251,29 @@ def has_reach(player_costs) -> bool:
                for pc in player_costs)
 
 
+def _has_state_atom(player_costs, kinds) -> bool:
+    """Whether any player's state costs hold an atom of a device kind in
+    `kinds`."""
+    return any(c.device is not None and c.device[0] in kinds
+               for pc in player_costs for c in pc.state_costs)
+
+
 def has_diff(player_costs) -> bool:
     """Whether a game's table holds a quadratic_difference atom: its K1,
     K5 and K6 are then built with it (CT_DIFF=1)."""
-    return any(c.device is not None and c.device[0] == "quadratic_difference"
-               for pc in player_costs for c in pc.state_costs)
+    return _has_state_atom(player_costs, ("quadratic_difference",))
 
 
 def has_semi(player_costs) -> bool:
     """Whether a game's table holds a semiquadratic atom: its K1, K5 and K6
     are then built with it (CT_SEMI=1)."""
-    return any(c.device is not None and c.device[0] == "semiquadratic"
-               for pc in player_costs for c in pc.state_costs)
+    return _has_state_atom(player_costs, ("semiquadratic",))
+
+
+def has_polysd(player_costs) -> bool:
+    """Whether a game's table holds a polyline signed-distance atom: its
+    K1, K5 and K6 are then built with it (CT_POLYSD=1)."""
+    return _has_state_atom(player_costs, ("polyline_signed_distance",))
 
 
 def capacity(player_costs, spec: GameSpec) -> int:
@@ -264,8 +285,7 @@ def capacity(player_costs, spec: GameSpec) -> int:
 def has_norms(player_costs) -> bool:
     """Whether a game's table holds a norm atom: its merit kernels are then
     built with CT_NORMS=1."""
-    return any(c.device is not None and c.device[0] in NORM_KINDS
-               for pc in player_costs for c in pc.state_costs)
+    return _has_state_atom(player_costs, NORM_KINDS)
 
 
 def cost_table(player_costs, spec: GameSpec, device):

@@ -20,7 +20,7 @@ from ilqgames_tpu_torch.dynamics import base as dyn_base
 from ilqgames_tpu_torch.dynamics.models import KIND_CAR_5D, KIND_DUBINS
 from ilqgames_tpu_torch.ops.cuda import build, lq
 from ilqgames_tpu_torch.ops.cuda.cost_table import MAX_ATOMS, capacity, \
-    cost_table, has_diff, has_norms, has_reach, has_semi
+    cost_table, has_diff, has_norms, has_polysd, has_reach, has_semi
 from ilqgames_tpu_torch.ops.cuda.layout import mb
 from ilqgames_tpu_torch.ops.cuda.sweep import _device_table, \
     _reach_operands, merit_operands
@@ -29,7 +29,7 @@ from ilqgames_tpu_torch.types import GameSpec, OperatingPoint
 
 def library(spec: GameSpec, reach: bool = False, diff: bool = False,
             dubins: bool = False, semi: bool = False, car5d: bool = False,
-            atoms: int = MAX_ATOMS):
+            atoms: int = MAX_ATOMS, polysd: bool = False):
     """(source name, defines) of csrc/stage.cu for this game's dims; with
     `reach` (`cost_table.has_reach`), built with the reachability games'
     atoms, control constraints and extremal gates (CT_REACH=1); with
@@ -39,12 +39,14 @@ def library(spec: GameSpec, reach: bool = False, diff: bool = False,
     (`has_dubins`, `has_car5d`), with the Jacobian of dubins_car
     (CT_DUBINS=1) and of car_5d (CT_CAR5D=1); for a table of more than
     MAX_ATOMS atoms, with its capacity `atoms` (CT_MAX_ATOMS,
-    `cost_table.capacity`). `features` gives a game's flags."""
+    `cost_table.capacity`); with `polysd` (`cost_table.has_polysd`), with
+    the polyline signed-distance atom (CT_POLYSD=1). `features` gives a
+    game's flags."""
     defines = {"ST_X": spec.xdim, "ST_P": spec.num_players,
                "ST_U": spec.umax}
     for flag, name in ((reach, "CT_REACH"), (diff, "CT_DIFF"),
                        (dubins, "CT_DUBINS"), (semi, "CT_SEMI"),
-                       (car5d, "CT_CAR5D")):
+                       (car5d, "CT_CAR5D"), (polysd, "CT_POLYSD")):
         if flag:
             defines[name] = 1
     if atoms != MAX_ATOMS:
@@ -68,15 +70,18 @@ def features(dyn, player_costs, spec: GameSpec) -> dict:
     """The keyword arguments of `library` and `load_kernels` for a game."""
     return dict(reach=has_reach(player_costs), diff=has_diff(player_costs),
                 dubins=has_dubins(dyn), semi=has_semi(player_costs),
-                car5d=has_car5d(dyn), atoms=capacity(player_costs, spec))
+                car5d=has_car5d(dyn), atoms=capacity(player_costs, spec),
+                polysd=has_polysd(player_costs))
 
 
 @functools.lru_cache(maxsize=None)
 def load_kernels(spec: GameSpec, reach: bool = False, diff: bool = False,
                  dubins: bool = False, semi: bool = False,
-                 car5d: bool = False, atoms: int = MAX_ATOMS) -> ctypes.CDLL:
+                 car5d: bool = False, atoms: int = MAX_ATOMS,
+                 polysd: bool = False) -> ctypes.CDLL:
     """Build (once per shape) and load csrc/stage.cu for this game's dims."""
-    lib = build.load(*library(spec, reach, diff, dubins, semi, car5d, atoms))
+    lib = build.load(*library(spec, reach, diff, dubins, semi, car5d, atoms,
+                              polysd))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.stage_lin_quad.argtypes = ([P, P, P, P, I, P, I, P, P, P] + [P] * 6
                                    + [I, I, F, P])

@@ -66,7 +66,8 @@ def test_unconstrained_games_import_no_jax():
         "from ilqgames_tpu_torch.dynamics.base import linear\n"
         "from ilqgames_tpu_torch import bench\n"
         "assert sorted(map(str, bench.CONFIGS)) == "
-        "['1', '2', '4', '5', 'dubins_fb', 'dubins_ol', 'roundabout']\n"
+        "['1', '2', '4', '5', 'collision_reach', 'dubins_fb', 'dubins_ol', "
+        "'roundabout']\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
         "print(bad)\n")
@@ -161,6 +162,35 @@ def test_driving_games_import_no_jax():
         "from ilqgames_tpu_torch import bench\n"
         "assert bench.CONFIGS['roundabout']['make'] is "
         "roundabout_merging.make_problem\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_reach_family_imports_no_jax():
+    """point_mass_2d, the polyline signed-distance atom, the circle and
+    the square, the three reachability examples of this family through
+    the registry, their bench config and golden run pull in no JAX."""
+    script = (
+        "import sys\n"
+        "from ilqgames_tpu_torch.dynamics.models import point_mass_2d\n"
+        "from ilqgames_tpu_torch.costs.atoms import "
+        "polyline2_signed_distance\n"
+        "from ilqgames_tpu_torch.geometry import draw_circle, draw_square\n"
+        "from ilqgames_tpu_torch.examples import more_reachability\n"
+        "import ilqgames_tpu_torch.examples as ex\n"
+        "for n in ('one_player_reachability', 'modified_air_3d', "
+        "'two_player_collision_avoidance_reachability'):\n"
+        "    ex.get(n)()\n"
+        "from ilqgames_tpu_torch import bench\n"
+        "assert bench.CONFIGS['collision_reach']['make'] is "
+        "more_reachability.make_two_player_collision_avoidance\n"
+        "assert bench.GOLDEN_RUNS['one_player_reach'][0]().name == "
+        "'one_player_reachability'\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
         "print(bad)\n")

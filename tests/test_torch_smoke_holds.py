@@ -291,3 +291,71 @@ def test_phase_12_golden_bounds_and_cpu_jobs():
     x0, carries, _ = cs._cpu_job(cs._cpu_trips, ("example", "skeleton"),
                                  "small", True)
     assert x0.shape == (cs.SMALL_B, 4) and len(carries) == cs.SMALL_TRIPS + 1
+
+
+def _plain_calls(n):
+    """(plain version, arguments by name) of every kernel's plain version
+    at N = n on seeded operands: the one-player reachability game (its
+    control multipliers and extremal gate) for K1, K4-K6, its LQ operands
+    for K2, K3 and K7, and the flagship's state multipliers for K5."""
+    import ilqgames_tpu_torch.examples as ex
+    from ilqgames_tpu_torch.ops.cuda import lq, lq_open_loop, stage
+
+    rng = np.random.RandomState(1)
+    t = lambda *s: torch.tensor(0.3 * rng.standard_normal(s),
+                                dtype=torch.float32)
+    calls = []
+    for name in ("one_player_reachability", "three_player_intersection"):
+        prob = ex.get(name)(num_time_steps=n)
+        dyn, costs, spec = prob.dynamics, prob.player_costs, prob.spec
+        x, P, u, B, C = spec.xdim, spec.num_players, spec.umax, 4, 2
+        op = {"xs": prob.x0[None, :, None] + t(n, x, B).cumsum(0),
+              "us": t(n, P * u, B), "t0": t(1, B)}
+        st = {"Ps": t(n, P * u, x, B), "alphas": t(n, P * u, B)}
+        nS = sum(len(pc.state_constraints) for pc in costs)
+        nC = sum(len(pc.control_constraints) for pc in costs)
+        lamS = t(n, nS, B).abs() if nS else None
+        lamC = t(n, nC, B).abs() if nC else None
+        gate = (None if name == "three_player_intersection"
+                else torch.eye(n)[:, None, :B].expand(n, P, B).contiguous())
+        mu = torch.full((1, B), 10.0)
+        scal = torch.full((C, B), 0.5)
+        x0m = prob.x0[:, None] + t(x, B)
+        ops = stage.lin_quad_plain(dyn, costs, spec, op, lamS, lamC, mu,
+                                   gate)
+        Ps, al = lq.lq_backward_plain(spec, ops)
+        xs = sweep.rollout_plain(dyn, spec, x0m, op, st, scal)
+        us = sweep._us_from_xs(spec, xs, op, st, scal)
+        merit = dict(player_costs=costs, spec=spec, lamS=lamS, lamC=lamC,
+                     mu=mu, gate=gate)
+        calls += [
+            (stage.lin_quad_plain, dict(dyn=dyn, player_costs=costs,
+                                        spec=spec, op_bm=op, lamS=lamS,
+                                        lamC=lamC, mu=mu, gate=gate)),
+            (lq.lq_backward_plain, dict(spec=spec, ops=ops, adaptive=True)),
+            (lq.lq_forward_plain, dict(spec=spec, A=ops["A"], Bf=ops["Bf"],
+                                       alphas=al, dx0=t(x, B))),
+            (lq_open_loop.lq_open_loop_plain, dict(spec=spec, ops=ops,
+                                                   dx0=t(x, B))),
+            (sweep.rollout_plain, dict(dyn=dyn, spec=spec, x0m=x0m,
+                                       op_bm=op, st_bm=st, scal_cb=scal,
+                                       emit_us=True)),
+            (sweep.rollout_merits_plain, dict(merit, dyn=dyn, x0m=x0m,
+                                              op_bm=op, st_bm=st,
+                                              scal_cb=scal)),
+            (sweep.merit_plain, dict(merit, xs_cand=xs, us_cand=us,
+                                     t0_bm=op["t0"]))]
+    return calls
+
+
+def test_operation_counts_carried_from_a_few_knots_are_exact():
+    """`_count_ops` (the counts on the first 2, 4 and 6 knots, carried to
+    the call's depth) equals the count at the call's depth for every
+    kernel's plain version, at N = 11."""
+    from ilqgames_tpu_torch.tools._probe import float_ops
+
+    cs = _chip_smoke()
+    for plain, a in _plain_calls(11):
+        full = float_ops(lambda: plain(**a))[1]
+        assert full > 0
+        assert cs._count_ops(plain, a) == full, plain.__name__
