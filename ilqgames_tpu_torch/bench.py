@@ -32,7 +32,10 @@ runs the four-car roundabout (`roundabout_merging`: 256 instances, sigma
 0.1, fused stages) the same way, and BENCH_CONFIG=collision_reach the
 reference's two-car collision-avoidance reachability game
 (`two_player_collision_avoidance_reachability`: 1024 instances, sigma
-0.1, fused stages). Needs a CUDA device: it never measures on a CPU.
+0.1, fused stages), and BENCH_CONFIG=air3d the reference's Air3D
+pursuit-evasion game (`air_3d`: 1024 instances, sigma 0.1, the exec main's
+budgets with the reference air3d main's linesearch, fused stages). Needs
+a CUDA device: it never measures on a CPU.
 
     python3 -m ilqgames_tpu_torch.bench
     BENCH_QUEUE=0 BENCH_BATCH=1024 python3 -m ilqgames_tpu_torch.bench
@@ -44,6 +47,7 @@ reference's two-car collision-avoidance reachability game
     BENCH_CONFIG=dubins_ol python3 -m ilqgames_tpu_torch.bench
     BENCH_CONFIG=roundabout python3 -m ilqgames_tpu_torch.bench
     BENCH_CONFIG=collision_reach python3 -m ilqgames_tpu_torch.bench
+    BENCH_CONFIG=air3d python3 -m ilqgames_tpu_torch.bench
 """
 
 from __future__ import annotations
@@ -58,9 +62,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ilqgames_tpu_torch.examples import dubins_origin, more_reachability, \
-    reachability, roundabout_merging, three_player_flat_intersection, \
-    three_player_overtaking, two_player_collision, two_player_point_mass
+from ilqgames_tpu_torch.examples import air_3d, dubins_origin, \
+    more_reachability, reachability, roundabout_merging, \
+    three_player_flat_intersection, three_player_overtaking, \
+    two_player_collision, two_player_point_mass
 from ilqgames_tpu_torch.examples.three_player_intersection import \
     make_problem
 from ilqgames_tpu_torch.ops.cuda import build, lq, lq_open_loop, stage, \
@@ -386,6 +391,21 @@ CONFIGS = {
         metric="two_player_collision_avoidance_reachability_solves_per_sec"
                "_per_chip",
         batch=1024, sigma=0.1, params={}, fuse_stages=True),
+    # Air3D, the classic Hamilton-Jacobi pursuit-evasion game (the
+    # reference's air_3d_example.cpp: one coupled system of relative
+    # coordinates, x = 3, an evader maximizing and a pursuer minimizing the
+    # signed distance to a circle of radius 5 over time, turn rates in
+    # [-1, 1] under the AL loop), solved over a batch of relative starts:
+    # 1024 instances of the x0 draw with sigma 0.1 around (4, 3, pi/4),
+    # the exec main's budgets with the reference air3d main's linesearch
+    # (baselines/main_air3d.cpp:19-24), fused stages.
+    "air3d": dict(make=air_3d.make_problem,
+                  metric="air_3d_solves_per_sec_per_chip",
+                  batch=1024, sigma=0.1,
+                  params=dict(initial_alpha_scaling=0.75,
+                              expected_decrease_fraction=0.1,
+                              convergence_tolerance=0.01),
+                  fuse_stages=True),
 }
 # The exec main of the reference's dubins_origin example
 # (exec/dubins_origin_example/main.cpp defaults, tests/test_golden_more.py:
@@ -411,8 +431,21 @@ REACH_GOLDEN_PARAMS = dict(max_solver_iters=100,
                            initial_alpha_scaling=0.1,
                            convergence_tolerance=0.01,
                            expected_decrease_fraction=0.1)
+# The exec main of the reference's two-player reachability example at its
+# default x0 (tests/test_golden_more.py:103-121, whose pin it is held to:
+# the reference fails its linesearch as shipped): the linesearch from alpha
+# 0.1, tolerance 0.01, 1000 iterations at most. Its state and control
+# regularization of 1.0 are SolverParams fields that nothing reads, in the
+# JAX package as here: only a PlayerCost's own fields regularize.
+TWO_REACH_GOLDEN_PARAMS = dict(linesearch=True, initial_alpha_scaling=0.1,
+                               expected_decrease_fraction=0.1,
+                               convergence_tolerance=0.01,
+                               max_backtracking_steps=100,
+                               state_regularization=1.0,
+                               control_regularization=1.0)
 # The golden runs: the game and the exec main's parameters of each, the
-# trajectories of the unmodified reference in tests/golden/.
+# trajectories of the unmodified reference in tests/golden/ (the two-player
+# reachability game's pin in tests/test_golden_more.py).
 GOLDEN_RUNS = {
     "dubins_ol": (dubins_origin.make_problem,
                   dict(GOLDEN_PARAMS, open_loop=True)),
@@ -423,6 +456,8 @@ GOLDEN_RUNS = {
     "one_player_reach": (functools.partial(reachability.make_one_player,
                                            px0=1.75, py0=1.75, theta0=0.0),
                          REACH_GOLDEN_PARAMS),
+    "two_player_reach": (reachability.make_two_player,
+                         TWO_REACH_GOLDEN_PARAMS),
 }
 GOLDEN_BLOCK = 8
 # The reference's replan contract that bench_all.py's config 5 divides by:
@@ -522,7 +557,7 @@ def run_receding(config: int, device="cuda", fuse_stages=None,
 def run_config(config, device="cuda", fuse_stages=None, after_load=None,
                warmup=True):
     """bench_all.py's config 1, 2, 4 or 5, or "dubins_ol" / "dubins_fb" /
-    "roundabout" / "collision_reach", on `device`. Config 5, receding
+    "roundabout" / "collision_reach" / "air3d", on `device`. Config 5, receding
     horizon, is `run_receding`'s. The others
     as bench_all.py's `_throughput` runs them: the exec main's parameters
     (with the config's budgets and information pattern), the x0 draw with
@@ -582,7 +617,8 @@ def run_golden(run: str, device="cuda"):
     stages, K7) and the feedback information pattern, no linesearch, 1000
     iterations; "overtaking" and "roundabout", the driving games with
     their linesearch, fused stages; "one_player_reach", one-player
-    reachability at the reference's x0 with the AL loop, fused stages):
+    reachability at the reference's x0 with the AL loop, fused stages;
+    "two_player_reach", two-player reachability at its x0, fused stages):
     its nominal x0, one lane padded to
     GOLDEN_BLOCK, from the zero operating point and strategy, plain
     driver, 20 trips a dispatch. The kernels are built first. Returns

@@ -45,8 +45,9 @@
 // other games' kernels are the same code; so are quadratic_difference
 // (CT_DIFF=1, cost_table.has_diff), semiquadratic (CT_SEMI=1,
 // cost_table.has_semi), polyline2_signed_distance (CT_POLYSD=1,
-// cost_table.has_polysd) and the Jacobians of dubins_car (CT_DUBINS=1) and
-// car_5d (CT_CAR5D=1), K1's only (ops/cuda/stage.py). The CostTable holds
+// cost_table.has_polysd) and the Jacobians of dubins_car (CT_DUBINS=1),
+// car_5d (CT_CAR5D=1) and the coupled systems two_player_unicycle_4d and
+// air_3d (CT_COUPLED=1), K1's only (ops/cuda/stage.py). The CostTable holds
 // CT_MAX_ATOMS atoms (32 unless the build says more: cost_table.capacity).
 // The problem arrives as a CostTable (atom kinds, dims, weights, nominals,
 // thresholds, signs, orientations, gate times, segment offsets, extremal
@@ -99,6 +100,9 @@
 #ifndef CT_POLYSD
 #define CT_POLYSD 0
 #endif
+#ifndef CT_COUPLED
+#define CT_COUPLED 0
+#endif
 #ifndef CT_MAX_ATOMS
 #define CT_MAX_ATOMS 32
 #endif
@@ -127,6 +131,8 @@ constexpr int KIND_UNICYCLE_4D = 1;  // dynamics/models.py KIND_UNICYCLE_4D
 constexpr int KIND_LINEAR = 2;       // dynamics/models.py KIND_LINEAR
 constexpr int KIND_CAR_5D = 3;       // dynamics/models.py KIND_CAR_5D
 constexpr int KIND_DUBINS = 4;       // dynamics/models.py KIND_DUBINS
+constexpr int KIND_TWO_UNICYCLE = 5; // KIND_TWO_PLAYER_UNICYCLE_4D
+constexpr int KIND_AIR_3D = 6;       // dynamics/models.py KIND_AIR_3D
 constexpr float SMALL_NUMBER = 1e-4f;  // types.SMALL_NUMBER
 constexpr float EPS = 1e-12f;          // constraints._EPS
 
@@ -136,9 +142,10 @@ extern "C" {
 
 // The concatenated models of the joint dynamics (ops/cuda/sweep.py
 // _device_table): kind, state offset, control offset (flat, player-major)
-// and parameter (a car's inter-axle length, a Dubins car's speed) of each.
-// A linear system is one subsystem over the whole state reading every
-// control row; its nlin constant Jacobian entries (lin_u: of Bf, else of
+// and first and second parameter (a car's inter-axle length, a Dubins
+// car's speed; air_3d's evader and pursuer speeds) of each. A coupled
+// system (two_player_unicycle_4d, air_3d) and a linear system are one
+// subsystem over the whole state reading every control row; its nlin constant Jacobian entries (lin_u: of Bf, else of
 // A; row, column, value) are the plain linearize's values.
 struct SubsysTable {
   int n;
@@ -146,6 +153,7 @@ struct SubsysTable {
   int xoff[costs::MAX_SUBSYS];
   int uoff[costs::MAX_SUBSYS];
   float length[costs::MAX_SUBSYS];
+  float param2[costs::MAX_SUBSYS];
   int nlin;
   int lin_u[costs::MAX_LIN];
   int lin_row[costs::MAX_LIN];
@@ -950,18 +958,49 @@ __device__ void gradient_sq(const CostTable& tab, const float* segs, int i,
 }
 #endif  // the register form has no dense accumulator: no norm atoms
 
-// The models' analytic Jacobian entries at state x, in
-// dynamics/models.py's order: add(false, row, col, v) for df/dx and
-// add(true, row, flat control col, v) for df/du. A linear system's entries
-// are already those of A and Bf: set(is_u, row, col, v) stores them.
+// The models' analytic Jacobian entries at state x and the knot's flat
+// controls u, in dynamics/models.py's order: add(false, row, col, v) for
+// df/dx and add(true, row, flat control col, v) for df/du. A linear
+// system's entries are already those of A and Bf: set(is_u, row, col, v)
+// stores them. A coupled system's entries read u (air_3d's df/dx holds
+// the evader's turn rate) and are compiled in with CT_COUPLED only.
 template <typename Add, typename Set>
-__device__ void jacobian(const SubsysTable& tab, const float* x, Add add,
-                         Set set) {
+__device__ void jacobian(const SubsysTable& tab, const float* x,
+                         const float* u, Add add, Set set) {
   if (tab.n == 1 && tab.kind[0] == KIND_LINEAR) {
     for (int e = 0; e < tab.nlin; ++e)
       set(tab.lin_u[e] != 0, tab.lin_row[e], tab.lin_col[e], tab.lin_val[e]);
     return;
   }
+#if CT_COUPLED
+  // The whole state from offset 0; controls flat, player-major (U = 2
+  // for the unicycle and its disturbance, U = 1 for air_3d).
+  if (tab.n == 1 && tab.kind[0] == KIND_TWO_UNICYCLE) {
+    const float sn = fmath::sin(x[2]), cs = fmath::cos(x[2]);
+    add(false, 0, 2, -x[3] * sn);
+    add(false, 0, 3, cs);
+    add(false, 1, 2, x[3] * cs);
+    add(false, 1, 3, sn);
+    add(true, 2, 0, 1.0f);
+    add(true, 3, 1, 1.0f);
+    add(true, 0, 2, 1.0f);
+    add(true, 1, 3, 1.0f);
+    return;
+  }
+  if (tab.n == 1 && tab.kind[0] == KIND_AIR_3D) {
+    const float vp = tab.param2[0];
+    const float w1 = u[0];
+    add(false, 0, 1, w1);
+    add(false, 0, 2, (-vp) * fmath::sin(x[2]));
+    add(false, 1, 0, -w1);
+    add(false, 1, 2, vp * fmath::cos(x[2]));
+    add(true, 0, 0, x[1]);
+    add(true, 1, 0, -x[0]);
+    add(true, 2, 0, -1.0f);
+    add(true, 2, 1, 1.0f);
+    return;
+  }
+#endif
   for (int s = 0; s < tab.n; ++s) {
     const int o = tab.xoff[s];
     const int q = tab.uoff[s];

@@ -2,8 +2,8 @@
 // with in-kernel merit K5 (sweep.cu) and by the probe rollout P2
 // (probes.cu): the joint ODE of the flagship's models, one RK4 step with 2
 // substeps, and the affine control law. K4 and K5 also run car_5d (the
-// reachability game's model) and dubins_car (dubins_origin's) in
-// `sub_ode`. Each repeats its plain PyTorch version operation by operation
+// reachability game's model), dubins_car (dubins_origin's) and the coupled
+// systems two_player_unicycle_4d and air_3d in `sub_ode`. Each repeats its plain PyTorch version operation by operation
 // (built with FMA contraction off).
 //
 // P2's one thread per chain takes the models from a table of subsystems
@@ -16,7 +16,9 @@
 // warp: `sub_ode`, `sub_integrate` and `control_rows` below are `ode`,
 // `integrate` and `control_law` restricted to one subsystem's state rows
 // and the control rows it reads (its player's, or every player's for a
-// linear system in one subsystem). The joint field is block-diagonal and
+// coupled system or a linear system in one subsystem). A coupled system
+// is one subsystem over the whole state whose rows read several players'
+// controls. The joint field is block-diagonal and
 // every RK4 and control-row operation is elementwise or a per-row fold, so
 // the restriction computes the same operations in the same order. A linear
 // system's field (dynamics/base.py:linear) is its compile-time terms, a
@@ -42,6 +44,8 @@ using costs::KIND_CAR_6D;
 using costs::KIND_LINEAR;
 using costs::KIND_DUBINS;
 using costs::KIND_UNICYCLE_4D;
+using costs::KIND_TWO_UNICYCLE;
+using costs::KIND_AIR_3D;
 
 // The flagship's models are time-invariant: `t` is accepted for the
 // interface and unused.
@@ -112,6 +116,7 @@ template <int KIND>
 constexpr int kind_dim = KIND == KIND_CAR_6D   ? 6
                         : KIND == KIND_CAR_5D ? 5
                         : KIND == KIND_DUBINS ? 3
+                        : KIND == KIND_AIR_3D ? 3
                                               : 4;
 
 // The term list of a game with no linear system.
@@ -161,13 +166,16 @@ __device__ __forceinline__ void linear_terms(const float* x, const float* u,
 
 // `ode` for one subsystem of kind KIND with D states from state offset O,
 // reading control rows from Q: x [D] its state, u the control rows it
-// reads. Time-invariant, so it takes no t.
+// reads, `length` and `param2` the model's parameters. Time-invariant, so
+// it takes no t.
 template <int KIND, int D, int X, typename Lin, int O = 0, int Q = 0>
-__device__ __forceinline__ void sub_ode(float length, const float* x,
-                                        const float* u, float* dx) {
+__device__ __forceinline__ void sub_ode(float length, float param2,
+                                        const float* x, const float* u,
+                                        float* dx) {
   static_assert(KIND == KIND_CAR_6D || KIND == KIND_UNICYCLE_4D ||
                     KIND == KIND_LINEAR || KIND == KIND_CAR_5D ||
-                    KIND == KIND_DUBINS,
+                    KIND == KIND_DUBINS || KIND == KIND_TWO_UNICYCLE ||
+                    KIND == KIND_AIR_3D,
                 "no device ODE for this model kind");
   if constexpr (KIND == KIND_LINEAR) {
     // A row without terms is 0 (x * 0 with zero_start); the others fold
@@ -194,6 +202,19 @@ __device__ __forceinline__ void sub_ode(float length, const float* x,
     dx[0] = length * fmath::cos(x[2]);
     dx[1] = length * fmath::sin(x[2]);
     dx[2] = u[0];
+  } else if constexpr (KIND == KIND_TWO_UNICYCLE) {
+    // P1's [omega a] in u[0..1], P2's velocity disturbance in u[2..3].
+    dx[0] = x[3] * fmath::cos(x[2]) + u[2];
+    dx[1] = x[3] * fmath::sin(x[2]) + u[3];
+    dx[2] = u[0];
+    dx[3] = u[1];
+  } else if constexpr (KIND == KIND_AIR_3D) {
+    // `length` and `param2` are the evader's and the pursuer's speeds; u
+    // the two turn rates.
+    const float w1 = u[0];
+    dx[0] = (-length + param2 * fmath::cos(x[2])) + w1 * x[1];
+    dx[1] = param2 * fmath::sin(x[2]) - w1 * x[0];
+    dx[2] = u[1] - w1;
   } else {
     dx[0] = x[3] * fmath::cos(x[2]);
     dx[1] = x[3] * fmath::sin(x[2]);
@@ -205,17 +226,18 @@ __device__ __forceinline__ void sub_ode(float length, const float* x,
 // `integrate` for one subsystem: RK4 with 2 substeps of h on its D states.
 template <int KIND, int D = kind_dim<KIND>, int X = 0, typename Lin = NoLin,
           int O = 0, int Q = 0>
-__device__ __forceinline__ void sub_integrate(float length, float h, float* x,
+__device__ __forceinline__ void sub_integrate(float length, float param2,
+                                              float h, float* x,
                                               const float* u) {
   float k1[D], k2[D], k3[D], k4[D], tmp[D];
   for (int sub = 0; sub < 2; ++sub) {
-    sub_ode<KIND, D, X, Lin, O, Q>(length, x, u, k1);
+    sub_ode<KIND, D, X, Lin, O, Q>(length, param2, x, u, k1);
     for (int r = 0; r < D; ++r) { k1[r] = h * k1[r]; tmp[r] = x[r] + 0.5f * k1[r]; }
-    sub_ode<KIND, D, X, Lin, O, Q>(length, tmp, u, k2);
+    sub_ode<KIND, D, X, Lin, O, Q>(length, param2, tmp, u, k2);
     for (int r = 0; r < D; ++r) { k2[r] = h * k2[r]; tmp[r] = x[r] + 0.5f * k2[r]; }
-    sub_ode<KIND, D, X, Lin, O, Q>(length, tmp, u, k3);
+    sub_ode<KIND, D, X, Lin, O, Q>(length, param2, tmp, u, k3);
     for (int r = 0; r < D; ++r) { k3[r] = h * k3[r]; tmp[r] = x[r] + k3[r]; }
-    sub_ode<KIND, D, X, Lin, O, Q>(length, tmp, u, k4);
+    sub_ode<KIND, D, X, Lin, O, Q>(length, param2, tmp, u, k4);
     for (int r = 0; r < D; ++r) {
       k4[r] = h * k4[r];
       x[r] = x[r] + (k1[r] + 2.0f * (k2[r] + k3[r]) + k4[r]) / 6.0f;

@@ -21,9 +21,10 @@
 // al_quad_pairs) with their multipliers lamC, and the extremal gate
 // gate [N,P,B], which multiplies a MAX or MIN player's state terms before
 // the regularization (player_cost.quadraticize). Built with CT_DIFF,
-// CT_SEMI, CT_POLYSD, CT_DUBINS and CT_CAR5D (costs.cuh), it takes
-// quadratic_difference, semiquadratic and polyline2_signed_distance atoms
-// and the Jacobians of dubins_car and car_5d.
+// CT_SEMI, CT_POLYSD, CT_DUBINS, CT_CAR5D and CT_COUPLED (costs.cuh), it
+// takes quadratic_difference, semiquadratic and polyline2_signed_distance
+// atoms and the Jacobians of dubins_car, car_5d and the coupled systems
+// (two_player_unicycle_4d, air_3d: read at the knot's state and controls).
 //
 // The game's SubsysTable and CostTable live in this library's constant
 // memory (stage_set_tables), where every thread of a warp reads the same
@@ -141,7 +142,7 @@ __global__ void stage_kernel(const float* __restrict__ xs,
     sb.reset();
     for (int d = 0; d < X; ++d) sa.test_set(d * (X + 1));
     costs::jacobian(
-        dyn, x,
+        dyn, x, u,
         [&](bool is_u, int r, int c, float v) {
           if (is_u)
             put(Bk, Bl, sb, r * PU + c, dt * v);

@@ -19,15 +19,16 @@
 // merits [C, B]. Its fold is K6's and merit_plain's.
 //
 // Dynamics: car_6d, unicycle_4d, car_5d and dubins_car
-// (ilqgames_tpu/dynamics/models.py:47-175)
-// and the constant-linear systems of the two-player point mass
-// (ilqgames_tpu/examples/two_player_point_mass.py:31-35; one subsystem that
-// both players drive) and of the flat systems
+// (ilqgames_tpu/dynamics/models.py:47-175), the coupled systems
+// two_player_unicycle_4d and air_3d (:215-275; one subsystem that both
+// players drive) and the constant-linear systems of the two-player point
+// mass (ilqgames_tpu/examples/two_player_point_mass.py:31-35; one subsystem
+// that both players drive) and of the flat systems
 // (ilqgames_tpu/dynamics/flat.py:177-237; one subsystem per player) through
 // the device functions of rollout.cuh, chosen per subsystem. The library is
 // built for one game's layout of subsystems (kind, state offset, control
-// offset, inter-axle length, rows and control rows each, and a linear
-// system's terms), given as defines by
+// offset, first and second parameter, rows and control rows each, and a
+// linear system's terms), given as defines by
 // ops/cuda/sweep.py:library: K4 and K5 read it as compile-time constants
 // (Sub<S> and LinTerms below). The run-time SubsysTable they are handed is
 // only checked against it.
@@ -57,8 +58,8 @@
 // the same warps. Player i's terms need the whole state x_k, player i's
 // controls u_k and the knot's time t0[b] + k dt, and warp s computes the
 // controls of the players whose rows its subsystem reads (one player for a
-// model or a flat system's block, every player for a linear system in one
-// subsystem; the library refuses a game
+// model or a flat system's block, every player for a coupled system or a
+// linear system in one subsystem; the library refuses a game
 // where a player's rows are not within exactly one subsystem's). So within
 // knot k each warp, after its control rows, computes its players'
 // (state_sq, ctrl_sq) and writes them to a double-buffered [2][P][2][32]
@@ -103,6 +104,7 @@ constexpr int SUB_KIND[] = {SW_SUB_KIND};
 constexpr int SUB_XOFF[] = {SW_SUB_XOFF};
 constexpr int SUB_UOFF[] = {SW_SUB_UOFF};
 constexpr float SUB_LENGTH[] = {SW_SUB_LENGTH};
+constexpr float SUB_PARAM2[] = {SW_SUB_PARAM2};
 constexpr int SUB_DIM[] = {SW_SUB_DIM};
 constexpr int SUB_UROWS[] = {SW_SUB_UROWS};
 #undef SW_ITEM
@@ -111,6 +113,7 @@ static_assert(NSUB >= 1 && NSUB <= costs::MAX_SUBSYS &&
                   sizeof(SUB_XOFF) == NSUB * sizeof(int) &&
                   sizeof(SUB_UOFF) == NSUB * sizeof(int) &&
                   sizeof(SUB_LENGTH) == NSUB * sizeof(float) &&
+                  sizeof(SUB_PARAM2) == NSUB * sizeof(float) &&
                   sizeof(SUB_DIM) == NSUB * sizeof(int) &&
                   sizeof(SUB_UROWS) == NSUB * sizeof(int),
               "one SW_ITEM per subsystem in each layout define");
@@ -135,15 +138,17 @@ static_assert(sizeof(LinTerms::row) == SW_NLIN * sizeof(int) &&
 using LinTerms = rollout::NoLin;
 #endif
 
-// Subsystem S's entries, as compile-time constants: its state rows, and
-// the control rows it computes and reads (its player's; every player's for
-// a linear system in one subsystem).
+// Subsystem S's entries, as compile-time constants: its parameters, its
+// state rows, and the control rows it computes and reads (its player's;
+// every player's for a coupled system or a linear system in one
+// subsystem).
 template <int S>
 struct Sub {
   static constexpr int kind = SUB_KIND[S];
   static constexpr int xoff = SUB_XOFF[S];
   static constexpr int uoff = SUB_UOFF[S];
   static constexpr float length = SUB_LENGTH[S];
+  static constexpr float param2 = SUB_PARAM2[S];
   static constexpr int dim = SUB_DIM[S];
   static constexpr int urows = SUB_UROWS[S];
   static_assert(kind == costs::KIND_LINEAR || dim == rollout::kind_dim<kind>,
@@ -216,8 +221,8 @@ __global__ void SW_BOUNDS rollout_warp_kernel(
       }
       float xo[D];
       for (int j = 0; j < D; ++j) xo[j] = x[O + j];
-      rollout::sub_integrate<S::kind, D, X, LinTerms, O, Q>(S::length, h, xo,
-                                                          u);
+      rollout::sub_integrate<S::kind, D, X, LinTerms, O, Q>(
+          S::length, S::param2, h, xo, u);
       for (int j = 0; j < D; ++j) state[cur ^ 1][O + j][lane] = xo[j];
     });
     __syncthreads();
@@ -313,8 +318,8 @@ __global__ void SW_BOUNDS rollout_merit_warp_kernel(
 #endif
       float xo[D];
       for (int j = 0; j < D; ++j) xo[j] = x[O + j];
-      rollout::sub_integrate<S::kind, D, X, LinTerms, O, Q>(S::length, h, xo,
-                                                          u);
+      rollout::sub_integrate<S::kind, D, X, LinTerms, O, Q>(
+          S::length, S::param2, h, xo, u);
       for (int j = 0; j < D; ++j) state[cur ^ 1][O + j][lane] = xo[j];
 #if CT_REACH
       knot_terms();
@@ -334,7 +339,8 @@ bool matches_layout(const SubsysTable& tab) {
   if (tab.n != NSUB) return false;
   for (int s = 0; s < NSUB; ++s)
     if (tab.kind[s] != SUB_KIND[s] || tab.xoff[s] != SUB_XOFF[s] ||
-        tab.uoff[s] != SUB_UOFF[s] || tab.length[s] != SUB_LENGTH[s])
+        tab.uoff[s] != SUB_UOFF[s] || tab.length[s] != SUB_LENGTH[s] ||
+        tab.param2[s] != SUB_PARAM2[s])
       return false;
   return true;
 }

@@ -67,6 +67,12 @@ class MultiPlayerDynamics:
     to_linear_state: Optional[Callable] = None
     from_linear_state: Optional[Callable] = None
     linear_state_singular: Optional[Callable] = None
+    # A coupled system's device form (two_player_unicycle_4d, air_3d): its
+    # kind in the kernels' ODE and Jacobian tables and its parameters
+    # there (at most two). The kernels run it as one subsystem over the
+    # whole state that reads every player's controls.
+    kind: Optional[int] = None
+    params: Tuple[float, ...] = ()
 
     @property
     def num_players(self) -> int:

@@ -17,10 +17,10 @@ _REGISTRY: Dict[str, Optional[str]] = {
     "three_player_flat_intersection":
         "three_player_flat_intersection:make_problem",
     "two_player_collision": "two_player_collision:make_problem",
-    "air_3d": None,
+    "air_3d": "air_3d:make_problem",
     "dubins_origin": "dubins_origin:make_problem",
     "one_player_reachability": "reachability:make_one_player",
-    "two_player_reachability": None,
+    "two_player_reachability": "reachability:make_two_player",
     "three_player_collision_avoidance_reachability":
         "reachability:make_three_player_collision_avoidance",
     "three_player_overtaking": "three_player_overtaking:make_problem",

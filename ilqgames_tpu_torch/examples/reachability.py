@@ -16,6 +16,14 @@ reachability.py):
   signed-distance margins (an extreme value with the maximum, buffer 3 m,
   no weight), plus a control quadratic, under box constraints on its turn
   rate (|omega| <= 1) and acceleration (|a| <= 0.1).
+- `make_two_player` (:69-100, the reference's
+  two_player_reachability_example.cpp): a unicycle that P1 drives
+  (STRUCTURE_MAX: it avoids the target) and a velocity disturbance of
+  P2's (STRUCTURE_MIN: it reaches for it), one coupled system
+  (`models.two_player_unicycle_4d`, xdims (4, 0)). Both players' costs are
+  the signed distance to one circle of radius 1 (10 segments), with the
+  constructor quirk's nominals 0.0 (P1) and 1.0 (P2), plus a control
+  quadratic.
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ import torch
 
 from ilqgames_tpu_torch import geometry
 from ilqgames_tpu_torch.costs import atoms, constraints
-from ilqgames_tpu_torch.costs.player_cost import STRUCTURE_MAX, PlayerCost
+from ilqgames_tpu_torch.costs.player_cost import STRUCTURE_MAX, \
+    STRUCTURE_MIN, PlayerCost
 from ilqgames_tpu_torch.dynamics import base as dyn_base
 from ilqgames_tpu_torch.dynamics import models
 from ilqgames_tpu_torch.problem import Problem
@@ -61,6 +70,31 @@ def make_one_player(dt=None, num_time_steps=None, px0=-5.0, py0=-5.0,
         structure=STRUCTURE_MAX)
     return Problem(name="one_player_reachability", dynamics=dyn,
                    player_costs=(pc1,), x0=torch.tensor(x0), spec=spec)
+
+
+def make_two_player(dt=None, num_time_steps=None, px0=0.0, py0=-10.0,
+                    theta0=np.pi / 4, v0=5.0) -> Problem:
+    dyn = models.two_player_unicycle_4d()
+    spec = dyn.spec(dt=dt, num_time_steps=num_time_steps)
+
+    x0 = np.zeros(spec.xdim, np.float32)
+    x0[:4] = [px0, py0, theta0, v0]
+
+    circle = geometry.draw_circle((0.0, 0.0), 1.0, 10)
+
+    def player(i, nominal, structure):
+        return PlayerCost(
+            state_costs=(atoms.polyline2_signed_distance(circle, 0, 1,
+                                                         nominal=nominal,
+                                                         name="Target"),),
+            control_costs=((i, atoms.quadratic(CONTROL_WEIGHT, None, 0.0,
+                                               "ControlCost")),),
+            structure=structure)
+
+    return Problem(name="two_player_reachability", dynamics=dyn,
+                   player_costs=(player(0, 0.0, STRUCTURE_MAX),
+                                 player(1, 1.0, STRUCTURE_MIN)),
+                   x0=torch.tensor(x0), spec=spec)
 
 
 def make_three_player_collision_avoidance(dt=None, num_time_steps=None,

@@ -17,7 +17,8 @@ import torch
 
 from ilqgames_tpu_torch.costs import player_cost as pcost
 from ilqgames_tpu_torch.dynamics import base as dyn_base
-from ilqgames_tpu_torch.dynamics.models import KIND_CAR_5D, KIND_DUBINS
+from ilqgames_tpu_torch.dynamics.models import COUPLED_KINDS, KIND_CAR_5D, \
+    KIND_DUBINS
 from ilqgames_tpu_torch.ops.cuda import build, lq
 from ilqgames_tpu_torch.ops.cuda.cost_table import MAX_ATOMS, capacity, \
     cost_table, has_diff, has_norms, has_polysd, has_reach, has_semi
@@ -29,7 +30,8 @@ from ilqgames_tpu_torch.types import GameSpec, OperatingPoint
 
 def library(spec: GameSpec, reach: bool = False, diff: bool = False,
             dubins: bool = False, semi: bool = False, car5d: bool = False,
-            atoms: int = MAX_ATOMS, polysd: bool = False):
+            atoms: int = MAX_ATOMS, polysd: bool = False,
+            coupled: bool = False):
     """(source name, defines) of csrc/stage.cu for this game's dims; with
     `reach` (`cost_table.has_reach`), built with the reachability games'
     atoms, control constraints and extremal gates (CT_REACH=1); with
@@ -40,13 +42,16 @@ def library(spec: GameSpec, reach: bool = False, diff: bool = False,
     (CT_DUBINS=1) and of car_5d (CT_CAR5D=1); for a table of more than
     MAX_ATOMS atoms, with its capacity `atoms` (CT_MAX_ATOMS,
     `cost_table.capacity`); with `polysd` (`cost_table.has_polysd`), with
-    the polyline signed-distance atom (CT_POLYSD=1). `features` gives a
-    game's flags."""
+    the polyline signed-distance atom (CT_POLYSD=1); with `coupled`
+    (`has_coupled`), with the Jacobians of the coupled systems, which read
+    the knot's controls (CT_COUPLED=1). `features` gives a game's
+    flags."""
     defines = {"ST_X": spec.xdim, "ST_P": spec.num_players,
                "ST_U": spec.umax}
     for flag, name in ((reach, "CT_REACH"), (diff, "CT_DIFF"),
                        (dubins, "CT_DUBINS"), (semi, "CT_SEMI"),
-                       (car5d, "CT_CAR5D"), (polysd, "CT_POLYSD")):
+                       (car5d, "CT_CAR5D"), (polysd, "CT_POLYSD"),
+                       (coupled, "CT_COUPLED")):
         if flag:
             defines[name] = 1
     if atoms != MAX_ATOMS:
@@ -66,22 +71,28 @@ def has_car5d(dyn) -> bool:
     return any(m.kind == KIND_CAR_5D for m in dyn.models)
 
 
+def has_coupled(dyn) -> bool:
+    """Whether the dynamics are a coupled system (two_player_unicycle_4d,
+    air_3d), whose Jacobian K1 has only in a library built with it."""
+    return dyn.kind in COUPLED_KINDS
+
+
 def features(dyn, player_costs, spec: GameSpec) -> dict:
     """The keyword arguments of `library` and `load_kernels` for a game."""
     return dict(reach=has_reach(player_costs), diff=has_diff(player_costs),
                 dubins=has_dubins(dyn), semi=has_semi(player_costs),
                 car5d=has_car5d(dyn), atoms=capacity(player_costs, spec),
-                polysd=has_polysd(player_costs))
+                polysd=has_polysd(player_costs), coupled=has_coupled(dyn))
 
 
 @functools.lru_cache(maxsize=None)
 def load_kernels(spec: GameSpec, reach: bool = False, diff: bool = False,
                  dubins: bool = False, semi: bool = False,
                  car5d: bool = False, atoms: int = MAX_ATOMS,
-                 polysd: bool = False) -> ctypes.CDLL:
+                 polysd: bool = False, coupled: bool = False) -> ctypes.CDLL:
     """Build (once per shape) and load csrc/stage.cu for this game's dims."""
     lib = build.load(*library(spec, reach, diff, dubins, semi, car5d, atoms,
-                              polysd))
+                              polysd, coupled))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.stage_lin_quad.argtypes = ([P, P, P, P, I, P, I, P, P, P] + [P] * 6
                                    + [I, I, F, P])

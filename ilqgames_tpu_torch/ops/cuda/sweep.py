@@ -11,8 +11,9 @@ run one warp per subsystem over 32 chains; K5's warp s also computes the
 merit terms of the players whose control rows it computes (each player's
 in exactly one warp, checked by `library`: one each for the flagship's
 cars and pedestrian and for the flat intersection's three linear blocks,
-both players in the point mass's one linear subsystem), and one warp
-folds the players' terms after each knot's barrier.
+both players in the point mass's one linear subsystem and in the one
+subsystem of a coupled system, two_player_unicycle_4d or air_3d), and one
+warp folds the players' terms after each knot's barrier.
 
 The sweep's `merit_backend` picks how a candidate's merit is computed,
 as the JAX package's does:
@@ -43,8 +44,8 @@ from ilqgames_tpu_torch.ops.cuda import build
 from ilqgames_tpu_torch.ops.cuda.cost_table import MAX_ATOMS, capacity, \
     cost_table, has_diff, has_norms, has_polysd, has_reach, has_semi, \
     table_type
-from ilqgames_tpu_torch.dynamics.models import KIND_CAR_5D, KIND_CAR_6D, \
-    KIND_DUBINS, KIND_LINEAR, KIND_UNICYCLE_4D
+from ilqgames_tpu_torch.dynamics.models import COUPLED_KINDS, KIND_CAR_5D, \
+    KIND_CAR_6D, KIND_DUBINS, KIND_LINEAR, KIND_UNICYCLE_4D
 from ilqgames_tpu_torch.ops.cuda.layout import bm, mb, pad_batch
 from ilqgames_tpu_torch.types import GameSpec, OperatingPoint, Strategy, \
     const_tensor
@@ -60,6 +61,7 @@ class _SubsysTable(ctypes.Structure):
                 ("xoff", ctypes.c_int * _MAX_SUBSYS),
                 ("uoff", ctypes.c_int * _MAX_SUBSYS),
                 ("length", ctypes.c_float * _MAX_SUBSYS),
+                ("param2", ctypes.c_float * _MAX_SUBSYS),
                 ("nlin", ctypes.c_int),
                 ("lin_u", ctypes.c_int * _MAX_LIN),
                 ("lin_row", ctypes.c_int * _MAX_LIN),
@@ -102,9 +104,20 @@ def _linear_table(dyn, spec: GameSpec) -> _SubsysTable:
 
 def _device_table(dyn, spec: GameSpec) -> _SubsysTable:
     """The rollout kernel's per-subsystem ODE table; raises for a model
-    with no device ODE."""
+    with no device ODE. A coupled system (`dyn.kind`) is one subsystem at
+    state and control offset 0, its parameters in `length` and `param2`."""
     if dyn.linear_rows is not None:
         return _linear_table(dyn, spec)
+    if dyn.kind is not None:
+        if dyn.kind not in COUPLED_KINDS or len(dyn.params) > 2:
+            raise NotImplementedError(
+                f"dynamics {dyn.name!r}: kind {dyn.kind} with "
+                f"{len(dyn.params)} parameters has no device form")
+        tab = _SubsysTable()
+        tab.n = 1
+        tab.kind[0] = dyn.kind
+        tab.length[0], tab.param2[0] = (tuple(dyn.params) + (0.0, 0.0))[:2]
+        return tab
     if not dyn.models or len(dyn.models) > _MAX_SUBSYS:
         raise NotImplementedError(
             f"dynamics {dyn.name!r}: the rollout kernel needs 1-"
@@ -124,19 +137,25 @@ def _device_table(dyn, spec: GameSpec) -> _SubsysTable:
     return tab
 
 
+def _whole(tab: _SubsysTable, s: int) -> bool:
+    """Whether subsystem s is the whole system: a coupled one, or a linear
+    system in one subsystem."""
+    return tab.kind[s] in COUPLED_KINDS or (tab.kind[s] == KIND_LINEAR
+                                            and tab.n == 1)
+
+
 def _control_rows(tab: _SubsysTable, s: int, spec: GameSpec):
     """The flat control rows [lo, hi) that subsystem s reads: every
-    player's for a linear system in one subsystem, else its own
-    player's."""
-    if tab.kind[s] == KIND_LINEAR and tab.n == 1:
+    player's for a whole system (`_whole`), else its own player's."""
+    if _whole(tab, s):
         return tab.uoff[s], tab.uoff[s] + spec.num_players * spec.umax
     return tab.uoff[s], tab.uoff[s] + spec.umax
 
 
 def _rows(tab: _SubsysTable, s: int, spec: GameSpec) -> int:
     """The count of state rows of subsystem s: the whole state for a
-    linear system in one subsystem, else its player's."""
-    if tab.kind[s] == KIND_LINEAR and tab.n == 1:
+    whole system (`_whole`), else its player's."""
+    if _whole(tab, s):
         return spec.xdim
     return spec.xdims[s]
 
@@ -158,9 +177,9 @@ def library(dyn, spec: GameSpec, norms: bool = False, reach: bool = False,
     dims, and its layout of subsystems from `_device_table`'s data (so a
     model with no device ODE raises): the count SW_NSUB and, per field, a
     list of SW_ITEM(v), one per subsystem (nvcc splits a define's value at
-    commas): kinds, state offsets, control offsets, inter-axle lengths
-    as exact float32 hex literals, counts of state rows and of control
-    rows. A linear system adds its terms, in row order: SW_NLIN, and per
+    commas): kinds, state offsets, control offsets, the models' first and
+    second parameters (inter-axle lengths, speeds) as exact float32 hex
+    literals, counts of state rows and of control rows. A linear system adds its terms, in row order: SW_NLIN, and per
     term its row, its source (a state index, or X plus a flat control row)
     and its coefficient, and SW_LIN_ZERO, whether its rows fold from
     x * 0. A layout with a car_5d or a dubins_car, or of more than 16
@@ -180,8 +199,8 @@ def library(dyn, spec: GameSpec, norms: bool = False, reach: bool = False,
     game's flags for K5.
 
     Warp s computes the control rows from SW_SUB_UOFF[s] on (its player's
-    for a model or a flat system's block, every player's for a linear
-    system in one subsystem) and, in K5, the merit terms of the players
+    for a model or a flat system's block, every player's for a coupled
+    system or a linear system in one subsystem) and, in K5, the merit terms of the players
     whose rows those are; a game where a player's rows are not within
     exactly one subsystem's is refused here."""
     tab = _device_table(dyn, spec)
@@ -207,13 +226,14 @@ def library(dyn, spec: GameSpec, norms: bool = False, reach: bool = False,
     items = lambda vals: "".join(f"SW_ITEM({v})" for v in vals)
     kinds = set(tab.kind[:n])
     if not kinds <= {KIND_CAR_6D, KIND_UNICYCLE_4D, KIND_LINEAR, KIND_CAR_5D,
-                     KIND_DUBINS}:
+                     KIND_DUBINS, *COUPLED_KINDS}:
         raise NotImplementedError(f"model kinds {sorted(kinds)}")
     defines = {
         "SW_X": spec.xdim, "SW_PU": spec.num_players * spec.umax,
         "SW_U": spec.umax, "SW_NSUB": n, "SW_SUB_KIND": items(tab.kind[:n]),
         "SW_SUB_XOFF": items(tab.xoff[:n]), "SW_SUB_UOFF": items(tab.uoff[:n]),
         "SW_SUB_LENGTH": items(_hexf(v) for v in tab.length[:n]),
+        "SW_SUB_PARAM2": items(_hexf(v) for v in tab.param2[:n]),
         "SW_SUB_DIM": items(_rows(tab, s, spec) for s in range(n)),
         "SW_SUB_UROWS": items(hi - lo for lo, hi in rows)}
     if dyn.linear_rows is not None:

@@ -66,8 +66,8 @@ def test_unconstrained_games_import_no_jax():
         "from ilqgames_tpu_torch.dynamics.base import linear\n"
         "from ilqgames_tpu_torch import bench\n"
         "assert sorted(map(str, bench.CONFIGS)) == "
-        "['1', '2', '4', '5', 'collision_reach', 'dubins_fb', 'dubins_ol', "
-        "'roundabout']\n"
+        "['1', '2', '4', '5', 'air3d', 'collision_reach', 'dubins_fb', "
+        "'dubins_ol', 'roundabout']\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
         "print(bad)\n")
@@ -191,6 +191,32 @@ def test_reach_family_imports_no_jax():
         "more_reachability.make_two_player_collision_avoidance\n"
         "assert bench.GOLDEN_RUNS['one_player_reach'][0]().name == "
         "'one_player_reachability'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_coupled_reach_imports_no_jax():
+    """The coupled systems two_player_unicycle_4d and air_3d, the examples
+    air_3d and two_player_reachability through the registry, the air3d
+    bench config and the two-player golden run pull in no JAX."""
+    script = (
+        "import sys\n"
+        "from ilqgames_tpu_torch.dynamics.models import air_3d, "
+        "two_player_unicycle_4d\n"
+        "air_3d(1.0, 1.0), two_player_unicycle_4d()\n"
+        "from ilqgames_tpu_torch.examples import air_3d as air\n"
+        "import ilqgames_tpu_torch.examples as ex\n"
+        "for n in ('air_3d', 'two_player_reachability'):\n"
+        "    ex.get(n)()\n"
+        "from ilqgames_tpu_torch import bench\n"
+        "assert bench.CONFIGS['air3d']['make'] is air.make_problem\n"
+        "assert bench.GOLDEN_RUNS['two_player_reach'][0]().name == "
+        "'two_player_reachability'\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
         "print(bad)\n")

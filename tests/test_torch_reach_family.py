@@ -17,7 +17,7 @@ package:
   avoidance`, `make_modified_air_3d`): x0 bitwise, dims, each player's
   atoms by name and device form, the circle's points and the shared
   atom's nominal (float64 numpy, as the JAX builder computes it);
-- the registry: 14 of its 18 names resolve, the other 4 raise
+- the registry: 16 of its 18 names resolve, the other 2 raise
   NotImplementedError naming themselves;
 - one fused trip of each game at N=11, B=4 from the JAX machine's carry
   (its Pallas kernels in interpret mode): decisions exactly equal, merits
@@ -62,8 +62,7 @@ torch.set_num_threads(1)
 N, B = 11, 4
 GAMES = ("one_player_reachability",
          "two_player_collision_avoidance_reachability", "modified_air_3d")
-UNPORTED = ("air_3d", "two_player_reachability",
-            "three_player_flat_overtaking", "flat_roundabout_merging")
+UNPORTED = ("three_player_flat_overtaking", "flat_roundabout_merging")
 TRIP_TOL = 2e-3   # per-trip arrays, tests/test_batched_pallas.py:119-140
 KNIFE_ULPS = 2    # a merit step this small decides on the last bits
 
@@ -234,7 +233,8 @@ def test_builder_matches_jax(name):
 
 def test_registry_resolves_14_of_18():
     assert ex.names() == jex.names() and len(ex.names()) == 18
-    assert len(ex.ported()) == 14 and set(GAMES) <= set(ex.ported())
+    assert len(ex.ported()) == 18 - len(UNPORTED) and set(GAMES) <= set(
+        ex.ported())
     assert sorted(set(ex.names()) - set(ex.ported())) == sorted(UNPORTED)
     for name in UNPORTED:
         with pytest.raises(NotImplementedError, match=name):
