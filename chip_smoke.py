@@ -151,7 +151,8 @@ Phases:
    overtaking, the modified intersection pair and the skeleton): their
    ptxas reports, the golden runs of the overtaking and the roundabout
    against tests/test_golden_more.py's bounds, the roundabout_256 cell
-   (one timed solve, no warm-up) against the JAX package's outcome with
+   (one timed solve, no warm-up, as every cell of phases 8-15) against
+   the JAX package's outcome with
    its launches held, and trips of 8 lanes card vs CPU;
 13. the first half of the reachability family: (a) the ptxas reports of
    one_player_reachability (a Dubins car, P = 1, the polyline
@@ -187,6 +188,27 @@ Phases:
    draw (AIR3D_JAX) within phase 9's bands, its launches held, K5 and K6
    at its linesearch shapes; (d) two trips of 8 lanes of each game on
    the card against the CPU under each merit backend, K5 and K6 held
+   where they launched;
+15. the flat driving games (three_player_flat_overtaking: three flat
+   car_6d, x = 18, 36 constant Jacobian entries; flat_roundabout_merging:
+   four, x = 24, 48 entries, 32 cost atoms, the initial operating point
+   along each lane), fused, the route-progress atom under CT_ROUTE: (a)
+   the ptxas reports of both games' K1-K6 and the flagship's K1 against
+   FLAGSHIP_K1_PTXAS; (b) the flat overtaking's nominal run
+   (`bench.run_golden("flat_overtaking")`: the exec main's parameters, its
+   x0 in a block of 8; no reference trajectory exists) with its launches
+   held: its first FLAT_TRIPS_HELD trips' merits within TRIP_TOL of the
+   JAX package's batched machine (FLAT_OVERTAKING_JAX), and the whole
+   run's iterations, convergence and costs as the port's on the CPU,
+   beside the JAX package's (the two part at the fourth trip's LQ solve,
+   whose float32 solutions of the same operands lie metres apart:
+   tests/test_torch_flat_games.py holds the float64 witness); (c) the
+   flat_roundabout_256 cell through `bench.run_config("flat_roundabout")`
+   (256 instances, sigma 0.1, exec main parameters; one timed solve)
+   against the JAX package's batched machine on the same draw
+   (FLAT_ROUNDABOUT_JAX) within phase 9's bands, its launches held, K5
+   and K6 at its linesearch shapes; (d) two trips of 8 lanes of each game
+   on the card against the CPU under each merit backend, K5 and K6 held
    where they launched.
 
 The holds of phases 7-11 run K4 and K5 (and their plain versions) on
@@ -449,6 +471,79 @@ AIR3D_JAX = dict(converged=0.0156, mean_iters=28.6,
 # The flagship's K1 as ptxas reports it without CT_COUPLED, before and
 # after the coupled systems' Jacobians came into costs.cuh.
 FLAGSHIP_K1_PTXAS = dict(registers=80, stack=176)
+# Phase 15: the flat driving games.
+FLAT_GAMES = ("three_player_flat_overtaking", "flat_roundabout_merging")
+# The JAX package's nominal run of the flat overtaking (the exec main's
+# parameters, bench.GOLDEN_RUNS["flat_overtaking"]) by its batched machine
+# with fused stages, one lane padded to 8, made on a CPU with
+#   python -c "import jax; jax.config.update('jax_platforms', 'cpu')
+#   import jax.numpy as jnp, numpy as np
+#   from ilqgames_tpu.examples import three_player_flat_overtaking as fo
+#   from ilqgames_tpu.costs import player_cost as pc
+#   from ilqgames_tpu.solver import batched
+#   from ilqgames_tpu.solver.params import SolverParams
+#   from ilqgames_tpu.types import OperatingPoint as Op, Strategy as St
+#   p = fo.make_problem(); s = p.spec
+#   prm = SolverParams(linesearch=True, initial_alpha_scaling=0.75,
+#       expected_decrease_fraction=0.1, convergence_tolerance=0.01,
+#       max_backtracking_steps=100)
+#   r = batched.make_host_batched_solver(p.dynamics, p.player_costs, s, prm,
+#       warm_op=p.initial_operating_point(),
+#       warm_strategy=p.initial_strategy(), trips_per_call=20,
+#       batch_block=8, interpret=True, fuse_stages=True)(p.x0[None])
+#   print(int(r.cumulative_iterations[0]), bool(r.converged[0]),
+#         np.asarray(r.total_costs[0]).tolist())
+#   trip = jax.jit(batched._driver_parts(p.dynamics, p.player_costs, s,
+#       prm, 1, 8, True, fuse_stages=True)[0])
+#   x0 = jnp.tile(p.x0[None], (8, 1))
+#   bc = lambda t: jax.tree_util.tree_map(
+#       lambda a: jnp.broadcast_to(a[None], (8,) + a.shape), t)
+#   al = jax.vmap(lambda _: pc.ALState.init(p.player_costs, s))(
+#       jnp.arange(8))
+#   fc = batched._carry0(p.dynamics, p.player_costs, s, x0,
+#       bc(Op.zeros(s)), bc(St.zeros(s)), al, 8, True, fuse_stages=True)
+#   for i in range(4):
+#       fc = trip(x0, fc); print(float(fc.c.last_merit[0]))"
+# which printed 7 True [926990.9375, 752089.75, 38290.546875] and the
+# merits 26844491415552.0, 1683047972864.0, 106569768960.0 and
+# 106300940288.0. The fourth trip's LQ solve is ill-conditioned: on the
+# same operands the float32 solutions (the JAX package's, the port's) lie
+# far from the float64 one (tests/test_torch_flat_games.py), so the two
+# machines part there. The first FLAT_TRIPS_HELD trips' merits are held to
+# the JAX package's; the whole run to the port's on the CPU.
+FLAT_OVERTAKING_JAX = dict(
+    iterations=7, converged=True,
+    total_costs=(926990.9375, 752089.75, 38290.546875),
+    merits=(26844491415552.0, 1683047972864.0, 106569768960.0,
+            106300940288.0))
+FLAT_TRIPS_HELD = 3
+# The JAX package's outcome of the flat_roundabout_256 cell on the same
+# draw (256 instances, N=100, bench_all.py's exec main parameters, sigma
+# 0.1, the initial operating point along each lane), by its batched
+# machine with fused stages (its Pallas kernels in interpret mode; lane
+# blocks of 128, 20 trips a dispatch, as bench.run_config), made on a CPU
+# with
+#   python -c "import jax; jax.config.update('jax_platforms', 'cpu')
+#   import numpy as np, bench_all
+#   from ilqgames_tpu.examples import flat_roundabout_merging as fr
+#   from ilqgames_tpu.solver import batched
+#   p = fr.make_problem()
+#   res = batched.make_host_batched_solver(
+#       p.dynamics, p.player_costs, p.spec, bench_all._exec_params(),
+#       warm_op=p.initial_operating_point(),
+#       warm_strategy=p.initial_strategy(), trips_per_call=20,
+#       batch_block=128, interpret=True, fuse_stages=True)(
+#       bench_all._perturbed_x0(p, 256, 0.1))
+#   c = np.asarray(res.total_costs)
+#   print(float(res.converged.mean()),
+#         float(res.cumulative_iterations.mean()),
+#         np.percentile(c, 50, axis=0), float((c.max(1) > 1e6).mean()))"
+# which printed 0.1875 13.53515625 [333274.56 576387.56 330939.7
+# 573469.75] 0.0546875 (in 41 min). The bands are phase 9's
+# (DUBINS_FRAC_TOL, DUBINS_ITERS_REL, COST_P50_REL).
+FLAT_ROUNDABOUT_JAX = dict(converged=0.1875, mean_iters=13.5,
+                           cost_p50=(333274.56, 576387.56, 330939.7,
+                                     573469.75), diverged_frac=0.0547)
 
 
 def _fail(msg: str) -> None:
@@ -1659,7 +1754,7 @@ def phase8(dev):
         cell = names[c]
         bench.reset_launches()
         with _FirstLaunches() as spy:
-            res, out = bench.run_config(c, dev)
+            res, out = bench.run_config(c, dev, warmup=False)
         torch.cuda.synchronize()
         launches = bench.launches()
         print(json.dumps(out), flush=True)
@@ -1693,7 +1788,7 @@ def phase8(dev):
             _fail(f"{cell}: outcome outside the JAX package's band ({band}): "
                   f"{out}")
         print(f"# {cell}: outcome within the JAX package's band ({band}); "
-              f"launches counted from 0 over the warm-up and timed solves: "
+              f"launches counted from 0 over the timed solve (no warm-up): "
               f"{launches}", flush=True)
         _check_k4_held(cell, spy, sweep.rollout_bm.by_shape)
         kernels += _hold_launches(cell, spy, launches)
@@ -1744,7 +1839,7 @@ def phase9(dev):
     # (b)-(d) the cell, its outcome, and its launches held.
     bench.reset_launches()
     with _FirstLaunches() as spy:
-        res, out = bench.run_config(4, dev)
+        res, out = bench.run_config(4, dev, warmup=False)
     torch.cuda.synchronize()
     launches = bench.launches()
     print(json.dumps(out), flush=True)
@@ -1771,7 +1866,7 @@ def phase9(dev):
         _fail(f"{cell}: outcome outside the JAX package's band ({band}): "
               f"{out}")
     print(f"# {cell}: outcome within the JAX package's band ({band}); "
-          f"launches counted from 0 over the warm-up and timed solves: "
+          f"launches counted from 0 over the timed solve (no warm-up): "
           f"{launches}", flush=True)
     _check_k4_held(cell, spy, sweep.rollout_bm.by_shape)
     kernels = _hold_launches(cell, spy, launches)
@@ -2017,7 +2112,7 @@ def phase11(dev):
         open_loop = key == "dubins_ol"
         bench.reset_launches()
         with _FirstLaunches() as spy:
-            res, out = bench.run_config(key, dev)
+            res, out = bench.run_config(key, dev, warmup=False)
         torch.cuda.synchronize()
         launches = bench.launches()
         print(json.dumps(out), flush=True)
@@ -2032,7 +2127,7 @@ def phase11(dev):
             _fail(f"{cell}: an open-loop strategy with P != 0")
         band = _dubins_outcome(cell, key, out)
         print(f"# {cell}: outcome within the JAX package's band ({band}); "
-              f"launches counted from 0 over the warm-up and timed solves: "
+              f"launches counted from 0 over the timed solve (no warm-up): "
               f"{launches}", flush=True)
         _check_k4_held(cell, spy, sweep.rollout_bm.by_shape)
         # The game's K4 and K5 at full depth once: in the open-loop cell.
@@ -2095,7 +2190,7 @@ def _driving_golden(run, dev):
 
 
 def _later_libraries():
-    """Every kernel library that phases 8-14 load, so that phase 1 builds
+    """Every kernel library that phases 8-15 load, so that phase 1 builds
     them with the flagship's, one nvcc each, all at once (a library named
     twice is built once: `build._compile`)."""
     import ilqgames_tpu_torch.examples as ex
@@ -2110,7 +2205,7 @@ def _later_libraries():
         libs += game[1:] if key == 4 else game  # the flat game has no K1
     libs.append(lq_open_loop.library(ex.get(
         "three_player_intersection")().spec))
-    for name in DRIVING_GAMES + REACH_GAMES + COUPLED_GAMES:
+    for name in DRIVING_GAMES + REACH_GAMES + COUPLED_GAMES + FLAT_GAMES:
         g = ex.get(name)()
         libs += bench.kernel_libraries(g.dynamics, g.spec, g.player_costs)
     return libs
@@ -2439,6 +2534,180 @@ def phase14(dev):
     return kernels
 
 
+def _cpu_golden(run):
+    """The CPU side of a golden run: `bench.run_golden(run)`'s solve on the
+    CPU (the plain versions): (iterations, converged, total costs, xs)."""
+    from ilqgames_tpu_torch import bench
+    from ilqgames_tpu_torch.solver import batched
+    from ilqgames_tpu_torch.solver.params import SolverParams
+
+    make, prm = bench.GOLDEN_RUNS[run]
+    p = make()
+    res = batched.make_host_batched_solver(
+        p.dynamics, p.player_costs, p.spec, SolverParams(**prm),
+        warm_op=p.initial_operating_point(),
+        warm_strategy=p.initial_strategy(), trips_per_call=20,
+        batch_block=bench.GOLDEN_BLOCK)(p.x0[None])
+    return (int(res.cumulative_iterations[0]), bool(res.converged[0]),
+            res.total_costs[0].tolist(), res.op.xs[0])
+
+
+def _flat_golden(dev):
+    """The flat overtaking's nominal run (`bench.run_golden`, the exec
+    main's parameters, fused stages): its first FLAT_TRIPS_HELD trips'
+    merits within TRIP_TOL of the JAX package's (FLAT_OVERTAKING_JAX), the
+    whole run's iterations and convergence equal to the port's on the
+    CPU and its costs within TRIP_TOL of them, beside the JAX package's
+    outcome; every (kernel, shape) it launched held against its plain
+    version. Returns the kernels-line entries."""
+    import numpy as np
+    import torch
+
+    from ilqgames_tpu_torch import bench
+    from ilqgames_tpu_torch.ops.cuda import sweep
+    from ilqgames_tpu_torch.solver import batched
+    from ilqgames_tpu_torch.solver.params import SolverParams
+
+    what = "golden flat_overtaking"
+    jax_run = FLAT_OVERTAKING_JAX
+    bench.reset_launches()
+    with _FirstLaunches() as spy:
+        res, info = bench.run_golden("flat_overtaking", dev)
+    torch.cuda.synchronize()
+    launches = bench.launches()
+    if min(launches[k] for k in ("K1", "K2", "K3", "K4")) <= 0:
+        _fail(f"{what}: a kernel of the path was not launched: {launches}")
+    iters = int(res.cumulative_iterations[0])
+    conv = bool(res.converged[0])
+    costs = res.total_costs[0].tolist()
+    c_iters, c_conv, c_costs, c_xs = _cpu_job(_cpu_golden, "flat_overtaking")
+    same = _same_bits(res.op.xs[0].cpu(), c_xs)
+    print(f"# {what}: iterations {iters}, converged {conv}, total costs "
+          f"{[round(c, 4) for c in costs]} (the port on the CPU: {c_iters}, "
+          f"{c_conv}, {[round(c, 4) for c in c_costs]}; trajectory bitwise "
+          f"equal: {same}); the JAX package's: {jax_run['iterations']}, "
+          f"{jax_run['converged']}, {list(jax_run['total_costs'])}; "
+          f"{info['trips']} trips in {info['wall_s']} s; launches "
+          f"{launches}", flush=True)
+    if (iters, conv) != (c_iters, c_conv) or not np.allclose(
+            costs, c_costs, rtol=TRIP_TOL, atol=TRIP_TOL):
+        _fail(f"{what}: the card's run differs from the CPU's")
+    if not bool(torch.isfinite(res.op.xs).all()):
+        _fail(f"{what}: a non-finite trajectory")
+    _check_k4_held(what, spy, sweep.rollout_bm.by_shape)
+    kernels = _hold_launches(what, spy, launches)
+
+    # Its first trips, one at a time, against the JAX package's merits.
+    make, prm = bench.GOLDEN_RUNS["flat_overtaking"]
+    p = make()
+    B = bench.GOLDEN_BLOCK
+    trip, _ = batched._driver_parts(p.dynamics, p.player_costs, p.spec,
+                                    SolverParams(**prm), B, True)
+    x0 = p.x0[None].expand(B, -1).contiguous().to(dev)
+    fc = batched._fresh_init(p.dynamics, p.player_costs, p.spec, None, None,
+                             B, True)(x0)
+    merits = []
+    for _ in jax_run["merits"]:
+        fc = trip(x0, fc)
+        merits.append(float(fc.c.last_merit[0]))
+    rel = [abs(m - j) / abs(j) for m, j in zip(merits, jax_run["merits"])]
+    print(f"# {what}: merits of trips 0-{len(merits) - 1} {merits}, the JAX "
+          f"package's {list(jax_run['merits'])}: relative gaps "
+          f"{[f'{r:.2e}' for r in rel]} (held within {TRIP_TOL:g} on the "
+          f"first {FLAT_TRIPS_HELD}; the next trip's LQ solve is "
+          f"ill-conditioned)", flush=True)
+    if any(not r <= TRIP_TOL for r in rel[:FLAT_TRIPS_HELD]):
+        _fail(f"{what}: a trip's merit parts from the JAX package's")
+    return kernels
+
+
+def phase15(dev):
+    """The flat driving games, fused: three_player_flat_overtaking (three
+    flat car_6d, x = 18) and flat_roundabout_merging (four, x = 24, 32
+    atoms, the route initializer), one linear subsystem per player with
+    36 and 48 constant Jacobian entries, the route-progress atom in K1, K5
+    and K6 (CT_ROUTE): both games' ptxas reports and the flagship's K1
+    unchanged; the flat overtaking's nominal run; the flat_roundabout_256
+    cell through `bench.run_config` against the JAX package's outcome,
+    its launches held (and K5, K6 at its linesearch shapes); two trips of
+    8 lanes of each game on the card against the CPU under every merit
+    backend, with K5 and K6 held where they launched. Returns the
+    kernels-line entries."""
+    import torch
+
+    import ilqgames_tpu_torch.examples as ex
+    from ilqgames_tpu_torch import bench
+    from ilqgames_tpu_torch.ops.cuda import stage, sweep
+
+    cell = "flat_roundabout_256"
+    p = bench.CONFIGS["flat_roundabout"]["make"]()
+    spec = p.spec
+
+    # (a) the libraries of the two games (built in phase 1) and their
+    # ptxas reports: no spill anywhere, no stack in K2-K6; the flagship's
+    # K1 as it was.
+    games = {n: ex.get(n)() for n in FLAT_GAMES}
+    for g in games.values():
+        bench.build_kernels(g.dynamics, g.spec, g.player_costs)
+    for name, g in games.items():
+        libs = bench.kernel_libraries(g.dynamics, g.spec, g.player_costs)
+        if libs[0][1].get("CT_ROUTE") != 1:
+            _fail(f"{name}: K1 built without CT_ROUTE")
+        for label, lib, kern, stack_ok in (
+                ("K1", libs[0], "stage_kernel", True),
+                ("K2", libs[1], "lq_backward_kernel", False),
+                ("K3", libs[1], "lq_forward_kernel", False),
+                ("K6", libs[2], "merit_kernel", False),
+                ("K4", libs[3], "rollout_warp_kernel", False),
+                ("K5", libs[-1], "rollout_merit_warp_kernel", False)):
+            _ptxas(f"{label} ({name})", lib, kern, stack_ok)
+        sub = sweep._device_table(g.dynamics, g.spec)
+        tab = sweep.cost_table(g.player_costs, g.spec, "cpu")[0]
+        print(f"# {name}: {sub.n} linear subsystems, {sub.nlin} constant "
+              f"Jacobian entries (the table holds {sweep._MAX_LIN}, "
+              f"{ctypes.sizeof(sub)} B); {tab.n} cost atoms in a table for "
+              f"{tab.capacity}", flush=True)
+    flagship = ex.get("three_player_intersection")()
+    info = _ptxas("K1 (the flagship, without CT_ROUTE)",
+                  stage.library(flagship.spec), "stage_kernel", True)
+    if {k: info[k] for k in FLAGSHIP_K1_PTXAS} != FLAGSHIP_K1_PTXAS:
+        _fail(f"the flagship's K1 moved: {info}, was {FLAGSHIP_K1_PTXAS}")
+
+    # (b) the flat overtaking's nominal run.
+    kernels = _flat_golden(dev)
+
+    # (c) the cell (one solve, timed), counters reset just before, and its
+    # outcome.
+    bench.reset_launches()
+    with _FirstLaunches() as spy:
+        res, out = bench.run_config("flat_roundabout", dev, warmup=False)
+    torch.cuda.synchronize()
+    launches = bench.launches()
+    print(json.dumps(out), flush=True)
+    if min(launches[k] for k in ("K1", "K2", "K3", "K4")) <= 0:
+        _fail(f"{cell}: a kernel of the path was not launched: {launches}")
+    shape = (out["B"], spec.num_time_steps, spec.xdim)
+    if tuple(res.op.xs.shape) != shape:
+        _fail(f"{cell}: result shape {tuple(res.op.xs.shape)}, want {shape}")
+    if not bool(torch.isfinite(res.op.xs[res.converged]).all()):
+        _fail(f"{cell}: non-finite trajectory on a converged lane")
+    band = _outcome_band(cell, FLAT_ROUNDABOUT_JAX, out)
+    print(f"# {cell}: {out['value']} solves/s, {out['trips']} trips, "
+          f"{out['deep_rounds']} deep rounds; outcome within the JAX "
+          f"package's band ({band}); launches counted from 0 over the "
+          f"timed solve: {launches}", flush=True)
+    _check_k4_held(cell, spy, sweep.rollout_bm.by_shape)
+    kernels += _hold_launches(cell, spy, launches)
+    kernels += _hold_merits(cell, spy, p)
+
+    # (d) trips on the card against the CPU, every merit backend.
+    kernels += _trips_card_vs_cpu(FLAT_GAMES[0], ("example", FLAT_GAMES[0]),
+                                  "small", True, dev)
+    kernels += _trips_card_vs_cpu(FLAT_GAMES[1], ("config", "flat_roundabout"),
+                                  "flat_roundabout", True, dev)
+    return kernels
+
+
 def _cpu_jobs():
     """The CPU side of every card-vs-CPU check, in the order that the
     phases ask for them."""
@@ -2459,7 +2728,11 @@ def _cpu_jobs():
               True),
              (_cpu_trips, ("example", REACH_GAMES[2]), "small", True),
              (_cpu_trips, ("example", COUPLED_GAMES[0]), "small", True),
-             (_cpu_trips, ("config", "air3d"), "air3d", True)]
+             (_cpu_trips, ("config", "air3d"), "air3d", True),
+             (_cpu_golden, "flat_overtaking"),
+             (_cpu_trips, ("example", FLAT_GAMES[0]), "small", True),
+             (_cpu_trips, ("config", "flat_roundabout"), "flat_roundabout",
+              True)]
     return jobs
 
 
@@ -2508,7 +2781,7 @@ def main():
     probes.load_kernels(spec)
     print(f"# build: {time.perf_counter() - t0:.1f} s (concurrent nvcc: "
           f"csrc/stage.cu, lq.cu, sweep.cu, merit.cu, probes.cu at the "
-          f"flagship's dims and {len(later)} libraries of phases 8-14)",
+          f"flagship's dims and {len(later)} libraries of phases 8-15)",
           flush=True)
     _start_cpu_jobs(_cpu_jobs())
     elapsed(1)
@@ -2811,6 +3084,10 @@ def main():
     # ---- phase 14: the coupled reachability games ----
     kernels += phase14(dev)
     elapsed(14)
+
+    # ---- phase 15: the flat driving games ----
+    kernels += phase15(dev)
+    elapsed(15)
     _stop_cpu_jobs()
 
     print(f"# total: {time.perf_counter() - t_main:.1f} s", flush=True)

@@ -34,8 +34,11 @@ reference's two-car collision-avoidance reachability game
 (`two_player_collision_avoidance_reachability`: 1024 instances, sigma
 0.1, fused stages), and BENCH_CONFIG=air3d the reference's Air3D
 pursuit-evasion game (`air_3d`: 1024 instances, sigma 0.1, the exec main's
-budgets with the reference air3d main's linesearch, fused stages). Needs
-a CUDA device: it never measures on a CPU.
+budgets with the reference air3d main's linesearch, fused stages), and
+BENCH_CONFIG=flat_roundabout the four-car flat roundabout
+(`flat_roundabout_merging`: 256 instances, sigma 0.1, the initial
+operating point along each lane, fused stages). Needs a CUDA device: it
+never measures on a CPU.
 
     python3 -m ilqgames_tpu_torch.bench
     BENCH_QUEUE=0 BENCH_BATCH=1024 python3 -m ilqgames_tpu_torch.bench
@@ -48,6 +51,7 @@ a CUDA device: it never measures on a CPU.
     BENCH_CONFIG=roundabout python3 -m ilqgames_tpu_torch.bench
     BENCH_CONFIG=collision_reach python3 -m ilqgames_tpu_torch.bench
     BENCH_CONFIG=air3d python3 -m ilqgames_tpu_torch.bench
+    BENCH_CONFIG=flat_roundabout python3 -m ilqgames_tpu_torch.bench
 """
 
 from __future__ import annotations
@@ -63,8 +67,9 @@ import numpy as np
 import torch
 
 from ilqgames_tpu_torch.examples import air_3d, dubins_origin, \
-    more_reachability, reachability, roundabout_merging, \
-    three_player_flat_intersection, three_player_overtaking, \
+    flat_roundabout_merging, more_reachability, reachability, \
+    roundabout_merging, three_player_flat_intersection, \
+    three_player_flat_overtaking, three_player_overtaking, \
     two_player_collision, two_player_point_mass
 from ilqgames_tpu_torch.examples.three_player_intersection import \
     make_problem
@@ -406,6 +411,15 @@ CONFIGS = {
                               expected_decrease_fraction=0.1,
                               convergence_tolerance=0.01),
                   fuse_stages=True),
+    # The reference's flat roundabout (flat_roundabout_merging_example.cpp:
+    # 4 flat car_6d, x = 24, 32 cost atoms with the route-progress atoms,
+    # the initial operating point along each lane) as the roundabout: 256
+    # instances of the x0 draw with sigma 0.1, the exec main's parameters,
+    # fused stages, as the JAX package's default machine runs it.
+    "flat_roundabout": dict(
+        make=flat_roundabout_merging.make_problem,
+        metric="flat_roundabout_merging_solves_per_sec_per_chip",
+        batch=256, sigma=0.1, params={}, fuse_stages=True),
 }
 # The exec main of the reference's dubins_origin example
 # (exec/dubins_origin_example/main.cpp defaults, tests/test_golden_more.py:
@@ -445,7 +459,12 @@ TWO_REACH_GOLDEN_PARAMS = dict(linesearch=True, initial_alpha_scaling=0.1,
                                control_regularization=1.0)
 # The golden runs: the game and the exec main's parameters of each, the
 # trajectories of the unmodified reference in tests/golden/ (the two-player
-# reachability game's pin in tests/test_golden_more.py).
+# reachability game's pin in tests/test_golden_more.py). "flat_overtaking"
+# is a nominal run with the exec main's parameters
+# (baselines/main_flat_overtaking.cpp:19-23, the overtaking's): no reference
+# trajectory exists, since the reference's flat examples crash as shipped
+# (baselines/measured.json "flat_examples"), so the JAX package's run is
+# the only one it is held to.
 GOLDEN_RUNS = {
     "dubins_ol": (dubins_origin.make_problem,
                   dict(GOLDEN_PARAMS, open_loop=True)),
@@ -453,6 +472,8 @@ GOLDEN_RUNS = {
     "overtaking": (three_player_overtaking.make_problem,
                    DRIVING_GOLDEN_PARAMS),
     "roundabout": (roundabout_merging.make_problem, DRIVING_GOLDEN_PARAMS),
+    "flat_overtaking": (three_player_flat_overtaking.make_problem,
+                        DRIVING_GOLDEN_PARAMS),
     "one_player_reach": (functools.partial(reachability.make_one_player,
                                            px0=1.75, py0=1.75, theta0=0.0),
                          REACH_GOLDEN_PARAMS),
@@ -557,7 +578,8 @@ def run_receding(config: int, device="cuda", fuse_stages=None,
 def run_config(config, device="cuda", fuse_stages=None, after_load=None,
                warmup=True):
     """bench_all.py's config 1, 2, 4 or 5, or "dubins_ol" / "dubins_fb" /
-    "roundabout" / "collision_reach" / "air3d", on `device`. Config 5, receding
+    "roundabout" / "collision_reach" / "air3d" / "flat_roundabout", on
+    `device`. Config 5, receding
     horizon, is `run_receding`'s. The others
     as bench_all.py's `_throughput` runs them: the exec main's parameters
     (with the config's budgets and information pattern), the x0 draw with
@@ -615,8 +637,8 @@ def run_golden(run: str, device="cuda"):
     """The exec main of a reference example on `device` (`GOLDEN_RUNS`:
     "dubins_ol" and "dubins_fb", dubins_origin in the open-loop (unfused
     stages, K7) and the feedback information pattern, no linesearch, 1000
-    iterations; "overtaking" and "roundabout", the driving games with
-    their linesearch, fused stages; "one_player_reach", one-player
+    iterations; "overtaking", "roundabout" and "flat_overtaking", the
+    driving games with their linesearch, fused stages; "one_player_reach", one-player
     reachability at the reference's x0 with the AL loop, fused stages;
     "two_player_reach", two-player reachability at its x0, fused stages):
     its nominal x0, one lane padded to

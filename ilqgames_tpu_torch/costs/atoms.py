@@ -2,8 +2,8 @@
 :39, `semiquadratic` at :79, `quadratic_norm` at :103, `semiquadratic_norm` at :120,
 `quadratic_difference` at :148, `signed_distance` at :178, `proximity` at
 :213, `quadratic_polyline2` at :366, `semiquadratic_polyline2` at :433,
-`polyline2_signed_distance` at :511, `final_time` at :652 and
-`extreme_value` at :685).
+`polyline2_signed_distance` at :511, `route_progress` at :589,
+`final_time` at :652 and `extreme_value` at :685).
 
 Gradients and Hessians are the JAX package's sparse pairs, with the
 reference's shipped branch semantics for the polyline costs: a vertex
@@ -20,7 +20,7 @@ equal to every one of them).
 `t` is the knot time each caller passes: relative (k * dt) in total costs
 and the unfused quadraticization, absolute (t0 + k * dt) in the stage
 kernel's plain version and the merits, as in the JAX package; only
-`final_time` reads it.
+`final_time` and `route_progress` read it.
 """
 
 from __future__ import annotations
@@ -610,6 +610,50 @@ def proximity(weight: float, dims1, dims2, threshold: float,
                 device=("proximity_cost", {"dims": (x1, y1, x2, y2),
                                            "weight": weight,
                                            "threshold": threshold}))
+
+
+def route_progress(weight: float, points, xidx: int, yidx: int,
+                   nominal_speed: float, initial_route_pos: float = 0.0,
+                   name: str = "route_progress") -> Cost:
+    """0.5*w*|(v[xidx], v[yidx]) - desired|^2, with the desired point
+    initial_route_pos + t * nominal_speed meters along the polyline
+    (`geometry.polyline_point_at`; the reference's RouteProgressCost).
+
+    The JAX package quadraticizes it by autodiff over its support (xidx,
+    yidx), the desired point held constant; the pairs here are what that
+    gives, in support order: the gradient 0.0 + (p + p) with p = (0.5 w)
+    * d (d the difference on that dim; the 0.0 the scatter into the
+    support's zeros), the Hessian c + c (c = 0.5 w) on the diagonal and
+    +0 across, whatever v is."""
+    half = 0.5 * weight
+
+    def diffs(t, v):
+        t = torch.as_tensor(t, dtype=torch.float32, device=v.device)
+        desired = geometry.polyline_point_at(
+            points, initial_route_pos + t * nominal_speed)
+        return v[..., xidx] - desired[..., 0], v[..., yidx] - desired[..., 1]
+
+    def evaluate(t, v):
+        dx, dy = diffs(t, v)
+        return half * (dx * dx + dy * dy)
+
+    def grad_pairs(t, v):
+        return [(dim, 0.0 + (half * d + half * d))
+                for dim, d in zip((xidx, yidx), diffs(t, v))]
+
+    def quad_pairs(t, v):
+        gp = grad_pairs(t, v)
+        like = torch.broadcast_to(v[..., xidx], gp[0][1].shape)
+        diag = torch.full_like(like, half) + half
+        zero = torch.zeros_like(like)
+        return ([((xidx, xidx), diag), ((xidx, yidx), zero),
+                 ((yidx, xidx), zero), ((yidx, yidx), diag)], gp)
+
+    return Cost(name, evaluate, grad_pairs, quad_pairs,
+                device=("route_progress", {
+                    "points": points, "xidx": xidx, "yidx": yidx,
+                    "weight": weight, "nominal_speed": nominal_speed,
+                    "initial_route_pos": initial_route_pos}))
 
 
 def final_time(inner: Cost, threshold_time: float,

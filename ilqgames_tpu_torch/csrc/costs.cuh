@@ -35,6 +35,10 @@
 //   polyline2_signed_distance
 //                        costs/atoms.py:polyline2_signed_distance's pairs,
 //                        with the signed query (need_sign=True)
+//   route_progress       costs/atoms.py:route_progress (the pairs of the
+//                        JAX package's autodiff over its support), its
+//                        desired point geometry.py:polyline_point_at at
+//                        initial_route_pos + t * nominal_speed
 //   car_6d, unicycle_4d, car_5d, dubins_car, the linear system
 //                        the Jacobian entries of dynamics/models.py and the
 //                        constant ones of dynamics/base.py:linear
@@ -45,7 +49,8 @@
 // other games' kernels are the same code; so are quadratic_difference
 // (CT_DIFF=1, cost_table.has_diff), semiquadratic (CT_SEMI=1,
 // cost_table.has_semi), polyline2_signed_distance (CT_POLYSD=1,
-// cost_table.has_polysd) and the Jacobians of dubins_car (CT_DUBINS=1),
+// cost_table.has_polysd), route_progress (CT_ROUTE=1,
+// cost_table.has_route) and the Jacobians of dubins_car (CT_DUBINS=1),
 // car_5d (CT_CAR5D=1) and the coupled systems two_player_unicycle_4d and
 // air_3d (CT_COUPLED=1), K1's only (ops/cuda/stage.py). The CostTable holds
 // CT_MAX_ATOMS atoms (32 unless the build says more: cost_table.capacity).
@@ -58,7 +63,8 @@
 // of polyline segments, 7 floats each: p1x p1y p2x p2y ux uy length,
 // computed on the host in float32 as geometry._static_segments computes
 // them, then the signed queries' shortcut segments, 8 floats each
-// (geometry.shortcut_segments). The time t an atom sees is its caller's:
+// (geometry.shortcut_segments), then the route-progress atoms' segment
+// start lengths, one float each. The time t an atom sees is its caller's:
 // K1, K5 and K6 give each lane's t0 + k * dt.
 //
 // Pairs accumulate per key in pair order, the first pair of a key setting it
@@ -103,6 +109,9 @@
 #ifndef CT_COUPLED
 #define CT_COUPLED 0
 #endif
+#ifndef CT_ROUTE
+#define CT_ROUTE 0
+#endif
 #ifndef CT_MAX_ATOMS
 #define CT_MAX_ATOMS 32
 #endif
@@ -125,7 +134,10 @@ constexpr int KIND_SINGLE_DIM = 9;
 constexpr int KIND_QUAD_DIFF = 10;
 constexpr int KIND_SEMIQUADRATIC = 11;
 constexpr int KIND_POLY_SD = 12;
-constexpr int MAX_LIN = 32;
+constexpr int KIND_ROUTE = 13;
+// The constant Jacobian entries of a linear system: 48, those of four flat
+// car_6d (6 diagonal, 4 off it and 2 in B each).
+constexpr int MAX_LIN = 48;
 constexpr int KIND_CAR_6D = 0;      // dynamics/models.py KIND_CAR_6D
 constexpr int KIND_UNICYCLE_4D = 1;  // dynamics/models.py KIND_UNICYCLE_4D
 constexpr int KIND_LINEAR = 2;       // dynamics/models.py KIND_LINEAR
@@ -179,8 +191,10 @@ struct SubsysTable {
 // weight. Semiquadratic: dim[0], w = weight, aux = threshold, right =
 // oriented right. Polyline signed distance: dim[0..1] = x, y index,
 // seg0/nseg its segments, fix0 the float offset of its shortcut rows, aux
-// = the orientation flip (+1 or -1), aux2 = nominal. gated: a final-time
-// gate at tgate.
+// = the orientation flip (+1 or -1), aux2 = nominal. Route progress:
+// dim[0..1] = x, y index, seg0/nseg its segments, fix0 the float offset of
+// their start lengths, w = weight, aux = initial route position, aux2 =
+// nominal speed. gated: a final-time gate at tgate.
 struct CostAtom {
   int kind;
   int player;
@@ -435,6 +449,38 @@ __device__ __forceinline__ void polysd_scalars(const CostAtom& a,
   }
 }
 #endif  // CT_POLYSD
+
+#if CT_ROUTE
+// atoms.route_progress's gradient at time t: g[n] = 0 + (p + p) with p =
+// (0.5 w) * (v[dim[n]] - desired[n]); the desired point is
+// geometry.polyline_point_at's walk to s = aux + t * aux2: the last
+// segment whose start length is <= s, segment 0 before the first, the
+// last segment extrapolated past the end. Its Hessian is the caller's:
+// (0.5 w) + (0.5 w) on the diagonal, +0 across.
+template <typename V>
+__device__ __forceinline__ void route_grad(const CostAtom& a,
+                                           const float* segs, const V& v,
+                                           float t, float g[2]) {
+  const float s = a.aux + t * a.aux2;
+  const float* row = segs + 7 * a.seg0;
+  const float* start = segs + a.fix0;
+  float px = 0.0f, py = 0.0f;
+  for (int k = 0; k < a.nseg; ++k, row += 7) {
+    const float rem = s - start[k];
+    const float cx = row[0] + rem * row[4];
+    const float cy = row[1] + rem * row[5];
+    if (k == 0 || s >= start[k]) {
+      px = cx;
+      py = cy;
+    }
+  }
+  const float c = 0.5f * a.w;
+  const float p0 = c * (v[a.dim[0]] - px);
+  const float p1 = c * (v[a.dim[1]] - py);
+  g[0] = 0.0f + (p0 + p0);
+  g[1] = 0.0f + (p1 + p1);
+}
+#endif  // CT_ROUTE
 
 struct ProxCost {
   float dx, dy, dsq, dist, gap;
@@ -896,6 +942,14 @@ __device__ __forceinline__ void gradient_sq_into(
       gs.add(a.dim[1], gv(sc[1]));
     }
 #endif
+#if CT_ROUTE
+    else if (a.kind == KIND_ROUTE) {
+      float g[2];
+      route_grad(a, segs, v, t, g);
+      gs.add(a.dim[0], gv(g[0]));
+      gs.add(a.dim[1], gv(g[1]));
+    }
+#endif
 #if CT_DIFF
     else if (a.kind == KIND_QUAD_DIFF) {
       float g[2];
@@ -962,12 +1016,13 @@ __device__ void gradient_sq(const CostTable& tab, const float* segs, int i,
 // controls u, in dynamics/models.py's order: add(false, row, col, v) for
 // df/dx and add(true, row, flat control col, v) for df/du. A linear
 // system's entries are already those of A and Bf: set(is_u, row, col, v)
-// stores them. A coupled system's entries read u (air_3d's df/dx holds
+// stores them, whether the system is one subsystem or one linear
+// subsystem per player (a flat system). A coupled system's entries read u (air_3d's df/dx holds
 // the evader's turn rate) and are compiled in with CT_COUPLED only.
 template <typename Add, typename Set>
 __device__ void jacobian(const SubsysTable& tab, const float* x,
                          const float* u, Add add, Set set) {
-  if (tab.n == 1 && tab.kind[0] == KIND_LINEAR) {
+  if (tab.kind[0] == KIND_LINEAR) {
     for (int e = 0; e < tab.nlin; ++e)
       set(tab.lin_u[e] != 0, tab.lin_row[e], tab.lin_col[e], tab.lin_val[e]);
     return;

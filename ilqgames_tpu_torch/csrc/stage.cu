@@ -21,9 +21,9 @@
 // al_quad_pairs) with their multipliers lamC, and the extremal gate
 // gate [N,P,B], which multiplies a MAX or MIN player's state terms before
 // the regularization (player_cost.quadraticize). Built with CT_DIFF,
-// CT_SEMI, CT_POLYSD, CT_DUBINS, CT_CAR5D and CT_COUPLED (costs.cuh), it
-// takes quadratic_difference, semiquadratic and polyline2_signed_distance
-// atoms and the Jacobians of dubins_car, car_5d and the coupled systems
+// CT_SEMI, CT_POLYSD, CT_ROUTE, CT_DUBINS, CT_CAR5D and CT_COUPLED
+// (costs.cuh), it takes quadratic_difference, semiquadratic,
+// polyline2_signed_distance and route_progress atoms and the Jacobians of dubins_car, car_5d and the coupled systems
 // (two_player_unicycle_4d, air_3d: read at the knot's state and controls).
 //
 // The game's SubsysTable and CostTable live in this library's constant
@@ -286,6 +286,22 @@ __global__ void stage_kernel(const float* __restrict__ xs,
         hq(yi, xi, gv(sc[4]));
         gq(xi, gv(sc[0]));
         gq(yi, gv(sc[1]));
+      }
+#endif
+#if CT_ROUTE
+      else if (a.kind == costs::KIND_ROUTE) {
+        // The Hessian over the support (x, y): c + c on the diagonal, +0
+        // across, in autodiff's pair order.
+        float g[2];
+        costs::route_grad(a, segs, x, t, g);
+        const float h = 0.5f * a.w + 0.5f * a.w;
+        const int xi = a.dim[0], yi = a.dim[1];
+        hq(xi, xi, gv(h));
+        hq(xi, yi, gv(0.0f));
+        hq(yi, xi, gv(0.0f));
+        hq(yi, yi, gv(h));
+        gq(xi, gv(g[0]));
+        gq(yi, gv(g[1]));
       }
 #endif
 #if CT_DIFF

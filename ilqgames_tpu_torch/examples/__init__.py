@@ -25,7 +25,8 @@ _REGISTRY: Dict[str, Optional[str]] = {
         "reachability:make_three_player_collision_avoidance",
     "three_player_overtaking": "three_player_overtaking:make_problem",
     "roundabout_merging": "roundabout_merging:make_problem",
-    "three_player_flat_overtaking": None,
+    "three_player_flat_overtaking":
+        "three_player_flat_overtaking:make_problem",
     "modified_three_player_intersection":
         "modified_intersection:make_problem",
     "three_player_intersection_reachability":
@@ -33,7 +34,7 @@ _REGISTRY: Dict[str, Optional[str]] = {
     "modified_air_3d": "more_reachability:make_modified_air_3d",
     "two_player_collision_avoidance_reachability":
         "more_reachability:make_two_player_collision_avoidance",
-    "flat_roundabout_merging": None,
+    "flat_roundabout_merging": "flat_roundabout_merging:make_problem",
     "skeleton": "skeleton:make_problem",
     "two_player_point_mass": "two_player_point_mass:make_problem",
 }

@@ -26,7 +26,10 @@ by its members (`group` -1), each of which the kernels multiply by its
 one-hot gate. The semiquadratic atom is compiled into K1, K5 and K6 only
 where a game's table holds one (`has_semi`: CT_SEMI=1), and so is the
 polyline signed-distance atom (`has_polysd`: CT_POLYSD=1), which shares
-the semiquadratic polyline's signed query and shortcut rows.
+the semiquadratic polyline's signed query and shortcut rows, and the
+route-progress atom (`has_route`: CT_ROUTE=1), whose desired point walks
+its polyline's segment rows with the segments' cumulative start lengths
+(one float each, after the shortcut rows, at `fix0`).
 
 The table's capacity is per build, as the other layout defines are
 (`capacity`): MAX_ATOMS (32) atoms for a game with at most that many, so
@@ -57,7 +60,7 @@ KIND = {"quadratic": 0, "polyline": 1, "proximity": 2,
         "quadratic_norm": 5, "semiquadratic_norm": 6,
         "signed_distance": 7, "extreme": 8, "single_dimension": 9,
         "quadratic_difference": 10, "semiquadratic": 11,
-        "polyline_signed_distance": 12}
+        "polyline_signed_distance": 12, "route_progress": 13}
 NORM_KINDS = ("quadratic_norm", "semiquadratic_norm")
 # The polyline atoms of the signed query, with shortcut rows at `fix0`.
 SIGNED_KINDS = ("semiquadratic_polyline", "polyline_signed_distance")
@@ -118,7 +121,10 @@ def _build(player_costs, spec: GameSpec):
     """(CostTable, flat segment floats) of a game: rows of 7 Python
     floats, p1x p1y p2x p2y ux uy length, as geometry computes them, then
     for each signed query its shortcut rows of 8 floats
-    (geometry.shortcut_segments), at float offset `fix0`."""
+    (geometry.shortcut_segments), then for each route-progress atom its
+    segments' cumulative start lengths (a Python float sum of the float32
+    lengths, as geometry.polyline_point_at compares and subtracts them),
+    each at float offset `fix0`."""
     if len(player_costs) > MAX_PLAYERS:
         raise NotImplementedError(f"more than {MAX_PLAYERS} players")
     segs = []
@@ -173,6 +179,7 @@ def _build(player_costs, spec: GameSpec):
         tab.udims[i] = d
 
     fixes = []
+    starts = []
     for n, (i, on, (kind, prm), lam) in enumerate(atoms):
         a = tab.atom[n]
         if kind not in KIND:
@@ -202,6 +209,17 @@ def _build(player_costs, spec: GameSpec):
                 thr = prm["threshold"]
                 a.aux, a.right = thr, int(prm["oriented_right"])
                 a.aux2 = (1.0 if thr >= 0 else -1.0) * thr * thr
+        elif kind == "route_progress":
+            _, rows = geometry._static_segments(prm["points"])
+            a.dim[0], a.dim[1] = prm["xidx"], prm["yidx"]
+            a.seg0, a.nseg, a.fix0 = len(segs), len(rows), len(starts)
+            cum = 0.0
+            for p1, p2, unit, length in rows:
+                segs.append(p1 + p2 + unit + (length,))
+                starts.append(cum)
+                cum += length
+            a.w, a.aux = prm["weight"], prm["initial_route_pos"]
+            a.aux2 = prm["nominal_speed"]
         elif kind == "proximity":
             a.dim[:] = list(prm["dims"])
             a.w, a.aux, a.lam = prm["threshold"], prm["sign"], lam
@@ -231,12 +249,16 @@ def _build(player_costs, spec: GameSpec):
             a.dim[0], a.w, a.lam = prm["dim"], prm["threshold"], lam
             a.aux = 1.0 if prm["keep_below"] else -1.0
     tab.n = len(atoms)
-    # The shortcut rows follow the segment rows.
+    # The shortcut rows follow the segment rows, and the start lengths
+    # follow them.
     for n in range(tab.n):
         if tab.atom[n].kind in [KIND[k] for k in SIGNED_KINDS]:
             tab.atom[n].fix0 = 7 * len(segs) + 8 * tab.atom[n].fix0
+        elif tab.atom[n].kind == KIND["route_progress"]:
+            tab.atom[n].fix0 = (7 * len(segs) + 8 * len(fixes)
+                                + tab.atom[n].fix0)
     flat = tuple(v for row in segs for v in row) + tuple(
-        v for row in fixes for v in row)
+        v for row in fixes for v in row) + tuple(starts)
     return tab, flat or (0.0,)
 
 
@@ -274,6 +296,12 @@ def has_polysd(player_costs) -> bool:
     """Whether a game's table holds a polyline signed-distance atom: its
     K1, K5 and K6 are then built with it (CT_POLYSD=1)."""
     return _has_state_atom(player_costs, ("polyline_signed_distance",))
+
+
+def has_route(player_costs) -> bool:
+    """Whether a game's table holds a route-progress atom: its K1, K5 and
+    K6 are then built with it (CT_ROUTE=1)."""
+    return _has_state_atom(player_costs, ("route_progress",))
 
 
 def capacity(player_costs, spec: GameSpec) -> int:

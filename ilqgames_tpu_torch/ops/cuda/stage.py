@@ -21,7 +21,8 @@ from ilqgames_tpu_torch.dynamics.models import COUPLED_KINDS, KIND_CAR_5D, \
     KIND_DUBINS
 from ilqgames_tpu_torch.ops.cuda import build, lq
 from ilqgames_tpu_torch.ops.cuda.cost_table import MAX_ATOMS, capacity, \
-    cost_table, has_diff, has_norms, has_polysd, has_reach, has_semi
+    cost_table, has_diff, has_norms, has_polysd, has_reach, has_route, \
+    has_semi
 from ilqgames_tpu_torch.ops.cuda.layout import mb
 from ilqgames_tpu_torch.ops.cuda.sweep import _device_table, \
     _reach_operands, merit_operands
@@ -31,7 +32,7 @@ from ilqgames_tpu_torch.types import GameSpec, OperatingPoint
 def library(spec: GameSpec, reach: bool = False, diff: bool = False,
             dubins: bool = False, semi: bool = False, car5d: bool = False,
             atoms: int = MAX_ATOMS, polysd: bool = False,
-            coupled: bool = False):
+            coupled: bool = False, route: bool = False):
     """(source name, defines) of csrc/stage.cu for this game's dims; with
     `reach` (`cost_table.has_reach`), built with the reachability games'
     atoms, control constraints and extremal gates (CT_REACH=1); with
@@ -44,14 +45,15 @@ def library(spec: GameSpec, reach: bool = False, diff: bool = False,
     `cost_table.capacity`); with `polysd` (`cost_table.has_polysd`), with
     the polyline signed-distance atom (CT_POLYSD=1); with `coupled`
     (`has_coupled`), with the Jacobians of the coupled systems, which read
-    the knot's controls (CT_COUPLED=1). `features` gives a game's
-    flags."""
+    the knot's controls (CT_COUPLED=1); with `route`
+    (`cost_table.has_route`), with the route-progress atom (CT_ROUTE=1).
+    `features` gives a game's flags."""
     defines = {"ST_X": spec.xdim, "ST_P": spec.num_players,
                "ST_U": spec.umax}
     for flag, name in ((reach, "CT_REACH"), (diff, "CT_DIFF"),
                        (dubins, "CT_DUBINS"), (semi, "CT_SEMI"),
                        (car5d, "CT_CAR5D"), (polysd, "CT_POLYSD"),
-                       (coupled, "CT_COUPLED")):
+                       (coupled, "CT_COUPLED"), (route, "CT_ROUTE")):
         if flag:
             defines[name] = 1
     if atoms != MAX_ATOMS:
@@ -82,17 +84,19 @@ def features(dyn, player_costs, spec: GameSpec) -> dict:
     return dict(reach=has_reach(player_costs), diff=has_diff(player_costs),
                 dubins=has_dubins(dyn), semi=has_semi(player_costs),
                 car5d=has_car5d(dyn), atoms=capacity(player_costs, spec),
-                polysd=has_polysd(player_costs), coupled=has_coupled(dyn))
+                polysd=has_polysd(player_costs), coupled=has_coupled(dyn),
+                route=has_route(player_costs))
 
 
 @functools.lru_cache(maxsize=None)
 def load_kernels(spec: GameSpec, reach: bool = False, diff: bool = False,
                  dubins: bool = False, semi: bool = False,
                  car5d: bool = False, atoms: int = MAX_ATOMS,
-                 polysd: bool = False, coupled: bool = False) -> ctypes.CDLL:
+                 polysd: bool = False, coupled: bool = False,
+                 route: bool = False) -> ctypes.CDLL:
     """Build (once per shape) and load csrc/stage.cu for this game's dims."""
     lib = build.load(*library(spec, reach, diff, dubins, semi, car5d, atoms,
-                              polysd, coupled))
+                              polysd, coupled, route))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.stage_lin_quad.argtypes = ([P, P, P, P, I, P, I, P, P, P] + [P] * 6
                                    + [I, I, F, P])

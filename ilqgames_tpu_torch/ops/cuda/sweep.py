@@ -42,8 +42,8 @@ from ilqgames_tpu_torch.costs import player_cost as pcost
 from ilqgames_tpu_torch.dynamics import base as dyn_base
 from ilqgames_tpu_torch.ops.cuda import build
 from ilqgames_tpu_torch.ops.cuda.cost_table import MAX_ATOMS, capacity, \
-    cost_table, has_diff, has_norms, has_polysd, has_reach, has_semi, \
-    table_type
+    cost_table, has_diff, has_norms, has_polysd, has_reach, has_route, \
+    has_semi, table_type
 from ilqgames_tpu_torch.dynamics.models import COUPLED_KINDS, KIND_CAR_5D, \
     KIND_CAR_6D, KIND_DUBINS, KIND_LINEAR, KIND_UNICYCLE_4D
 from ilqgames_tpu_torch.ops.cuda.layout import bm, mb, pad_batch
@@ -51,7 +51,7 @@ from ilqgames_tpu_torch.types import GameSpec, OperatingPoint, Strategy, \
     const_tensor
 
 _MAX_SUBSYS = 8
-_MAX_LIN = 32
+_MAX_LIN = 48  # csrc/costs.cuh MAX_LIN: four flat car_6d's entries
 MERIT_BACKENDS = ("xla", "kernel", "pallas")
 
 
@@ -172,7 +172,7 @@ def _hexf(v: float) -> str:
 
 def library(dyn, spec: GameSpec, norms: bool = False, reach: bool = False,
             diff: bool = False, semi: bool = False, atoms: int = MAX_ATOMS,
-            polysd: bool = False):
+            polysd: bool = False, route: bool = False):
     """(source name, defines) of csrc/sweep.cu (K4, K5) for this game: its
     dims, and its layout of subsystems from `_device_table`'s data (so a
     model with no device ODE raises): the count SW_NSUB and, per field, a
@@ -195,8 +195,9 @@ def library(dyn, spec: GameSpec, norms: bool = False, reach: bool = False,
     semiquadratic atom (CT_SEMI=1); for a table of more than MAX_ATOMS
     atoms, with its capacity `atoms` (CT_MAX_ATOMS); with `polysd`
     (`cost_table.has_polysd`), with the polyline signed-distance atom
-    (CT_POLYSD=1). K4 takes none of these: `merit_features` gives a
-    game's flags for K5.
+    (CT_POLYSD=1); with `route` (`cost_table.has_route`), with the
+    route-progress atom (CT_ROUTE=1). K4 takes none of these:
+    `merit_features` gives a game's flags for K5.
 
     Warp s computes the control rows from SW_SUB_UOFF[s] on (its player's
     for a model or a flat system's block, every player's for a coupled
@@ -251,15 +252,16 @@ def library(dyn, spec: GameSpec, norms: bool = False, reach: bool = False,
         # the dubins_car warps' K5 and the K5 of the overtaking's and the
         # roundabout's car_6d warps (x = 18 and 24: 24 B of stack).
         defines["SW_MIN_BLOCKS"] = 1
-    _merit_defines(defines, norms, reach, diff, semi, atoms, polysd)
+    _merit_defines(defines, norms, reach, diff, semi, atoms, polysd, route)
     return "sweep", defines
 
 
-def _merit_defines(defines, norms, reach, diff, semi, atoms, polysd):
+def _merit_defines(defines, norms, reach, diff, semi, atoms, polysd,
+                   route):
     """Add the merit's flags (K5's, K6's) to `defines`."""
     for flag, name in ((norms, "CT_NORMS"), (reach, "CT_REACH"),
                        (diff, "CT_DIFF"), (semi, "CT_SEMI"),
-                       (polysd, "CT_POLYSD")):
+                       (polysd, "CT_POLYSD"), (route, "CT_ROUTE")):
         if flag:
             defines[name] = 1
     if atoms != MAX_ATOMS:
@@ -272,32 +274,36 @@ def merit_features(player_costs, spec: GameSpec) -> dict:
     return dict(norms=has_norms(player_costs), reach=has_reach(player_costs),
                 diff=has_diff(player_costs), semi=has_semi(player_costs),
                 atoms=capacity(player_costs, spec),
-                polysd=has_polysd(player_costs))
+                polysd=has_polysd(player_costs),
+                route=has_route(player_costs))
 
 
 def merit_library(spec: GameSpec, norms: bool = False, reach: bool = False,
                   diff: bool = False, semi: bool = False,
-                  atoms: int = MAX_ATOMS, polysd: bool = False):
+                  atoms: int = MAX_ATOMS, polysd: bool = False,
+                  route: bool = False):
     """(source name, defines) of csrc/merit.cu (K6); with `norms`, built
     with the norm atoms (CT_NORMS=1), with `reach`, with the reachability
     games' features (CT_REACH=1), with `diff`, with the
     quadratic_difference atom (CT_DIFF=1), with `semi`, with the
     semiquadratic atom (CT_SEMI=1); with `atoms`, a table of that
     capacity (CT_MAX_ATOMS, where above MAX_ATOMS); with `polysd`, with
-    the polyline signed-distance atom (CT_POLYSD=1)."""
+    the polyline signed-distance atom (CT_POLYSD=1); with `route`, with
+    the route-progress atom (CT_ROUTE=1)."""
     defines = {"MR_X": spec.xdim, "MR_P": spec.num_players,
                "MR_U": spec.umax}
-    _merit_defines(defines, norms, reach, diff, semi, atoms, polysd)
+    _merit_defines(defines, norms, reach, diff, semi, atoms, polysd, route)
     return "merit", defines
 
 
 @functools.lru_cache(maxsize=None)
 def load_kernels(dyn, spec: GameSpec, norms: bool = False,
                  reach: bool = False, diff: bool = False, semi: bool = False,
-                 atoms: int = MAX_ATOMS, polysd: bool = False) -> ctypes.CDLL:
+                 atoms: int = MAX_ATOMS, polysd: bool = False,
+                 route: bool = False) -> ctypes.CDLL:
     """Build (once per game) and load csrc/sweep.cu (K4, K5)."""
     lib = build.load(*library(dyn, spec, norms, reach, diff, semi, atoms,
-                              polysd))
+                              polysd, route))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sweep_rollout.argtypes = ([P] * 9 + [I] * 3 + [F, F, I, _SubsysTable,
                                                        P])
@@ -313,10 +319,11 @@ def load_kernels(dyn, spec: GameSpec, norms: bool = False,
 def load_merit_kernel(spec: GameSpec, norms: bool = False,
                       reach: bool = False, diff: bool = False,
                       semi: bool = False, atoms: int = MAX_ATOMS,
-                      polysd: bool = False) -> ctypes.CDLL:
+                      polysd: bool = False,
+                      route: bool = False) -> ctypes.CDLL:
     """Build (once per shape) and load csrc/merit.cu (K6)."""
     lib = build.load(*merit_library(spec, norms, reach, diff, semi, atoms,
-                                    polysd))
+                                    polysd, route))
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.merit_consumer.argtypes = ([P] * 4 + [I, P, I] + [P] * 4 + [I] * 3
                                    + [ctypes.c_float, table_type(atoms), P])

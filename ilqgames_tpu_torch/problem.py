@@ -2,13 +2,16 @@
 
 Only the data the batched solver and the receding-horizon runtime need:
 the solve entry points live in solver/batched.py, which takes
-(dynamics, player_costs, spec).
+(dynamics, player_costs, spec). An example may give its own initial
+operating point (`op_initializer`, as the JAX package's: the reference
+examples' InitializeAlongRoute, src/initialize_along_route.cpp:54-73);
+else it is all zeros (solver/problem.h:139-148).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -24,10 +27,15 @@ class Problem:
     player_costs: Tuple[PlayerCost, ...]
     x0: torch.Tensor  # [xdim], on the CPU
     spec: GameSpec
+    # (spec, op) -> op: one instance's operating point (xs [N, x]).
+    op_initializer: Optional[Callable] = None
 
     def initial_operating_point(self, t0: float = 0.0,
                                 device=None) -> OperatingPoint:
-        return OperatingPoint.zeros(self.spec, t0, device=device)
+        op = OperatingPoint.zeros(self.spec, t0, device=device)
+        if self.op_initializer is not None:
+            op = self.op_initializer(self.spec, op)
+        return op
 
     def initial_strategy(self, device=None) -> Strategy:
         return Strategy.zeros(self.spec, device=device)

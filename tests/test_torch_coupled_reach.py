@@ -15,8 +15,8 @@ package: the coupled systems and their two games.
   each player's atoms by name, the circle's points bitwise, the
   nominals, the structures and air_3d's control constraints (P2's on
   its control 0);
-- the registry: 16 of its 18 names resolve, the two flat games raise
-  NotImplementedError naming themselves;
+- the registry: all 18 of its names resolve, the two flat games (ported
+  after this family) among them;
 - one fused trip of each game at N=11, B=4 by both machines (the JAX
   package's Pallas kernels in interpret mode; the AL trip for air_3d, the
   bare iLQ iteration for two_player_reachability) from one carry: the
@@ -59,7 +59,7 @@ torch.set_num_threads(1)
 
 N, B = 11, 4
 GAMES = ("two_player_reachability", "air_3d")
-UNPORTED = ("three_player_flat_overtaking", "flat_roundabout_merging")
+UNPORTED = ()
 TRIP_TOL = 2e-3   # per-trip arrays, tests/test_batched_pallas.py:119-140
 TRIG_ULPS = 2     # twice that where the heading is beyond 8192 rad
 
@@ -217,7 +217,7 @@ def test_builder_matches_jax(name):
 
 def test_registry_resolves_16_of_18():
     assert ex.names() == jex.names() and len(ex.names()) == 18
-    assert len(ex.ported()) == 16 and set(GAMES) <= set(ex.ported())
+    assert len(ex.ported()) == 18 and set(GAMES) <= set(ex.ported())
     assert sorted(set(ex.names()) - set(ex.ported())) == sorted(UNPORTED)
     for name in UNPORTED:
         with pytest.raises(NotImplementedError, match=name):

@@ -143,7 +143,8 @@ def test_libraries_and_flags():
     libraries (the flagship's, config 5's, the first half of the
     reachability family's) are built without it."""
     base = dict(reach=True, diff=False, dubins=False, semi=False,
-                car5d=False, atoms=32, polysd=True, coupled=True)
+                car5d=False, atoms=32, polysd=True, coupled=True,
+                route=False)
     for name in (TWO, AIR):
         g = ex.get(name)()
         assert stage.has_coupled(g.dynamics)

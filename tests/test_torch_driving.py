@@ -198,7 +198,7 @@ def test_registry_matches_jax():
     assert ex.names() == jex.names()
     assert len(ex.names()) == 18
     assert set(DRIVING) <= set(ex.ported())
-    assert len(ex.ported()) == 16
+    assert len(ex.ported()) == 18
     for name in ex.names():
         if name in ex.ported():
             assert ex.get(name)().name in (name, jex.get(name)().name)

@@ -26,12 +26,13 @@ torch.set_num_threads(1)
 def test_flat_system_is_three_linear_subsystems():
     """One linear subsystem per player (rows 6, 6, 4), each reading its
     own player's two control rows, with the 32 constant Jacobian entries
-    (16 identity, 10 of A, 6 of B) in the table; the rows fold from x * 0.
+    (16 identity, 10 of A, 6 of B) in the table, which holds 48 (the four
+    flat cars of flat_roundabout_merging); the rows fold from x * 0.
     The point mass keeps one subsystem over both rows reading every
     control row."""
     p = ff.make_problem()
     tab = sweep._device_table(p.dynamics, p.spec)
-    assert tab.n == 3 and tab.nlin == 32 == sweep._MAX_LIN
+    assert tab.n == 3 and tab.nlin == 32 and sweep._MAX_LIN == 48
     assert [tab.kind[s] for s in range(3)] == [2, 2, 2]
     assert [tab.xoff[s] for s in range(3)] == [0, 6, 12]
     assert [sweep._control_rows(tab, s, p.spec) for s in range(3)] == [

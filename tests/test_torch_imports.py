@@ -67,7 +67,7 @@ def test_unconstrained_games_import_no_jax():
         "from ilqgames_tpu_torch import bench\n"
         "assert sorted(map(str, bench.CONFIGS)) == "
         "['1', '2', '4', '5', 'air3d', 'collision_reach', 'dubins_fb', "
-        "'dubins_ol', 'roundabout']\n"
+        "'dubins_ol', 'flat_roundabout', 'roundabout']\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
         "print(bad)\n")
@@ -217,6 +217,36 @@ def test_coupled_reach_imports_no_jax():
         "assert bench.CONFIGS['air3d']['make'] is air.make_problem\n"
         "assert bench.GOLDEN_RUNS['two_player_reach'][0]().name == "
         "'two_player_reachability'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_flat_driving_games_import_no_jax():
+    """The route-progress atom, the flat models' real-coordinate maps, the
+    two flat driving games through the registry, the flat roundabout's
+    bench config and the flat overtaking's nominal run pull in no JAX."""
+    script = (
+        "import sys\n"
+        "from ilqgames_tpu_torch.costs.atoms import route_progress\n"
+        "from ilqgames_tpu_torch.dynamics.flat import "
+        "linear_controls_to_real\n"
+        "from ilqgames_tpu_torch.examples import flat_roundabout_merging, "
+        "three_player_flat_overtaking\n"
+        "import ilqgames_tpu_torch.examples as ex\n"
+        "assert len(ex.ported()) == 18\n"
+        "for n in ('three_player_flat_overtaking', "
+        "'flat_roundabout_merging'):\n"
+        "    ex.get(n)().initial_operating_point()\n"
+        "from ilqgames_tpu_torch import bench\n"
+        "assert bench.CONFIGS['flat_roundabout']['make'] is "
+        "flat_roundabout_merging.make_problem\n"
+        "assert bench.GOLDEN_RUNS['flat_overtaking'][0] is "
+        "three_player_flat_overtaking.make_problem\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
         "print(bad)\n")

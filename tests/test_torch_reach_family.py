@@ -17,8 +17,8 @@ package:
   avoidance`, `make_modified_air_3d`): x0 bitwise, dims, each player's
   atoms by name and device form, the circle's points and the shared
   atom's nominal (float64 numpy, as the JAX builder computes it);
-- the registry: 16 of its 18 names resolve, the other 2 raise
-  NotImplementedError naming themselves;
+- the registry: all 18 of its names resolve (the flat driving games, the
+  last two, came after this family);
 - one fused trip of each game at N=11, B=4 from the JAX machine's carry
   (its Pallas kernels in interpret mode): decisions exactly equal, merits
   and trajectories within the per-trip class (2e-3); for
@@ -62,7 +62,7 @@ torch.set_num_threads(1)
 N, B = 11, 4
 GAMES = ("one_player_reachability",
          "two_player_collision_avoidance_reachability", "modified_air_3d")
-UNPORTED = ("three_player_flat_overtaking", "flat_roundabout_merging")
+UNPORTED = ()
 TRIP_TOL = 2e-3   # per-trip arrays, tests/test_batched_pallas.py:119-140
 KNIFE_ULPS = 2    # a merit step this small decides on the last bits
 

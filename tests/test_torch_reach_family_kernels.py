@@ -125,7 +125,8 @@ def test_libraries_and_flags():
     feats = {n: stage.features(g.dynamics, g.player_costs, g.spec)
              for n, g in ((n, ex.get(n)()) for n in (ONE, COLL, AIR))}
     base = dict(reach=False, diff=False, dubins=False, semi=False,
-                car5d=False, atoms=32, polysd=False, coupled=False)
+                car5d=False, atoms=32, polysd=False, coupled=False,
+                route=False)
     assert feats[ONE] == dict(base, reach=True, dubins=True, polysd=True)
     assert feats[COLL] == dict(base, reach=True, car5d=True)
     assert feats[AIR] == dict(base, diff=True)
