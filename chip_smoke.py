@@ -33,7 +33,7 @@ Phases:
 4. the unfused path: the plain driver at B=1024 without fused stages, launch
    counters reset just before, and its outcome distribution against the
    JAX package's (BENCH_ALL_r05.jsonl row 3: same x0, same batch);
-5. the bench's default path: 8192 instances through 2048 lanes on the
+5. the bench's queue path: QUEUE_TOTAL (3072) instances through 2048 lanes on the
    wave-refill queue driver, harvest chunks of 32, fused stages, launch
    counters reset just before, against the JAX package's outcome on the
    same draw and configuration (BENCH_r05.json), with K4's launches per
@@ -58,10 +58,11 @@ Phases:
    configuration) against the reference solver's converged trajectory
    (tests/golden/three_player_intersection_exec_params.txt, with
    tests/test_golden.py's bounds per player); (b) the warm replan
-   latency of that instance (bench.run_latency: p50, p95, trips, host
-   syncs and launches per replan, one profiled replan); (c) the batched
+   latency of that instance (bench.run_latency over LATENCY_REPS replans:
+   p50, p95, trips, host syncs and launches per replan, one profiled
+   replan); (c) the batched
    receding-horizon runtime at full width, 1024 instances of bench.py's
-   draw replanned 7 times (final time 2 s, every 0.25 s, planner budget
+   draw replanned 2 times (final time 0.75 s, every 0.25 s, planner budget
    0.25 s, max_solver_iters 20, lane blocks of 128), launch counters
    reset just before; after (b) and after (c), each kernel at each shape
    that cell launched it (counted per shape; K4's also against
@@ -112,14 +113,14 @@ Phases:
    K6 with CT_REACH=1: the signed-distance and extremal atoms, the
    control constraints and the extremal gates), one nvcc each, all at
    once, and their ptxas reports (failing on a spill, and on a stack frame
-   outside K1 and K5); (b) reachability 1000 x 7 through
+   outside K1 and K5); (b) reachability 1000 x 2 through
    `bench.run_config(5)` (1000 agents drawn with sigma 0.25, replanned
-   every 0.25 s over 2 s, max_solver_iters 20), launch counters reset
-   just before its 8-lane, one-cycle load and again before the timed run,
-   one JSON line, failing unless every lane replanned 7 times to t = 1.75,
+   every 0.25 s over 0.75 s, max_solver_iters 20: bench_all.py's 2 s cut
+   in depth), one timed run with no
+   8-lane load before it, launch counters reset just before, one JSON
+   line, failing unless every lane replanned 2 times to t = 0.5,
    states are finite on every lane the cold solve did not leave diverged,
-   and K1-K4 launched in the timed run; (c) each kernel at each shape the
-   load and the cell launched it (two cells, each with its own launches)
+   and K1-K4 launched; (c) each kernel at each shape the cell launched it
    against its plain version, and K5 and K6 at the cell's linesearch
    shapes; (d) two trips of 8
    lanes on the card against the CPU, fused under each merit backend and
@@ -209,15 +210,36 @@ Phases:
    (FLAT_ROUNDABOUT_JAX) within phase 9's bands, its launches held, K5
    and K6 at its linesearch shapes; (d) two trips of 8 lanes of each game
    on the card against the CPU under each merit backend, K5 and K6 held
-   where they launched.
+   where they launched;
+16. the per-instance entry point, `python -m ilqgames_tpu_torch`'s main
+   in-process on the card at full width (the flagship, N=100, the exec
+   main's parameters: the CLI's defaults), each of (a)-(d) a cell whose
+   launches are counted from 0 and held at every (kernel, shape), B=8:
+   (a) the flagship's solve with --check_nash --save --html (its
+   trajectory against the reference's with tests/test_golden.py's bounds,
+   the log's last iterate bitwise the result's and the saved xs.txt's,
+   xs.txt [100, 16] and u*.txt [100, 2]); (b) --receding_horizon over
+   CLI_FINAL_TIME (7 replans, finite, P1 progressing); (c) the
+   minimally-invasive pair (modified_three_player_intersection with
+   three_player_intersection_reachability, a MAX player) over
+   CLI_FINAL_TIME (7 replans); (b) and (c) at 20 iterations a solve
+   (CLI_REPLAN_ITERS, phase 7c's replanning budget), each cycle's host
+   seconds printed (its first half, its solves); the first CLI_HELD_CYCLES
+   (2) cycles of each held card against CPU (bitwise: the same command
+   over 0.75 s on the CPU, a CPU job); (d) dubins_origin
+   --open_loop alone and with --receding_horizon (K7 and K4; K1-K3 must
+   not launch); (e) --batch 256 (its JSON line: some lanes converged, a
+   finite violation).
 
-The holds of phases 7-11 run K4 and K5 (and their plain versions) on
+The holds of phases 7-16 run K4 and K5 (and their plain versions) on
 the first HOLD_DEPTH (10) knots of each launch's arguments, but for each
 game's first K4 and K5 shape in one of its cells (reachability's timed
-cell, dubins_ol_1024), held at the cell's depth (the flagship's K4 and K5
-at N=100 in phase 2); every other kernel, K2 included, is held at the
-cell's depth. A plain version's float32 operations are counted on its
-arguments' first 2, 4 and 6 knots and carried to the call's depth
+cell, dubins_ol_1024, each cell of phases 8-15, the CLI's flagship
+solve), held at the cell's depth (the
+flagship's K4 and K5 at N=100 in phase 2); every other kernel, K2
+included, is held at the cell's depth. A plain version's float32
+operations are counted on its
+arguments' first 1, 2 and 3 knots and carried to the call's depth
 (`_count_ops`: the count is linear in the knots), and the plain version
 runs once at the call's depth, timed.
 
@@ -262,6 +284,11 @@ TRIP_TOL = 2e-3           # merits and trajectories, card vs CPU, per trip
 DIVERGED_BAND = (0.02, 0.12)  # JAX: 0.0566 at B=1024, 0.058 queue (r05)
 JAX_COST_P50 = (3057.4, 855.7, 78.2)        # plain driver, B=1024
 JAX_QUEUE_COST_P50 = (3024.2, 837.1, 76.3)  # queue, 8192 through 2048
+# Phase 5: the bench's queue path at its lanes (2048) and harvest chunks,
+# QUEUE_TOTAL instances (the bench's default 4 x 2048 cut in depth to
+# 1.5 x, for the script's time: 1024 refills; the same draw's prefix,
+# held to the same bands).
+QUEUE_TOTAL = 3072
 COST_P50_REL = 0.15
 # tests/test_golden.py: per player, the distance between the cold solve's
 # and the reference solver's positions, max and mean over the horizon (m).
@@ -269,7 +296,12 @@ GOLDEN = os.path.join("tests", "golden",
                       "three_player_intersection_exec_params.txt")
 GOLDEN_POSITIONS = ((0, 1), (6, 7), (12, 13))
 GOLDEN_MAX_M, GOLDEN_MEAN_M = 2.0, 1.0
-RH_B, RH_FINAL_TIME, RH_REPLANS = 1024, 2.0, 7
+# Phase 7c: 1024 agents over 0.75 s, 2 replans (2 s and 7 replans until
+# the script's time grew past its limit with phase 16; the depth is cut).
+RH_B, RH_FINAL_TIME, RH_REPLANS = 1024, 0.75, 2
+# Phase 7b: the latency cell's replans (bench.LAT_REPS is 20; cut to keep
+# the script's time, the first dropped as there).
+LATENCY_REPS = 5
 # Phase 3: trips on the card against trips on the CPU (the CPU's plain
 # versions take most of the phase's time; two since phase 11 came), of the
 # flagship's first FLAGSHIP_TRIP_B instances.
@@ -301,7 +333,7 @@ FLAT_COST_P50 = (14667.5, 4553.1, 1141.9)
 # Phases 8e-11d: trips of each game on the card against the CPU, 8 lanes
 # (two since phase 11 came).
 SMALL_B, SMALL_TRIPS = 8, 2
-# Phases 7-10: the knots on which the holds of the cells' K4 and K5
+# Phases 7-16: the knots on which the holds of the cells' K4 and K5
 # launches run (a kernel and its plain version on the first HOLD_DEPTH
 # knots of the same arguments: the plain versions on the card take seconds
 # a call at N=100). Each game's K4 and K5 are also held once at full depth
@@ -309,8 +341,13 @@ SMALL_B, SMALL_TRIPS = 8, 2
 # every other kernel, K2 included, at the cell's depth.
 HOLD_DEPTH = 10
 PREFIX_KERNELS = ("K4", "K5")
+# A hold times its kernel after HOLD_WARM_S of calls (phase 2's rows after
+# 0.2 s): the card has just run the kernel and its plain version.
+HOLD_WARM_S = 0.05
 # Phase 10: bench_all.py's config 5, receding-horizon reachability.
-RH5_REPLANS, RH5_T_END = 7, 1.75
+# Config 5's cell over 0.75 s, 2 replans to t = 0.5 (bench_all.py's 2 s
+# and 7 replans cut in depth, for the script's time).
+RH5_FINAL_TIME, RH5_REPLANS, RH5_T_END = 0.75, 2, 0.5
 # Phase 11: the golden runs' files and bounds (tests/test_golden_more.py:
 # 27-56): P1's and P2's position error against the reference solver's
 # trajectory, and how far apart the two patterns' trajectories must be.
@@ -517,6 +554,27 @@ FLAT_OVERTAKING_JAX = dict(
     merits=(26844491415552.0, 1683047972864.0, 106569768960.0,
             106300940288.0))
 FLAT_TRIPS_HELD = 3
+# Phase 16: the CLI in-process at full width (the flagship, N=100, the
+# exec main's parameters: the CLI's defaults); its simulators over 2 s of
+# depth, 7 cycles of 0.25 s. Each simulator's first CLI_HELD_CYCLES cycles
+# are held card against CPU: the CPU runs the same command over
+# CLI_HELD_TIME (a CPU job from phase 1 on; its plain versions take ~5 s a
+# flagship trip at N=100, so these two jobs take minutes).
+CLI_FINAL_TIME, CLI_REPLANS = "2.0", 7
+CLI_HELD_TIME, CLI_HELD_CYCLES = "0.75", 2
+# The simulators' budget: 20 iterations a solve, the replanning budget of
+# phase 7c and bench_all.py's config 5 (at the CLI's 100 every warm solve
+# ran its whole budget: 4.5-6.0 s a flagship cycle and 14.8-17.7 s a
+# cycle of the minimally-invasive pair on an H100, past the script's
+# time).
+CLI_REPLAN_ITERS = ("--max_solver_iters", "20")
+CLI_RH = ("--receding_horizon",) + CLI_REPLAN_ITERS
+CLI_MI = ("--example", "modified_three_player_intersection",
+          "--safety_example",
+          "three_player_intersection_reachability") + CLI_REPLAN_ITERS
+CLI_HELD_RH = CLI_RH + ("--final_time", CLI_HELD_TIME)
+CLI_HELD_MI = CLI_MI + ("--final_time", CLI_HELD_TIME)
+CLI_BATCH = 256
 # The JAX package's outcome of the flat_roundabout_256 cell on the same
 # draw (256 instances, N=100, bench_all.py's exec main parameters, sigma
 # 0.1, the initial operating point along each lane), by its batched
@@ -558,13 +616,15 @@ def _fail(msg: str) -> None:
 # worker processes of CPU_THREADS threads each (spawned: they never touch
 # the card), started after the build, while the card runs the phases
 # before theirs.
-CPU_WORKERS, CPU_THREADS = 3, 2
+CPU_WORKERS, CPU_THREADS, CPU_NICE = 3, 2, 10
 _CPU = {"pool": None, "jobs": {}}
 
 
 def _cpu_worker_init() -> None:
     import torch
 
+    # Below the script's own process, which drives the card.
+    os.nice(CPU_NICE)
     torch.set_num_threads(CPU_THREADS)
 
 
@@ -762,12 +822,12 @@ def _entry(name, source, replaces, err, ms, plain_ms, nbytes, ops,
                            else round(library_ms, 4))}
 
 
-def _time_ms(fn, reps):
-    """Mean ms per call over `reps` calls, after at least 0.2 s of calls:
-    the card idles at a low clock and takes a while to raise it."""
+def _time_ms(fn, reps, warm_s=0.2):
+    """Mean ms per call over `reps` calls, after at least `warm_s` of
+    calls: the card idles at a low clock and takes a while to raise it."""
     import torch
 
-    warm_until = time.perf_counter() + 0.2
+    warm_until = time.perf_counter() + warm_s
     fn()
     torch.cuda.synchronize()
     while time.perf_counter() < warm_until:
@@ -1277,7 +1337,7 @@ def _once_ms(fn):
 
 
 # The knots at which `_count_ops` counts a plain version's operations.
-COUNT_DEPTHS = (2, 4, 6)
+COUNT_DEPTHS = (1, 2, 3)
 
 
 def _count_ops(plain, a: dict) -> int:
@@ -1377,7 +1437,7 @@ def _hold_launches(cell, spy, launches, only=None, full=("K4",)):
                   for nm, (_, g), (_, w) in zip(names, got, _outputs(want)))
         entries.append(dict(_entry(
             f"{name} {label} ({shape}{depth}; {cell})", source, replaces, err,
-            _time_ms(lambda: fn(**a), 20), plain_ms,
+            _time_ms(lambda: fn(**a), 20, HOLD_WARM_S), plain_ms,
             _launch_bytes(name, a, [g for _, g in got]), n_ops),
             launches=(spy.tally[(name, shape)] if launches is None
                       else launches[name])))
@@ -1396,6 +1456,25 @@ def _check_k4_held(cell, spy, by_shape):
         _fail(f"{cell}: K4's launches by shape {counted}, held {held}")
 
 
+def _hold_golden(what, xs):
+    """The flagship's trajectory xs [N, x] (numpy) against the reference
+    solver's converged one (GOLDEN) within tests/test_golden.py's bounds
+    on each player's position error."""
+    import numpy as np
+
+    ref = np.loadtxt(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), GOLDEN))
+    if xs.shape != ref.shape:
+        _fail(f"{what}: trajectory shape {xs.shape}, reference {ref.shape}")
+    for i, (xi, yi) in enumerate(GOLDEN_POSITIONS):
+        err = np.hypot(xs[:, xi] - ref[:, xi], xs[:, yi] - ref[:, yi])
+        print(f"# {what} P{i + 1}: max {err.max():.4f} m, mean "
+              f"{err.mean():.4f} m (bounds {GOLDEN_MAX_M}, {GOLDEN_MEAN_M})",
+              flush=True)
+        if not (err.max() < GOLDEN_MAX_M and err.mean() < GOLDEN_MEAN_M):
+            _fail(f"{what}: P{i + 1} beyond tests/test_golden.py's bounds")
+
+
 def phase7(problem, dev):
     """The replanning path: the cold solve against the reference's
     trajectory, the warm replan latency, the receding-horizon runtime at
@@ -1404,7 +1483,6 @@ def phase7(problem, dev):
     CPU. Returns the kernels-line entries of the two cells' launches."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from ilqgames_tpu_torch import bench
@@ -1414,24 +1492,13 @@ def phase7(problem, dev):
     # (a) + (b): the latency configuration's cold solve, then its replans.
     bench.reset_launches()
     with _FirstLaunches() as spy:
-        res0, lat = bench.run_latency(dev)
+        res0, lat = bench.run_latency(dev, LATENCY_REPS)
     torch.cuda.synchronize()
     launches = bench.launches()
     _check_k4_held("latency", spy, sweep.rollout_bm.by_shape)
     print(json.dumps(lat), flush=True)
     kernels = _hold_launches("latency", spy, launches, full=())
-    ref = np.loadtxt(os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), GOLDEN))
-    xs = res0.op.xs[0].cpu().numpy()
-    if xs.shape != ref.shape:
-        _fail(f"golden: trajectory shape {xs.shape}, reference {ref.shape}")
-    for i, (xi, yi) in enumerate(GOLDEN_POSITIONS):
-        err = np.hypot(xs[:, xi] - ref[:, xi], xs[:, yi] - ref[:, yi])
-        print(f"# golden P{i + 1}: max {err.max():.4f} m, mean "
-              f"{err.mean():.4f} m (bounds {GOLDEN_MAX_M}, {GOLDEN_MEAN_M})",
-              flush=True)
-        if not (err.max() < GOLDEN_MAX_M and err.mean() < GOLDEN_MEAN_M):
-            _fail(f"golden: P{i + 1} beyond tests/test_golden.py's bounds")
+    _hold_golden("golden", res0.op.xs[0].cpu().numpy())
 
     # (c) the receding-horizon runtime at full width.
     params = dataclasses.replace(bench.exec_main_params(),
@@ -1622,7 +1689,7 @@ def _hold_merits(cell, spy, problem, full=True):
             entries.append(dict(_entry(
                 f"{kname} {label} ({shape}{dep}; {cell}, held only: its xla "
                 "path does not launch it)", source, replaces, err,
-                _time_ms(lambda: fn(**args), 20), plain_ms,
+                _time_ms(lambda: fn(**args), 20, HOLD_WARM_S), plain_ms,
                 _launch_bytes(kname, args, [got[kname]]), n_ops),
                 launches=0))
         k6_at = got["K6"] if not depth else sweep.consumer_merits(
@@ -1888,15 +1955,13 @@ def phase10(dev):
     against the CPU (fused under each merit backend, unfused under "xla")
     and a short replanning run on the card against the CPU. Returns the
     kernels-line entries."""
-    import collections
-
     import torch
 
     from ilqgames_tpu_torch import bench
     from ilqgames_tpu_torch.ops.cuda import build, sweep
     from ilqgames_tpu_torch.runtime import receding_horizon as rh
 
-    cell = "reachability 1000 x 7"
+    cell = f"reachability 1000 x {RH5_REPLANS}"
     cfg = bench.CONFIGS[5]
     p = cfg["make"]()
     dyn, spec, costs = p.dynamics, p.spec, p.player_costs
@@ -1919,21 +1984,12 @@ def phase10(dev):
             ("K6", merit_lib, "merit_kernel", False)):
         _ptxas(f"{label} ({cell})", lib, kern, stack_ok)
 
-    # (b) the cell at full size, launch counters reset just before the
-    # 8-lane load and again after it: the load's launches are held and
-    # counted as a cell of their own.
-    load = {}
+    # (b) the cell at full size, one timed run with no 8-lane load before
+    # it (the time limit), launch counters reset just before.
     bench.reset_launches()
     with _FirstLaunches() as spy:
-        def loaded():
-            torch.cuda.synchronize()
-            load.update(spy=spy.split(), launches=bench.launches(),
-                        by_shape=collections.Counter(
-                            sweep.rollout_bm.by_shape))
-            bench.reset_launches()
-
-        (states, times, state), out = bench.run_config(5, dev,
-                                                       after_load=loaded)
+        (states, times, state), out = bench.run_config(
+            5, dev, warmup=False, final_time=RH5_FINAL_TIME)
     torch.cuda.synchronize()
     launches = bench.launches()
     print(json.dumps(out), flush=True)
@@ -1963,17 +2019,13 @@ def phase10(dev):
               f"{out['launches']}")
     print(f"# {cell}: {int(calm.sum())} of {n} lanes not diverged by the "
           f"cold solve, all finite; {RH5_REPLANS} replans on every lane; "
-          f"launches counted from 0 over the timed run: {launches}; over "
-          f"the 8-lane load: {load['launches']}", flush=True)
-    load_cell = "reachability load, 8 lanes x 1"
-    _check_k4_held(load_cell, load["spy"], load["by_shape"])
+          f"launches counted from 0 over the timed run: {launches}",
+          flush=True)
     _check_k4_held(cell, spy, sweep.rollout_bm.by_shape)
 
-    # (c) every (kernel, shape) of the load and of the cell, and K5, K6 at
-    # the cell's linesearch shapes.
-    kernels = _hold_launches(load_cell, load["spy"], load["launches"],
-                             full=())
-    kernels += _hold_launches(cell, spy, launches)
+    # (c) every (kernel, shape) of the cell, and K5, K6 at its linesearch
+    # shapes.
+    kernels = _hold_launches(cell, spy, launches)
     kernels += _hold_merits(cell, spy, p)
 
     # (d) trips on the card against the CPU: fused under every merit
@@ -2190,7 +2242,7 @@ def _driving_golden(run, dev):
 
 
 def _later_libraries():
-    """Every kernel library that phases 8-15 load, so that phase 1 builds
+    """Every kernel library that phases 8-16 load, so that phase 1 builds
     them with the flagship's, one nvcc each, all at once (a library named
     twice is built once: `build._compile`)."""
     import ilqgames_tpu_torch.examples as ex
@@ -2708,10 +2760,278 @@ def phase15(dev):
     return kernels
 
 
+def _cli_run(argv, device):
+    """`ilqgames_tpu_torch.cli.main(argv)` in-process on `device`, its
+    lines printed as they come: (main.last_run, its lines, seconds, the
+    counters of the simulator it ran, or None)."""
+    import contextlib
+    import io
+
+    from ilqgames_tpu_torch import cli
+    from ilqgames_tpu_torch.runtime import receding_horizon as rh
+
+    buf = io.StringIO()
+    rh.simulate.last_stats = rh.simulate_minimally_invasive.last_stats = None
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv) + ["--device", str(device)])
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        _fail(f"cli {argv}: exit code {rc}")
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(line, flush=True)
+    stats = (rh.simulate_minimally_invasive.last_stats
+             or rh.simulate.last_stats)
+    return cli.main.last_run, lines, secs, stats
+
+
+def _cli_sim_arrays(run, stats):
+    """A simulator run's arrays on the CPU (its states, times, replans,
+    each cycle's converged flag and, with a safety problem, its flags) and
+    its trips per solve."""
+    import torch
+
+    sim = run["simulation"]
+    out = {"states": sim[0].cpu(), "times": sim[1].cpu(),
+           "num_replans": sim[-1].num_replans.cpu(),
+           "converged": torch.stack([c["converged"][0]
+                                     for c in stats["cycles"]]).cpu()}
+    if len(sim) == 4:
+        out["flags"] = sim[2].cpu()
+    return out, [stats["cold"]["trips"]] + [c["trips"]
+                                            for c in stats["cycles"]]
+
+
+def _cpu_cli(argv):
+    """The CPU side of `_cli_card_vs_cpu`: the CLI's run on the CPU, its
+    lines not printed: (arrays, trips, seconds). One thread: its tensors
+    are one lane block, and the worker's spare threads would only spin
+    beside the script's process."""
+    import contextlib
+    import io
+
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            run, _, secs, stats = _cli_run(argv, "cpu")
+    finally:
+        torch.set_num_threads(threads)
+    return (*_cli_sim_arrays(run, stats), secs)
+
+
+def _cli_card_vs_cpu(what, run, stats, argv):
+    """The first CLI_HELD_CYCLES cycles of a simulator's CLI run on the
+    card (`run`, `stats`: `_cli_run`'s) against the same command over
+    CLI_HELD_TIME on the CPU (argv; `_cpu_cli`, a CPU job): states, times,
+    each cycle's converged flag and the safety flags bitwise equal, the
+    same trips per solve."""
+    import torch
+
+    card, card_trips = _cli_sim_arrays(run, stats)
+    cpu, cpu_trips, cpu_s = _cpu_job(_cpu_cli, argv)
+    n = CLI_HELD_CYCLES
+    if cpu["num_replans"].item() != n:
+        _fail(f"{what}: the CPU run replanned {cpu['num_replans'].item()} "
+              f"times, not {n}")
+    for name, c in cpu.items():
+        if name == "num_replans":
+            continue
+        g = card[name][:c.shape[0]]
+        if not (_same_bits(g, c) if c.dtype == torch.float32
+                else torch.equal(g, c)):
+            _fail(f"{what} card vs CPU: {name} of the first {n} cycles "
+                  f"differs: card {g.tolist()}, CPU {c.tolist()}")
+    if card_trips[:n + 1] != cpu_trips:
+        _fail(f"{what} card vs CPU: trips {card_trips[:n + 1]} vs "
+              f"{cpu_trips}")
+    print(f"# {what} card vs CPU, its first {n} cycles ({' '.join(argv)} "
+          f"on the CPU): states, times, converged {cpu['converged'].tolist()}"
+          + (f", safety flags {cpu['flags'].tolist()}" if "flags" in cpu
+             else "")
+          + f" bitwise equal; trips (cold, then per cycle) {cpu_trips} "
+          f"({cpu_s:.1f} s on the CPU)", flush=True)
+
+
+def _cycle_line(stats) -> str:
+    """A simulator's cycles in host seconds (`_simulate`'s stats): the
+    mean cycle, its first half (`_next_problem`) and its solves, and the
+    seconds of each cycle."""
+    import numpy as np
+
+    cyc = stats["cycles"]
+    mean = lambda k: float(np.mean([c[k] for c in cyc]))
+    return (f"{mean('wall_s'):.4f} s a cycle (setup {mean('setup_s'):.4f} "
+            f"s, solves {mean('solve_s'):.4f} s; each cycle "
+            f"{[round(c['wall_s'], 4) for c in cyc]} s)")
+
+
+def _cli_cell(what, argv, dev, kernels, full=()):
+    """A CLI run on the card as a cell: launch counters reset just before,
+    the kernels `kernels` launched, and every (kernel, shape) it launched
+    held against its plain version (K4 and K5 on HOLD_DEPTH knots, but for
+    the first shape of each kernel in `full`, at full depth).
+    Returns (main.last_run, lines, seconds, the simulator's
+    counters, kernels-line entries)."""
+    import torch
+
+    from ilqgames_tpu_torch import bench
+    from ilqgames_tpu_torch.ops.cuda import sweep
+
+    bench.reset_launches()
+    with _FirstLaunches() as spy:
+        run, lines, secs, stats = _cli_run(argv, dev)
+    torch.cuda.synchronize()
+    launches = bench.launches()
+    if min(launches[k] for k in kernels) <= 0:
+        _fail(f"{what}: a kernel of the path was not launched: {launches}")
+    print(f"# {what}: {secs:.3f} s in cli.main; launches counted from 0 "
+          f"over the run: {launches}", flush=True)
+    _check_k4_held(what, spy, sweep.rollout_bm.by_shape)
+    return (run, lines, secs, stats,
+            _hold_launches(what, spy, launches, full=full))
+
+
+def phase16(dev):
+    """The per-instance entry point: `python -m ilqgames_tpu_torch`'s main
+    in-process on the card, at full width (the flagship, N=100, the exec
+    main's parameters: the CLI's defaults). (a) a solve with the Nash
+    check, the saved log and the HTML page; (b) the receding-horizon
+    simulator over CLI_FINAL_TIME; (c) the minimally-invasive pair over
+    CLI_FINAL_TIME, both at CLI_REPLAN_ITERS; (d) dubins_origin's
+    open-loop solve and its receding-horizon run (K7 per instance,
+    warm-started); (e) --batch. (a)-(d) are cells: every (kernel, shape)
+    each launched is held against its plain version (K4 at full depth in
+    (a), the flagship's first shape). The first
+    CLI_HELD_CYCLES cycles of (b) and (c) are held card against CPU.
+    Returns the kernels-line entries."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    kernels = []
+    fb = ("K1", "K2", "K3", "K4")
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) a solve, the Nash check, the saved log and the HTML page.
+        what = "cli flagship"
+        exp, page = os.path.join(tmp, "flagship"), os.path.join(
+            tmp, "flagship.html")
+        run, _, secs, _, entries = _cli_cell(
+            what, ("--example", "three_player_intersection", "--check_nash",
+                   "--save", "--experiment_name", exp, "--html", page),
+            dev, fb, full=("K4",))
+        kernels += entries
+        res, log, lres = run["result"], run["log"], run["log_result"]
+        _hold_golden(f"{what} golden", res.op.xs.cpu().numpy())
+        last = log.num_iterates - 1
+        if not _same_bits(torch.from_numpy(log.final_operating_point.xs),
+                          lres.op.xs.cpu()):
+            _fail(f"{what}: the log's last iterate is not the result's")
+        saved = os.path.join(exp, str(last))
+        xs_txt = np.loadtxt(os.path.join(saved, "xs.txt"))
+        if xs_txt.shape != (100, 16) or not np.array_equal(
+                xs_txt.astype(np.float32), log.final_operating_point.xs):
+            _fail(f"{what}: {saved}/xs.txt has shape {xs_txt.shape} or "
+                  "other values than the log's")
+        for p in range(3):
+            shape = np.loadtxt(os.path.join(saved, f"u{p}.txt")).shape
+            if shape != (100, 2):
+                _fail(f"{what}: u{p}.txt has shape {shape}")
+        page_bytes = os.path.getsize(page)
+        if "const D = " not in open(page).read():
+            _fail(f"{what}: {page} holds no data")
+        print(f"# {what}: the solve converged {bool(res.converged)} in "
+              f"{int(res.cumulative_iterations)} iterations (trips: one lane "
+              f"in a block of 8), costs {res.total_costs.tolist()}; the log "
+              f"{log.num_iterates} iterates ({int(lres.num_iterations)} "
+              f"trips, converged {bool(lres.converged)}), its last bitwise "
+              f"the result's and {last}/xs.txt's; u*.txt [100, 2]; the page "
+              f"{page_bytes} B", flush=True)
+
+        # (b) the receding-horizon simulator, CLI_REPLANS cycles.
+        what = "cli receding horizon"
+        run, _, secs, stats, entries = _cli_cell(
+            what, CLI_RH + ("--final_time", CLI_FINAL_TIME), dev, fb)
+        kernels += entries
+        xs, ts, state = run["simulation"]
+        if not (bool(torch.isfinite(xs).all())
+                and int(state.num_replans) == CLI_REPLANS
+                and tuple(xs.shape) == (CLI_REPLANS + 1, 16)
+                and float(xs[-1, 1]) > float(xs[0, 1])):
+            _fail(f"{what}: replans {int(state.num_replans)}, shape "
+                  f"{tuple(xs.shape)}, finite {bool(torch.isfinite(xs).all())}"
+                  f", P1's y {float(xs[0, 1])} -> {float(xs[-1, 1])}")
+        print(f"# {what}: {CLI_REPLANS} replans, all states finite, P1 from "
+              f"y {float(xs[0, 1]):.3f} to {float(xs[-1, 1]):.3f}; cold solve "
+              f"{stats['cold']['trips']} trips in {stats['cold_s']:.3f} s, "
+              f"then {_cycle_line(stats)}, trips per cycle "
+              f"{[c['trips'] for c in stats['cycles']]}", flush=True)
+        _cli_card_vs_cpu(what, run, stats, CLI_HELD_RH)
+
+        # (c) the minimally-invasive pair, CLI_REPLANS cycles.
+        what = "cli minimally invasive"
+        run, _, secs, stats, entries = _cli_cell(
+            what, CLI_MI + ("--final_time", CLI_FINAL_TIME), dev, fb)
+        kernels += entries
+        xs, ts, flags, state = run["simulation"]
+        if not (bool(torch.isfinite(xs).all())
+                and int(state.num_replans) == CLI_REPLANS
+                and tuple(flags.shape) == (CLI_REPLANS,)):
+            _fail(f"{what}: replans {int(state.num_replans)}, flags "
+                  f"{flags.tolist()}, finite {bool(torch.isfinite(xs).all())}")
+        print(f"# {what}: {CLI_REPLANS} replans, all states finite, "
+              f"safety flags {flags.tolist()}; cold solve "
+              f"{stats['cold']['trips']} trips in {stats['cold_s']:.3f} s, "
+              f"then {_cycle_line(stats)}, trips per cycle (both solves) "
+              f"{[c['trips'] for c in stats['cycles']]}", flush=True)
+        _cli_card_vs_cpu(what, run, stats, CLI_HELD_MI)
+
+        # (d) open loop, per instance and warm-started: K7, no K1-K3.
+        for what, argv in (
+                ("cli dubins_origin open loop",
+                 ("--example", "dubins_origin", "--open_loop")),
+                ("cli dubins_origin open loop, receding horizon",
+                 ("--example", "dubins_origin", "--open_loop",
+                  "--receding_horizon", "--final_time", CLI_FINAL_TIME))):
+            run, _, secs, stats, entries = _cli_cell(what, argv, dev,
+                                                     ("K4", "K7"))
+            kernels += entries
+            if any(e["name"].startswith(("K1", "K2", "K3"))
+                   for e in entries):
+                _fail(f"{what}: the feedback kernels launched")
+            if stats is not None:
+                xs, _, state = run["simulation"]
+                if (int(state.num_replans) != CLI_REPLANS
+                        or not bool(torch.isfinite(xs).all())):
+                    _fail(f"{what}: replans {int(state.num_replans)}")
+                print(f"# {what}: {CLI_REPLANS} replans, all states finite; "
+                      f"cold solve {stats['cold']['trips']} trips, trips per "
+                      f"cycle {[c['trips'] for c in stats['cycles']]}, "
+                      f"{_cycle_line(stats)}", flush=True)
+
+    # (e) --batch on the one card.
+    _, lines, secs, _ = _cli_run(("--batch", str(CLI_BATCH)), dev)
+    out = json.loads(lines[-1])
+    if not (out["batch"] == CLI_BATCH and out["num_converged"] > 0
+            and np.isfinite(out["max_violation"])):
+        _fail(f"cli --batch: {out}")
+    print(f"# cli --batch {CLI_BATCH}: wall_s {out['wall_s']}, "
+          f"{out['num_converged']} converged, max violation "
+          f"{out['max_violation']}", flush=True)
+    return kernels
+
+
 def _cpu_jobs():
-    """The CPU side of every card-vs-CPU check, in the order that the
-    phases ask for them."""
+    """The CPU side of every card-vs-CPU check: phase 3's two, phase 16's
+    two CLI runs (minutes each: they take two of the CPU_WORKERS workers
+    from then on), then the others in the order that the phases ask for
+    them."""
     jobs = [(_cpu_flagship_trips, False), (_cpu_flagship_trips, True),
+            (_cpu_cli, CLI_HELD_MI), (_cpu_cli, CLI_HELD_RH),
             (_cpu_replanning, ("example", "three_player_intersection"),
              0.1)]
     jobs += [(_cpu_trips, ("config", c), c, True) for c in (1, 2)]
@@ -2781,7 +3101,7 @@ def main():
     probes.load_kernels(spec)
     print(f"# build: {time.perf_counter() - t0:.1f} s (concurrent nvcc: "
           f"csrc/stage.cu, lq.cu, sweep.cu, merit.cu, probes.cu at the "
-          f"flagship's dims and {len(later)} libraries of phases 8-15)",
+          f"flagship's dims and {len(later)} libraries of phases 8-16)",
           flush=True)
     _start_cpu_jobs(_cpu_jobs())
     elapsed(1)
@@ -3024,10 +3344,10 @@ def main():
 
     elapsed(4)
 
-    # ---- phase 5: the bench's default path, 8192 through 2048 lanes ----
+    # ---- phase 5: the bench's queue path, QUEUE_TOTAL through 2048 ----
     bench.reset_launches()
     t0 = time.perf_counter()
-    res, out = bench.run_bench(2048, dev, driver="queue", total=8192,
+    res, out = bench.run_bench(2048, dev, driver="queue", total=QUEUE_TOTAL,
                                harvest_block=32, trips_per_call=10,
                                fuse_stages=True)
     launches = bench.launches()
@@ -3039,7 +3359,8 @@ def main():
     print("# queue: K4 launches by (C, B, emit_us): " + json.dumps(
         [[*key, n] for key, n in sorted(sweep.rollout_bm.by_shape.items())]),
         flush=True)
-    _check_outcome("queue 8192/2048", res, out, (8192, N, X), launches,
+    _check_outcome(f"queue {QUEUE_TOTAL}/2048", res, out,
+                   (QUEUE_TOTAL, N, X), launches,
                    ("K1", "K2", "K3", "K4"), JAX_QUEUE_COST_P50)
     for k in kernels:
         name = k["name"][:2]
@@ -3088,6 +3409,10 @@ def main():
     # ---- phase 15: the flat driving games ----
     kernels += phase15(dev)
     elapsed(15)
+
+    # ---- phase 16: the per-instance entry point, the CLI ----
+    kernels += phase16(dev)
+    elapsed(16)
     _stop_cpu_jobs()
 
     print(f"# total: {time.perf_counter() - t_main:.1f} s", flush=True)

@@ -73,9 +73,11 @@ from ilqgames_tpu_torch.examples import air_3d, dubins_origin, \
     two_player_collision, two_player_point_mass
 from ilqgames_tpu_torch.examples.three_player_intersection import \
     make_problem
-from ilqgames_tpu_torch.ops.cuda import build, lq, lq_open_loop, stage, \
-    sweep
-from ilqgames_tpu_torch.ops.cuda.cost_table import MAX_ATOMS
+from ilqgames_tpu_torch.ops.cuda import lq, lq_open_loop, stage, sweep
+# kernel_libraries is read through this module by the smoke script and
+# the tests.
+from ilqgames_tpu_torch.ops.cuda.libraries import build_kernels, \
+    kernel_libraries, set_precision
 from ilqgames_tpu_torch.solver import batched
 from ilqgames_tpu_torch.runtime import receding_horizon
 from ilqgames_tpu_torch.solver.params import SolverParams
@@ -86,14 +88,6 @@ REPLAN_BUDGET_S = 0.25
 # bench_all.py's latency configuration: replans timed (the first dropped),
 # lanes per block (one instance padded) and trips per dispatch.
 LAT_REPS, LAT_BLOCK, LAT_TPC = 20, 8, 20
-
-
-def set_precision() -> None:
-    """Full float32 everywhere: the JAX package forces f32 matmul
-    precision, so the port allows no TF32."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
 
 
 def exec_main_params() -> SolverParams:
@@ -169,37 +163,6 @@ def reset_launches() -> None:
     sweep.rollout_bm.by_shape.clear()
 
 
-def kernel_libraries(dyn, spec, player_costs=(), open_loop=False) -> list:
-    """The (source, defines) of every kernel library of the port for this
-    game, in the order K1, K2/K3, K6, K4, K5 (K4 and K5 one library where
-    the game's merit needs no flag), then K7's with `open_loop`: K1 with
-    the game's atoms and Jacobians (`stage.features`), K5 and K6 with its
-    merit's atoms (`sweep.merit_features`: the norm atoms, the
-    reachability features, quadratic_difference, semiquadratic, a table
-    of more than MAX_ATOMS atoms); K4 takes none of them."""
-    mf = sweep.merit_features(player_costs, spec)
-    plain = dict({k: False for k in mf}, atoms=MAX_ATOMS)
-    sweeps = [plain] + ([mf] if mf != plain else [])
-    return ([stage.library(spec, **stage.features(dyn, player_costs, spec)),
-             lq.library(spec), sweep.merit_library(spec, **mf)]
-            + [sweep.library(dyn, spec, **f) for f in sweeps]
-            + ([lq_open_loop.library(spec)] if open_loop else []))
-
-
-def build_kernels(dyn, spec, player_costs=(), open_loop=False) -> None:
-    """Build every kernel library of the game (`kernel_libraries`; one
-    concurrent nvcc per source) and load them."""
-    build.compile_all(kernel_libraries(dyn, spec, player_costs, open_loop))
-    mf = sweep.merit_features(player_costs, spec)
-    stage.load_kernels(spec, **stage.features(dyn, player_costs, spec))
-    lq.load_kernels(spec)
-    sweep.load_merit_kernel(spec, **mf)
-    sweep.load_kernels(dyn, spec)
-    sweep.load_kernels(dyn, spec, **mf)
-    if open_loop:
-        lq_open_loop.load_kernels(spec)
-
-
 def _cuda_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type != "cuda":
@@ -207,10 +170,10 @@ def _cuda_device(device) -> torch.device:
     return dev
 
 
-def run_latency(device="cuda"):
+def run_latency(device="cuda", reps: int = LAT_REPS):
     """Warm replan latency of one instance (counterpart of bench_all.py's
     latency_single_solve, :265-305): a cold solve of the flagship's x0
-    with the exec main's parameters, then LAT_REPS warm re-solves from
+    with the exec main's parameters, then `reps` warm re-solves from
     its knot-2 state, warm-started on the cold solve's operating point,
     strategy and multipliers, with max_solver_iters=20; the first is
     dropped. One lane padded to LAT_BLOCK, the latency configuration.
@@ -242,7 +205,7 @@ def run_latency(device="cuda"):
     replan = lambda: warm(x1, res0.op, res0.strategy, res0.al_state)
 
     lat, per = [], []
-    for _ in range(LAT_REPS):
+    for _ in range(reps):
         before = launches()
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -267,7 +230,7 @@ def run_latency(device="cuda"):
            "budget_source": "the reference's hard replan budget "
                             "(src/receding_horizon_simulator.cpp:119)",
            "device": torch.cuda.get_device_name(dev), "driver": "latency",
-           "reps": LAT_REPS, "batch_block": LAT_BLOCK,
+           "reps": reps, "batch_block": LAT_BLOCK,
            "trips_per_call": LAT_TPC, "cold_s": round(cold_s, 3),
            "cold_trips": cold.last_stats["trips"],
            "cold_converged": bool(res0.converged[0]),
@@ -514,20 +477,22 @@ def config_fields(res, batch: int, elapsed: float) -> dict:
 
 
 def run_receding(config: int, device="cuda", fuse_stages=None,
-                 after_load=None):
+                 warmup=True, final_time=None):
     """bench_all.py's config 5 (`config5_receding_horizon_1k`) on `device`:
     the config's agents from the x0 draw with its sigma, the exec main's
     parameters with its budgets, `receding_horizon.simulate_batched` over
     its final time, replanning every replan interval with its planner
     time, lane blocks of 128, the config's stages and the merit backend
-    "xla". The kernels are built first, and an 8-lane, one-cycle run loads
-    every library before the clock starts; then one timed run (bench_all.py
-    times a second call after a compiling first one). Returns ((states,
+    "xla". The kernels are built first, and with `warmup` an 8-lane,
+    one-cycle run loads every library before the clock starts; then one
+    timed run (bench_all.py times a second call after a compiling first
+    one). Returns ((states,
     times, SimState), JSON dict): bench_all.py's metric and fields, the
     replans over the whole run's wall time (its cold solve included),
     `vs_baseline` against the reference's 4 replans/s/instance, and per
     cycle the converged fraction, trips and deep-ladder rounds.
-    `fuse_stages` (None: the config's) and `after_load` as `run_config`'s."""
+    `fuse_stages` (None: the config's) as `run_config`'s; `final_time`
+    (None: the config's) cuts the run's depth."""
     cfg = CONFIGS[config]
     fuse = cfg["fuse_stages"] if fuse_stages is None else fuse_stages
     set_precision()
@@ -541,13 +506,13 @@ def run_receding(config: int, device="cuda", fuse_stages=None,
         planner_time=cfg["planner_time"], batch_block=128, fuse_stages=fuse)
     n = cfg["batch"]
     x0 = torch.tensor(perturbed_x0(problem, n, cfg["sigma"]), device=dev)
-    run(x0[:8], 2 * cfg["replan_interval"])
-    if after_load is not None:
-        after_load()
+    if warmup:
+        run(x0[:8], 2 * cfg["replan_interval"])
     before = launches()
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    states, times, state = run(x0, cfg["final_time"])
+    final_time = cfg["final_time"] if final_time is None else final_time
+    states, times, state = run(x0, final_time)
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
     st = receding_horizon.simulate_batched.last_stats
@@ -561,7 +526,7 @@ def run_receding(config: int, device="cuda", fuse_stages=None,
            "device": torch.cuda.get_device_name(dev),
            "driver": "receding_horizon", "batch_block": 128,
            "fuse_stages": fuse,
-           "final_time": cfg["final_time"],
+           "final_time": final_time,
            "replan_interval": cfg["replan_interval"],
            "cold_trips": st["cold"]["trips"],
            "cold_converged": round(float(
@@ -575,8 +540,8 @@ def run_receding(config: int, device="cuda", fuse_stages=None,
     return (states, times, state), out
 
 
-def run_config(config, device="cuda", fuse_stages=None, after_load=None,
-               warmup=True):
+def run_config(config, device="cuda", fuse_stages=None, warmup=True,
+               final_time=None):
     """bench_all.py's config 1, 2, 4 or 5, or "dubins_ol" / "dubins_fb" /
     "roundabout" / "collision_reach" / "air3d" / "flat_roundabout", on
     `device`. Config 5, receding
@@ -590,11 +555,11 @@ def run_config(config, device="cuda", fuse_stages=None, after_load=None,
     the first solve's one-time costs), then the timed one. Returns
     (ALResult, JSON dict) with
     bench_all.py's metric and fields. `fuse_stages` overrides the config's
-    stages (BENCH_ALL_r05 row 5 was taken unfused); `after_load`, if given,
-    is called after the warm-up (or load), before the clock starts."""
+    stages (BENCH_ALL_r05 row 5 was taken unfused); `final_time` cuts
+    config 5's depth (None: the config's)."""
     cfg = CONFIGS[config]
     if "final_time" in cfg:
-        return run_receding(config, device, fuse_stages, after_load)
+        return run_receding(config, device, fuse_stages, warmup, final_time)
     fuse = cfg["fuse_stages"] if fuse_stages is None else fuse_stages
     set_precision()
     dev = _cuda_device(device)
@@ -611,8 +576,6 @@ def run_config(config, device="cuda", fuse_stages=None, after_load=None,
     x0 = torch.tensor(perturbed_x0(problem, n, cfg["sigma"]), device=dev)
     if warmup:
         solver(x0)
-    if after_load is not None:
-        after_load()
     before = launches()
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()

@@ -14,10 +14,11 @@ the CPU give the same bits. The reference's contract is a fixed planner
 budget: each replan consumes exactly `planner_time` of simulated time
 (src/receding_horizon_simulator.cpp:119).
 
-Only `simulate_batched` of the JAX package's simulators is ported: the
-per-instance `simulate` and `simulate_minimally_invasive` run the
-per-instance device loop, and a batch of one on the batched machine
-serves a single agent.
+The per-instance simulators `simulate` and `simulate_minimally_invasive`
+are `simulate_batched`'s pieces at B=1: one agent's lane padded to a
+block of `problem.LANE_BLOCK` lanes on the batched machine, as
+Problem.solve runs one instance. They run on `device`, "cuda" unless the
+caller asks for the CPU (`problem.device_of`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from ilqgames_tpu_torch import problem as problem_mod
 from ilqgames_tpu_torch.costs import player_cost as pcost
 from ilqgames_tpu_torch.dynamics import base as dyn_base
 from ilqgames_tpu_torch.dynamics.base import true_div
@@ -305,6 +307,106 @@ class SimState(_Replace):
     num_replans: torch.Tensor   # [B] int32
 
 
+def _next_problem(dyn, spec: GameSpec, state: SimState,
+                  replan_interval: float, planner_time: float):
+    """One cycle's first half, per lane: advance the true state
+    `replan_interval` along the execution plan, then set up the problem
+    `planner_time` ahead from the plan cut to the horizon. Returns
+    (t_next, x_next, new_op, new_strategy, new_x0)."""
+    N = spec.num_time_steps
+    plan = state.splicer
+    t_next = state.t + replan_interval
+    x_next = integrate_span(dyn, _splicer_spec(spec), plan.op, plan.strategy,
+                            state.t, t_next, state.x,
+                            int(replan_interval / spec.dt) + 2)
+    warm_op = OperatingPoint(xs=plan.op.xs[:, :N], us=plan.op.us[:, :N],
+                             t0=plan.op.t0)
+    warm_strategy = Strategy(Ps=plan.strategy.Ps[:, :N],
+                             alphas=plan.strategy.alphas[:, :N])
+    return (t_next, x_next) + setup_next_receding_horizon(
+        dyn, spec, warm_op, warm_strategy, x_next, t_next, planner_time)
+
+
+def _simulate(problem, params, x0_batch, final_time, replan_interval,
+              planner_time, solver_kw, safety=None, safety_threshold=-1.0):
+    """The simulators' loop: a cold solve of `problem` from its initial
+    operating point and strategy, then int(final_time / replan_interval)
+    - 1 cycles. Each cycle sets up the next problem (`_next_problem`) and
+    re-solves it warm-started from the initial multipliers. Without
+    `safety`, the solution splices in on the lanes where it converged.
+    With it, the safety problem is solved from the same start too, and
+    its solution is taken where P1's safety total exceeds
+    `safety_threshold` or only the safety solve converged (the reference's
+    switch, src/minimally_invasive_receding_horizon_simulator.cpp:201-214);
+    the original solution splices only where it converged, the safety
+    solution always (:206-213). Returns (states [n + 1, B, x], the lanes'
+    accumulated times [n + 1, B], the safety flags [n, B] (None without
+    `safety`), SimState, stats as simulate_batched.last_stats)."""
+    spec, dyn, costs = problem.spec, problem.dynamics, problem.player_costs
+    B, dev = x0_batch.shape[0], x0_batch.device
+
+    t_start = time.perf_counter()
+    first_run = batched.make_host_batched_solver(
+        dyn, costs, spec, params, warm_op=problem.initial_operating_point(),
+        warm_strategy=problem.initial_strategy(), **solver_kw)
+    first = first_run(x0_batch)
+    stats = {"cold": first_run.last_stats,
+             "cold_s": time.perf_counter() - t_start, "first": first,
+             "cycles": []}
+    problems = (problem,) if safety is None else (problem, safety)
+    warm = [batched.make_host_batched_warm_solver(
+        p.dynamics, p.player_costs, spec, params, **solver_kw)
+        for p in problems]
+    al0 = [p.initial_al_state(B, device=dev) for p in problems]
+
+    state = SimState(
+        x=x0_batch, t=torch.zeros((B,), device=dev),
+        splicer=Splicer.create(spec, first.op, first.strategy),
+        al_state=al0[0], converged=first.converged,
+        num_replans=torch.zeros((B,), dtype=torch.int32, device=dev))
+    n_cycles = int(final_time / replan_interval) - 1
+    states, times, flags = [state.x], [state.t], []
+    for _ in range(n_cycles):
+        t_cycle = time.perf_counter()
+        plan = state.splicer
+        t_next, x_next, new_op, new_strategy, new_x0 = _next_problem(
+            dyn, spec, state, replan_interval, planner_time)
+        t_setup = time.perf_counter()
+        res = [w(new_x0, new_op, new_strategy, al)
+               for w, al in zip(warm, al0)]
+        t_solved = time.perf_counter()
+        spliced = [splice(spec, plan, r.op, r.strategy) for r in res]
+        if safety is None:
+            accept, new_plan, converged = (res[0].converged, spliced[0],
+                                           res[0].converged)
+        else:
+            orig, safe = res
+            use_safety = (safe.total_costs[:, 0] > safety_threshold) | (
+                safe.converged & ~orig.converged)
+            flags.append(use_safety)
+            accept = use_safety | orig.converged
+            new_plan = batched._bwhere(use_safety, spliced[1], spliced[0])
+            converged = torch.where(use_safety, safe.converged,
+                                    orig.converged)
+        state = SimState(
+            x=x_next, t=t_next,
+            splicer=batched._bwhere(accept, new_plan, plan),
+            al_state=state.al_state, converged=converged,
+            num_replans=state.num_replans + 1)
+        states.append(state.x)
+        times.append(state.t)
+        cycle = dict(warm[0].last_stats, converged=converged)
+        for w in warm[1:]:
+            for k in ("trips", "dispatches", "host_syncs", "deep_rounds"):
+                cycle[k] += w.last_stats[k]
+        cycle["host_syncs"] += 1
+        cycle.update(setup_s=t_setup - t_cycle, solve_s=t_solved - t_setup,
+                     wall_s=time.perf_counter() - t_cycle)
+        stats["cycles"].append(cycle)
+    return (torch.stack(states), torch.stack(times),
+            torch.stack(flags) if flags else None, state, stats)
+
+
 def simulate_batched(problem, params, x0_batch, final_time: float = 10.0,
                      replan_interval: float = 0.25,
                      planner_time: float = 0.25, batch_block: int = 128,
@@ -329,61 +431,93 @@ def simulate_batched(problem, params, x0_batch, final_time: float = 10.0,
     ("cold": trips, dispatches, host syncs, ...; "cold_s", host seconds
     to its last all-done read), the cold result ("first", an ALResult)
     and per cycle ("cycles") the warm solve's counters, with one more
-    host sync for the tail's start in setup_next_receding_horizon, and its
-    `converged` [B] (on the device, not read)."""
-    spec, dyn, costs = problem.spec, problem.dynamics, problem.player_costs
-    B, dev = x0_batch.shape[0], x0_batch.device
+    host sync for the tail's start in setup_next_receding_horizon, its
+    `converged` [B] (on the device, not read) and host seconds: the
+    cycle's ("wall_s"), its first half's (`_next_problem`, "setup_s") and
+    its solves' ("solve_s", to their last all-done read). No clock read
+    waits for the device; the solves' reads do."""
     solver_kw = dict(trips_per_call=trips_per_call, batch_block=batch_block,
                      merit_backend=merit_backend, fuse_stages=fuse_stages)
-
-    t_start = time.perf_counter()
-    first_run = batched.make_host_batched_solver(
-        dyn, costs, spec, params, warm_op=problem.initial_operating_point(),
-        warm_strategy=problem.initial_strategy(), **solver_kw)
-    first = first_run(x0_batch)
-    stats = {"cold": first_run.last_stats,
-             "cold_s": time.perf_counter() - t_start, "first": first,
-             "cycles": []}
-    warm_solver = batched.make_host_batched_warm_solver(
-        dyn, costs, spec, params, **solver_kw)
-
-    sspec = _splicer_spec(spec)
-    max_span_steps = int(replan_interval / spec.dt) + 2
-    N = spec.num_time_steps
-    state = SimState(
-        x=x0_batch, t=torch.zeros((B,), device=dev),
-        splicer=Splicer.create(spec, first.op, first.strategy),
-        al_state=problem.initial_al_state(B, device=dev),
-        converged=first.converged,
-        num_replans=torch.zeros((B,), dtype=torch.int32, device=dev))
-    n_cycles = int(final_time / replan_interval) - 1
-    states, times = [state.x], [0.0]
-    for c in range(n_cycles):
-        plan = state.splicer
-        t_next = state.t + replan_interval
-        x_next = integrate_span(dyn, sspec, plan.op, plan.strategy, state.t,
-                                t_next, state.x, max_span_steps)
-        warm_op = OperatingPoint(xs=plan.op.xs[:, :N], us=plan.op.us[:, :N],
-                                 t0=plan.op.t0)
-        warm_strategy = Strategy(Ps=plan.strategy.Ps[:, :N],
-                                 alphas=plan.strategy.alphas[:, :N])
-        new_op, new_strategy, new_x0 = setup_next_receding_horizon(
-            dyn, spec, warm_op, warm_strategy, x_next, t_next, planner_time)
-        res = warm_solver(new_x0, new_op, new_strategy, state.al_state)
-        spliced = splice(spec, plan, res.op, res.strategy)
-        state = SimState(
-            x=x_next, t=t_next,
-            splicer=batched._bwhere(res.converged, spliced, plan),
-            al_state=state.al_state, converged=res.converged,
-            num_replans=state.num_replans + 1)
-        states.append(state.x)
-        times.append((c + 1) * replan_interval)
-        cycle = dict(warm_solver.last_stats, converged=res.converged)
-        cycle["host_syncs"] += 1
-        stats["cycles"].append(cycle)
+    states, _, _, state, stats = _simulate(
+        problem, params, x0_batch, final_time, replan_interval,
+        planner_time, solver_kw)
     simulate_batched.last_stats = stats
-    return (torch.stack(states),
-            torch.tensor(np.float32(times), device=dev), state)
+    times = [c * replan_interval for c in range(states.shape[0])]
+    return (states, torch.tensor(np.float32(times), device=x0_batch.device),
+            state)
 
 
 simulate_batched.last_stats = None
+
+
+def _one_agent(problem, params, x0, device):
+    """x0 (the problem's by default) as a batch of one on the solve's
+    device, the game's kernels built there."""
+    dev = problem.prepare(params, device)
+    x0 = problem.x0 if x0 is None else x0
+    return torch.as_tensor(x0).to(dev)[None]
+
+
+def simulate(problem, params, final_time: float = 10.0,
+             replan_interval: float = 0.25, planner_time: float = 0.25,
+             x0=None, jit: bool = True, device="cuda"):
+    """Fixed-cadence receding-horizon simulation of one agent (the
+    reference's RecedingHorizonSimulator,
+    src/receding_horizon_simulator.cpp; counterpart of the JAX package's
+    simulate): a cold Problem.solve, then per cycle the plan played back
+    `replan_interval` (integrate_span), the warm-start shift
+    (setup_next_receding_horizon), a warm solve from the initial
+    multipliers and a splice where that solve converged. Returns (states
+    [n_cycles + 1, xdim], times [n_cycles + 1], SimState of the agent),
+    times the accumulated float32 sim time, as the JAX package's. After a
+    call, `simulate.last_stats` holds simulate_batched.last_stats's
+    counters of the run. `jit` is accepted and ignored."""
+    states, times, _, state, stats = _simulate(
+        problem, params, _one_agent(problem, params, x0, device),
+        final_time, replan_interval, planner_time,
+        dict(batch_block=problem_mod.LANE_BLOCK))
+    simulate.last_stats = stats
+    return states[:, 0], times[:, 0], problem_mod._unbatch(state)
+
+
+simulate.last_stats = None
+
+
+def simulate_minimally_invasive(original, safety, params,
+                                final_time: float = 10.0,
+                                replan_interval: float = 0.25,
+                                planner_time: float = 0.25,
+                                safety_threshold: float = -1.0, x0=None,
+                                jit: bool = True, device="cuda"):
+    """Dual-solver safety-filtered receding horizon of one agent (the
+    reference's MinimallyInvasiveRecedingHorizonSimulator,
+    src/minimally_invasive_receding_horizon_simulator.cpp:68-218;
+    counterpart of the JAX package's simulate_minimally_invasive): each
+    cycle warm-starts and solves both the original and the safety problem
+    from the shared spliced plan, each from its initial multipliers. The
+    safety plan is used when P1's safety total exceeds `safety_threshold`
+    (metres, for reachability-style safety problems) or when only the
+    safety solve converged, the original otherwise; the original plan
+    splices only where its solve converged, the safety plan always.
+    Returns (states [n_cycles + 1, xdim], times [n_cycles + 1],
+    active_flags [n_cycles] bool, True where the safety controller was
+    active, SimState of the shared plan). After a call,
+    `simulate_minimally_invasive.last_stats` holds the run's counters,
+    each cycle's summed over both solves. `jit` is accepted and
+    ignored."""
+    if original.spec.xdim != safety.spec.xdim:
+        raise ValueError("the original and the safety problem must share "
+                         "the state")
+    x0b = _one_agent(original, params, x0, device)
+    safety.prepare(params, x0b.device)
+    states, times, flags, state, stats = _simulate(
+        original, params, x0b, final_time, replan_interval, planner_time,
+        dict(batch_block=problem_mod.LANE_BLOCK), safety=safety,
+        safety_threshold=safety_threshold)
+    simulate_minimally_invasive.last_stats = stats
+    if flags is None:
+        flags = torch.zeros((0, 1), dtype=torch.bool, device=x0b.device)
+    return states[:, 0], times[:, 0], flags[:, 0], problem_mod._unbatch(state)
+
+
+simulate_minimally_invasive.last_stats = None

@@ -35,6 +35,8 @@ the open-loop strategies are affine laws with P == 0.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ilqgames_tpu_torch.costs import player_cost as pcost
@@ -608,6 +610,71 @@ def make_host_batched_warm_solver(dyn, player_costs, spec, params,
     def init(x0_b, wop_b, wst_b, al_b):
         return _carry0(dyn, player_costs, spec, x0_b, wop_b, wst_b, al_b,
                        batch_block, fuse_stages)
+
+    return _make_driver(trip, finalize, init, trips_per_call, batch_block)
+
+
+def make_host_ilq_solver(dyn, player_costs, spec, params,
+                         max_iterations=None, record_history: bool = False,
+                         trips_per_call: int = 25, batch_block: int = 128,
+                         fuse_stages=None, merit_backend: str = "xla"):
+    """Bare iLQ solve stepped from the host (the batched counterpart of
+    the JAX package's ilq.solve, ilq.py:287-340, which Problem's
+    solve_unconstrained and solve_logged run): fn(x0 [B, xdim], warm_op,
+    warm_strategy, al_state), all batched, -> ilq.ILQResult on x0's
+    device. Constraints enter only through their AL terms at the given
+    multipliers, which no trip updates: every game takes the unconstrained
+    game's trip (`_trip_unconstrained`), a lane ending when it converges,
+    its linesearch fails or it has taken `max_iterations` iterations
+    (default params.max_solver_iters). With `record_history` the result's
+    `history` holds each lane's initial rollout and, per trip, its carry
+    after the trip (masked past its end, a failed step's reverted iterate
+    included) and whether it was active, as the JAX package's scan
+    records them: kept on the device and stacked once, after the last
+    trip. Driver and counters as make_host_batched_solver's."""
+    budget = (params.max_solver_iters if max_iterations is None
+              else max_iterations)
+    prm = dataclasses.replace(params, max_solver_iters=budget)
+    fuse_stages = _resolve_fuse_for(prm, fuse_stages, dyn)
+    record = []
+
+    def entry(fc_before, fc_after):
+        c = fc_after.c
+        return (c.op, c.strategy, c.last_merit, c.converged, c.failed,
+                ~fc_before.done)
+
+    def init(x0_b, wop_b, wst_b, al_b):
+        fc = _carry0(dyn, player_costs, spec, x0_b, wop_b, wst_b, al_b,
+                     batch_block, fuse_stages)
+        fc = fc.replace(done=fc.cum_iters >= budget)
+        record[:] = [fc.c.op]
+        return fc
+
+    def trip(x0_b, fc, stats=None):
+        fc2 = _trip_unconstrained(dyn, player_costs, spec, prm, x0_b, fc,
+                                  batch_block=batch_block, stats=stats,
+                                  fuse_stages=fuse_stages,
+                                  merit_backend=merit_backend)
+        fc2 = _bwhere(fc.done, fc, fc2)
+        if record_history:
+            record.append(entry(fc, fc2))
+        return fc2
+
+    def finalize(fc):
+        history = ()
+        if record_history:
+            rows = record[1:]
+            trips = (tree_map(lambda *a: torch.stack(a, 1), *rows) if rows
+                     else tree_map(lambda a: a[:, None][:, :0],
+                                   entry(fc, fc)))
+            history = (record[0],) + trips
+        record.clear()
+        return ilq.ILQResult(
+            op=fc.c.op, strategy=fc.c.strategy,
+            total_costs=pcost.total_costs(player_costs, spec, fc.c.op)[0],
+            converged=fc.c.converged, failed=fc.c.failed,
+            num_iterations=fc.c.iteration, merit=fc.c.last_merit,
+            history=history)
 
     return _make_driver(trip, finalize, init, trips_per_call, batch_block)
 

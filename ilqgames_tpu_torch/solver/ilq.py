@@ -1,6 +1,6 @@
 """Per-lane iLQ pieces the batched machine needs (counterpart of
-ilqgames_tpu/solver/ilq.py: `_expected_decrease` at :77, `_SolveCarry` at
-:141). All tensors carry a leading batch axis."""
+ilqgames_tpu/solver/ilq.py: `ILQResult` at :53, `_expected_decrease` at
+:77, `_SolveCarry` at :141). All tensors carry a leading batch axis."""
 
 from __future__ import annotations
 
@@ -43,6 +43,25 @@ def _expected_decrease(spec: GameSpec, quad: QuadraticCosts,
     control = _fixed_order_sum((alphas * Rr).flatten(1))
     state = _fixed_order_sum((delta_xs[:, 1:, None] * Ql).flatten(1))
     return -control - state
+
+
+@dataclasses.dataclass(frozen=True)
+class ILQResult(_Replace):
+    """A bare iLQ solve's result, the fields of the JAX package's
+    ILQResult that its callers read. `history` is () unless the solve
+    recorded its trips: then (initial_op, ops, strategies, merits,
+    converged, failed, active), lanes first and trips second (the JAX
+    package's record, ilq.py:352-365, with the initial rollout, which its
+    solve_logged makes apart)."""
+
+    op: OperatingPoint
+    strategy: Strategy
+    total_costs: torch.Tensor
+    converged: torch.Tensor
+    failed: torch.Tensor
+    num_iterations: torch.Tensor
+    merit: torch.Tensor
+    history: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -349,7 +349,7 @@ def _plain_calls(n):
 
 
 def test_operation_counts_carried_from_a_few_knots_are_exact():
-    """`_count_ops` (the counts on the first 2, 4 and 6 knots, carried to
+    """`_count_ops` (the counts on the first 1, 2 and 3 knots, carried to
     the call's depth) equals the count at the call's depth for every
     kernel's plain version, at N = 11."""
     from ilqgames_tpu_torch.tools._probe import float_ops
