@@ -219,23 +219,39 @@ Phases:
    trajectory against the reference's with tests/test_golden.py's bounds,
    the log's last iterate bitwise the result's and the saved xs.txt's,
    xs.txt [100, 16] and u*.txt [100, 2]); (b) --receding_horizon over
-   CLI_FINAL_TIME (7 replans, finite, P1 progressing); (c) the
+   CLI_FINAL_TIME (3 replans, finite, P1 progressing); (c) the
    minimally-invasive pair (modified_three_player_intersection with
    three_player_intersection_reachability, a MAX player) over
-   CLI_FINAL_TIME (7 replans); (b) and (c) at 20 iterations a solve
+   CLI_FINAL_TIME (3 replans); (b) and (c) at 20 iterations a solve
    (CLI_REPLAN_ITERS, phase 7c's replanning budget), each cycle's host
    seconds printed (its first half, its solves); the first CLI_HELD_CYCLES
    (2) cycles of each held card against CPU (bitwise: the same command
    over 0.75 s on the CPU, a CPU job); (d) dubins_origin
    --open_loop alone and with --receding_horizon (K7 and K4; K1-K3 must
    not launch); (e) --batch 256 (its JSON line: some lanes converged, a
-   finite violation).
+   finite violation);
+17. the rest of the cost layer, on two games that exist only as checks
+   (`zoo_player_costs`: the flagship with one of each new piece on dims
+   where it reads what it was made for): (a) their libraries (K1, K5
+   and K6 of the fused game with CT_ZOO; the unfused game's dense-only
+   constraints leave it K2-K4 only) and ptxas reports; (b) zoo_fused_256
+   (fused: relative_distance, nominal_path_length, curvature,
+   orientation, a one-difference quadratic_difference, quadratic_norm and
+   a final-time gate on a single_dimension state constraint, in K1) and
+   zoo_unfused_256 (the two convex proximities, affine_scalar,
+   affine_vector and the polyline signed-distance constraint; K1 never
+   launched), ZOO_B instances of bench.py's draw each, the exec main's
+   parameters at most ZOO_ITERS iterations, one timed solve, their
+   outcome printed (converged, diverged_frac, mean_iters, cost_p50),
+   every (kernel, shape) held, K5 and K6 at the linesearch shapes (the
+   unfused game's on its atoms); (c) two trips of 8 lanes of each on the
+   card against the CPU, the fused game under every merit backend.
 
-The holds of phases 7-16 run K4 and K5 (and their plain versions) on
-the first HOLD_DEPTH (10) knots of each launch's arguments, but for each
+The holds of phases 7-17 run K4 and K5 (and their plain versions) on
+the first HOLD_DEPTH (5) knots of each launch's arguments, but for each
 game's first K4 and K5 shape in one of its cells (reachability's timed
-cell, dubins_ol_1024, each cell of phases 8-15, the CLI's flagship
-solve), held at the cell's depth (the
+cell, dubins_ol_1024, each cell of phases 8-15 and 17, the CLI's
+flagship solve), held at the cell's depth (the
 flagship's K4 and K5 at N=100 in phase 2); every other kernel, K2
 included, is held at the cell's depth. A plain version's float32
 operations are counted on its
@@ -252,8 +268,26 @@ kernel's plain version, which repeats them in order, under
 tools/_probe.float_ops on this run's operands (adds, multiplies,
 divides, roots, min/max and roundings, one per output element).
 
-Each phase prints, when it ends, the time since the build began and its
-own duration. Prints
+Two processes drive the card (`SECOND_PHASES`): after the build, phases
+11-15 and 17 run in a second process (spawned, with its own CPU workers,
+its lines printed when it is joined) beside phases 2-5, 7-10 and 16 in
+the script's; phase 6 runs last, alone. Each process drives the card from
+one Python thread and its holds and trips are bound by that thread, so
+the halves overlap. Every timed run (each cell, golden run and CLI run,
+phase 7's latency and receding-horizon cells, phases 4 and 5) has the
+card alone (`_alone`): it waits until the other process stands at a
+pause point (each hold's and trip's check, each wait for a CPU job, each
+phase's end) and holds it there until the run ends, so that the cells'
+seconds and phase 7's latencies are taken as in one process. The card
+runs the two processes' kernels in turns, so each process takes its
+kernels' times (`_timed`: every kernels-line ms, phase 2's per-knot
+lines) once it has the card alone, after both halves. The plain
+versions' times and the phases' seconds are taken beside the other
+process.
+
+Each phase prints, when it ends, the time since the build began, its own
+duration and how much of it it waited for the other process's runs
+alone. Prints
 the kernels' JSON line and the card line, then, last,
 {"ok": true, "device": {...}}. Exits nonzero, with no result line, when
 there is no CUDA device or any phase fails.
@@ -261,7 +295,9 @@ there is no CUDA device or any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import json
 import os
 import subprocess
@@ -301,7 +337,7 @@ GOLDEN_MAX_M, GOLDEN_MEAN_M = 2.0, 1.0
 RH_B, RH_FINAL_TIME, RH_REPLANS = 1024, 0.75, 2
 # Phase 7b: the latency cell's replans (bench.LAT_REPS is 20; cut to keep
 # the script's time, the first dropped as there).
-LATENCY_REPS = 5
+LATENCY_REPS = 3
 # Phase 3: trips on the card against trips on the CPU (the CPU's plain
 # versions take most of the phase's time; two since phase 11 came), of the
 # flagship's first FLAGSHIP_TRIP_B instances.
@@ -333,13 +369,13 @@ FLAT_COST_P50 = (14667.5, 4553.1, 1141.9)
 # Phases 8e-11d: trips of each game on the card against the CPU, 8 lanes
 # (two since phase 11 came).
 SMALL_B, SMALL_TRIPS = 8, 2
-# Phases 7-16: the knots on which the holds of the cells' K4 and K5
+# Phases 7-17: the knots on which the holds of the cells' K4 and K5
 # launches run (a kernel and its plain version on the first HOLD_DEPTH
 # knots of the same arguments: the plain versions on the card take seconds
-# a call at N=100). Each game's K4 and K5 are also held once at full depth
+# a call at N=100; 10 knots until phase 17 came). Each game's K4 and K5 are also held once at full depth
 # (the flagship's in phase 2, the others' at their cell's first shape);
 # every other kernel, K2 included, at the cell's depth.
-HOLD_DEPTH = 10
+HOLD_DEPTH = 5
 PREFIX_KERNELS = ("K4", "K5")
 # A hold times its kernel after HOLD_WARM_S of calls (phase 2's rows after
 # 0.2 s): the card has just run the kernel and its plain version.
@@ -555,12 +591,13 @@ FLAT_OVERTAKING_JAX = dict(
             106300940288.0))
 FLAT_TRIPS_HELD = 3
 # Phase 16: the CLI in-process at full width (the flagship, N=100, the
-# exec main's parameters: the CLI's defaults); its simulators over 2 s of
-# depth, 7 cycles of 0.25 s. Each simulator's first CLI_HELD_CYCLES cycles
+# exec main's parameters: the CLI's defaults); its simulators over 1 s of
+# depth, 3 cycles of 0.25 s (2 s and 7 cycles until phase 17 came: cut in
+# depth for the script's time). Each simulator's first CLI_HELD_CYCLES cycles
 # are held card against CPU: the CPU runs the same command over
 # CLI_HELD_TIME (a CPU job from phase 1 on; its plain versions take ~5 s a
 # flagship trip at N=100, so these two jobs take minutes).
-CLI_FINAL_TIME, CLI_REPLANS = "2.0", 7
+CLI_FINAL_TIME, CLI_REPLANS = "1.0", 3
 CLI_HELD_TIME, CLI_HELD_CYCLES = "0.75", 2
 # The simulators' budget: 20 iterations a solve, the replanning budget of
 # phase 7c and bench_all.py's config 5 (at the CLI's 100 every warm solve
@@ -603,21 +640,232 @@ FLAT_ROUNDABOUT_JAX = dict(converged=0.1875, mean_iters=13.5,
                            cost_p50=(333274.56, 576387.56, 330939.7,
                                      573469.75), diverged_frac=0.0547)
 
+# Phase 17: the rest of the cost layer on the flagship's dynamics and costs
+# (two games that exist only as checks): ZOO_B instances of bench.py's x0
+# draw each, the exec main's parameters with at most ZOO_ITERS iterations.
+ZOO_B = 256
+ZOO_ITERS = 30
+ZOO_GAMES = ("zoo_fused", "zoo_unfused")
+
+
+def zoo_player_costs(problem, atoms, constraints, fused):
+    """The flagship's player costs with one of each of the rest of the
+    cost layer's pieces added, on dims where it reads what it was made for
+    (P1's states 0-5 hold x, y, theta, phi, v, a; P2's 6-11; P3's 12-15 x,
+    y, theta, v), built from the `atoms` and `constraints` modules given
+    (the port's; the tests pass the JAX package's for its twin). Fused
+    (the pieces that the fused stage takes): relative_distance between P1
+    and P2, nominal_path_length on P1's y, curvature on (phi, v),
+    orientation on theta, a one-difference quadratic_difference, a
+    quadratic_norm on P3's position, and a final-time gate over half the
+    horizon on single_dimension(v <= 7) for P1. Unfused: the two convex
+    proximities between P1 and P2 (the weighted one on their speeds), a
+    locally convex proximity between P3 and P1 behind a final-time gate
+    over half the horizon (a dense atom's gate), affine_scalar on P2's y,
+    affine_vector on P3's position and the polyline signed-distance
+    constraint to P1's lane."""
+    import dataclasses
+
+    import numpy as np
+
+    pc1, pc2, pc3 = problem.player_costs
+    spec = problem.spec
+    gate = 0.5 * spec.num_time_steps * spec.dt
+    if fused:
+        pc1 = dataclasses.replace(
+            pc1, state_costs=pc1.state_costs + (
+                atoms.relative_distance(0.05, (0, 1), (6, 7),
+                                        name="ZooRelativeDistance"),
+                atoms.nominal_path_length(0.01, 1, 6.0, name="ZooPath"),
+                atoms.curvature(0.5, 3, 4, name="ZooCurvature"),
+                atoms.orientation(0.5, 2, np.pi / 2, name="ZooHeading"),
+                atoms.quadratic_difference(0.01, (0,), (6,),
+                                           name="ZooLateral")),
+            state_constraints=pc1.state_constraints + (
+                constraints.final_time(
+                    constraints.single_dimension(4, 7.0, True),
+                    gate, name="ZooLateSpeed"),))
+        pc3 = dataclasses.replace(
+            pc3, state_costs=pc3.state_costs + (
+                atoms.quadratic_norm(0.05, 12, 13, 19.0,
+                                     name="ZooRadius"),))
+        return pc1, pc2, pc3
+    lane1 = np.array([[-2.0, -1000.0], [-2.0, 1000.0]], np.float32)
+    a = np.zeros(spec.xdim, np.float32)
+    a[7] = -1.0
+    A = np.zeros((spec.xdim, spec.xdim), np.float32)
+    A[0, 12], A[1, 13] = 1.0, 1.0
+    b = np.zeros(spec.xdim, np.float32)
+    b[:2] = (-6.0, 16.0)
+    pc1 = dataclasses.replace(
+        pc1, state_costs=pc1.state_costs + (
+            atoms.locally_convex_proximity(1.0, (0, 1), (6, 7), 6.0,
+                                           name="ZooConvex"),),
+        state_constraints=pc1.state_constraints + (
+            constraints.polyline2_signed_distance(lane1, 0, 1, 3.0, True,
+                                                  name="ZooLane"),))
+    pc2 = dataclasses.replace(
+        pc2, state_costs=pc2.state_costs + (
+            atoms.weighted_convex_proximity(0.05, (6, 7), (0, 1), 10, 4,
+                                            6.0, name="ZooWeighted"),),
+        state_constraints=pc2.state_constraints + (
+            constraints.affine_scalar(a, 40.0, False, name="ZooFloor"),))
+    pc3 = dataclasses.replace(
+        pc3, state_costs=pc3.state_costs + (
+            atoms.final_time(atoms.locally_convex_proximity(
+                0.5, (12, 13), (0, 1), 30.0), gate, name="ZooLateConvex"),),
+        state_constraints=pc3.state_constraints + (
+            constraints.affine_vector(A, b, False, name="ZooGoal"),))
+    return pc1, pc2, pc3
+
+
+def zoo_problem(fused, num_time_steps=None):
+    """The port's zoo game (`zoo_player_costs`) on the flagship."""
+    import dataclasses
+
+    from ilqgames_tpu_torch.costs import atoms, constraints
+    from ilqgames_tpu_torch.examples.three_player_intersection import \
+        make_problem
+
+    p = make_problem(num_time_steps=num_time_steps)
+    return dataclasses.replace(
+        p, name=ZOO_GAMES[0 if fused else 1],
+        player_costs=zoo_player_costs(p, atoms, constraints, fused))
+
 
 def _fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
-    if _CPU["pool"] is not None:
-        _CPU["pool"].terminate()
+    _stop_children()
     sys.exit(1)
 
 
-# Phases 3, 7d, 8e-12c hold trips on the card against the same trips on the
-# CPU (the plain versions: minutes in all). The CPU's run in CPU_WORKERS
-# worker processes of CPU_THREADS threads each (spawned: they never touch
-# the card), started after the build, while the card runs the phases
-# before theirs.
-CPU_WORKERS, CPU_THREADS, CPU_NICE = 3, 2, 10
+def _stop_children(*_) -> None:
+    """Stop the second process and the CPU workers, if they run."""
+    if _SECOND["proc"] is not None:
+        _SECOND["proc"].terminate()
+        _SECOND["proc"].join()
+        _SECOND["proc"] = None
+    if _CPU["pool"] is not None:
+        _CPU["pool"].terminate()
+        _CPU["pool"] = None
+
+
+# Phases 3, 7d, 8e-17c hold trips on the card against the same trips on the
+# CPU (the plain versions: minutes in all). The CPU's run in worker
+# processes of CPU_THREADS threads each (spawned: they never touch the
+# card), started after the build (phase 16's two CLI runs before it),
+# while the card runs the phases before theirs: CPU_WORKERS for the
+# script's own phases, SECOND_WORKERS for the second process's
+# (SECOND_PHASES).
+CPU_WORKERS, SECOND_WORKERS, CPU_THREADS, CPU_NICE = 3, 1, 2, 10
 _CPU = {"pool": None, "jobs": {}}
+# Phases 11-15 and 17 run in a second process on the card, beside phases
+# 2-5, 7-10 and 16 in the script's own (phase 6 after both, alone). Each
+# process drives the card from one Python thread, and the holds and trips
+# are bound by that thread (the card idles most of a trip: PERF.md
+# section 5), so they overlap. Every timed run (a cell, a golden run,
+# phase 7's latency, a CLI run: each `_FirstLaunches` run but the trips',
+# and phases 4 and 5) takes the card alone (`_alone`), the other process
+# held at a pause point (`_pause`), so that its seconds are taken as in
+# one process. Each process times its kernels once it has the card alone
+# (`_timed`).
+SECOND_PHASES = (11, 12, 13, 14, 15, 17)
+_SECOND = {"proc": None, "out": None}
+ALONE_WAIT_S = 600
+
+
+class _Pair:
+    """The locks by which the two processes on the card let each other
+    run alone: `alone` (one timed run at a time), this process's `busy`
+    (held while it works, let go at each pause point) and the other's
+    `other`; `peer()` says whether the other process still runs."""
+
+    def __init__(self, alone, busy, other, peer):
+        self.locks = (alone, busy, other)
+        self.peer, self.depth = peer, 0
+
+    def _take(self, lock) -> None:
+        """Acquire `lock`, failing if the other process ended meanwhile or
+        after ALONE_WAIT_S (no run holds the card half as long)."""
+        t0 = time.monotonic()
+        while not lock.acquire(timeout=1.0):
+            if not self.peer():
+                _fail("the other process on the card ended")
+            if time.monotonic() - t0 > ALONE_WAIT_S:
+                _fail(f"waited {ALONE_WAIT_S} s for the card")
+        _WAITED["total"] += time.monotonic() - t0
+
+    @contextlib.contextmanager
+    def alone(self):
+        """Run the block with the other process held at a pause point
+        (nested blocks: the outer one's)."""
+        alone, busy, other = self.locks
+        if self.depth:
+            self.depth += 1
+            try:
+                yield
+            finally:
+                self.depth -= 1
+            return
+        busy.release()
+        self._take(alone)
+        self._take(other)
+        self.depth = 1
+        try:
+            yield
+        finally:
+            self.depth = 0
+            other.release()
+            alone.release()
+            self._take(busy)
+
+    def pause(self, wait=None):
+        """A pause point: where the other process waits to run alone, let
+        it and wait until it has; `wait()` (a CPU job's result) is waited
+        for with the card let go. Returns wait()'s result."""
+        alone, busy, _ = self.locks
+        if self.depth:
+            return None if wait is None else wait()
+        busy.release()
+        try:
+            return None if wait is None else wait()
+        finally:
+            self._take(alone)
+            alone.release()
+            self._take(busy)
+
+    def done(self) -> None:
+        """This process's phases have ended: let the other run alone from
+        now on."""
+        self.locks[1].release()
+
+
+_PAIR = [None]
+# Seconds this process waited for the other's runs alone: in all, and at
+# the end of its last phase (`_phase_line`).
+_WAITED = {"total": 0.0, "mark": 0.0}
+
+
+def _alone():
+    """`_Pair.alone` of this process's pair, if two processes drive the
+    card."""
+    pair = _PAIR[0]
+    return contextlib.nullcontext() if pair is None else pair.alone()
+
+
+def _pause(wait=None):
+    """`_Pair.pause` of this process's pair (else wait() at once)."""
+    pair = _PAIR[0]
+    if pair is None:
+        return None if wait is None else wait()
+    return pair.pause(wait)
+
+
+def _pair_done() -> None:
+    """This process's phases have ended (`_Pair.done`)."""
+    if _PAIR[0] is not None:
+        _PAIR[0].done()
+        _PAIR[0] = None
 
 
 def _cpu_worker_init() -> None:
@@ -628,15 +876,17 @@ def _cpu_worker_init() -> None:
     torch.set_num_threads(CPU_THREADS)
 
 
-def _start_cpu_jobs(jobs) -> None:
-    """Start each (function, *arguments) of `jobs` in the worker pool."""
+def _start_cpu_jobs(jobs, workers) -> None:
+    """Start each (function, *arguments) of `jobs` in the process's pool
+    of `workers` worker processes (made at its first call)."""
     import multiprocessing
 
-    pool = multiprocessing.get_context("spawn").Pool(
-        CPU_WORKERS, initializer=_cpu_worker_init)
-    _CPU["pool"] = pool
+    if _CPU["pool"] is None:
+        _CPU["pool"] = multiprocessing.get_context("spawn").Pool(
+            workers, initializer=_cpu_worker_init)
     for fn, *args in jobs:
-        _CPU["jobs"][(fn.__name__, *args)] = pool.apply_async(fn, args)
+        _CPU["jobs"][(fn.__name__, *args)] = _CPU["pool"].apply_async(
+            fn, args)
 
 
 def _stop_cpu_jobs() -> None:
@@ -651,16 +901,18 @@ def _cpu_job(fn, *args):
     """fn(*args): the worker pool's result where it was started there,
     else computed here."""
     job = _CPU["jobs"].get((fn.__name__, *args))
-    return job.get() if job is not None else fn(*args)
+    return _pause(job.get) if job is not None else fn(*args)
 
 
 def _make_game(game):
-    """The problem of a CPU job: ("config", a bench config key) or
-    ("example", a registry name)."""
+    """The problem of a CPU job: ("config", a bench config key),
+    ("example", a registry name) or ("zoo", fused: a zoo game)."""
     import ilqgames_tpu_torch.examples as ex
     from ilqgames_tpu_torch import bench
 
     kind, name = game
+    if kind == "zoo":
+        return zoo_problem(name)
     return (bench.CONFIGS[name]["make"]() if kind == "config"
             else ex.get(name)())
 
@@ -734,6 +986,7 @@ def _compare(name, got, ref, tol):
     differ."""
     import torch
 
+    _pause()
     nan_g, nan_r = torch.isnan(got), torch.isnan(ref)
     if not torch.equal(nan_g, nan_r):
         _fail(f"{name}: NaN pattern differs from the plain version")
@@ -815,7 +1068,8 @@ def _entry(name, source, replaces, err, ms, plain_ms, nbytes, ops,
     once the path that runs it has run)."""
     bound_ms, bound_by = _bound(nbytes, ops)
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "max_abs_err": err, "ms": round(ms, 4),
+            "replaces": replaces, "max_abs_err": err,
+            "ms": ms if isinstance(ms, _Later) else round(ms, 4),
             "plain_ms": round(plain_ms, 4), "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": (None if library_ms is None
@@ -843,6 +1097,79 @@ def _time_ms(fn, reps, warm_s=0.2):
     return start.elapsed_time(stop) / reps
 
 
+# While two processes drive the card, each process times its kernels
+# later, once it has the card alone (`_time_later`): the card runs the
+# kernels of two processes in turns, so a kernel timed beside the other
+# process's launches would count some of them.
+_LATER = {"defer": False, "queue": [], "lines": []}
+
+
+class _Later:
+    """A kernel's time (`measure()`, ms), taken by `_time_later` into
+    `ms`."""
+
+    def __init__(self, measure):
+        self.measure, self.ms = measure, None
+
+
+def _timed(measure):
+    """measure() (a kernel's ms) now, or a `_Later` while the other
+    process drives the card."""
+    if not _LATER["defer"]:
+        return measure()
+    later = _Later(measure)
+    _LATER["queue"].append(later)
+    return later
+
+
+def _ms(t) -> float:
+    """A time from `_timed`, once taken."""
+    return t.ms if isinstance(t, _Later) else t
+
+
+def _hold_ms(fn):
+    """Ms per call of a held kernel (`_time_ms` after HOLD_WARM_S of
+    calls), now or later (`_timed`)."""
+    return _timed(lambda: _time_ms(fn, 20, HOLD_WARM_S))
+
+
+def _print_later(line) -> None:
+    """Print line() (which reads times from `_timed`) once they are
+    taken."""
+    if _LATER["defer"]:
+        _LATER["lines"].append(line)
+    else:
+        print(line(), flush=True)
+
+
+def _kernel_line(what, ms, knots, ptxas, graph_ms=None) -> str:
+    """Phase 2's line of a kernel's time (`_timed`'s, once taken) per
+    call and per knot, its time from a CUDA graph if given, its registers
+    and stack."""
+    graph = ("" if graph_ms is None else f"{1e3 * _ms(graph_ms):.3f} us a "
+             "launch from a CUDA graph; ")
+    return (f"# {what}: {_ms(ms):.4f} ms ({1e3 * _ms(ms) / knots:.3f} us "
+            f"per knot; {graph}registers {ptxas['registers']}, stack "
+            f"{ptxas['stack']} B)")
+
+
+def _time_later(entries) -> None:
+    """Take every deferred time in the order asked for, now that this
+    process has the card alone, put each into its entry, print the lines
+    that wait for them, and stop deferring."""
+    _LATER["defer"] = False
+    for later in _LATER["queue"]:
+        later.ms = later.measure()
+        later.measure = None
+    _LATER["queue"].clear()
+    for e in entries:
+        if isinstance(e["ms"], _Later):
+            e["ms"] = round(e["ms"].ms, 4)
+    for line in _LATER["lines"]:
+        print(line(), flush=True)
+    _LATER["lines"].clear()
+
+
 def _graph_ms(fn, n):
     """Mean ms per call of `fn` replayed from a CUDA graph of n calls:
     the device's time for its launches, without the host's steps between
@@ -860,6 +1187,7 @@ def _same_decisions(what, a, b):
     """failed, converged, done and AL mu of two carries exactly equal."""
     import torch
 
+    _pause()
     for name, x, y in (("failed", a.c.failed, b.c.failed),
                        ("converged", a.c.converged, b.c.converged),
                        ("done", a.done, b.done), ("AL mu", a.al.mu, b.al.mu)):
@@ -1282,18 +1610,21 @@ class _FirstLaunches:
     module: `seen[(name, shape)]` keeps a copy of the arguments of the
     wrapper's first launch at each shape and `tally` counts the launches
     per shape, to hold every (kernel, shape) that a run launched against
-    its plain version afterwards. The spies add to no wrapper's count."""
+    its plain version afterwards. The spies add to no wrapper's count.
+    With `alone` (a timed run), the run has the card alone (`_alone`)."""
 
-    def __init__(self):
+    def __init__(self, alone=True):
         import collections
 
         self.seen, self.tally = {}, collections.Counter()
         self._saved = []
+        self._alone = _alone() if alone else contextlib.nullcontext()
 
     def __enter__(self):
         import importlib
         import inspect
 
+        self._alone.__enter__()
         for name, (mod, attr, *_) in KERNEL_SITES.items():
             module = importlib.import_module(f"ilqgames_tpu_torch.ops.cuda."
                                              f"{mod}")
@@ -1306,6 +1637,7 @@ class _FirstLaunches:
         for module, attr, fn in self._saved:
             setattr(module, attr, fn)
         self._saved.clear()
+        self._alone.__exit__(*exc)
 
     def _spy(self, name, fn, sig):
         return _Spy(self, name, fn, sig)
@@ -1437,7 +1769,7 @@ def _hold_launches(cell, spy, launches, only=None, full=("K4",)):
                   for nm, (_, g), (_, w) in zip(names, got, _outputs(want)))
         entries.append(dict(_entry(
             f"{name} {label} ({shape}{depth}; {cell})", source, replaces, err,
-            _time_ms(lambda: fn(**a), 20, HOLD_WARM_S), plain_ms,
+            _hold_ms(functools.partial(fn, **a)), plain_ms,
             _launch_bytes(name, a, [g for _, g in got]), n_ops),
             launches=(spy.tally[(name, shape)] if launches is None
                       else launches[name])))
@@ -1597,7 +1929,9 @@ def _replanning_card_vs_cpu(name, game, sigma, dev):
     splicer's arrays bitwise equal."""
     import torch
 
-    card, card_trips, card_s = _replanning_run(_make_game(game), sigma, dev)
+    with _alone():
+        card, card_trips, card_s = _replanning_run(_make_game(game), sigma,
+                                                   dev)
     cpu, cpu_trips, cpu_s = _cpu_job(_cpu_replanning, game, sigma)
     for what, c in cpu.items():
         g = card[what]
@@ -1689,7 +2023,7 @@ def _hold_merits(cell, spy, problem, full=True):
             entries.append(dict(_entry(
                 f"{kname} {label} ({shape}{dep}; {cell}, held only: its xla "
                 "path does not launch it)", source, replaces, err,
-                _time_ms(lambda: fn(**args), 20, HOLD_WARM_S), plain_ms,
+                _hold_ms(functools.partial(fn, **args)), plain_ms,
                 _launch_bytes(kname, args, [got[kname]]), n_ops),
                 launches=0))
         k6_at = got["K6"] if not depth else sweep.consumer_merits(
@@ -1739,7 +2073,7 @@ def _trips_card_vs_cpu(name, game, config, fuse, dev,
                                         fuse, backend)
         fc = tree_map(lambda a: a.to(dev), cpu[0])
         bench.reset_launches()
-        with _FirstLaunches() as spy:
+        with _FirstLaunches(alone=False) as spy:
             for i in range(SMALL_TRIPS):
                 fc = trip(x0c.to(dev), fc)
                 if not against_cpu:
@@ -2242,7 +2576,7 @@ def _driving_golden(run, dev):
 
 
 def _later_libraries():
-    """Every kernel library that phases 8-16 load, so that phase 1 builds
+    """Every kernel library that phases 8-17 load, so that phase 1 builds
     them with the flagship's, one nvcc each, all at once (a library named
     twice is built once: `build._compile`)."""
     import ilqgames_tpu_torch.examples as ex
@@ -2259,6 +2593,9 @@ def _later_libraries():
         "three_player_intersection")().spec))
     for name in DRIVING_GAMES + REACH_GAMES + COUPLED_GAMES + FLAT_GAMES:
         g = ex.get(name)()
+        libs += bench.kernel_libraries(g.dynamics, g.spec, g.player_costs)
+    for fused in (True, False):
+        g = zoo_problem(fused)
         libs += bench.kernel_libraries(g.dynamics, g.spec, g.player_costs)
     return libs
 
@@ -3025,88 +3362,174 @@ def phase16(dev):
     return kernels
 
 
-def _cpu_jobs():
-    """The CPU side of every card-vs-CPU check: phase 3's two, phase 16's
-    two CLI runs (minutes each: they take two of the CPU_WORKERS workers
-    from then on), then the others in the order that the phases ask for
-    them."""
-    jobs = [(_cpu_flagship_trips, False), (_cpu_flagship_trips, True),
-            (_cpu_cli, CLI_HELD_MI), (_cpu_cli, CLI_HELD_RH),
-            (_cpu_replanning, ("example", "three_player_intersection"),
-             0.1)]
-    jobs += [(_cpu_trips, ("config", c), c, True) for c in (1, 2)]
-    jobs += [(_cpu_trips, ("config", 4), 4, False),
-             (_cpu_trips, ("config", 5), 5, True),
-             (_cpu_trips, ("config", 5), 5, False),
-             (_cpu_replanning, ("config", 5), 0.25),
-             (_cpu_trips, ("config", "dubins_ol"), "dubins_ol", False),
-             (_cpu_trips, ("config", "dubins_fb"), "dubins_fb", True),
-             (_cpu_trips, ("config", "roundabout"), "roundabout", True),
-             (_cpu_trips, ("example", DRIVING_GAMES[2]), "small", True),
-             (_cpu_trips, ("example", REACH_GAMES[0]), "small", True),
-             (_cpu_trips, ("config", "collision_reach"), "collision_reach",
-              True),
-             (_cpu_trips, ("example", REACH_GAMES[2]), "small", True),
-             (_cpu_trips, ("example", COUPLED_GAMES[0]), "small", True),
-             (_cpu_trips, ("config", "air3d"), "air3d", True),
-             (_cpu_golden, "flat_overtaking"),
-             (_cpu_trips, ("example", FLAT_GAMES[0]), "small", True),
-             (_cpu_trips, ("config", "flat_roundabout"), "flat_roundabout",
-              True)]
-    return jobs
+def _zoo_cell(cell, problem, fused, dev):
+    """One solve of ZOO_B instances of bench.py's draw (sigma 0.1) of a zoo
+    game on the plain host-stepped driver (lane blocks of 128, 20 trips a
+    dispatch, merit "xla"), its stages fused or not, the exec main's
+    parameters with at most ZOO_ITERS iterations; launch counters reset
+    just before. Returns (result, JSON fields, launches, spy)."""
+    import dataclasses
 
-
-def main():
-    t_main = time.perf_counter()
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device visible; nothing was run",
-              file=sys.stderr)
-        sys.exit(2)
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ilqgames_tpu_torch import bench
+    from ilqgames_tpu_torch.solver import batched
+
+    params = dataclasses.replace(bench.exec_main_params(),
+                                 max_solver_iters=ZOO_ITERS)
+    solver = batched.make_host_batched_solver(
+        problem.dynamics, problem.player_costs, problem.spec, params,
+        warm_op=problem.initial_operating_point(),
+        warm_strategy=problem.initial_strategy(), trips_per_call=20,
+        batch_block=128, fuse_stages=fused)
+    x0 = torch.tensor(bench.perturbed_x0(problem, ZOO_B), device=dev)
+    bench.reset_launches()
+    with _FirstLaunches() as spy:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = solver(x0)
+        torch.cuda.synchronize(dev)
+        elapsed = time.perf_counter() - t0
+    launches = bench.launches()
+    out = {"cell": cell, **bench.config_fields(res, ZOO_B, elapsed),
+           "fuse_stages": fused, "max_solver_iters": ZOO_ITERS,
+           **{k: solver.last_stats[k] for k in ("trips", "deep_rounds")},
+           "launches": launches}
+    print(json.dumps(out), flush=True)
+    xs = res.op.xs
+    if tuple(xs.shape) != (ZOO_B, problem.spec.num_time_steps,
+                           problem.spec.xdim):
+        _fail(f"{cell}: result shape {tuple(xs.shape)}")
+    if not bool(torch.isfinite(xs[res.converged]).all()):
+        _fail(f"{cell}: non-finite trajectory on a converged lane")
+    finite = float(torch.isfinite(xs).flatten(1).all(1).float().mean())
+    print(f"# {cell}: converged {out['converged']}, diverged_frac "
+          f"{out['diverged_frac']}, mean_iters {out['mean_iters']}, cost_p50 "
+          f"{out['cost_p50']}; {finite:.4f} of the lanes finite; "
+          f"{elapsed:.3f} s, {out['trips']} trips", flush=True)
+    return res, out, launches, spy
+
+
+def phase17(dev):
+    """The rest of the cost layer, on two games built from the flagship
+    (`zoo_player_costs`; x = 16, 3 x 2, N = 100): (a) their libraries
+    (built in phase 1: K1, K5 and K6 of the fused game with CT_ZOO, the
+    unfused game's K2-K4 only, its dense-only constraints having no device
+    form) and ptxas reports; (b) zoo_fused_256 (fused stages: K1 with the
+    new sparse pieces) and zoo_unfused_256 (unfused: the convex
+    proximities and the dense-only constraints in plain PyTorch; K1 never
+    launched), each one timed solve, every (kernel, shape) it launched held
+    against its plain version (each game's first K4 and the fused game's
+    first K5 at full depth), K5 and K6 at the linesearch shapes (the
+    unfused game's on its atoms, without the dense-only constraints); (c)
+    two trips of 8 lanes of each on the card against the CPU (the fused
+    game under every merit backend, the unfused one under "xla"),
+    bitwise. Returns the kernels-line entries."""
+    import dataclasses
+
+    from ilqgames_tpu_torch import bench
+    from ilqgames_tpu_torch.ops.cuda import sweep
+
+    games = {fused: zoo_problem(fused) for fused in (True, False)}
+    # (a) the libraries and their ptxas reports.
+    for fused, g in games.items():
+        bench.build_kernels(g.dynamics, g.spec, g.player_costs)
+        libs = bench.kernel_libraries(g.dynamics, g.spec, g.player_costs)
+        name = ZOO_GAMES[0 if fused else 1]
+        if not fused:
+            if [n for n, _ in libs] != ["lq", "sweep"]:
+                _fail(f"{name}: libraries {libs}")
+            continue
+        if not all(d.get("CT_ZOO") == 1 for n, d in libs
+                   if n in ("stage", "merit")) or libs[-1][1].get(
+                       "CT_ZOO") != 1:
+            _fail(f"{name}: K1, K5 or K6 built without CT_ZOO: {libs}")
+        for label, lib, kern, stack_ok in (
+                ("K1", libs[0], "stage_kernel", True),
+                ("K6", libs[2], "merit_kernel", False),
+                ("K5", libs[-1], "rollout_merit_warp_kernel", True)):
+            _ptxas(f"{label} ({name})", lib, kern, stack_ok)
+
+    kernels = []
+    for fused, g in games.items():
+        cell = f"{ZOO_GAMES[0 if fused else 1]}_{ZOO_B}"
+        _, out, launches, spy = _zoo_cell(cell, g, fused, dev)
+        if fused and launches["K1"] <= 0:
+            _fail(f"{cell}: K1 was not launched: {launches}")
+        if not fused and launches["K1"] != 0:
+            _fail(f"{cell}: K1 launched on an unfused game: {launches}")
+        if min(launches[k] for k in ("K2", "K3", "K4")) <= 0:
+            _fail(f"{cell}: a kernel of the path was not launched: "
+                  f"{launches}")
+        _check_k4_held(cell, spy, sweep.rollout_bm.by_shape)
+        kernels += _hold_launches(cell, spy, launches)
+        if fused:
+            kernels += _hold_merits(cell, spy, g)
+        else:
+            atoms = dataclasses.replace(g, player_costs=tuple(
+                dataclasses.replace(p, state_constraints=tuple(
+                    c for c in p.state_constraints
+                    if c.al_quad_pairs_fn is not None))
+                for p in g.player_costs))
+            kernels += _hold_merits(f"{cell}'s atoms", spy, atoms,
+                                    full=False)
+
+    # (c) trips on the card against the CPU.
+    kernels += _trips_card_vs_cpu(ZOO_GAMES[0], ("zoo", True), "small",
+                                  True, dev)
+    kernels += _trips_card_vs_cpu(ZOO_GAMES[1], ("zoo", False), "small",
+                                  False, dev, backends=("xla",))
+    return kernels
+
+
+def _cpu_jobs(phases=None):
+    """The CPU side of every card-vs-CPU check of `phases` (all of them if
+    None): phase 3's two, phase 16's two CLI runs (minutes each: they take
+    two of the workers from then on), then the others in the order that
+    the phases ask for them."""
+    jobs = [(3, _cpu_flagship_trips, False), (3, _cpu_flagship_trips, True),
+            (16, _cpu_cli, CLI_HELD_MI), (16, _cpu_cli, CLI_HELD_RH),
+            (7, _cpu_replanning, ("example", "three_player_intersection"),
+             0.1)]
+    jobs += [(8, _cpu_trips, ("config", c), c, True) for c in (1, 2)]
+    jobs += [(9, _cpu_trips, ("config", 4), 4, False),
+             (10, _cpu_trips, ("config", 5), 5, True),
+             (10, _cpu_trips, ("config", 5), 5, False),
+             (10, _cpu_replanning, ("config", 5), 0.25),
+             (11, _cpu_trips, ("config", "dubins_ol"), "dubins_ol", False),
+             (11, _cpu_trips, ("config", "dubins_fb"), "dubins_fb", True),
+             (12, _cpu_trips, ("config", "roundabout"), "roundabout", True),
+             (12, _cpu_trips, ("example", DRIVING_GAMES[2]), "small", True),
+             (13, _cpu_trips, ("example", REACH_GAMES[0]), "small", True),
+             (13, _cpu_trips, ("config", "collision_reach"),
+              "collision_reach", True),
+             (13, _cpu_trips, ("example", REACH_GAMES[2]), "small", True),
+             (14, _cpu_trips, ("example", COUPLED_GAMES[0]), "small", True),
+             (14, _cpu_trips, ("config", "air3d"), "air3d", True),
+             (15, _cpu_golden, "flat_overtaking"),
+             (15, _cpu_trips, ("example", FLAT_GAMES[0]), "small", True),
+             (15, _cpu_trips, ("config", "flat_roundabout"),
+              "flat_roundabout", True),
+             (17, _cpu_trips, ("zoo", True), "small", True),
+             (17, _cpu_trips, ("zoo", False), "small", False)]
+    return [tuple(job) for n, *job in jobs if phases is None or n in phases]
+
+
+def phase2(problem, dev):
+    """Each kernel against its plain version on the card, on operands from
+    a real flagship stage, at the main path's shapes (see the module's
+    docstring). Returns the kernels-line entries (their launches are set
+    once phases 3 and 5 have run the main path)."""
+    import torch
+
     from ilqgames_tpu_torch import bench
     from ilqgames_tpu_torch.dynamics import base as dyn_base
-    from ilqgames_tpu_torch.examples.three_player_intersection import \
-        make_problem
-    from ilqgames_tpu_torch.ops.cuda import build, lq, probes, stage, sweep
+    from ilqgames_tpu_torch.ops.cuda import lq, stage, sweep
     from ilqgames_tpu_torch.solver import batched
     from ilqgames_tpu_torch.solver.al import constraint_violations
-    from ilqgames_tpu_torch.types import tree_map
 
-    dev = torch.device("cuda")
-    bench.set_precision()
-    card = _card_line()
-    print(f"# card: {card}", flush=True)
-
-    t_start = time.perf_counter()
-    ends = [t_start]
-
-    def elapsed(n):
-        """Print when phase n ended and how long it took."""
-        ends.append(time.perf_counter())
-        print(f"# phase {n} ended at {ends[-1] - t_start:.1f} s, took "
-              f"{ends[-1] - ends[-2]:.1f} s", flush=True)
-
-    # ---- phase 1: build ----
-    problem = make_problem()
     spec = problem.spec
     dyn, costs = problem.dynamics, problem.player_costs
-    t0 = time.perf_counter()
-    later = _later_libraries()
-    build.compile_all([stage.library(spec), lq.library(spec),
-                       sweep.library(dyn, spec), sweep.merit_library(spec),
-                       probes.library(spec)] + later)
-    bench.build_kernels(dyn, spec)
-    probes.load_kernels(spec)
-    print(f"# build: {time.perf_counter() - t0:.1f} s (concurrent nvcc: "
-          f"csrc/stage.cu, lq.cu, sweep.cu, merit.cu, probes.cu at the "
-          f"flagship's dims and {len(later)} libraries of phases 8-16)",
-          flush=True)
-    _start_cpu_jobs(_cpu_jobs())
-    elapsed(1)
-
-    # ---- phase 2: each kernel against its plain version ----
     B = 1024
     params = bench.exec_main_params()
     x0 = torch.tensor(bench.perturbed_x0(problem, B), device=dev)
@@ -3123,6 +3546,10 @@ def main():
     def entry(*args):
         kernels.append(_entry(*args))
 
+    def timed(fn, reps=20):
+        """fn's ms per call (`_time_ms`), now or later (`_timed`)."""
+        return _timed(functools.partial(_time_ms, fn, reps))
+
     _ptxas("K2", lq.library(spec), "lq_backward_kernel")
     Ps_k, al_k = lq.lq_backward(spec, ops)
     (Ps_p, al_p), plain_ms, n_ops = _plain_run(lq.lq_backward_plain, spec,
@@ -3131,7 +3558,7 @@ def main():
               _compare("K2 alphas", al_k, al_p, TOL["K2"]))
     entry("K2 lq_backward (B=1024)", "ilqgames_tpu_torch/csrc/lq.cu",
           "ilqgames_tpu/ops/pallas/lq.py:82", err,
-          _time_ms(lambda: lq.lq_backward(spec, ops), 10),
+          timed(lambda: lq.lq_backward(spec, ops), 10),
           plain_ms,
           # Knot N-1 of A, Bf, Rf and rf is never read: it is the
           # terminal condition, Qf and lf only.
@@ -3147,11 +3574,9 @@ def main():
         dxs_k = lq.lq_forward(*args)
         dxs_p, plain_ms, n_ops = _plain_run(lq.lq_forward_plain, *args)
         err = _compare(f"K3 dxs B={Bk}", dxs_k, dxs_p, TOL["K3"])
-        ms = _time_ms(lambda: lq.lq_forward(*args), 20)
-        knots = spec.num_time_steps - 1
-        print(f"# K3 B={Bk}: {ms:.4f} ms ({1e3 * ms / knots:.3f} us per "
-              f"knot; registers {k3_ptxas['registers']}, stack "
-              f"{k3_ptxas['stack']} B)", flush=True)
+        ms = timed(lambda: lq.lq_forward(*args))
+        _print_later(functools.partial(_kernel_line, f"K3 B={Bk}", ms,
+                                       spec.num_time_steps - 1, k3_ptxas))
         entry(f"K3 lq_forward (B={Bk})", "ilqgames_tpu_torch/csrc/lq.cu",
               "ilqgames_tpu/ops/pallas/lq.py:254", err, ms,
               plain_ms,
@@ -3187,11 +3612,11 @@ def main():
         names = ("xs", "us")
         err = max(_compare(f"K4 {nm} {shape}", g, w, TOL["K4"])
                   for nm, (_, g), (_, w) in zip(names, got, want))
-        ms_k4 = _time_ms(lambda: sweep.rollout_bm(*args, emit_us=emit), 20)
+        ms_k4 = timed(functools.partial(sweep.rollout_bm, *args,
+                                        emit_us=emit))
         N = spec.num_time_steps
-        print(f"# K4 {shape}: {ms_k4:.4f} ms ({1e3 * ms_k4 / N:.3f} us per "
-              f"knot; registers {k4_ptxas['registers']}, stack "
-              f"{k4_ptxas['stack']} B)", flush=True)
+        _print_later(functools.partial(_kernel_line, f"K4 {shape}", ms_k4, N,
+                                       k4_ptxas))
         entry(f"K4 rollout ({shape})", "ilqgames_tpu_torch/csrc/sweep.cu",
               "ilqgames_tpu/ops/pallas/sweep.py:176", err, ms_k4,
               plain_ms, _nbytes(args[2], _read(args[3]), args[4:],
@@ -3211,7 +3636,7 @@ def main():
               for name in ops_p)
     entry(f"K1 lin_quad (B={B1})", "ilqgames_tpu_torch/csrc/stage.cu",
           "ilqgames_tpu/ops/pallas/stage.py:65", err,
-          _time_ms(lambda: stage.lin_quad(*k1_args), 20),
+          timed(lambda: stage.lin_quad(*k1_args)),
           plain_ms,
           _nbytes(op1, k1_args[4:], ops_k), n_ops)
 
@@ -3238,10 +3663,9 @@ def main():
         m5_p, plain_ms, n_ops = _plain_run(sweep.rollout_merits_plain,
                                            *k5_args)
         err = _compare(f"K5 merits C={C} B={Bk}", m5_k, m5_p, TOL["K5"])
-        ms_k5 = _time_ms(lambda: sweep.rollout_merits(*k5_args), 20)
-        print(f"# K5 C={C}, B={Bk}: {ms_k5:.4f} ms ({1e3 * ms_k5 / N:.3f} "
-              f"us per knot; registers {k5_ptxas['registers']}, stack "
-              f"{k5_ptxas['stack']} B)", flush=True)
+        ms_k5 = timed(functools.partial(sweep.rollout_merits, *k5_args))
+        _print_later(functools.partial(_kernel_line, f"K5 C={C}, B={Bk}",
+                                       ms_k5, N, k5_ptxas))
         entry(f"K5 rollout+merit (C={C}, B={Bk})",
               "ilqgames_tpu_torch/csrc/sweep.cu",
               "ilqgames_tpu/ops/pallas/sweep.py:176", err, ms_k5,
@@ -3256,12 +3680,11 @@ def main():
         m6_k = sweep.consumer_merits(*k6_args)
         m6_p, plain_ms, n_ops = _plain_run(sweep.merit_plain, *k6_args)
         err = _compare(f"K6 merits C={C} B={Bk}", m6_k, m6_p, TOL["K6"])
-        ms_k6 = _time_ms(lambda: sweep.consumer_merits(*k6_args), 20)
-        graph_ms = _graph_ms(lambda: sweep.consumer_merits(*k6_args), 20)
-        print(f"# K6 C={C}, B={Bk}: {ms_k6:.4f} ms ({1e3 * ms_k6 / N:.3f} "
-              f"us per knot; {1e3 * graph_ms:.3f} us a launch from a CUDA "
-              f"graph; registers {k6_ptxas['registers']}, stack "
-              f"{k6_ptxas['stack']} B)", flush=True)
+        k6 = functools.partial(sweep.consumer_merits, *k6_args)
+        ms_k6 = timed(k6)
+        graph_ms = _timed(functools.partial(_graph_ms, k6, 20))
+        _print_later(functools.partial(_kernel_line, f"K6 C={C}, B={Bk}",
+                                       ms_k6, N, k6_ptxas, graph_ms))
         entry(f"K6 merit consumer (C={C}, B={Bk})",
               "ilqgames_tpu_torch/csrc/merit.cu",
               "ilqgames_tpu/ops/pallas/sweep.py:395", err, ms_k6,
@@ -3271,6 +3694,173 @@ def main():
         print(f"# K5 == K4 + K6 bitwise (C={C}, B={Bk}): {same}", flush=True)
         if not same:
             _fail(f"K5 and K4 + K6 disagree at C={C}, B={Bk}")
+    return kernels
+
+
+def _phase_line(n, t_start, t0, who="") -> None:
+    """Print when phase n ended (seconds since `t_start`, the script's
+    start of phase 1, on the wall clock that both processes read), how
+    long it took since t0 and how much of that it waited for the other
+    process's runs alone."""
+    _pause()
+    now = time.time()
+    waited = _WAITED["total"] - _WAITED["mark"]
+    _WAITED["mark"] = _WAITED["total"]
+    print(f"# phase {n} ended at {now - t_start:.1f} s, took "
+          f"{now - t0:.1f} s{who}, {waited:.1f} s of it waiting for the "
+          "other process's runs alone", flush=True)
+
+
+def _second(conn, out_path, t_start, locks):
+    """The second process (`_start_second`): SECOND_PHASES on the card,
+    their CPU jobs in SECOND_WORKERS workers, its lines into `out_path`;
+    `locks` (alone, its busy, the script's busy) make its `_Pair`. When
+    its phases have ended it says "done", and once told the card is its
+    alone it times its kernels (`_time_later`) and sends {phase:
+    kernels-line entries}."""
+    import multiprocessing
+    import signal
+
+    import torch
+
+    from ilqgames_tpu_torch import bench
+
+    signal.signal(signal.SIGTERM, lambda *_: (_stop_children(), os._exit(1)))
+    sys.stdout = open(out_path, "w", buffering=1)
+    parent = multiprocessing.parent_process()
+    _PAIR[0] = _Pair(*locks, parent.is_alive)
+    _PAIR[0]._take(locks[1])
+    bench.set_precision()
+    dev = torch.device("cuda")
+    _start_cpu_jobs(_cpu_jobs(SECOND_PHASES), SECOND_WORKERS)
+    _LATER["defer"] = True
+    run = {11: phase11, 12: phase12, 13: phase13, 14: phase14, 15: phase15,
+           17: phase17}
+    out = {}
+    for n in SECOND_PHASES:
+        t0 = time.time()
+        out[n] = run[n](dev)
+        _phase_line(n, t_start, t0, " (second process)")
+    _pair_done()
+    _stop_cpu_jobs()
+    conn.send("done")
+    conn.recv()
+    t0 = time.time()
+    _time_later([e for es in out.values() for e in es])
+    print(f"# second process: its kernels timed with the card alone in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    conn.send(out)
+
+
+def _start_second(t_start):
+    """Start `_second` (spawned: it reaches the card on its own), make this
+    process's `_Pair` with it, and return the script's end of their
+    pipe."""
+    import multiprocessing
+    import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    conn, child = ctx.Pipe()
+    fd, out_path = tempfile.mkstemp(prefix="chip_smoke_second_",
+                                    suffix=".log")
+    os.close(fd)
+    alone, busy, other = ctx.Lock(), ctx.Lock(), ctx.Lock()
+    busy.acquire()
+    _SECOND["proc"] = ctx.Process(target=_second, args=(
+        child, out_path, t_start, (alone, other, busy)))
+    _SECOND["proc"].start()
+    child.close()
+    _SECOND["out"] = out_path
+    _PAIR[0] = _Pair(alone, busy, other, _SECOND["proc"].is_alive)
+    return conn
+
+
+def _join_second(conn) -> dict:
+    """Wait for the second process's phases, let it time its holds' kernels
+    with the card alone, print its lines and return its {phase:
+    kernels-line entries}; fail if it failed."""
+    proc, out_path = _SECOND["proc"], _SECOND["out"]
+    try:
+        conn.recv()
+        conn.send("time")
+        out = conn.recv()
+    except (EOFError, OSError):
+        out = None
+    proc.join()
+    _SECOND["proc"] = None
+    with open(out_path) as f:
+        sys.stdout.write(f.read())
+    sys.stdout.flush()
+    os.remove(out_path)
+    if out is None or proc.exitcode != 0:
+        _fail(f"the second process (phases {SECOND_PHASES}) failed: exit "
+              f"code {proc.exitcode}")
+    return out
+
+
+def main():
+    t_main = time.time()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible; nothing was run",
+              file=sys.stderr)
+        sys.exit(2)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ilqgames_tpu_torch import bench
+    from ilqgames_tpu_torch.dynamics import base as dyn_base
+    from ilqgames_tpu_torch.examples.three_player_intersection import \
+        make_problem
+    from ilqgames_tpu_torch.ops.cuda import build, lq, probes, stage, sweep
+    from ilqgames_tpu_torch.solver import batched
+    from ilqgames_tpu_torch.solver.al import constraint_violations
+    from ilqgames_tpu_torch.types import tree_map
+
+    dev = torch.device("cuda")
+    bench.set_precision()
+    card = _card_line()
+    print(f"# card: {card}", flush=True)
+
+    t_start = time.time()
+    ends = [t_start]
+
+    def elapsed(n):
+        """Print when phase n ended and how long it took."""
+        ends.append(time.time())
+        _phase_line(n, t_start, ends[-2])
+
+    # ---- phase 1: build ----
+    problem = make_problem()
+    spec = problem.spec
+    dyn, costs = problem.dynamics, problem.player_costs
+    t0 = time.perf_counter()
+    # Phase 16's two CLI runs on the CPU take minutes each (one thread
+    # each): they start before the build, the other CPU jobs after it.
+    own = _cpu_jobs(set(range(18)) - set(SECOND_PHASES))
+    _start_cpu_jobs([j for j in own if j[0] is _cpu_cli], CPU_WORKERS)
+    later = _later_libraries()
+    build.compile_all([stage.library(spec), lq.library(spec),
+                       sweep.library(dyn, spec), sweep.merit_library(spec),
+                       probes.library(spec)] + later)
+    bench.build_kernels(dyn, spec)
+    probes.load_kernels(spec)
+    print(f"# build: {time.perf_counter() - t0:.1f} s (concurrent nvcc: "
+          f"csrc/stage.cu, lq.cu, sweep.cu, merit.cu, probes.cu at the "
+          f"flagship's dims and {len(later)} libraries of phases 8-17)",
+          flush=True)
+    _start_cpu_jobs([j for j in own if j[0] is not _cpu_cli], CPU_WORKERS)
+    conn = _start_second(t_start)
+    _LATER["defer"] = True
+    elapsed(1)
+
+    # ---- phase 2: each kernel against its plain version ----
+    kernels = phase2(problem, dev)
+    B = 1024
+    params = bench.exec_main_params()
+
+    def carry0(x, fuse):
+        return batched._fresh_init(dyn, costs, spec, None, None, 128,
+                                   fuse)(x)
 
     elapsed(2)
 
@@ -3335,7 +3925,9 @@ def main():
 
     # ---- phase 4: the plain driver at B=1024, unfused stages ----
     bench.reset_launches()
-    res, out = bench.run_bench(B, dev, driver="plain", fuse_stages=False)
+    with _alone():
+        res, out = bench.run_bench(B, dev, driver="plain",
+                                   fuse_stages=False)
     launches = bench.launches()
     print(json.dumps(out), flush=True)
     N, X = spec.num_time_steps, spec.xdim
@@ -3346,10 +3938,11 @@ def main():
 
     # ---- phase 5: the bench's queue path, QUEUE_TOTAL through 2048 ----
     bench.reset_launches()
-    t0 = time.perf_counter()
-    res, out = bench.run_bench(2048, dev, driver="queue", total=QUEUE_TOTAL,
-                               harvest_block=32, trips_per_call=10,
-                               fuse_stages=True)
+    with _alone():
+        t0 = time.perf_counter()
+        res, out = bench.run_bench(2048, dev, driver="queue",
+                                   total=QUEUE_TOTAL, harvest_block=32,
+                                   trips_per_call=10, fuse_stages=True)
     launches = bench.launches()
     print(f"# queue: {out['dispatches']} dispatches, {out['harvests']} "
           f"harvests, {out['compactions']} compactions, {out['trips']} "
@@ -3370,52 +3963,26 @@ def main():
 
     elapsed(5)
 
-    # ---- phase 6: the probes ----
-    kernels += phase6(dyn, spec, dev)
+    # ---- phases 7-10 and 16 here, 11-15 and 17 in the second process ----
+    entries = {2: kernels}
+    for n, run in ((7, functools.partial(phase7, problem)), (8, phase8),
+                   (9, phase9), (10, phase10), (16, phase16)):
+        entries[n] = run(dev)
+        elapsed(n)
+    _pair_done()
+    entries.update(_join_second(conn))
+    _time_later([e for es in entries.values() for e in es])
+    ends.append(time.time())
+    print(f"# at {ends[-1] - t_start:.1f} s: the second process's phases "
+          "joined, every kernel timed with the card alone", flush=True)
+
+    # ---- phase 6: the probes, with the card alone ----
+    entries[6] = phase6(dyn, spec, dev)
     elapsed(6)
-
-    # ---- phase 7: the replanning path ----
-    kernels += phase7(problem, dev)
-    elapsed(7)
-
-    # ---- phase 8: the unconstrained games ----
-    kernels += phase8(dev)
-    elapsed(8)
-
-    # ---- phase 9: the flat intersection, unfused ----
-    kernels += phase9(dev)
-    elapsed(9)
-
-    # ---- phase 10: receding-horizon reachability ----
-    kernels += phase10(dev)
-    elapsed(10)
-
-    # ---- phase 11: open-loop Nash on dubins_origin ----
-    kernels += phase11(dev)
-    elapsed(11)
-
-    # ---- phase 12: the driving games ----
-    kernels += phase12(dev)
-    elapsed(12)
-
-    # ---- phase 13: the first half of the reachability family ----
-    kernels += phase13(dev)
-    elapsed(13)
-
-    # ---- phase 14: the coupled reachability games ----
-    kernels += phase14(dev)
-    elapsed(14)
-
-    # ---- phase 15: the flat driving games ----
-    kernels += phase15(dev)
-    elapsed(15)
-
-    # ---- phase 16: the per-instance entry point, the CLI ----
-    kernels += phase16(dev)
-    elapsed(16)
     _stop_cpu_jobs()
+    kernels = [e for n in sorted(entries) for e in entries[n]]
 
-    print(f"# total: {time.perf_counter() - t_main:.1f} s", flush=True)
+    print(f"# total: {time.time() - t_main:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

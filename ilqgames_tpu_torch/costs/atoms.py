@@ -25,12 +25,14 @@ kernel's plain version and the merits, as in the JAX package; only
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from ilqgames_tpu_torch import fmath, geometry
-from ilqgames_tpu_torch.costs.base import Cost, extreme_index
+from ilqgames_tpu_torch.costs.base import Cost, assemble_matrix, \
+    assemble_vector, extreme_index
 
 _EPS = 1e-12
 
@@ -219,8 +221,10 @@ def quadratic_difference(weight: float, dims1, dims2,
     d_i = v[dims1[i]] - v[dims2[i]] (the 0.0 is the scatter into the
     support's zeros: a zero gradient is +0); the Hessian over every
     (support, support) pair, w on the diagonal, -w between dims1[i] and
-    dims2[i], +0 elsewhere, whatever v is. Its device form takes two
-    differences (the position pairs of every reference game)."""
+    dims2[i], +0 elsewhere, whatever v is. Its device form at two
+    differences (the position pairs of every reference game) is the
+    kernels' CT_DIFF atom; at any other count a header row and a row per
+    difference (CT_ZOO)."""
     d1, d2 = tuple(dims1), tuple(dims2)
     if len(d1) != len(d2):
         raise ValueError("dims1 and dims2 differ in length")
@@ -258,9 +262,11 @@ def quadratic_difference(weight: float, dims1, dims2,
               for r in range(2 * n) for c in range(2 * n)]
         return hp, grad_pairs(t, v)
 
-    device = None
     if n == 2:
         device = ("quadratic_difference", {"dims": support, "weight": weight})
+    else:
+        device = ("quadratic_difference_n", {"dims1": d1, "dims2": d2,
+                                             "weight": weight})
     return Cost(name, evaluate, grad_pairs, quad_pairs, device=device)
 
 
@@ -436,6 +442,42 @@ def polyline2_signed_distance(points, xidx: int, yidx: int,
                     "nominal": nominal, "flip": flip}))
 
 
+def _distance_quad(coef: float, dims1, dims2, dx, dy, ssq):
+    """What the JAX package's autodiff over the support (x1, y1, x2, y2)
+    of coef * ||p1 - p2|| (the norm clamped at EPS) gives, as XLA
+    compiles the forward-over-reverse pass: (Hessian pairs, gradient
+    pairs) over every (support, support) pair in support order. With D,
+    E the differences, m the clamped squared norm, w the clamp's
+    derivative (1 above EPS, 1/2 at it, 0 below), q = 0.5 / sqrt(m) and
+    c = (q * coef) * w, the gradient is 2 c (D, E) and the Hessian's
+    block on one point 2 (c [Z == col] + Z t(col)) for row Z in (D, E),
+    with t(col) = ((-((2 col w) q)) (0.5 / m)) (w * coef); -block across
+    the points. Every division is of two tensors."""
+    x1, y1 = dims1
+    x2, y2 = dims2
+    m = torch.clamp_min(ssq, _EPS)
+    w = torch.where(ssq > _EPS, 1.0, torch.where(ssq == _EPS, 0.5, 0.0))
+    q = torch.full_like(m, 0.5) / fmath.sqrt(m)
+    half_inv = 0.5 * (torch.ones_like(m) / m)
+    c = (q * coef) * w
+    ws = w * coef
+
+    def tc(z):
+        return (-(((z + z) * w) * q) * half_inv) * ws
+
+    tx, ty = tc(dx), tc(dy)
+    a = c + dx * tx
+    b = c + dy * ty
+    h = {(0, 0): a + a, (1, 1): b + b, (0, 1): dx * ty + dx * ty,
+         (1, 0): dy * tx + dy * tx}
+    support = ((x1, 0, 1.0), (y1, 1, 1.0), (x2, 0, -1.0), (y2, 1, -1.0))
+    hp = [((i, j), h[(ra, cb)] if si * sj > 0 else -h[(ra, cb)])
+          for i, ra, si in support for j, cb, sj in support]
+    gx = dx * c + dx * c
+    gy = dy * c + dy * c
+    return hp, [(x1, gx), (y1, gy), (x2, -gx), (y2, -gy)]
+
+
 def signed_distance(dims1, dims2, nominal: float = 0.0,
                     less_is_positive: bool = True,
                     name: str = "signed_distance") -> Cost:
@@ -452,7 +494,7 @@ def signed_distance(dims1, dims2, nominal: float = 0.0,
     2 (c [Z == col] + Z t(col)) for row Z in (D, E), with
     t(col) = ((-((2 col w) q)) (0.5 / m)) (w * -s), as XLA compiles the
     forward-over-reverse pass; -block across the points. Every division
-    is of two tensors."""
+    is of two tensors (`_distance_quad` with coef -s)."""
     s = 1.0 if less_is_positive else -1.0
     x1, y1 = dims1
     x2, y2 = dims2
@@ -478,32 +520,40 @@ def signed_distance(dims1, dims2, nominal: float = 0.0,
         return [(x1, gx), (y1, gy), (x2, -gx), (y2, -gy)]
 
     def quad_pairs(t, v):
-        dx, dy, ssq = _diff(v)
-        m = torch.clamp_min(ssq, _EPS)
-        w = torch.where(ssq > _EPS, 1.0, torch.where(ssq == _EPS, 0.5, 0.0))
-        q = torch.full_like(m, 0.5) / fmath.sqrt(m)
-        half_inv = 0.5 * (torch.ones_like(m) / m)
-        c = (q * -s) * w
-        ws = w * -s
-
-        def tc(z):
-            return (-(((z + z) * w) * q) * half_inv) * ws
-
-        tx, ty = tc(dx), tc(dy)
-        a = c + dx * tx
-        b = c + dy * ty
-        h = {(0, 0): a + a, (1, 1): b + b, (0, 1): dx * ty + dx * ty,
-             (1, 0): dy * tx + dy * tx}
-        support = ((x1, 0, 1.0), (y1, 1, 1.0), (x2, 0, -1.0), (y2, 1, -1.0))
-        hp = [((i, j), h[(ra, cb)] if si * sj > 0 else -h[(ra, cb)])
-              for i, ra, si in support for j, cb, sj in support]
-        gx = dx * c + dx * c
-        gy = dy * c + dy * c
-        return hp, [(x1, gx), (y1, gy), (x2, -gx), (y2, -gy)]
+        return _distance_quad(-s, dims1, dims2, *_diff(v))
 
     return Cost(name, evaluate, grad_pairs, quad_pairs,
                 device=("signed_distance", {"dims": (x1, y1, x2, y2),
                                             "nominal": nominal, "sign": s}))
+
+
+def relative_distance(weight: float, dims1, dims2,
+                      name: str = "relative_distance") -> Cost:
+    """w * ||p1 - p2||, the norm clamped at EPS. The JAX package
+    differentiates it by autodiff over the support (x1, y1, x2, y2), its
+    merit gradient too: both are `_distance_quad`'s with coef w, as the
+    signed distance's quadraticization is with coef -s."""
+    x1, y1 = dims1
+    x2, y2 = dims2
+
+    def _diff(v):
+        dx = v[..., x1] - v[..., x2]
+        dy = v[..., y1] - v[..., y2]
+        return dx, dy, dx * dx + dy * dy
+
+    def evaluate(t, v):
+        _, _, ssq = _diff(v)
+        return weight * fmath.sqrt(torch.clamp_min(ssq, _EPS))
+
+    def quad_pairs(t, v):
+        return _distance_quad(weight, dims1, dims2, *_diff(v))
+
+    def grad_pairs(t, v):
+        return quad_pairs(t, v)[1]
+
+    return Cost(name, evaluate, grad_pairs, quad_pairs,
+                device=("relative_distance", {"dims": (x1, y1, x2, y2),
+                                              "weight": weight}))
 
 
 def extreme_value(costs, is_min: bool, name: str = "extreme_value") -> Cost:
@@ -656,10 +706,262 @@ def route_progress(weight: float, points, xidx: int, yidx: int,
                     "initial_route_pos": initial_route_pos}))
 
 
+def nominal_path_length(weight: float, dim: int, nominal_speed: float,
+                        name: str = "nominal_path_length") -> Cost:
+    """0.5*w*(v[dim] - t*v_nom)^2: a pull toward the path length that
+    the nominal speed covers by time t. Its merit gradient is the JAX
+    package's `grad_pairs`, w * delta; its quadraticization what the JAX
+    package's autodiff over the support (dim,) gives: the gradient p + p
+    with p = (0.5 w) * delta, the Hessian c + c (c = 0.5 w)."""
+    half = 0.5 * weight
+
+    def delta(t, v):
+        return v[..., dim] - t * nominal_speed
+
+    def evaluate(t, v):
+        d = delta(t, v)
+        return half * d * d
+
+    def grad_pairs(t, v):
+        return [(dim, weight * delta(t, v))]
+
+    def quad_pairs(t, v):
+        p = half * delta(t, v)
+        return [((dim, dim), torch.full_like(p, half) + half)], [(dim, p + p)]
+
+    return Cost(name, evaluate, grad_pairs, quad_pairs,
+                device=("nominal_path_length", {
+                    "dim": dim, "weight": weight,
+                    "nominal_speed": nominal_speed}))
+
+
+def curvature(weight: float, omega_idx: int, v_idx: int,
+              name: str = "curvature") -> Cost:
+    """0.5*w*(omega/v)^2. The JAX package differentiates it by autodiff
+    over the support (omega_idx, v_idx); the pairs here are that pass's
+    operations, as XLA compiles them. With q = omega / v, r = 1 / (v v)
+    (integer_pow(v, -2)) and g = (0.5 w) q + (0.5 w) q, the gradient is
+    g / v at omega and -((g r) omega) at v; the Hessian is the forward
+    pass of those operations along each support direction, zero tangents
+    included, so that where v is 0 every entry is NaN (0 / 0 and 0 * inf
+    there) as in the JAX package."""
+    half = 0.5 * weight
+
+    def grad_terms(v):
+        o, s = v[..., omega_idx], v[..., v_idx]
+        q = o / s
+        r = torch.ones_like(s) / (s * s)
+        g = half * q + half * q
+        return o, s, q, r, g
+
+    def evaluate(t, v):
+        c = v[..., omega_idx] / v[..., v_idx]
+        return half * c * c
+
+    def grad_pairs(t, v):
+        o, s, _, r, g = grad_terms(v)
+        return [(omega_idx, 0.0 + g / s), (v_idx, -((g * r) * o) + 0.0)]
+
+    def quad_pairs(t, v):
+        o, s, _, r, g = grad_terms(v)
+        r3 = torch.ones_like(s) / (s * s * s)
+        x = g * r
+
+        def tangent(do, dv):
+            """The forward pass of the gradient's operations along the
+            support direction (do, dv)."""
+            do = torch.full_like(s, do)
+            dv = torch.full_like(s, dv)
+            dq = do / s + ((-dv) * o) * r
+            dg = half * dq + half * dq
+            dr = dv * (-2.0 * r3)
+            d_go = dg / s + ((-dv) * g) * r
+            d_gv = -((dg * r + g * dr) * o + x * do)
+            return d_go, d_gv
+
+        (h00, h10), (h01, h11) = tangent(1.0, 0.0), tangent(0.0, 1.0)
+        hp = [((omega_idx, omega_idx), h00), ((omega_idx, v_idx), h01),
+              ((v_idx, omega_idx), h10), ((v_idx, v_idx), h11)]
+        return hp, grad_pairs(t, v)
+
+    return Cost(name, evaluate, grad_pairs, quad_pairs,
+                device=("curvature", {"dims": (omega_idx, v_idx),
+                                      "weight": weight}))
+
+
+def orientation(weight: float, dim: int, nominal: float,
+                name: str = "orientation") -> Cost:
+    """0.5*w*wrap(v[dim] - nominal)^2, the angle wrapped by a C-style
+    fmod: fmod((v - nominal) + pi, 2 pi) - pi in float32, as the JAX
+    package computes it. Autodiff over the support (dim,) in the JAX
+    package: the gradient p + p with p = (0.5 w) * wrap, the Hessian
+    c + c (c = 0.5 w; fmod's derivative is 1)."""
+    half = 0.5 * weight
+
+    def wrap(v):
+        return torch.fmod(v[..., dim] - nominal + math.pi,
+                          2.0 * math.pi) - math.pi
+
+    def evaluate(t, v):
+        d = wrap(v)
+        return half * d * d
+
+    def grad_pairs(t, v):
+        p = half * wrap(v)
+        return [(dim, p + p)]
+
+    def quad_pairs(t, v):
+        p = half * wrap(v)
+        return [((dim, dim), torch.full_like(p, half) + half)], [(dim, p + p)]
+
+    return Cost(name, evaluate, grad_pairs, quad_pairs,
+                device=("orientation", {"dim": dim, "weight": weight,
+                                        "nominal": nominal}))
+
+
+def _convex_branches(x1, y1, x2, y2, threshold, v):
+    """The convex proximities' shared geometry: (dx, dy, inactive,
+    delta_x, delta_y, is_x_active), as the JAX package computes it."""
+    threshold_sq = threshold * threshold
+    dx = v[..., x1] - v[..., x2]
+    dy = v[..., y1] - v[..., y2]
+    inactive = (dx * dx >= threshold_sq) | (dy * dy >= threshold_sq)
+    delta_x = threshold - torch.abs(dx)
+    delta_y = threshold - torch.abs(dy)
+    return (dx, dy, inactive, delta_x, delta_y,
+            delta_x * delta_x < delta_y * delta_y)
+
+
+def _convex_dense(v, inactive, is_x, x_branch, y_branch, with_hess):
+    """The convex proximities' dense forms from each axis's (gradient
+    pairs, Hessian pairs), assembled in pair order: the x branch where
+    is_x, else the y branch, then +0 where inactive, the JAX package's
+    selects over whole vectors and matrices. The gradient, or (Hessian,
+    gradient) `with_hess`."""
+    d, like = v.shape[-1], v[..., 0]
+
+    def sel(assemble, k):
+        a, b = assemble(d, x_branch[k], like), assemble(d, y_branch[k], like)
+        extra = (None,) * (a.dim() - is_x.dim())
+        out = torch.where(is_x[(...,) + extra], a, b)
+        return torch.where(inactive[(...,) + extra], 0.0, out)
+
+    grad = sel(assemble_vector, 0)
+    return (sel(assemble_matrix, 1), grad) if with_hess else grad
+
+
+def locally_convex_proximity(weight: float, dims1, dims2, threshold: float,
+                             name: str = "locally_convex_proximity") -> Cost:
+    """0.5*w*min((threshold - |dx|)^2, (threshold - |dy|)^2) while both
+    |dx| and |dy| are within the threshold, else 0: the min of the
+    axis-aligned convex penalties. Dense only, as in the JAX package:
+    its `quad_fn` is the shipped quadraticization, on the axis whose
+    penalty is smaller (x where the x penalty is strictly smaller): the
+    gradient -w delta at that axis's first dim and w delta at its second
+    (the shipped form, without the sgn() factor), the Hessian w, w on
+    their diagonal and -w across; zero where inactive. Its merit
+    gradient is that gradient, as the JAX package's `Cost.gradient`
+    falls to `quad_fn`."""
+    x1, y1 = dims1
+    x2, y2 = dims2
+
+    def evaluate(t, v):
+        _, _, inactive, delta_x, delta_y, _ = _convex_branches(
+            x1, y1, x2, y2, threshold, v)
+        val = 0.5 * weight * torch.minimum(delta_x * delta_x,
+                                           delta_y * delta_y)
+        return torch.where(inactive, 0.0, val)
+
+    def branch_pairs(a, b, delta):
+        dval = -weight * delta
+        return ([(a, dval), (b, -dval)],
+                [((a, a), weight), ((b, b), weight), ((a, b), -weight),
+                 ((b, a), -weight)])
+
+    def dense(v, with_hess):
+        _, _, inactive, delta_x, delta_y, is_x = _convex_branches(
+            x1, y1, x2, y2, threshold, v)
+        return _convex_dense(v, inactive, is_x,
+                             branch_pairs(x1, x2, delta_x),
+                             branch_pairs(y1, y2, delta_y), with_hess)
+
+    return Cost(name, evaluate, quad_fn=lambda t, v: dense(v, True),
+                grad_fn=lambda t, v: dense(v, False),
+                device=("locally_convex_proximity", {
+                    "dims": (x1, y1, x2, y2), "weight": weight,
+                    "threshold": threshold}))
+
+
+def weighted_convex_proximity(weight: float, dims1, dims2, vidx1: int,
+                              vidx2: int, threshold: float,
+                              name: str = "weighted_convex_proximity"
+                              ) -> Cost:
+    """locally_convex_proximity times the speeds' squared norm
+    vv = v[vidx1]^2 + v[vidx2]^2. Dense only, as in the JAX package: its
+    `quad_fn` is the shipped quadraticization, deviations from the true
+    derivatives included, on the active axis (a1, a2) with delta and
+    diff that axis's: the gradient -w delta vv at a1 and its negation at
+    a2, -w v[vidx] delta^2 at each speed; the Hessian w, -w on the axis
+    block, w delta^2 on each speed's diagonal and -2 w v[vidx] sgn(diff)
+    (sgn(0) = 0) between a1 and each speed, negated for a2; each vector
+    and matrix assembled in the JAX package's pair order (duplicates
+    add), zero where inactive. Its merit gradient is that gradient."""
+    x1, y1 = dims1
+    x2, y2 = dims2
+
+    def speeds(v):
+        s1, s2 = v[..., vidx1], v[..., vidx2]
+        return s1, s2, s1 * s1 + s2 * s2
+
+    def evaluate(t, v):
+        _, _, inactive, delta_x, delta_y, _ = _convex_branches(
+            x1, y1, x2, y2, threshold, v)
+        vv = speeds(v)[2]
+        val = 0.5 * weight * vv * torch.minimum(delta_x * delta_x,
+                                                delta_y * delta_y)
+        return torch.where(inactive, 0.0, val)
+
+    def branch_pairs(a1, a2, delta, diff, v):
+        s1, s2, vv = speeds(v)
+        da1 = -weight * delta * vv
+        dv1 = -weight * s1 * delta * delta
+        dv2 = -weight * s2 * delta * delta
+        ddv = weight * delta * delta
+        sg = geometry.sign(diff)
+        da1dv1 = -2.0 * weight * s1 * sg
+        da1dv2 = -2.0 * weight * s2 * sg
+        gp = [(a1, da1), (a2, -da1), (vidx1, dv1), (vidx2, dv2)]
+        hp = [((a1, a1), weight), ((a1, a2), -weight),
+              ((a2, a1), -weight), ((a2, a2), weight),
+              ((a1, vidx1), da1dv1), ((a1, vidx2), da1dv2),
+              ((a2, vidx1), -da1dv1), ((a2, vidx2), -da1dv2),
+              ((vidx1, a1), da1dv1), ((vidx1, a2), -da1dv1),
+              ((vidx1, vidx1), ddv),
+              ((vidx2, a1), da1dv2), ((vidx2, a2), -da1dv2),
+              ((vidx2, vidx2), ddv)]
+        return gp, hp
+
+    def dense(v, with_hess):
+        dx, dy, inactive, delta_x, delta_y, is_x = _convex_branches(
+            x1, y1, x2, y2, threshold, v)
+        return _convex_dense(v, inactive, is_x,
+                             branch_pairs(x1, x2, delta_x, dx, v),
+                             branch_pairs(y1, y2, delta_y, dy, v), with_hess)
+
+    return Cost(name, evaluate, quad_fn=lambda t, v: dense(v, True),
+                grad_fn=lambda t, v: dense(v, False),
+                device=("weighted_convex_proximity", {
+                    "dims": (x1, y1, x2, y2), "speeds": (vidx1, vidx2),
+                    "weight": weight, "threshold": threshold}))
+
+
 def final_time(inner: Cost, threshold_time: float,
                name: str = "final_time") -> Cost:
-    """`inner` gated on t >= threshold_time: each pair's value times the
-    gate (0.0 or 1.0), as the JAX package multiplies it. Its device form
+    """`inner` gated on t >= threshold_time: each pair's value (or the
+    dense form) times the gate (0.0 or 1.0), as the JAX package multiplies
+    it (costs/atoms.py:652-682). The pairs where `inner` has pairs (the
+    JAX fused stage takes it then), else the dense form, so that
+    `check_sparse` refuses it as the JAX fused stage does. Its device form
     is the inner atom's with the gate time (none when the inner atom has
     no device form or a gate of its own)."""
     def gate(t):
@@ -677,8 +979,19 @@ def final_time(inner: Cost, threshold_time: float,
         hp, gp = inner.quad_pairs(t, v)
         return ([(ij, h * g) for ij, h in hp], [(i, s * g) for i, s in gp])
 
+    def quad_fn(t, v):
+        hess, grad = inner.quadraticize(t, v)
+        g = gate(t)
+        return hess * g[..., None, None], grad * g[..., None]
+
+    def grad_fn(t, v):
+        return inner.gradient(t, v) * gate(t)[..., None]
+
     device = None
     if inner.device is not None and "gate_time" not in inner.device[1]:
         kind, prm = inner.device
         device = (kind, dict(prm, gate_time=threshold_time))
-    return Cost(name, evaluate, grad_pairs, quad_pairs, device=device)
+    if inner.has_pairs:
+        return Cost(name, evaluate, grad_pairs, quad_pairs, device=device)
+    return Cost(name, evaluate, device=device, quad_fn=quad_fn,
+                grad_fn=grad_fn)

@@ -4,8 +4,8 @@ A cost gives its gradient and quadraticization as sparse (index, value)
 pairs, the form the kernels use, or, where the JAX package has only a
 dense `quad_fn`, as a dense Hessian and gradient over every index of its
 input (the JAX package's rules, costs/base.py:97-165: such a cost has no
-pairs). A constraint gives the pairs of its augmented-Lagrangian term
-lambda*g + mu_eff*g^2/2. Values are tensors over any batch shape (the
+pairs). A constraint gives its augmented-Lagrangian term lambda*g +
+mu_eff*g^2/2 the same two ways. Values are tensors over any batch shape (the
 solver evaluates every lane and knot at once); inputs `v` carry the
 state or control index on their last axis.
 """
@@ -29,13 +29,31 @@ def _fold(pairs) -> dict:
     return acc
 
 
+def _like(value, like) -> torch.Tensor:
+    """A pair's value (a tensor or a Python float) as a float32 tensor of
+    `like`'s shape."""
+    return torch.broadcast_to(torch.as_tensor(value, dtype=like.dtype,
+                                              device=like.device),
+                              like.shape)
+
+
 def assemble_vector(d: int, pairs, like) -> torch.Tensor:
     """[..., d] from (index, value) pairs folded per index in pair order;
     the other entries +0 (the JAX package's assemble_vector)."""
     acc = _fold(pairs)
     zero = torch.zeros_like(like)
-    return torch.stack([torch.broadcast_to(acc.get(i, zero), like.shape)
-                        for i in range(d)], dim=-1)
+    return torch.stack([_like(acc.get(i, zero), like) for i in range(d)],
+                       dim=-1)
+
+
+def assemble_matrix(d: int, pairs, like) -> torch.Tensor:
+    """[..., d, d] from ((i, j), value) pairs folded per key in pair
+    order; the other entries +0 (the JAX package's assemble_matrix)."""
+    acc = _fold(pairs)
+    zero = torch.zeros_like(like)
+    return torch.stack([torch.stack(
+        [_like(acc.get((i, j), zero), like) for j in range(d)], dim=-1)
+        for i in range(d)], dim=-2)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -98,28 +116,66 @@ class Cost:
             return self.quad_fn(t, v)
         hp, gp = self.quad_pairs_fn(t, v)
         d = v.shape[-1]
-        hess = v.new_zeros(v.shape + (d,))
-        for (i, j), h in _fold(hp).items():
-            hess[..., i, j] = h
-        return hess, assemble_vector(d, gp, v[..., 0])
+        return (assemble_matrix(d, hp, v[..., 0]),
+                assemble_vector(d, gp, v[..., 0]))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Constraint:
-    """A scalar constraint g(t, v) == 0 (equality) or g(t, v) <= 0."""
+    """A scalar constraint g(t, v) == 0 (equality) or g(t, v) <= 0.
+
+    Its augmented-Lagrangian term lambda*g + mu_eff*g^2/2 comes as sparse
+    pairs (al_grad_pairs_fn, al_quad_pairs_fn: (t, v, lam, mu) -> pairs,
+    as Cost's), or, where the JAX package has no pairs for it, in a dense
+    form over all d = v.shape[-1] indices: quad_fn (t, v, lam, mu) ->
+    (hess [..., d, d], grad [..., d]) and grad_fn, its gradient alone.
+    The JAX package's precedence holds (costs/base.py:213-285): pairs
+    first (al_grad_pairs_fn may give None, then there are none), then the
+    dense form. device: as Cost.device.
+    """
 
     name: str
     g: Callable
     is_equality: bool
-    al_grad_pairs_fn: Callable
-    al_quad_pairs_fn: Callable
+    al_grad_pairs_fn: Optional[Callable] = None
+    al_quad_pairs_fn: Optional[Callable] = None
     device: Optional[tuple] = None  # as Cost.device
+    quad_fn: Optional[Callable] = None
+    grad_fn: Optional[Callable] = None
 
     def gradient_al_pairs(self, t, v, lam, mu):
-        return list(self.al_grad_pairs_fn(t, v, lam, mu))
+        """The sparse AL gradient, or None where there are no pairs."""
+        if self.al_grad_pairs_fn is None:
+            return None
+        pp = self.al_grad_pairs_fn(t, v, lam, mu)
+        return None if pp is None else list(pp)
 
     def quad_al_pairs(self, t, v, lam, mu):
+        """The sparse AL quadraticization, or None where there are no
+        pairs."""
+        if self.al_quad_pairs_fn is None:
+            return None
         return self.al_quad_pairs_fn(t, v, lam, mu)
+
+    def gradient_al(self, t, v, lam, mu):
+        """The dense AL gradient [..., d]: the pairs assembled, else the
+        dense form's."""
+        pairs = self.gradient_al_pairs(t, v, lam, mu)
+        if pairs is not None:
+            return assemble_vector(v.shape[-1], pairs, v[..., 0])
+        if self.grad_fn is not None:
+            return self.grad_fn(t, v, lam, mu)
+        return self.quad_fn(t, v, lam, mu)[1]
+
+    def quadraticize_al(self, t, v, lam, mu):
+        """The dense AL (hess [..., d, d], grad [..., d]): the pairs
+        assembled, else the dense form's."""
+        qp = self.quad_al_pairs(t, v, lam, mu)
+        if qp is None:
+            return self.quad_fn(t, v, lam, mu)
+        d = v.shape[-1]
+        return (assemble_matrix(d, qp[0], v[..., 0]),
+                assemble_vector(d, qp[1], v[..., 0]))
 
 
 def increment_lambda(constraint: Constraint, lam, mu, g_val):

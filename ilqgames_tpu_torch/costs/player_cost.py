@@ -6,11 +6,12 @@ any leading batch axes, and the per-(index) values of the sparse pairs
 are tensors of that batch shape. Pairs accumulate in the JAX package's
 order (state costs, then constraints, then the extremal gate, then the
 regularization; player_cost.py:278-386), which sets which sums match.
-Atoms with only a dense form (`Cost.quad_fn`) are summed among
-themselves in atom order and that sum is added to the assembled pairs,
-before the regularization (player_cost.py:300-325); a player with such
-an atom squares and sums every entry of its gradient in the merit
-(player_cost.py:212-215).
+Atoms and constraints with only a dense form (`Cost.quad_fn`,
+`Constraint.quad_fn`) are summed among themselves, the atoms and then
+the constraints, each in order, and that sum is added to the assembled
+pairs, before the regularization (player_cost.py:300-325); a player
+with such a term squares and sums every entry of its gradient in the
+merit (player_cost.py:212-215).
 
 A player's cost is summed over the knots (STRUCTURE_SUM) or is its
 largest or smallest stage cost (STRUCTURE_MAX, STRUCTURE_MIN; the
@@ -151,8 +152,8 @@ def _lam(lams, ci):
 def _player_gradient_terms(pc, i, t, x, us, lam_state, lam_ctrl, mu):
     """Player i's gradient terms: (state pairs, dense state sum or None,
     own-control pairs, dense own-control sum or None), in the JAX
-    package's order (player_cost.py:125-188). A dense sum folds the atoms'
-    dense gradients in atom order."""
+    package's order (player_cost.py:125-188). A dense sum folds the dense
+    gradients of the atoms, then of the constraints, in their order."""
     def add(dense, g):
         return g if dense is None else dense + g
 
@@ -164,7 +165,12 @@ def _player_gradient_terms(pc, i, t, x, us, lam_state, lam_ctrl, mu):
         else:
             pairs.extend(pp)
     for ci, con in enumerate(pc.state_constraints):
-        pairs.extend(con.gradient_al_pairs(t, x, _lam(lam_state[i], ci), mu))
+        lam = _lam(lam_state[i], ci)
+        pp = con.gradient_al_pairs(t, x, lam, mu)
+        if pp is None:
+            dense = add(dense, con.gradient_al(t, x, lam, mu))
+        else:
+            pairs.extend(pp)
     ui = us[..., i, :]
     upairs, udense = [], None
     for jj, c in pc.control_costs:
@@ -176,8 +182,12 @@ def _player_gradient_terms(pc, i, t, x, us, lam_state, lam_ctrl, mu):
                 upairs.extend(pp)
     for ci, (jj, con) in enumerate(pc.control_constraints):
         if jj == i:
-            upairs.extend(con.gradient_al_pairs(
-                t, ui, _lam(lam_ctrl[i], ci), mu))
+            lam = _lam(lam_ctrl[i], ci)
+            pp = con.gradient_al_pairs(t, ui, lam, mu)
+            if pp is None:
+                udense = add(udense, con.gradient_al(t, ui, lam, mu))
+            else:
+                upairs.extend(pp)
     return pairs, dense, upairs, udense
 
 
@@ -237,8 +247,10 @@ def stage_gradient_sq_tuple(player_costs, spec: GameSpec, lam_state,
 
 def check_sparse(player_costs) -> None:
     """The stage kernel K1 assembles every player's terms from sparse
-    pairs: raise the JAX package's ValueError (player_cost.py:440-445) for
-    an atom that has only a dense form."""
+    pairs: raise the JAX package's ValueError (player_cost.py:440-495) for
+    an atom or a constraint that has only a dense form, in the JAX
+    package's order (each player's state costs, then its state
+    constraints; then each player's control terms)."""
     for pc in player_costs:
         for c in pc.state_costs:
             if not c.has_pairs:
@@ -246,11 +258,23 @@ def check_sparse(player_costs) -> None:
                     f"stage_quadraticize_entries: state cost {c.name!r} "
                     "has no sparse quad_pairs (required for the fused "
                     "Pallas stage kernel; use fuse_stages=False)")
-        for _, c in pc.control_costs:
-            if not c.has_pairs:
+        for con in pc.state_constraints:
+            if con.al_quad_pairs_fn is None:
                 raise ValueError(
-                    f"stage_quadraticize_entries: control cost {c.name!r} "
-                    "has no sparse quad_pairs")
+                    f"stage_quadraticize_entries: state constraint "
+                    f"{con.name!r} has no sparse quad_al_pairs")
+    for pc in player_costs:
+        for j in pc.control_players():
+            for jj, c in pc.control_costs:
+                if jj == j and not c.has_pairs:
+                    raise ValueError(
+                        f"stage_quadraticize_entries: control cost "
+                        f"{c.name!r} has no sparse quad_pairs")
+            for jj, con in pc.control_constraints:
+                if jj == j and con.al_quad_pairs_fn is None:
+                    raise ValueError(
+                        f"stage_quadraticize_entries: control constraint "
+                        f"{con.name!r} has no sparse quad_al_pairs")
 
 
 def _assemble(out, idx, entries, like):
@@ -330,12 +354,23 @@ def quadraticize(player_costs, spec: GameSpec, op: OperatingPoint,
     l = x.new_zeros((Bt, N, P, xd))
     R = x.new_zeros((Bt, N, P, P, um, um))
     r = x.new_zeros((Bt, N, P, P, um))
+
+    def con_terms(con, v, lam, hacc, gacc, hd, gd):
+        """A constraint's pairs folded in, or its dense form added to the
+        dense sum: (hd, gd)."""
+        qp = con.quad_al_pairs(t, v, lam, mu)
+        if qp is None:
+            h, g = con.quadraticize_al(t, v, lam, mu)
+            return (h, g) if hd is None else (hd + h, gd + g)
+        acc_into(hacc, qp[0])
+        acc_into(gacc, qp[1])
+        return hd, gd
+
     for i, pc in enumerate(player_costs):
         hacc, gacc, hd, gd = atom_terms(pc.state_costs, x)
         for ci, con in enumerate(pc.state_constraints):
-            hp, gp = con.quad_al_pairs(t, x, al.state_lambdas[i][:, ci], mu)
-            acc_into(hacc, hp)
-            acc_into(gacc, gp)
+            hd, gd = con_terms(con, x, al.state_lambdas[i][:, ci], hacc,
+                               gacc, hd, gd)
         reg = ([pc.state_regularization] * xd
                if pc.state_regularization != 0.0 else None)
         gated = gate is not None and pc.structure != STRUCTURE_SUM
@@ -348,10 +383,8 @@ def quadraticize(player_costs, spec: GameSpec, op: OperatingPoint,
                 [c for jj, c in pc.control_costs if jj == j], uj)
             for ci, (jj, con) in enumerate(pc.control_constraints):
                 if jj == j:
-                    hp, gp = con.quad_al_pairs(
-                        t, uj, al.control_lambdas[i][:, ci], mu)
-                    acc_into(hacc, hp)
-                    acc_into(gacc, gp)
+                    hd, gd = con_terms(con, uj, al.control_lambdas[i][:, ci],
+                                       hacc, gacc, hd, gd)
             reg = ([pc.control_regularization * u_mask[j][a]
                     for a in range(um)]
                    if pc.control_regularization != 0.0 else None)

@@ -112,6 +112,9 @@
 #ifndef CT_ROUTE
 #define CT_ROUTE 0
 #endif
+#ifndef CT_ZOO
+#define CT_ZOO 0
+#endif
 #ifndef CT_MAX_ATOMS
 #define CT_MAX_ATOMS 32
 #endif
@@ -135,6 +138,14 @@ constexpr int KIND_QUAD_DIFF = 10;
 constexpr int KIND_SEMIQUADRATIC = 11;
 constexpr int KIND_POLY_SD = 12;
 constexpr int KIND_ROUTE = 13;
+constexpr int KIND_REL_DIST = 14;
+constexpr int KIND_NOMINAL_PATH = 15;
+constexpr int KIND_CURVATURE = 16;
+constexpr int KIND_ORIENTATION = 17;
+constexpr int KIND_QUAD_DIFF_N = 18;
+constexpr int KIND_QUAD_DIFF_MEMBER = 19;
+constexpr int KIND_LOCAL_CONVEX = 20;
+constexpr int KIND_WEIGHTED_CONVEX = 21;
 // The constant Jacobian entries of a linear system: 48, those of four flat
 // car_6d (6 diagonal, 4 off it and 2 in B each).
 constexpr int MAX_LIN = 48;
@@ -738,6 +749,9 @@ __device__ __forceinline__ int extreme_active(const CostTable& tab, int hdr,
   return best;
 }
 
+#endif  // CT_REACH
+
+#if CT_REACH || CT_ZOO
 // constraints.single_dimension's AL gradient at its dim for the value x
 // there: lam + mu_eff * g, negated when keeping above; mu_eff its Hessian.
 __device__ __forceinline__ float single_dim_ct(const CostAtom& a, float x,
@@ -748,7 +762,158 @@ __device__ __forceinline__ float single_dim_ct(const CostAtom& a, float x,
   const float ct = lam + mu_eff * g;
   return (a.aux > 0.0f) ? ct : -ct;
 }
-#endif  // CT_REACH
+#endif  // CT_REACH || CT_ZOO
+
+#if CT_ZOO
+// atoms._distance_quad with coef c (relative_distance: c = w): the
+// gradient (gx, gy) of [(x1, gx), (y1, gy), (x2, -gx), (y2, -gy)] and
+// h[2][2] of the 4 x 4 Hessian over (x1, y1, x2, y2), h on the blocks of
+// one point, -h across.
+template <typename V>
+__device__ __forceinline__ void dist_quad(const CostAtom& a, const V& v,
+                                          float coef, float& gx, float& gy,
+                                          float h[2][2]) {
+  const float dx = v[a.dim[0]] - v[a.dim[2]];
+  const float dy = v[a.dim[1]] - v[a.dim[3]];
+  const float ssq = dx * dx + dy * dy;
+  const float m = clamp_min(ssq, EPS);
+  const float w = (ssq > EPS) ? 1.0f : ((ssq == EPS) ? 0.5f : 0.0f);
+  const float q = 0.5f / fmath::sqrt(m);
+  const float half_inv = 0.5f * (1.0f / m);
+  const float c = (q * coef) * w;
+  const float ws = w * coef;
+  const float tx = (-(((dx + dx) * w) * q) * half_inv) * ws;
+  const float ty = (-(((dy + dy) * w) * q) * half_inv) * ws;
+  const float ha = c + dx * tx, hb = c + dy * ty;
+  h[0][0] = ha + ha;
+  h[1][1] = hb + hb;
+  h[0][1] = dx * ty + dx * ty;
+  h[1][0] = dy * tx + dy * tx;
+  gx = dx * c + dx * c;
+  gy = dy * c + dy * c;
+}
+
+// atoms._norm_quad (quadratic_norm's quad pairs, K1): the gradient
+// g[0..1] at (d1, d2) and the Hessian h = (h11, h22, h12).
+template <typename V>
+__device__ __forceinline__ void norm_quad(const CostAtom& a, const V& v,
+                                          float g[2], float h[3]) {
+  const float x = v[a.dim[0]], y = v[a.dim[1]];
+  const float s = x * x + y * y;
+  const float n = fmath::sqrt(clamp_min(s, EPS));
+  const float d = n - a.aux;
+  const float clamp = (s > EPS) ? 1.0f : ((s == EPS) ? 0.5f : 0.0f);
+  const float half = 0.5f * a.w;
+  const float ct = ((half * (d + d)) * (0.5f / n)) * clamp;
+  const float k1 = ((a.w * clamp) * d) / n;
+  const float k2 = (((a.w * clamp) * clamp) * a.aux) / ((n * n) * n);
+  g[0] = ct * x + ct * x;
+  g[1] = ct * y + ct * y;
+  h[0] = k1 + (k2 * x) * x;
+  h[1] = k1 + (k2 * y) * y;
+  h[2] = (k2 * x) * y;
+}
+
+// atoms.curvature's pairs over (omega, v): the gradient g[0..1] and, with
+// HESS, h[0..3] = (h(o, o), h(o, v), h(v, o), h(v, v)): the forward pass
+// of the gradient's operations along each support direction.
+struct CurvTangent {
+  float go, gv;
+};
+__device__ __forceinline__ CurvTangent curv_tangent(float o, float s,
+                                                    float r, float r3,
+                                                    float half, float gg,
+                                                    float x, float d_o,
+                                                    float d_v) {
+  const float dq = d_o / s + ((-d_v) * o) * r;
+  const float dg = half * dq + half * dq;
+  const float dr = d_v * (-2.0f * r3);
+  CurvTangent t;
+  t.go = dg / s + ((-d_v) * gg) * r;
+  t.gv = -((dg * r + gg * dr) * o + x * d_o);
+  return t;
+}
+
+template <bool HESS, typename V>
+__device__ __forceinline__ void curv_terms(const CostAtom& a, const V& v,
+                                           float g[2], float h[4]) {
+  const float o = v[a.dim[0]], s = v[a.dim[1]];
+  const float half = 0.5f * a.w;
+  const float q = o / s;
+  const float r = 1.0f / (s * s);
+  const float gg = half * q + half * q;
+  g[0] = 0.0f + gg / s;
+  g[1] = -((gg * r) * o) + 0.0f;
+  if (HESS) {
+    const float r3 = 1.0f / ((s * s) * s);
+    const float x = gg * r;
+    const CurvTangent to = curv_tangent(o, s, r, r3, half, gg, x, 1.0f, 0.0f);
+    const CurvTangent tv = curv_tangent(o, s, r, r3, half, gg, x, 0.0f, 1.0f);
+    h[0] = to.go;
+    h[1] = tv.go;
+    h[2] = to.gv;
+    h[3] = tv.gv;
+  }
+}
+
+// atoms.orientation's wrapped angle: fmod((x - nominal) + pi, 2 pi) - pi
+// in float32.
+__device__ __forceinline__ float orient_wrap(const CostAtom& a, float x) {
+  const float pi = 3.14159265358979323846f;
+  return fmodf((x - a.aux) + pi, 6.28318530717958647692f) - pi;
+}
+
+// atoms.quadratic_difference's difference n of the group headed by atom
+// `hdr`: g = p + p with p = (0.5 w) * (v[d1[n]] - v[d2[n]]).
+template <typename V>
+__device__ __forceinline__ float qdiff_n_grad(const CostTable& tab, int hdr,
+                                              int n, const V& v) {
+  const CostAtom& m = tab.atom[hdr + 1 + n];
+  const float p = (0.5f * tab.atom[hdr].w) * (v[m.dim[0]] - v[m.dim[1]]);
+  return p + p;
+}
+
+// The support index r (0 .. 2 count - 1) of that group: d1[r], then
+// d2[r - count].
+__device__ __forceinline__ int qdiff_n_dim(const CostTable& tab, int hdr,
+                                           int r) {
+  const int cnt = tab.atom[hdr].group;
+  return r < cnt ? tab.atom[hdr + 1 + r].dim[0]
+                 : tab.atom[hdr + 1 + r - cnt].dim[1];
+}
+
+#if CT_NORMS
+// The convex proximities' dense merit gradient (atoms.
+// locally_convex_proximity, atoms.weighted_convex_proximity): the shipped
+// gradient on the active axis (x where its penalty is strictly smaller),
+// its pairs added in the JAX package's order; nothing where inactive.
+template <typename V, typename DAcc, typename G>
+__device__ __forceinline__ void convex_grad(const CostAtom& a, const V& v,
+                                            DAcc& gd, const G& gv) {
+  const float dx = v[a.dim[0]] - v[a.dim[2]];
+  const float dy = v[a.dim[1]] - v[a.dim[3]];
+  if (dx * dx >= a.aux2 || dy * dy >= a.aux2) return;
+  const float delta_x = a.aux - fabsf(dx), delta_y = a.aux - fabsf(dy);
+  const bool is_x = delta_x * delta_x < delta_y * delta_y;
+  const int a1 = is_x ? a.dim[0] : a.dim[1];
+  const int a2 = is_x ? a.dim[2] : a.dim[3];
+  const float delta = is_x ? delta_x : delta_y;
+  if (a.kind == KIND_LOCAL_CONVEX) {
+    const float dval = -a.w * delta;
+    gd.add(a1, gv(dval));
+    gd.add(a2, gv(-dval));
+    return;
+  }
+  const float s1 = v[a.seg0], s2 = v[a.nseg];
+  const float vv = s1 * s1 + s2 * s2;
+  const float da1 = ((-a.w) * delta) * vv;
+  gd.add(a1, gv(da1));
+  gd.add(a2, gv(-da1));
+  gd.add(a.seg0, gv((((-a.w) * s1) * delta) * delta));
+  gd.add(a.nseg, gv((((-a.w) * s2) * delta) * delta));
+}
+#endif  // CT_NORMS
+#endif  // CT_ZOO
 
 // The dense accumulator of a library built without the norm atoms, which
 // never reads it.
@@ -959,6 +1124,43 @@ __device__ __forceinline__ void gradient_sq_into(
       gs.add(a.dim[2], gv(0.0f + -g[0]));
       gs.add(a.dim[3], gv(0.0f + -g[1]));
     }
+#endif
+#if CT_ZOO
+    else if (a.kind == KIND_REL_DIST) {
+      float gx, gy, h[2][2];
+      dist_quad(a, v, a.w, gx, gy, h);
+      gs.add(a.dim[0], gv(gx));
+      gs.add(a.dim[1], gv(gy));
+      gs.add(a.dim[2], gv(-gx));
+      gs.add(a.dim[3], gv(-gy));
+    } else if (a.kind == KIND_NOMINAL_PATH) {
+      gs.add(a.dim[0], gv(a.w * (v[a.dim[0]] - t * a.aux)));
+    } else if (a.kind == KIND_CURVATURE) {
+      float g[2], h[4];
+      curv_terms<false>(a, v, g, h);
+      gs.add(a.dim[0], gv(g[0]));
+      gs.add(a.dim[1], gv(g[1]));
+    } else if (a.kind == KIND_ORIENTATION) {
+      const float p = (0.5f * a.w) * orient_wrap(a, v[a.dim[0]]);
+      gs.add(a.dim[0], gv(p + p));
+    } else if (a.kind == KIND_QUAD_DIFF_N) {
+      for (int m = 0; m < a.group; ++m)
+        gs.add(tab.atom[n + 1 + m].dim[0],
+               gv(0.0f + qdiff_n_grad(tab, n, m, v)));
+      for (int m = 0; m < a.group; ++m)
+        gs.add(tab.atom[n + 1 + m].dim[1],
+               gv(0.0f + -qdiff_n_grad(tab, n, m, v)));
+    } else if (a.kind == KIND_SINGLE_DIM) {  // a state constraint
+      float mu_eff;
+      gs.add(a.dim[0],
+             gv(single_dim_ct(a, v[a.dim[0]], lam(a.lam), mu, mu_eff)));
+    }
+#if CT_NORMS
+    else if (a.kind == KIND_LOCAL_CONVEX || a.kind == KIND_WEIGHTED_CONVEX) {
+      convex_grad(a, v, gd, gv);
+      dense = true;
+    }
+#endif
 #endif
   }
 #if CT_NORMS

@@ -25,6 +25,10 @@
 // (costs.cuh), it takes quadratic_difference, semiquadratic,
 // polyline2_signed_distance and route_progress atoms and the Jacobians of dubins_car, car_5d and the coupled systems
 // (two_player_unicycle_4d, air_3d: read at the knot's state and controls).
+// Built with CT_ZOO, it takes the rest of the cost layer's sparse pieces:
+// quadratic_norm, relative_distance, nominal_path_length, curvature,
+// orientation, quadratic_difference at any count of differences, and a
+// state constraint's single_dimension form and final-time gate.
 //
 // The game's SubsysTable and CostTable live in this library's constant
 // memory (stage_set_tables), where every thread of a warp reads the same
@@ -62,6 +66,14 @@ constexpr int X = ST_X;
 constexpr int P = ST_P;
 constexpr int U = ST_U;
 constexpr int PU = P * U;
+
+// A state constraint's final-time gate: compiled in with CT_ZOO only, so
+// that the other games' K1 is the same code.
+#if CT_ZOO
+#define ZGATE(v) gv(v)
+#else
+#define ZGATE(v) (v)
+#endif
 
 // One seen bit per entry of a thread's output block.
 template <int E>
@@ -219,26 +231,26 @@ __global__ void stage_kernel(const float* __restrict__ xs,
         float px, py, hxx, hyy, hxy;
         costs::prox_quad(a, x, lam(a.lam), mu_b, px, py, hxx, hyy, hxy);
         const int x1 = a.dim[0], y1 = a.dim[1], x2 = a.dim[2], y2 = a.dim[3];
-        hq(x1, x1, hxx);
-        hq(y1, y1, hyy);
-        hq(x1, y1, hxy);
-        hq(y1, x1, hxy);
-        hq(x2, x2, hxx);
-        hq(y2, y2, hyy);
-        hq(x2, y2, hxy);
-        hq(y2, x2, hxy);
-        hq(x1, x2, -hxx);
-        hq(x2, x1, -hxx);
-        hq(y1, y2, -hyy);
-        hq(y2, y1, -hyy);
-        hq(x1, y2, -hxy);
-        hq(y2, x1, -hxy);
-        hq(y1, x2, -hxy);
-        hq(x2, y1, -hxy);
-        gq(x1, px);
-        gq(y1, py);
-        gq(x2, -px);
-        gq(y2, -py);
+        hq(x1, x1, ZGATE(hxx));
+        hq(y1, y1, ZGATE(hyy));
+        hq(x1, y1, ZGATE(hxy));
+        hq(y1, x1, ZGATE(hxy));
+        hq(x2, x2, ZGATE(hxx));
+        hq(y2, y2, ZGATE(hyy));
+        hq(x2, y2, ZGATE(hxy));
+        hq(y2, x2, ZGATE(hxy));
+        hq(x1, x2, ZGATE(-hxx));
+        hq(x2, x1, ZGATE(-hxx));
+        hq(y1, y2, ZGATE(-hyy));
+        hq(y2, y1, ZGATE(-hyy));
+        hq(x1, y2, ZGATE(-hxy));
+        hq(y2, x1, ZGATE(-hxy));
+        hq(y1, x2, ZGATE(-hxy));
+        hq(x2, y1, ZGATE(-hxy));
+        gq(x1, ZGATE(px));
+        gq(y1, ZGATE(py));
+        gq(x2, ZGATE(-px));
+        gq(y2, ZGATE(-py));
       }
 #if CT_REACH
       else if (a.kind == costs::KIND_SIGNED_DIST) {
@@ -320,6 +332,75 @@ __global__ void stage_kernel(const float* __restrict__ xs,
         gq(a.dim[1], gv(0.0f + g[1]));
         gq(a.dim[2], gv(0.0f + -g[0]));
         gq(a.dim[3], gv(0.0f + -g[1]));
+      }
+#endif
+#if CT_ZOO
+      else if (a.kind == costs::KIND_QUADRATIC_NORM) {
+        float g[2], h[3];
+        costs::norm_quad(a, x, g, h);
+        const int d1 = a.dim[0], d2 = a.dim[1];
+        hq(d1, d1, gv(h[0]));
+        hq(d1, d2, gv(h[2]));
+        hq(d2, d1, gv(h[2]));
+        hq(d2, d2, gv(h[1]));
+        gq(d1, gv(g[0]));
+        gq(d2, gv(g[1]));
+      } else if (a.kind == costs::KIND_REL_DIST) {
+        float gx, gy, h[2][2];
+        costs::dist_quad(a, x, a.w, gx, gy, h);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float v = h[r % 2][c % 2];
+            hq(a.dim[r], a.dim[c], gv((r < 2) == (c < 2) ? v : -v));
+          }
+        gq(a.dim[0], gv(gx));
+        gq(a.dim[1], gv(gy));
+        gq(a.dim[2], gv(-gx));
+        gq(a.dim[3], gv(-gy));
+      } else if (a.kind == costs::KIND_NOMINAL_PATH ||
+                 a.kind == costs::KIND_ORIENTATION) {
+        // Autodiff over the support (dim): p + p and c + c, c = 0.5 w.
+        const int d = a.dim[0];
+        const float c = 0.5f * a.w;
+        const float p =
+            c * (a.kind == costs::KIND_ORIENTATION
+                     ? costs::orient_wrap(a, x[d])
+                     : x[d] - t * a.aux);
+        hq(d, d, gv(c + c));
+        gq(d, gv(p + p));
+      } else if (a.kind == costs::KIND_CURVATURE) {
+        float g[2], h[4];
+        costs::curv_terms<true>(a, x, g, h);
+        const int o = a.dim[0], s = a.dim[1];
+        hq(o, o, gv(h[0]));
+        hq(o, s, gv(h[1]));
+        hq(s, o, gv(h[2]));
+        hq(s, s, gv(h[3]));
+        gq(o, gv(g[0]));
+        gq(s, gv(g[1]));
+      } else if (a.kind == costs::KIND_QUAD_DIFF_N) {
+        // The Hessian over the support (d1..., d2...): w on the diagonal,
+        // -w between d1[m] and d2[m], +0 elsewhere; then the gradient.
+        const int cnt = a.group, sup = 2 * a.group;
+        for (int r = 0; r < sup; ++r)
+          for (int c = 0; c < sup; ++c)
+            hq(costs::qdiff_n_dim(tab, n, r), costs::qdiff_n_dim(tab, n, c),
+               gv(r == c ? a.w : ((r % cnt == c % cnt) ? -a.w : 0.0f)));
+        for (int m = 0; m < cnt; ++m)
+          gq(tab.atom[n + 1 + m].dim[0],
+             gv(0.0f + costs::qdiff_n_grad(tab, n, m, x)));
+        for (int m = 0; m < cnt; ++m)
+          gq(tab.atom[n + 1 + m].dim[1],
+             gv(0.0f + -costs::qdiff_n_grad(tab, n, m, x)));
+      } else if (a.kind == costs::KIND_SINGLE_DIM) {  // a state constraint
+        const int d = a.dim[0];
+        float mu_eff;
+        const float g =
+            costs::single_dim_ct(a, x[d], lam(a.lam), mu_b, mu_eff);
+        hq(d, d, gv(mu_eff));
+        gq(d, gv(g));
       }
 #endif
     }

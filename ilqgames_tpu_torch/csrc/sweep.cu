@@ -157,9 +157,10 @@ struct Sub {
 
 // K4's and K5's launch bounds: a block of one warp per subsystem; with
 // SW_MIN_BLOCKS (ops/cuda/sweep.py:library, a layout with a car_5d or a
-// dubins_car), also the least blocks per SM, which lifts ptxas's register
-// target: without it ptxas held the reachability game's K4 to 56
-// registers and dubins_origin's K5 to 48, and both spilled.
+// dubins_car, of more than 16 states, or a library with CT_ZOO), also the
+// least blocks per SM, which lifts ptxas's register target: without it
+// ptxas held the reachability game's K4 to 56 registers and
+// dubins_origin's K5 to 48, and both spilled.
 #ifdef SW_MIN_BLOCKS
 #define SW_BOUNDS __launch_bounds__(WARP * NSUB, SW_MIN_BLOCKS)
 #else

@@ -12,8 +12,9 @@ ptxas spilled the flagship's K5).
 
 An atom or constraint with no device form raises NotImplementedError, so
 a kernel is never launched on a problem it cannot compute. The two norm
-atoms have device forms in the merit kernels K5 and K6 only, in libraries
-built with CT_NORMS=1 (`has_norms`); the stage kernel K1 refuses them.
+atoms have device forms in the merit kernels K5 and K6, in libraries
+built with CT_NORMS=1 (`has_norms`); K1 takes quadratic_norm (CT_ZOO) and
+never semiquadratic_norm, which has only a dense form.
 The reachability games' features (`has_reach`: the signed-distance atom,
 an extremal group of atoms, a control constraint, a MAX or MIN player)
 are compiled into K1, K5 and K6 only with CT_REACH=1, so that the other
@@ -29,7 +30,16 @@ polyline signed-distance atom (`has_polysd`: CT_POLYSD=1), which shares
 the semiquadratic polyline's signed query and shortcut rows, and the
 route-progress atom (`has_route`: CT_ROUTE=1), whose desired point walks
 its polyline's segment rows with the segments' cumulative start lengths
-(one float each, after the shortcut rows, at `fix0`).
+(one float each, after the shortcut rows, at `fix0`). The rest of the
+cost layer is compiled in with CT_ZOO=1 (`has_zoo`; `has_zoo_stage` for
+K1): relative_distance, nominal_path_length, curvature, orientation,
+quadratic_difference at other than two differences (a header row, its
+`group` the count, then a row per difference), a state constraint's
+single_dimension form and a final-time gate on a state constraint; the
+two convex proximities' dense merit gradients (K5 and K6, with CT_NORMS
+for the dense accumulator); and quadratic_norm in K1. The constraints
+affine_scalar, affine_vector and polyline2_signed_distance have only a
+dense form and no device form: a game with one is refused here.
 
 The table's capacity is per build, as the other layout defines are
 (`capacity`): MAX_ATOMS (32) atoms for a game with at most that many, so
@@ -60,8 +70,19 @@ KIND = {"quadratic": 0, "polyline": 1, "proximity": 2,
         "quadratic_norm": 5, "semiquadratic_norm": 6,
         "signed_distance": 7, "extreme": 8, "single_dimension": 9,
         "quadratic_difference": 10, "semiquadratic": 11,
-        "polyline_signed_distance": 12, "route_progress": 13}
+        "polyline_signed_distance": 12, "route_progress": 13,
+        "relative_distance": 14, "nominal_path_length": 15,
+        "curvature": 16, "orientation": 17, "quadratic_difference_n": 18,
+        "quadratic_difference_member": 19, "locally_convex_proximity": 20,
+        "weighted_convex_proximity": 21}
 NORM_KINDS = ("quadratic_norm", "semiquadratic_norm")
+# The dense atoms whose merit gradients K5 and K6 fold apart.
+CONVEX_KINDS = ("locally_convex_proximity", "weighted_convex_proximity")
+# The atoms with only a dense form (none in K1).
+DENSE_KINDS = ("semiquadratic_norm",) + CONVEX_KINDS
+# The kinds compiled in only with CT_ZOO (`has_zoo`).
+ZOO_KINDS = ("relative_distance", "nominal_path_length", "curvature",
+             "orientation", "quadratic_difference_n") + CONVEX_KINDS
 # The polyline atoms of the signed query, with shortcut rows at `fix0`.
 SIGNED_KINDS = ("semiquadratic_polyline", "polyline_signed_distance")
 REACH_KINDS = ("signed_distance", "extreme")
@@ -145,6 +166,18 @@ def _build(player_costs, spec: GameSpec):
                     "signed-distance members only")
             return [(kind, dict(prm, group=len(members)))] + [
                 (m[0], dict(m[1], group=-1)) for m in members]
+        if kind == "quadratic_difference_n":
+            d1, d2 = prm["dims1"], prm["dims2"]
+            return [(kind, dict(prm, group=len(d1)))] + [
+                ("quadratic_difference_member", {"dims": (a, b),
+                                                 "group": -1})
+                for a, b in zip(d1, d2)]
+        if kind in CONVEX_KINDS:
+            dims = prm["dims"] + prm.get("speeds", ())
+            if len(set(dims)) != len(dims):
+                raise NotImplementedError(
+                    f"{kind}: the device form takes distinct dims, got "
+                    f"{dims}")
         if kind != "quadratic" or prm["dim"] >= 0:
             return [form]
         return [(kind, dict(prm, dim=d)) for d in range(n)]
@@ -154,7 +187,12 @@ def _build(player_costs, spec: GameSpec):
             atoms += [(i, -1, f, None)
                       for f in per_dim(_device_form(c), spec.xdim)]
         for con in pc.state_constraints:
-            atoms.append((i, -1, _device_form(con), lam_row))
+            form = _device_form(con)
+            if form[0] not in ("proximity", "single_dimension"):
+                raise NotImplementedError(
+                    f"{con.name!r}: only proximity and single-dimension "
+                    "state constraints have a device form")
+            atoms.append((i, -1, form, lam_row))
             lam_row += 1
         for j, c in pc.control_costs:
             if _device_form(c)[0] != "quadratic":
@@ -248,6 +286,25 @@ def _build(player_costs, spec: GameSpec):
         elif kind == "single_dimension":
             a.dim[0], a.w, a.lam = prm["dim"], prm["threshold"], lam
             a.aux = 1.0 if prm["keep_below"] else -1.0
+        elif kind == "relative_distance":
+            a.dim[:] = list(prm["dims"])
+            a.w = prm["weight"]
+        elif kind in ("nominal_path_length", "orientation"):
+            a.dim[0], a.w = prm["dim"], prm["weight"]
+            a.aux = prm.get("nominal_speed", prm.get("nominal"))
+        elif kind == "curvature":
+            a.dim[0], a.dim[1] = prm["dims"]
+            a.w = prm["weight"]
+        elif kind == "quadratic_difference_n":
+            a.w = prm["weight"]
+        elif kind == "quadratic_difference_member":
+            a.dim[0], a.dim[1] = prm["dims"]
+        elif kind in CONVEX_KINDS:
+            a.dim[:] = list(prm["dims"])
+            a.w, a.aux = prm["weight"], prm["threshold"]
+            a.aux2 = prm["threshold"] * prm["threshold"]
+            if kind == "weighted_convex_proximity":
+                a.seg0, a.nseg = prm["speeds"]
     tab.n = len(atoms)
     # The shortcut rows follow the segment rows, and the start lengths
     # follow them.
@@ -304,16 +361,56 @@ def has_route(player_costs) -> bool:
     return _has_state_atom(player_costs, ("route_progress",))
 
 
+def has_zoo(player_costs) -> bool:
+    """Whether a game's table holds an atom of ZOO_KINDS or a state
+    constraint other than an ungated proximity (a single_dimension, a
+    final-time gate): its K5 and K6 are then built with them
+    (CT_ZOO=1)."""
+    return _has_state_atom(player_costs, ZOO_KINDS) or any(
+        con.device is not None and (con.device[0] != "proximity"
+                                    or "gate_time" in con.device[1])
+        for pc in player_costs for con in pc.state_constraints)
+
+
+def has_zoo_stage(player_costs) -> bool:
+    """`has_zoo` for the stage kernel K1, which also takes quadratic_norm
+    under CT_ZOO: where a game holds one and K1 can launch on it (every
+    atom and constraint with sparse pairs; a game with a dense one runs
+    unfused, and its K1 is built without the flag)."""
+    if has_zoo(player_costs):
+        return True
+    sparse = all(c.has_pairs for pc in player_costs for c in pc.state_costs)
+    return sparse and _has_state_atom(player_costs, ("quadratic_norm",))
+
+
+def has_table(player_costs, spec: GameSpec) -> bool:
+    """Whether every atom and constraint of the game has a device form
+    (else the stage and merit kernels refuse it: `cost_table` raises)."""
+    try:
+        _build(tuple(player_costs), spec)
+    except NotImplementedError:
+        return False
+    return True
+
+
 def capacity(player_costs, spec: GameSpec) -> int:
     """The atoms that the game's table holds room for, its kernels'
     CT_MAX_ATOMS (`table_type`)."""
     return _build(tuple(player_costs), spec)[0].capacity
 
 
+def has_dense(player_costs) -> bool:
+    """Whether a game's table holds a dense atom (semiquadratic_norm or a
+    convex proximity, gated or not): K5 and K6 fold its dense gradient,
+    and K1 has no form of it."""
+    return _has_state_atom(player_costs, DENSE_KINDS)
+
+
 def has_norms(player_costs) -> bool:
-    """Whether a game's table holds a norm atom: its merit kernels are then
-    built with CT_NORMS=1."""
-    return _has_state_atom(player_costs, NORM_KINDS)
+    """Whether a game's table holds a norm atom or a convex proximity: its
+    merit kernels are then built with CT_NORMS=1 (the dense accumulator,
+    and the norm atoms' forms)."""
+    return _has_state_atom(player_costs, NORM_KINDS + CONVEX_KINDS)
 
 
 def cost_table(player_costs, spec: GameSpec, device):

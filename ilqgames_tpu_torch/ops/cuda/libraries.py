@@ -10,7 +10,7 @@ import torch
 
 from ilqgames_tpu_torch.ops.cuda import build, lq, lq_open_loop, stage, \
     sweep
-from ilqgames_tpu_torch.ops.cuda.cost_table import MAX_ATOMS
+from ilqgames_tpu_torch.ops.cuda.cost_table import MAX_ATOMS, has_table
 
 
 def set_precision() -> None:
@@ -28,7 +28,13 @@ def kernel_libraries(dyn, spec, player_costs=(), open_loop=False) -> list:
     the game's atoms and Jacobians (`stage.features`), K5 and K6 with its
     merit's atoms (`sweep.merit_features`: the norm atoms, the
     reachability features, quadratic_difference, semiquadratic, a table
-    of more than MAX_ATOMS atoms); K4 takes none of them."""
+    of more than MAX_ATOMS atoms); K4 takes none of them. A game whose
+    costs have no device form (`cost_table.has_table`: it runs unfused
+    with the merit backend "xla") gets K2/K3's and K4's (and K7's)
+    only."""
+    if not has_table(player_costs, spec):
+        return ([lq.library(spec), sweep.library(dyn, spec)]
+                + ([lq_open_loop.library(spec)] if open_loop else []))
     mf = sweep.merit_features(player_costs, spec)
     plain = dict({k: False for k in mf}, atoms=MAX_ATOMS)
     sweeps = [plain] + ([mf] if mf != plain else [])
@@ -42,6 +48,12 @@ def build_kernels(dyn, spec, player_costs=(), open_loop=False) -> None:
     """Build every kernel library of the game (`kernel_libraries`; one
     concurrent nvcc per source) and load them."""
     build.compile_all(kernel_libraries(dyn, spec, player_costs, open_loop))
+    if not has_table(player_costs, spec):
+        lq.load_kernels(spec)
+        sweep.load_kernels(dyn, spec)
+        if open_loop:
+            lq_open_loop.load_kernels(spec)
+        return
     mf = sweep.merit_features(player_costs, spec)
     stage.load_kernels(spec, **stage.features(dyn, player_costs, spec))
     lq.load_kernels(spec)

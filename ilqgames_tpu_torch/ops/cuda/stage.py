@@ -21,8 +21,8 @@ from ilqgames_tpu_torch.dynamics.models import COUPLED_KINDS, KIND_CAR_5D, \
     KIND_DUBINS
 from ilqgames_tpu_torch.ops.cuda import build, lq
 from ilqgames_tpu_torch.ops.cuda.cost_table import MAX_ATOMS, capacity, \
-    cost_table, has_diff, has_norms, has_polysd, has_reach, has_route, \
-    has_semi
+    cost_table, has_dense, has_diff, has_polysd, has_reach, has_route, \
+    has_semi, has_zoo_stage
 from ilqgames_tpu_torch.ops.cuda.layout import mb
 from ilqgames_tpu_torch.ops.cuda.sweep import _device_table, \
     _reach_operands, merit_operands
@@ -32,7 +32,7 @@ from ilqgames_tpu_torch.types import GameSpec, OperatingPoint
 def library(spec: GameSpec, reach: bool = False, diff: bool = False,
             dubins: bool = False, semi: bool = False, car5d: bool = False,
             atoms: int = MAX_ATOMS, polysd: bool = False,
-            coupled: bool = False, route: bool = False):
+            coupled: bool = False, route: bool = False, zoo: bool = False):
     """(source name, defines) of csrc/stage.cu for this game's dims; with
     `reach` (`cost_table.has_reach`), built with the reachability games'
     atoms, control constraints and extremal gates (CT_REACH=1); with
@@ -46,14 +46,16 @@ def library(spec: GameSpec, reach: bool = False, diff: bool = False,
     the polyline signed-distance atom (CT_POLYSD=1); with `coupled`
     (`has_coupled`), with the Jacobians of the coupled systems, which read
     the knot's controls (CT_COUPLED=1); with `route`
-    (`cost_table.has_route`), with the route-progress atom (CT_ROUTE=1).
-    `features` gives a game's flags."""
+    (`cost_table.has_route`), with the route-progress atom (CT_ROUTE=1);
+    with `zoo` (`cost_table.has_zoo_stage`), with the rest of the cost
+    layer's sparse pieces (CT_ZOO=1). `features` gives a game's flags."""
     defines = {"ST_X": spec.xdim, "ST_P": spec.num_players,
                "ST_U": spec.umax}
     for flag, name in ((reach, "CT_REACH"), (diff, "CT_DIFF"),
                        (dubins, "CT_DUBINS"), (semi, "CT_SEMI"),
                        (car5d, "CT_CAR5D"), (polysd, "CT_POLYSD"),
-                       (coupled, "CT_COUPLED"), (route, "CT_ROUTE")):
+                       (coupled, "CT_COUPLED"), (route, "CT_ROUTE"),
+                       (zoo, "CT_ZOO")):
         if flag:
             defines[name] = 1
     if atoms != MAX_ATOMS:
@@ -85,7 +87,8 @@ def features(dyn, player_costs, spec: GameSpec) -> dict:
                 dubins=has_dubins(dyn), semi=has_semi(player_costs),
                 car5d=has_car5d(dyn), atoms=capacity(player_costs, spec),
                 polysd=has_polysd(player_costs), coupled=has_coupled(dyn),
-                route=has_route(player_costs))
+                route=has_route(player_costs),
+                zoo=has_zoo_stage(player_costs))
 
 
 @functools.lru_cache(maxsize=None)
@@ -93,10 +96,10 @@ def load_kernels(spec: GameSpec, reach: bool = False, diff: bool = False,
                  dubins: bool = False, semi: bool = False,
                  car5d: bool = False, atoms: int = MAX_ATOMS,
                  polysd: bool = False, coupled: bool = False,
-                 route: bool = False) -> ctypes.CDLL:
+                 route: bool = False, zoo: bool = False) -> ctypes.CDLL:
     """Build (once per shape) and load csrc/stage.cu for this game's dims."""
     lib = build.load(*library(spec, reach, diff, dubins, semi, car5d, atoms,
-                              polysd, coupled, route))
+                              polysd, coupled, route, zoo))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.stage_lin_quad.argtypes = ([P, P, P, P, I, P, I, P, P, P] + [P] * 6
                                    + [I, I, F, P])
@@ -183,7 +186,8 @@ def lin_quad(dyn, player_costs, spec: GameSpec, op_bm: dict, lamS, lamC,
     """K1 on batch-minor operands (see `lin_quad_plain`). CUDA tensors
     launch csrc/stage.cu; CPU tensors take `lin_quad_plain`. A game with an
     atom that has only a dense form raises the JAX package's ValueError on
-    both; the norm atoms have no device form in K1."""
+    both (semiquadratic_norm among them); on the card, a table row of a
+    dense atom (no form in csrc/stage.cu) raises NotImplementedError."""
     pcost.check_sparse(player_costs)
     N, x = spec.num_time_steps, spec.xdim
     P = spec.num_players
@@ -199,9 +203,10 @@ def lin_quad(dyn, player_costs, spec: GameSpec, op_bm: dict, lamS, lamC,
     if dyn.ode_jac is None:
         raise NotImplementedError(
             f"dynamics {dyn.name!r} have no analytic Jacobian")
-    if has_norms(player_costs):
+    if has_dense(player_costs):
         raise NotImplementedError(
-            "the stage kernel has no device form of the norm atoms")
+            "the stage kernel has no device form of the dense atoms "
+            "(semiquadratic_norm, the convex proximities)")
     _, (lamc_p, nC, gate_p) = _reach_operands(player_costs, lamC, gate)
     costs, segs = cost_table(player_costs, spec, dev)
     lib = load_kernels(spec, **features(dyn, player_costs, spec))

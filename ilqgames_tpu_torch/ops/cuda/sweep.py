@@ -43,7 +43,7 @@ from ilqgames_tpu_torch.dynamics import base as dyn_base
 from ilqgames_tpu_torch.ops.cuda import build
 from ilqgames_tpu_torch.ops.cuda.cost_table import MAX_ATOMS, capacity, \
     cost_table, has_diff, has_norms, has_polysd, has_reach, has_route, \
-    has_semi, table_type
+    has_semi, has_zoo, table_type
 from ilqgames_tpu_torch.dynamics.models import COUPLED_KINDS, KIND_CAR_5D, \
     KIND_CAR_6D, KIND_DUBINS, KIND_LINEAR, KIND_UNICYCLE_4D
 from ilqgames_tpu_torch.ops.cuda.layout import bm, mb, pad_batch
@@ -172,7 +172,7 @@ def _hexf(v: float) -> str:
 
 def library(dyn, spec: GameSpec, norms: bool = False, reach: bool = False,
             diff: bool = False, semi: bool = False, atoms: int = MAX_ATOMS,
-            polysd: bool = False, route: bool = False):
+            polysd: bool = False, route: bool = False, zoo: bool = False):
     """(source name, defines) of csrc/sweep.cu (K4, K5) for this game: its
     dims, and its layout of subsystems from `_device_table`'s data (so a
     model with no device ODE raises): the count SW_NSUB and, per field, a
@@ -183,7 +183,7 @@ def library(dyn, spec: GameSpec, norms: bool = False, reach: bool = False,
     term its row, its source (a state index, or X plus a flat control row)
     and its coefficient, and SW_LIN_ZERO, whether its rows fold from
     x * 0. A layout with a car_5d or a dubins_car, or of more than 16
-    states, adds SW_MIN_BLOCKS=1 (K4's and K5's launch bounds ask for one
+    states, and a library with `zoo`, add SW_MIN_BLOCKS=1 (K4's and K5's launch bounds ask for one
     block per SM at the least: ptxas's default register target spilled
     them). With `norms` (a game
     whose costs hold a norm atom), K5 is built with those atoms
@@ -196,7 +196,8 @@ def library(dyn, spec: GameSpec, norms: bool = False, reach: bool = False,
     atoms, with its capacity `atoms` (CT_MAX_ATOMS); with `polysd`
     (`cost_table.has_polysd`), with the polyline signed-distance atom
     (CT_POLYSD=1); with `route` (`cost_table.has_route`), with the
-    route-progress atom (CT_ROUTE=1). K4 takes none of these:
+    route-progress atom (CT_ROUTE=1); with `zoo` (`cost_table.has_zoo`),
+    with the rest of the cost layer (CT_ZOO=1). K4 takes none of these:
     `merit_features` gives a game's flags for K5.
 
     Warp s computes the control rows from SW_SUB_UOFF[s] on (its player's
@@ -247,21 +248,24 @@ def library(dyn, spec: GameSpec, norms: bool = False, reach: bool = False,
             SW_LIN_SRC=items(t[1] for t in terms),
             SW_LIN_COEF=items(_hexf(t[2]) for t in terms),
             SW_LIN_ZERO=int(dyn.linear_zero_start))
-    if kinds & {KIND_CAR_5D, KIND_DUBINS} or spec.xdim > 16:
+    if kinds & {KIND_CAR_5D, KIND_DUBINS} or spec.xdim > 16 or zoo:
         # ptxas's default register target spilled the car_5d warps' K4,
-        # the dubins_car warps' K5 and the K5 of the overtaking's and the
-        # roundabout's car_6d warps (x = 18 and 24: 24 B of stack).
+        # the dubins_car warps' K5, the K5 of the overtaking's and the
+        # roundabout's car_6d warps (x = 18 and 24: 24 B of stack) and the
+        # zoo game's K5 (64 registers, 16 spill stores).
         defines["SW_MIN_BLOCKS"] = 1
-    _merit_defines(defines, norms, reach, diff, semi, atoms, polysd, route)
+    _merit_defines(defines, norms, reach, diff, semi, atoms, polysd, route,
+                   zoo)
     return "sweep", defines
 
 
 def _merit_defines(defines, norms, reach, diff, semi, atoms, polysd,
-                   route):
+                   route, zoo):
     """Add the merit's flags (K5's, K6's) to `defines`."""
     for flag, name in ((norms, "CT_NORMS"), (reach, "CT_REACH"),
                        (diff, "CT_DIFF"), (semi, "CT_SEMI"),
-                       (polysd, "CT_POLYSD"), (route, "CT_ROUTE")):
+                       (polysd, "CT_POLYSD"), (route, "CT_ROUTE"),
+                       (zoo, "CT_ZOO")):
         if flag:
             defines[name] = 1
     if atoms != MAX_ATOMS:
@@ -275,13 +279,13 @@ def merit_features(player_costs, spec: GameSpec) -> dict:
                 diff=has_diff(player_costs), semi=has_semi(player_costs),
                 atoms=capacity(player_costs, spec),
                 polysd=has_polysd(player_costs),
-                route=has_route(player_costs))
+                route=has_route(player_costs), zoo=has_zoo(player_costs))
 
 
 def merit_library(spec: GameSpec, norms: bool = False, reach: bool = False,
                   diff: bool = False, semi: bool = False,
                   atoms: int = MAX_ATOMS, polysd: bool = False,
-                  route: bool = False):
+                  route: bool = False, zoo: bool = False):
     """(source name, defines) of csrc/merit.cu (K6); with `norms`, built
     with the norm atoms (CT_NORMS=1), with `reach`, with the reachability
     games' features (CT_REACH=1), with `diff`, with the
@@ -289,10 +293,12 @@ def merit_library(spec: GameSpec, norms: bool = False, reach: bool = False,
     semiquadratic atom (CT_SEMI=1); with `atoms`, a table of that
     capacity (CT_MAX_ATOMS, where above MAX_ATOMS); with `polysd`, with
     the polyline signed-distance atom (CT_POLYSD=1); with `route`, with
-    the route-progress atom (CT_ROUTE=1)."""
+    the route-progress atom (CT_ROUTE=1); with `zoo`, with the rest of
+    the cost layer (CT_ZOO=1)."""
     defines = {"MR_X": spec.xdim, "MR_P": spec.num_players,
                "MR_U": spec.umax}
-    _merit_defines(defines, norms, reach, diff, semi, atoms, polysd, route)
+    _merit_defines(defines, norms, reach, diff, semi, atoms, polysd, route,
+                   zoo)
     return "merit", defines
 
 
@@ -300,10 +306,10 @@ def merit_library(spec: GameSpec, norms: bool = False, reach: bool = False,
 def load_kernels(dyn, spec: GameSpec, norms: bool = False,
                  reach: bool = False, diff: bool = False, semi: bool = False,
                  atoms: int = MAX_ATOMS, polysd: bool = False,
-                 route: bool = False) -> ctypes.CDLL:
+                 route: bool = False, zoo: bool = False) -> ctypes.CDLL:
     """Build (once per game) and load csrc/sweep.cu (K4, K5)."""
     lib = build.load(*library(dyn, spec, norms, reach, diff, semi, atoms,
-                              polysd, route))
+                              polysd, route, zoo))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sweep_rollout.argtypes = ([P] * 9 + [I] * 3 + [F, F, I, _SubsysTable,
                                                        P])
@@ -319,11 +325,11 @@ def load_kernels(dyn, spec: GameSpec, norms: bool = False,
 def load_merit_kernel(spec: GameSpec, norms: bool = False,
                       reach: bool = False, diff: bool = False,
                       semi: bool = False, atoms: int = MAX_ATOMS,
-                      polysd: bool = False,
-                      route: bool = False) -> ctypes.CDLL:
+                      polysd: bool = False, route: bool = False,
+                      zoo: bool = False) -> ctypes.CDLL:
     """Build (once per shape) and load csrc/merit.cu (K6)."""
     lib = build.load(*merit_library(spec, norms, reach, diff, semi, atoms,
-                                    polysd, route))
+                                    polysd, route, zoo))
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.merit_consumer.argtypes = ([P] * 4 + [I, P, I] + [P] * 4 + [I] * 3
                                    + [ctypes.c_float, table_type(atoms), P])

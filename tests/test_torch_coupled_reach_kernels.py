@@ -144,7 +144,7 @@ def test_libraries_and_flags():
     reachability family's) are built without it."""
     base = dict(reach=True, diff=False, dubins=False, semi=False,
                 car5d=False, atoms=32, polysd=True, coupled=True,
-                route=False)
+                route=False, zoo=False)
     for name in (TWO, AIR):
         g = ex.get(name)()
         assert stage.has_coupled(g.dynamics)

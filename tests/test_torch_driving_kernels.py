@@ -102,7 +102,7 @@ def test_car_5d_jacobian_outside_reach():
     assert stage.has_car5d(m.dynamics) and not ct.has_reach(m.player_costs)
     assert stage.features(m.dynamics, m.player_costs, m.spec) == dict(
         reach=False, diff=False, dubins=False, semi=True, car5d=True,
-        atoms=32, polysd=False, coupled=False, route=False)
+        atoms=32, polysd=False, coupled=False, route=False, zoo=False)
     d = bench.kernel_libraries(m.dynamics, m.spec, m.player_costs)[0][1]
     assert (d["CT_CAR5D"], d["CT_SEMI"]) == (1, 1) and "CT_REACH" not in d
     d = bench.kernel_libraries(r.dynamics, r.spec, r.player_costs)[0][1]
@@ -110,7 +110,7 @@ def test_car_5d_jacobian_outside_reach():
     o = ex.get("three_player_overtaking")()
     assert stage.features(o.dynamics, o.player_costs, o.spec) == dict(
         reach=False, diff=False, dubins=False, semi=False, car5d=False,
-        atoms=32, polysd=False, coupled=False, route=False)
+        atoms=32, polysd=False, coupled=False, route=False, zoo=False)
 
 
 def _operands(name, n, b, device, seed, t0=None, nan=True):

@@ -146,9 +146,11 @@ def test_quadratic_difference_matches_jax():
         _same_bits(g.numpy(), w, f"quad gradient {k}")
     assert c.device == ("quadratic_difference", {"dims": (0, 1, 3, 4),
                                                  "weight": 10.0})
-    # One difference: pairs, but no device form (the kernels take two).
+    # One difference: pairs, and the device form of any number of pairs.
     one = atoms.quadratic_difference(2.0, (1,), (4,))
-    assert len(one.quad_pairs(0.0, tv)[0]) == 4 and one.device is None
+    assert len(one.quad_pairs(0.0, tv)[0]) == 4 and one.device == (
+        "quadratic_difference_n", {"dims1": (1,), "dims2": (4,),
+                                   "weight": 2.0})
 
 
 def test_example_matches_jax():

@@ -84,10 +84,13 @@ def test_quadratic_difference_cost_table():
                        GameSpec(xdims=(6,), udims=(1,)))
     assert (tab.atom[0].kind, tab.atom[0].gated, tab.atom[0].tgate) == (
         ct.KIND["quadratic_difference"], 1, 0.5)
-    # One difference has no device form: the table refuses it.
-    with pytest.raises(NotImplementedError, match="no device form"):
-        ct._build((PlayerCost(state_costs=(atoms.quadratic_difference(
-            1.0, (0,), (3,)),)),), GameSpec(xdims=(6,), udims=(1,)))
+    # One difference: a header row and a row for the difference.
+    tab, _ = ct._build((PlayerCost(state_costs=(atoms.quadratic_difference(
+        1.0, (0,), (3,)),)),), GameSpec(xdims=(6,), udims=(1,)))
+    assert [tab.atom[n].kind for n in range(tab.n)] == [
+        ct.KIND["quadratic_difference_n"],
+        ct.KIND["quadratic_difference_member"]]
+    assert (tab.atom[0].group, list(tab.atom[1].dim[:2])) == (1, [0, 3])
 
 
 def test_k7_library_and_refusals():

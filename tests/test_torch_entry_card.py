@@ -41,7 +41,7 @@ def test_phase_16_commands():
     budgets) over CLI_HELD_TIME, CLI_HELD_CYCLES cycles, each a CPU job
     of the pool, started after phase 3's and before every other job."""
     assert int(float(chip_smoke.CLI_FINAL_TIME) / 0.25) - 1 == \
-        chip_smoke.CLI_REPLANS == 7
+        chip_smoke.CLI_REPLANS == 3
     assert int(float(chip_smoke.CLI_HELD_TIME) / 0.25) - 1 == \
         chip_smoke.CLI_HELD_CYCLES == 2
     for argv in (chip_smoke.CLI_RH, chip_smoke.CLI_MI):

@@ -125,7 +125,7 @@ def test_libraries_and_flags():
         f = stage.features(g.dynamics, g.player_costs, g.spec)
         assert f == dict(reach=False, diff=False, dubins=False, semi=False,
                          car5d=False, atoms=32, polysd=False, coupled=False,
-                         route=True)
+                         route=True, zoo=False)
         libs = bench.kernel_libraries(g.dynamics, g.spec, g.player_costs)
         assert [d.get("CT_ROUTE") for _, d in libs] == [1, None, 1, None, 1]
     for game in ("three_player_intersection", "three_player_flat_intersection",

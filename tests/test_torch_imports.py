@@ -254,3 +254,30 @@ def test_flat_driving_games_import_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_cost_zoo_imports_no_jax():
+    """The rest of the cost layer (the six atoms, the four constraints)
+    and chip_smoke.py's two zoo games, their tables and kernel libraries
+    pull in no JAX."""
+    script = (
+        "import sys\n"
+        "from ilqgames_tpu_torch.costs.atoms import relative_distance, "
+        "nominal_path_length, curvature, orientation, "
+        "locally_convex_proximity, weighted_convex_proximity\n"
+        "from ilqgames_tpu_torch.costs.constraints import affine_scalar, "
+        "affine_vector, polyline2_signed_distance, final_time\n"
+        "import chip_smoke\n"
+        "from ilqgames_tpu_torch import bench\n"
+        "from ilqgames_tpu_torch.ops.cuda import cost_table\n"
+        "for fused in (True, False):\n"
+        "    g = chip_smoke.zoo_problem(fused, 11)\n"
+        "    bench.kernel_libraries(g.dynamics, g.spec, g.player_costs)\n"
+        "    assert cost_table.has_table(g.player_costs, g.spec) == fused\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'ilqgames_tpu'))\n"
+        "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

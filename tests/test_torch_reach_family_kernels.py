@@ -126,7 +126,7 @@ def test_libraries_and_flags():
              for n, g in ((n, ex.get(n)()) for n in (ONE, COLL, AIR))}
     base = dict(reach=False, diff=False, dubins=False, semi=False,
                 car5d=False, atoms=32, polysd=False, coupled=False,
-                route=False)
+                route=False, zoo=False)
     assert feats[ONE] == dict(base, reach=True, dubins=True, polysd=True)
     assert feats[COLL] == dict(base, reach=True, car5d=True)
     assert feats[AIR] == dict(base, diff=True)

@@ -359,3 +359,209 @@ def test_operation_counts_carried_from_a_few_knots_are_exact():
         full = float_ops(lambda: plain(**a))[1]
         assert full > 0
         assert cs._count_ops(plain, a) == full, plain.__name__
+
+
+def test_phase_1_builds_the_zoo_libraries_once():
+    """Phase 1 builds phase 17's libraries with the others: the fused zoo
+    game's K1, K6 and K5 with CT_ZOO (the last two with CT_NORMS, for
+    quadratic_norm), its K2/K3 and K4 the flagship's; the unfused game's
+    K2/K3 and K4 the flagship's too (its dense-only constraints leave it
+    no K1, K5 or K6), so that it adds no library."""
+    from ilqgames_tpu_torch import bench
+
+    cs = _chip_smoke()
+    libs = cs._later_libraries()
+    fused, unfused = cs.zoo_problem(True), cs.zoo_problem(False)
+    flag = bench.kernel_libraries(make_problem().dynamics,
+                                  make_problem().spec)
+    zf = bench.kernel_libraries(fused.dynamics, fused.spec,
+                                fused.player_costs)
+    zu = bench.kernel_libraries(unfused.dynamics, unfused.spec,
+                                unfused.player_costs)
+    assert all(lib in libs for lib in zf + zu)
+    assert [d.get("CT_ZOO") for _, d in zf] == [1, None, 1, None, 1]
+    assert zf[2][1].get("CT_NORMS") == zf[-1][1].get("CT_NORMS") == 1
+    assert zf[1] == flag[1] and zf[3] == flag[3]
+    assert zu == [flag[1], flag[3]]
+    new = [lib for lib in zf if lib not in (flag[1], flag[3])]
+    assert len(new) == 3 and all(libs.count(lib) == 1 for lib in new)
+
+
+def test_phase_17_holds_every_launch(monkeypatch):
+    """Phase 17 holds every (kernel, shape) each zoo cell launched (its
+    spy handed to `_hold_launches` with the cell's launches, K4's shapes
+    checked against the wrapper's count), K5 and K6 at the fused cell's
+    linesearch shapes and at the unfused cell's on its atoms (without the
+    dense-only constraints), and the trips card vs CPU of both games,
+    the unfused one under "xla" only."""
+    from ilqgames_tpu_torch import bench
+
+    cs = _chip_smoke()
+    calls = []
+
+    def cell(name, problem, fused, dev):
+        spy = types.SimpleNamespace(seen={}, tally={}, name=name)
+        launches = {"K1": int(fused), "K2": 1, "K3": 1, "K4": 1}
+        calls.append(("cell", name, fused))
+        return None, {}, launches, spy
+
+    monkeypatch.setattr(cs, "_zoo_cell", cell)
+    monkeypatch.setattr(cs, "_ptxas", lambda *a, **k: {})
+    monkeypatch.setattr(bench, "build_kernels", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "_check_k4_held", lambda c, spy, by: calls.append(
+        ("k4", c, spy.name)))
+    monkeypatch.setattr(cs, "_hold_launches", lambda c, spy, launches: (
+        calls.append(("hold", c, spy.name, dict(launches))) or [c]))
+    monkeypatch.setattr(cs, "_hold_merits", lambda c, spy, p, full=True: (
+        calls.append(("merits", c, spy.name, full, sum(
+            not con.al_quad_pairs_fn for pc in p.player_costs
+            for con in pc.state_constraints))) or [c]))
+    monkeypatch.setattr(cs, "_trips_card_vs_cpu", lambda name, game, cfg,
+                        fuse, dev, backends=("xla", "kernel", "pallas"): (
+        calls.append(("trips", name, game, fuse, backends)) or [name]))
+    entries = cs.phase17("cpu")
+    f, u = (f"{g}_{cs.ZOO_B}" for g in cs.ZOO_GAMES)
+    assert ("cell", f, True) in calls and ("cell", u, False) in calls
+    for c in (f, u):
+        assert ("k4", c, c) in calls
+        assert any(k[:3] == ("hold", c, c) for k in calls)
+    assert ("merits", f, f, True, 0) in calls
+    assert ("merits", f"{u}'s atoms", u, False, 0) in calls
+    assert ("trips", cs.ZOO_GAMES[0], ("zoo", True), True,
+            ("xla", "kernel", "pallas")) in calls
+    assert ("trips", cs.ZOO_GAMES[1], ("zoo", False), False,
+            ("xla",)) in calls
+    assert len(entries) == 6
+    jobs = {(fn.__name__, *args) for fn, *args in cs._cpu_jobs()}
+    assert ("_cpu_trips", ("zoo", True), "small", True) in jobs
+    assert ("_cpu_trips", ("zoo", False), "small", False) in jobs
+
+
+def test_zoo_operation_counts_carried_from_a_few_knots_are_exact():
+    """`_count_ops` is exact for the plain versions of K1 and K6 on the
+    zoo games (the new pieces' operations do not depend on the data)."""
+    from ilqgames_tpu_torch.ops.cuda import stage
+    from ilqgames_tpu_torch.tools._probe import float_ops
+
+    cs = _chip_smoke()
+    n, B = 11, 4
+    rng = np.random.RandomState(2)
+    t = lambda *s: torch.tensor(0.3 * rng.standard_normal(s),
+                                dtype=torch.float32)
+    for fused in (True, False):
+        prob = cs.zoo_problem(fused, n)
+        costs, spec = prob.player_costs, prob.spec
+        x, P, u = spec.xdim, spec.num_players, spec.umax
+        nS = sum(len(pc.state_constraints) for pc in costs)
+        op = {"xs": prob.x0[None, :, None] + t(n, x, B).cumsum(0),
+              "us": t(n, P * u, B), "t0": t(1, B)}
+        lamS, mu = t(n, nS, B).abs(), torch.full((1, B), 10.0)
+        xs = op["xs"][:, :, None].contiguous()
+        calls = [(sweep.merit_plain, dict(
+            player_costs=costs, spec=spec, xs_cand=xs,
+            us_cand=op["us"][:, :, None].contiguous(), t0_bm=op["t0"],
+            lamS=lamS, lamC=None, mu=mu, gate=None))]
+        if fused:
+            calls.append((stage.lin_quad_plain, dict(
+                dyn=prob.dynamics, player_costs=costs, spec=spec, op_bm=op,
+                lamS=lamS, lamC=None, mu=mu, gate=None)))
+        for plain, a in calls:
+            full = float_ops(lambda: plain(**a))[1]
+            assert full > 0
+            assert cs._count_ops(plain, a) == full, plain.__name__
+
+
+def test_cpu_jobs_split_between_the_two_processes():
+    """Each CPU job goes to one process's workers, in the order of all of
+    them: the second process's are those of its phases (12-15 and 17),
+    the script's the others; phases 2 and 6, which time their kernels
+    with the card alone, stay in the script's process."""
+    cs = _chip_smoke()
+    key = lambda jobs: [(fn.__name__, *args) for fn, *args in jobs]
+    every = key(cs._cpu_jobs())
+    second = key(cs._cpu_jobs(cs.SECOND_PHASES))
+    own = key(cs._cpu_jobs(set(range(18)) - set(cs.SECOND_PHASES)))
+    assert sorted(second + own, key=repr) == sorted(every, key=repr)
+    assert [k for k in every if k in second] == second
+    assert [k for k in every if k in own] == own
+    assert ("_cpu_trips", ("config", "roundabout"), "roundabout",
+            True) in second
+    assert ("_cpu_trips", ("zoo", False), "small", False) in second
+    assert ("_cpu_cli", cs.CLI_HELD_RH) in own
+    assert ("_cpu_flagship_trips", False) in own
+    assert not {2, 6} & set(cs.SECOND_PHASES)
+
+
+def test_holds_time_their_kernel_later_while_deferred(monkeypatch):
+    """While deferring, a hold's entry keeps its kernel call, which
+    `_time_later` times (each call with its own arguments) and rounds as
+    `_entry` does; otherwise the kernel is timed at once."""
+    cs = _chip_smoke()
+    calls = []
+    monkeypatch.setattr(cs, "_time_ms", lambda fn, reps, warm_s=0.2: (
+        fn(), 0.123456 * len(calls))[1])
+    now = cs._entry("K2 now", "s", "r", 0.0, cs._hold_ms(
+        lambda: calls.append("now")), 1.0, 8, 1)
+    assert now["ms"] == 0.1235 and calls == ["now"]
+    cs._LATER["defer"] = True
+    later = [cs._entry(f"K4 {i}", "s", "r", 0.0, cs._hold_ms(
+        lambda i=i: calls.append(i)), 1.0, 8, 1) for i in range(2)]
+    assert calls == ["now"]
+    assert all(isinstance(e["ms"], cs._Later) for e in later)
+    cs._time_later([now] + later)
+    assert calls == ["now", 0, 1] and not cs._LATER["defer"]
+    assert [e["ms"] for e in later] == [0.2469, 0.3704]
+    assert now["ms"] == 0.1235
+
+
+def test_a_timed_run_has_the_card_alone():
+    """`_Pair`: while one process runs alone (a timed cell), the other
+    stands at a pause point, and a process waiting at a pause point or
+    for a CPU job lets the other run alone; both asking at once run one
+    after the other. Two threads stand in for the two processes."""
+    import multiprocessing
+    import threading
+    import time
+
+    cs = _chip_smoke()
+    ctx = multiprocessing.get_context("spawn")
+    alone, a_busy, b_busy = ctx.Lock(), ctx.Lock(), ctx.Lock()
+    a_busy.acquire()
+    b_busy.acquire()
+    deadline = time.time() + 20.0           # a deadlock fails, not hangs
+    a = cs._Pair(alone, a_busy, b_busy, lambda: time.time() < deadline)
+    b = cs._Pair(alone, b_busy, a_busy, lambda: time.time() < deadline)
+    log = []
+
+    def run(pair, name, n, every):
+        for i in range(n):
+            log.append(name)
+            if i % 7 == 3:
+                assert pair.pause(lambda: time.sleep(0.002) or i) == i
+            else:
+                pair.pause()
+            if i % every == 0:
+                with pair.alone():
+                    log.append(name.upper() + "[")
+                    with pair.alone():          # nested: the outer one's
+                        pair.pause()            # no pause point inside
+                        time.sleep(0.02)
+                    log.append("]" + name.upper())
+        pair.done()
+
+    other = threading.Thread(target=run, args=(b, "b", 120, 40))
+    other.start()
+    run(a, "a", 90, 30)
+    other.join(30)
+    assert not other.is_alive()
+    assert log.count("A[") == 3 and log.count("B[") == 3
+    inside = None
+    for entry in log:
+        if entry.endswith("["):
+            assert inside is None
+            inside = entry[0]
+        elif entry.startswith("]"):
+            assert inside == entry[1]
+            inside = None
+        else:
+            assert inside is None, (entry, "ran while the other was alone")
